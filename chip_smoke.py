@@ -1,0 +1,443 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+  0. environment: torch / CUDA versions, the card's name and power limit;
+  1. build: compile the four CUDA kernels from src/repro_torch/csrc;
+  2. one phase per kernel at the shapes of the main path (the 26 sparse
+     buckets of lm-100m, R = 4 replicas): each kernel is held against its
+     plain PyTorch version on the card, and timed with CUDA events beside
+     the plain version, a PyTorch library call where one computes the
+     same function, and the memory-bandwidth bound;
+  3. main path: Trainer.run of lm-100m with SparCML sync (DSAR + 4-bit
+     QSGD, k = 8 of 512, R = 4 stacked replicas) for 6 steps, with every
+     kernel's launch count reset before and read after; then as many
+     dense-mode steps for comparison;
+  4. small-input check: 3 steps of a 2-layer model on the card (kernels)
+     and on the CPU (plain versions, the path the tests hold against the
+     JAX package) with the same QSGD bits must give the same losses;
+  5. the kernels line, the card line, and last the result line
+     {"ok": true, "device": {...}}.
+
+It imports torch and the port (``src/repro_torch``), never JAX. A longer
+record of the run goes to chiprun_out/chip_smoke.json.
+"""
+from __future__ import annotations
+
+import gc
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+STEPS = 6
+REPS = 5
+
+# Published peaks (NVIDIA data sheets): memory bytes/s and f32 (non-tensor)
+# FLOP/s, by the card's name. An unknown card is refused rather than
+# measured against the wrong roofline.
+PEAKS = {
+    "H100 PCIe": (2.0e12, 51e12),
+    "H100 NVL": (3.9e12, 60e12),
+    "H100": (3.35e12, 67e12),       # SXM, 80 GB
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def peaks_for(name: str) -> tuple[float, float]:
+    for key, val in PEAKS.items():
+        if key in name:
+            return val
+    fail(f"no published peaks for {name!r}")
+
+
+def time_ms(torch, fn, reps: int = REPS) -> float:
+    """Median over ``reps`` runs of CUDA-event time of fn() (after one
+    warm-up run)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def main() -> None:
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        fail("src/repro_torch not found next to chip_smoke.py: run it from "
+             "a checkout of the repository")
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs an "
+             "NVIDIA GPU")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bucket_scatter import ops as scatter_ops
+    from repro_torch.kernels.bucket_topk import ops as topk_ops
+    from repro_torch.kernels.qsgd_pack import ops as pack_ops
+    from repro_torch.kernels.qsgd_pack.ref import u32_to_i64
+    from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
+    from repro_torch.kernels.qsgd_unpack.ref import qsgd_unpack_ref
+    from repro_torch.core.qsgd import random_bits
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import run_lm
+    from repro_torch.train.train_step import build_plan
+    from repro_torch.train.trainer import Trainer
+
+    record: dict = {}
+    t_start = time.perf_counter()
+
+    # ---------------------------------------------------------------- 0
+    dev = resolve_device("cuda")
+    name = torch.cuda.get_device_name(0)
+    card = f"{name}, power limit not read"
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        if smi.returncode == 0 and smi.stdout.strip():
+            card = smi.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        card += f" ({exc})"
+    bw, f32_peak = peaks_for(name)
+    log(f"[0] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    log(f"[0] card: {card} (peaks used: {bw / 1e12:.2f} TB/s, "
+        f"{f32_peak / 1e12:.0f} TFLOP/s f32)")
+    record["env"] = {"torch": torch.__version__, "cuda": torch.version.cuda,
+                     "card": card, "bw": bw, "f32_peak": f32_peak}
+
+    # ---------------------------------------------------------------- 1
+    _build.lib()
+    info = dict(_build.build_info)
+    log(f"[1] build: {info['seconds']:.1f} s (cached={info['cached']})")
+    for line in info.get("ptxas", "").splitlines():
+        if "registers" in line or line.startswith("=="):
+            log(f"[1]   {line.strip()}")
+    record["build"] = info
+
+    # ---------------------------------------------------------------- 2
+    cfg, _ = run_lm.lm_config(fast=False)
+    tcfg = run_lm.train_config(STEPS)
+    plan = build_plan(build_model(cfg), tcfg, run_lm.DP)
+    sync = tcfg.sync
+    r, b, k = run_lm.DP, sync.bucket_size, sync.k_per_bucket
+    bq, bits = sync.qsgd_bucket, sync.qsgd_bits
+    sparse = [bk for bk in plan.buckets if bk.sparse]
+    if len(sparse) != 26:
+        fail(f"lm-100m plan has {len(sparse)} sparse buckets, expected 26")
+    big = max(range(len(sparse)), key=lambda i: sparse[i].n)
+    log(f"[2] {len(sparse)} sparse buckets; largest {sparse[big].name} "
+        f"({sparse[big].rows} x {sparse[big].cols}) = "
+        f"{sparse[big].n / sum(bk.n for bk in sparse):.1%} of the entries")
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    xs = []
+    for i, bk in enumerate(sparse):
+        x = torch.randn((r * bk.rows * (bk.cols // b), b), device=dev,
+                        generator=gen)
+        x[::7] = torch.round(x[::7] * 4) / 4          # magnitude ties
+        x[::101] = 0.0                                # all-zero buckets
+        xs.append(x)
+    n_top = sum(x.numel() for x in xs)
+    rows_top = sum(x.shape[0] for x in xs)
+    kernels = []
+
+    def entry(kname, route_src, replaces, checked, ms_step, plain_step,
+              lib_step, nbytes, nops, err, ms_big, plain_big):
+        t_bytes = nbytes / bw * 1e3
+        t_ops = nops / f32_peak * 1e3
+        row = {"name": kname, "route": "cuda", "source": route_src,
+               "replaces": replaces, "launches": None, "max_abs_err": err,
+               "ms": ms_step, "plain_ms": plain_step,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": lib_step, "checked_by": checked,
+               "launches_per_step": len(sparse),
+               "largest_bucket": {"name": sparse[big].name, "ms": ms_big,
+                                  "plain_ms": plain_big}}
+        kernels.append(row)
+        log(json.dumps({"kernel": kname, "kernel_ms": ms_step,
+                        "plain_ms": plain_step, "library_ms": lib_step,
+                        "bound_ms": row["bound_ms"],
+                        "g4b0_kernel_ms": ms_big, "g4b0_plain_ms": plain_big,
+                        "max_abs_err": err}))
+
+    # -- bucket_topk: bit-equal with ties injected
+    outs = [topk_ops.bucket_topk(x, k, impl="cuda") for x in xs]
+    for x, got in zip(xs, outs):
+        want = topk_ops.bucket_topk(x, k, impl="ref")
+        for g_, w_ in zip(got, want):
+            if not torch.equal(g_, w_):
+                fail("bucket_topk kernel differs from its plain version")
+        del want
+    entry("bucket_topk", "src/repro_torch/csrc/bucket_topk.cu",
+          "src/repro/kernels/bucket_topk/kernel.py:47",
+          "phase 2: bit-equal to bucket_topk_ref on the 26 bucket shapes, "
+          "ties injected",
+          time_ms(torch, lambda: [topk_ops.bucket_topk(x, k, impl="cuda")
+                                  for x in xs]),
+          time_ms(torch, lambda: [topk_ops.bucket_topk(x, k, impl="ref")
+                                  for x in xs], reps=3),
+          time_ms(torch, lambda: [torch.topk(x.abs(), k, dim=1)
+                                  for x in xs]),
+          8 * n_top + 8 * rows_top * k, rows_top * k * b, 0.0,
+          time_ms(torch, lambda: topk_ops.bucket_topk(xs[big], k,
+                                                      impl="cuda")),
+          time_ms(torch, lambda: topk_ops.bucket_topk(xs[big], k,
+                                                      impl="ref"), reps=3))
+    streams = [(o[1], o[0]) for o in outs]   # (lidx, val) of the path
+    del outs
+    gc.collect()
+
+    # -- bucket_scatter: bit-equal on the path's (distinct) indices;
+    #    allclose 1e-6 with duplicates and sentinels
+    dens = [scatter_ops.bucket_scatter(li, va, b, impl="cuda")
+            for li, va in streams]
+    for (li, va), got in zip(streams, dens):
+        if not torch.equal(got, scatter_ops.bucket_scatter(li, va, b,
+                                                           impl="ref")):
+            fail("bucket_scatter kernel differs from its plain version")
+    li, va = streams[big]
+    dup = torch.randint(-2, 24, li.shape, dtype=torch.int32, device=dev,
+                        generator=gen)
+    dup[dup >= 16] = b + 3
+    dup_err = float((scatter_ops.bucket_scatter(dup, va, b, impl="cuda")
+                     - scatter_ops.bucket_scatter(dup, va, b, impl="ref"))
+                    .abs().max())
+    if not dup_err <= 1e-6:
+        fail(f"bucket_scatter with duplicates: max abs err {dup_err}")
+    idx64 = [li_.to(torch.int64) for li_, _ in streams]
+    lib_out = [torch.empty((li_.shape[0], b), device=dev) for li_, _ in streams]
+
+    def lib_scatter():
+        for o, ix, (_, va_) in zip(lib_out, idx64, streams):
+            o.zero_().scatter_add_(1, ix, va_)
+
+    entry("bucket_scatter", "src/repro_torch/csrc/bucket_scatter.cu",
+          "src/repro/kernels/bucket_scatter/kernel.py:29",
+          "phase 2: bit-equal to bucket_scatter_ref on the path's streams "
+          f"(26 buckets); duplicates + sentinels max abs err {dup_err}",
+          time_ms(torch, lambda: [scatter_ops.bucket_scatter(
+              li_, va_, b, impl="cuda") for li_, va_ in streams]),
+          time_ms(torch, lambda: [scatter_ops.bucket_scatter(
+              li_, va_, b, impl="ref") for li_, va_ in streams], reps=3),
+          time_ms(torch, lib_scatter),
+          4 * n_top + 8 * rows_top * k, rows_top * k, 0.0,
+          time_ms(torch, lambda: scatter_ops.bucket_scatter(
+              *streams[big], b, impl="cuda")),
+          time_ms(torch, lambda: scatter_ops.bucket_scatter(
+              *streams[big], b, impl="ref"), reps=3))
+    del lib_out, idx64, streams, xs
+    gc.collect()
+
+    # -- qsgd_pack / qsgd_unpack on the owners' shards of the summed
+    #    densified streams, laid out as the executor lays them out
+    qx = []
+    for bk, d in zip(sparse, dens):
+        summed = d.reshape(r, bk.rows, bk.cols).sum(0)
+        shard = bk.cols // r
+        qx.append(summed.reshape(bk.rows, r, shard).permute(1, 0, 2)
+                  .reshape(-1, bq).contiguous())
+    del dens
+    gc.collect()
+    qr = [random_bits(x.numel(), gen, dev).reshape(x.shape) for x in qx]
+    n_q = sum(x.numel() for x in qx)
+    rows_q = sum(x.shape[0] for x in qx)
+    vpw = 32 // bits
+    s_lv = 2 ** (bits - 1) - 1
+    for x, rd in zip(qx, qr):                          # 'max': bit-equal
+        p, sc = pack_ops.qsgd_pack(x, rd, bits, "max", impl="cuda")
+        pr, scr = pack_ops.qsgd_pack(x, rd, bits, "max", impl="ref")
+        if not (torch.equal(sc, scr)
+                and torch.equal(p.view(torch.int32), pr.view(torch.int32))):
+            fail("qsgd_pack ('max') differs from its plain version")
+    packs, pack_err, flips, n_codes = [], 0.0, 0, 0
+    shifts = torch.arange(vpw, device=dev) * bits
+    for x, rd in zip(qx, qr):                          # 'l2': the path's mode
+        p, sc = pack_ops.qsgd_pack(x, rd, bits, "l2", impl="cuda")
+        pr, scr = pack_ops.qsgd_pack(x, rd, bits, "l2", impl="ref")
+        c = (u32_to_i64(p)[..., None] >> shifts) & (2**bits - 1)
+        cr = (u32_to_i64(pr)[..., None] >> shifts) & (2**bits - 1)
+        dc = (c - cr).abs()
+        if int(dc.max()) > 1:
+            fail("qsgd_pack ('l2') codes differ by more than one level")
+        flips += int((dc > 0).sum())
+        n_codes += dc.numel()
+        pack_err = max(pack_err, float(
+            (qsgd_unpack_ref(p, sc, bits) - qsgd_unpack_ref(pr, scr, bits))
+            .abs().max()))
+        packs.append((p, sc))
+    if flips > 1e-4 * n_codes:
+        fail(f"qsgd_pack ('l2'): {flips} of {n_codes} codes moved a level")
+    mode = sync.qsgd_scale
+    entry("qsgd_pack", "src/repro_torch/csrc/qsgd_pack.cu",
+          "src/repro/kernels/qsgd_pack/kernel.py:46",
+          "phase 2: bit-equal to qsgd_pack_ref in 'max' mode; in 'l2' mode "
+          f"{flips} of {n_codes} codes one level apart (limit 1e-4)",
+          time_ms(torch, lambda: [pack_ops.qsgd_pack(x, rd, bits, mode,
+                                                     impl="cuda")
+                                  for x, rd in zip(qx, qr)]),
+          time_ms(torch, lambda: [pack_ops.qsgd_pack(x, rd, bits, mode,
+                                                     impl="ref")
+                                  for x, rd in zip(qx, qr)], reps=3),
+          None,
+          8 * n_q + n_q * bits // 8 + 4 * rows_q, 6 * n_q, pack_err,
+          time_ms(torch, lambda: pack_ops.qsgd_pack(qx[big], qr[big], bits,
+                                                    mode, impl="cuda")),
+          time_ms(torch, lambda: pack_ops.qsgd_pack(qx[big], qr[big], bits,
+                                                    mode, impl="ref"),
+                  reps=3))
+    for p, sc in packs:
+        if not torch.equal(unpack_ops.qsgd_unpack(p, sc, bits, impl="cuda"),
+                           unpack_ops.qsgd_unpack(p, sc, bits, impl="ref")):
+            fail("qsgd_unpack kernel differs from its plain version")
+    entry("qsgd_unpack", "src/repro_torch/csrc/qsgd_unpack.cu",
+          "src/repro/kernels/qsgd_unpack/kernel.py:27",
+          "phase 2: bit-equal to qsgd_unpack_ref on the path's packed "
+          "shards (26 buckets)",
+          time_ms(torch, lambda: [unpack_ops.qsgd_unpack(p, sc, bits,
+                                                         impl="cuda")
+                                  for p, sc in packs]),
+          time_ms(torch, lambda: [unpack_ops.qsgd_unpack(p, sc, bits,
+                                                         impl="ref")
+                                  for p, sc in packs], reps=3),
+          None,
+          n_q * bits // 8 + 4 * rows_q + 4 * n_q, 2 * n_q, 0.0,
+          time_ms(torch, lambda: unpack_ops.qsgd_unpack(*packs[big], bits,
+                                                        impl="cuda")),
+          time_ms(torch, lambda: unpack_ops.qsgd_unpack(*packs[big], bits,
+                                                        impl="ref"), reps=3))
+    del qx, qr, packs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 3
+    wrappers = {"bucket_topk": topk_ops.bucket_topk,
+                "bucket_scatter": scatter_ops.bucket_scatter,
+                "qsgd_pack": pack_ops.qsgd_pack,
+                "qsgd_unpack": unpack_ops.qsgd_unpack}
+    cfg, data = run_lm.lm_config(fast=False)
+    trainer = Trainer(build_model(cfg), run_lm.train_config(STEPS), data,
+                      dp_total=run_lm.DP, device=dev)
+    trainer.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    tlog = trainer.run(STEPS)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(tlog.step_times[1:]) * 1e3
+    log(f"[3] {cfg.name} sparcml DSAR+QSGD4 R={run_lm.DP}: losses "
+        f"{[round(x, 5) for x in tlog.losses]}")
+    log(f"[3] step times ms {[round(t * 1e3, 1) for t in tlog.step_times]}; "
+        f"median of steps 2-{STEPS}: {step_ms:.1f} ms; peak memory "
+        f"{peak_gb:.2f} GB; launches {launches}")
+    if not all(math.isfinite(v) for v in tlog.losses):
+        fail(f"non-finite losses {tlog.losses}")
+    for n, c in launches.items():
+        if c != len(sparse) * STEPS:
+            fail(f"{n} launched {c} times in {STEPS} steps, expected "
+                 f"{len(sparse)} a step")
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
+    record["main_path"] = {"losses": tlog.losses, "step_times_s":
+                           tlog.step_times, "median_step_ms": step_ms,
+                           "peak_memory_gb": peak_gb, "launches": launches}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dense = Trainer(build_model(cfg), run_lm.train_config(STEPS, "dense"),
+                    data, dp_total=run_lm.DP, device=dev)
+    dense.init()
+    dlog = dense.run(STEPS)
+    dense_ms = statistics.median(dlog.step_times[1:]) * 1e3
+    log(f"[3] dense comparison: losses {[round(x, 5) for x in dlog.losses]} "
+        f"step times ms {[round(t * 1e3, 1) for t in dlog.step_times]}; "
+        f"median of steps 2-{STEPS}: {dense_ms:.1f} ms")
+    record["dense"] = {"losses": dlog.losses, "step_times_s": dlog.step_times,
+                       "median_step_ms": dense_ms}
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 4
+    tiny = ModelConfig(name="t", family="dense", num_layers=2, d_model=64,
+                       num_heads=4, num_kv_heads=2, d_ff=1024, vocab_size=512,
+                       dtype=torch.float32, param_dtype=torch.float32,
+                       max_seq_len=64)
+    tiny_data = DataConfig(global_batch=8, seq_len=32, vocab_size=512)
+
+    def bits_for(step, device):
+        """The same QSGD bits on both devices: drawn on the CPU."""
+        def rand_fn(bucket_idx, n):
+            g = torch.Generator().manual_seed(step * 1000 + bucket_idx)
+            return random_bits(n, g, "cpu").to(device)
+        return rand_fn
+
+    params0 = build_model(tiny).init(torch.Generator().manual_seed(7),
+                                     device="cpu")
+    small = {}
+    for where in ("cpu", "cuda"):
+        t = Trainer(build_model(tiny), run_lm.train_config(STEPS), tiny_data,
+                    dp_total=run_lm.DP, device=where)
+        if not any(bk.sparse for bk in t.plan.buckets):
+            fail("small check: the plan has no sparse bucket")
+        t.init(params=_to(params0, where))
+        small[where] = t.run(3, rand_fn_for_step=lambda s, w=where:
+                             bits_for(s, w)).losses
+    rel = max(abs(a - c) / abs(c) for a, c in zip(small["cuda"], small["cpu"]))
+    log(f"[4] small model, card vs CPU plain path: {small['cuda']} vs "
+        f"{small['cpu']} (max rel diff {rel:.2e}, limit 2e-4)")
+    if not rel <= 2e-4:
+        fail("small-input check: card and CPU losses disagree")
+    record["small_check"] = {"cuda": small["cuda"], "cpu": small["cpu"],
+                             "max_rel": rel}
+
+    # ---------------------------------------------------------------- 5
+    record["kernels"] = kernels
+    record["seconds"] = time.perf_counter() - t_start
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    log(json.dumps({"kernels": kernels}))
+    log(f"card: {card}")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def _to(tree, device):
+    return {k: (_to(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in tree.items()}
+
+
+if __name__ == "__main__":
+    main()

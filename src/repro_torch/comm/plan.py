@@ -1,0 +1,200 @@
+"""Sync planning: leaves -> fusion buckets.
+
+A :class:`SyncPlan` is built once per train-step configuration from the
+parameter shapes, their specs, the ``SyncConfig`` and the data-parallel
+world size. It decides:
+
+* which *group* each leaf belongs to (leaves with the same canonical row
+  count fuse together; model-sharded leaves keep their row axis,
+  everything else lands in the single flat row-1 group);
+* how each group's fused column space is chopped into fixed-size
+  *fusion buckets* (quantum = bucket_size x dp_total columns so the split
+  phase always divides, x the QSGD bucket when quantizing);
+* which algorithm each bucket runs (the configured one, DSAR for rowed
+  buckets, plain sum below ``min_sparse_size``). ``algorithm='auto'``
+  needs the cost model, which this slice does not port yet.
+
+Error-feedback residual state is keyed by bucket: a bucket is the unit
+of compression, so it is the unit of feedback.
+
+The geometry is the JAX package's ``repro.comm.plan`` field for field;
+the tests hold the two plans equal.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.comm.buckets import canonical_shape, model_axis
+from repro_torch.utils.tree import tree_flatten
+
+# The batched (rows > 1) pipeline keeps the model-sharded row axis as a
+# pure batch dim; only DSAR (and dense) are implemented batched.
+BATCHED_ALGORITHMS = ("dsar_split_allgather", "dense")
+
+
+@dataclass(frozen=True)
+class LeafSlot:
+    """Where one leaf lives inside its group's fused canonical buffer."""
+
+    leaf_id: int                  # index in tree_flatten order
+    shape: tuple[int, ...]        # original leaf shape
+    spec: Any                     # tuple of axis names
+    rows: int                     # canonical rows
+    cols: int                     # canonical padded cols (bucket multiple)
+    offset: int                   # column offset inside the group buffer
+
+
+@dataclass(frozen=True)
+class BucketSpec:
+    """One fusion bucket: a contiguous column range of a group buffer."""
+
+    name: str                     # residual-state key, stable across runs
+    col_start: int
+    cols: int
+    rows: int
+    algorithm: str                # resolved: a sparse algorithm | 'dense'
+
+    @property
+    def sparse(self) -> bool:
+        return self.algorithm != "dense"
+
+    @property
+    def n(self) -> int:
+        return self.rows * self.cols
+
+
+@dataclass(frozen=True)
+class GroupSpec:
+    """All leaves sharing one canonical row count, fused along columns."""
+
+    gid: int
+    rows: int
+    model_sharded: bool           # row axis carries the 'model' sharding
+    cols: int                     # total padded cols (sum of bucket cols)
+    slots: tuple[LeafSlot, ...]
+    buckets: tuple[BucketSpec, ...]
+
+
+@dataclass(frozen=True)
+class SyncPlan:
+    """The full fusion plan for one (param tree, SyncConfig, dp) triple."""
+
+    cfg: Any                      # SyncConfig
+    dp_total: int
+    num_leaves: int
+    groups: tuple[GroupSpec, ...]
+
+    @property
+    def buckets(self) -> tuple[BucketSpec, ...]:
+        return tuple(b for g in self.groups for b in g.buckets)
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self.buckets)
+
+    @property
+    def num_sparse_buckets(self) -> int:
+        return sum(1 for b in self.buckets if b.sparse)
+
+    def init_residuals(self, device="cpu") -> dict[str, torch.Tensor]:
+        """Zero error-feedback state, keyed by bucket name: (dp_total, rows,
+        cols) for every sparse bucket (raw-dense buckets carry none)."""
+        return {b.name: torch.zeros((self.dp_total, g.rows, b.cols),
+                                    dtype=self.cfg.ef_dtype, device=device)
+                for g in self.groups for b in g.buckets if b.sparse}
+
+    def describe(self) -> str:
+        lines = [f"SyncPlan: {self.num_leaves} leaves -> "
+                 f"{self.num_buckets} buckets ({self.num_sparse_buckets} sparse)"]
+        for g in self.groups:
+            lines.append(f"  group {g.gid}: rows={g.rows} cols={g.cols} "
+                         f"leaves={len(g.slots)} "
+                         f"model_sharded={g.model_sharded}")
+            for b in g.buckets:
+                lines.append(f"    {b.name}: cols={b.cols} algo={b.algorithm}")
+        return "\n".join(lines)
+
+
+# --------------------------------------------------------------------------
+# Plan construction
+# --------------------------------------------------------------------------
+
+def _col_quantum(cfg, dp_total: int) -> int:
+    """Bucket columns must divide into dp_total equal whole-TopK-bucket
+    shards (split phase), and into whole QSGD buckets per shard."""
+    q = cfg.bucket_size
+    if cfg.qsgd_bits is not None:
+        q = math.lcm(cfg.bucket_size, cfg.qsgd_bucket)
+    return q * dp_total
+
+
+def _bucket_capacity_cols(cfg, dp_total: int, rows: int) -> int:
+    q = _col_quantum(cfg, dp_total)
+    budget_elems = max(1, cfg.fusion_bucket_bytes // 4)
+    return max(q, budget_elems // rows // q * q)
+
+
+def _resolve_algorithm(cfg, dp_total: int, rows: int, cols: int) -> str:
+    n = rows * cols
+    if n < cfg.min_sparse_size:
+        return "dense"
+    if cfg.algorithm == "auto":
+        raise NotImplementedError(
+            "algorithm='auto' needs core/cost_model.py, which is not ported "
+            "yet: name the algorithm")
+    algo = cfg.algorithm
+    if rows > 1 and algo not in BATCHED_ALGORITHMS:
+        algo = "dsar_split_allgather"   # batched pipeline: DSAR only
+    return algo
+
+
+def _chop(group_cols: int, cap: int, q: int) -> list[int]:
+    out, remaining = [], group_cols
+    while remaining > 0:
+        take = min(cap, remaining)
+        out.append(take)
+        remaining -= take
+    if any(c % q for c in out):
+        raise ValueError(f"bucket widths {out} are not multiples of {q}")
+    return out
+
+
+def build_sync_plan(param_shapes, param_specs, cfg, dp_total: int) -> SyncPlan:
+    """The fused plan: every leaf rides a fusion bucket.
+
+    param_shapes: a dict tree whose leaves have ``.shape`` (tensors, meta
+    tensors included); param_specs: the same tree of spec tuples."""
+    leaves, _ = tree_flatten(param_shapes)
+    specs, _ = tree_flatten(param_specs)
+    q = _col_quantum(cfg, dp_total)
+
+    by_rows: dict[int, list[tuple[int, tuple, Any, int, int]]] = {}
+    for i, (leaf, spec) in enumerate(zip(leaves, specs)):
+        shape = tuple(leaf.shape)
+        rows, cols = canonical_shape(shape, spec, cfg.bucket_size)
+        by_rows.setdefault(rows, []).append((i, shape, spec, rows, cols))
+
+    groups = []
+    # flat group (rows == 1) first, then rowed groups by ascending rows
+    for gid, rows in enumerate(sorted(by_rows, key=lambda r: (r != 1, r))):
+        entries = by_rows[rows]
+        slots, off = [], 0
+        for i, shape, spec, r, cols in entries:
+            slots.append(LeafSlot(i, shape, spec, r, cols, off))
+            off += cols
+        group_cols = -(-off // q) * q
+        cap = _bucket_capacity_cols(cfg, dp_total, rows)
+        buckets, start = [], 0
+        for bi, bcols in enumerate(_chop(group_cols, cap, q)):
+            algo = _resolve_algorithm(cfg, dp_total, rows, bcols)
+            buckets.append(BucketSpec(f"g{gid}b{bi}", start, bcols, rows, algo))
+            start += bcols
+        model_sharded = rows > 1 and any(
+            model_axis(spec) is not None for _, _, spec, _, _ in entries)
+        groups.append(GroupSpec(gid, rows, model_sharded, group_cols,
+                                tuple(slots), tuple(buckets)))
+    return SyncPlan(cfg, dp_total, len(leaves), tuple(groups))

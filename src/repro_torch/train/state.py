@@ -1,0 +1,26 @@
+"""Train state + top-level training configuration."""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, NamedTuple
+
+from repro_torch.core.compressor import SyncConfig
+from repro_torch.optim.optimizers import OptimizerConfig
+from repro_torch.optim.schedule import ScheduleConfig
+
+
+class TrainState(NamedTuple):
+    params: Any          # dict tree of tensors (JAX package layout)
+    opt: Any             # {"mu", ["nu"], "count"}
+    residuals: Any       # EF state: bucket-keyed {name: (dp, rows, cols)}
+                         # from the SyncPlan (sparcml) or None
+    step: int
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    sync: SyncConfig = field(default_factory=SyncConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
+    microbatches: int = 1            # gradient-accumulation steps
+    seed: int = 0

@@ -1,0 +1,151 @@
+"""train_step builder: dense and sparcml (paper Alg. 2) gradient sync with
+microbatch accumulation.
+
+sparcml mode is the JAX package's stacked-replica formulation
+(``repro.train.train_step``, the auto-SPMD path): the global batch splits
+into R = dp_total rank slices, every rank's gradients are computed on its
+slice against the same params by ``torch.func.vmap`` over the rank axis
+(the reference's ``jax.vmap``), stacked on a leading (R,) axis, and
+``comm.execute_plan_spmd`` runs bucketed top-k with per-rank error
+feedback, the sum over ranks (the allreduce) and the optional QSGD round
+trip. Then the synced gradients are clipped and the optimizer updates the
+single params copy.
+
+dense mode: gradients of the global batch, clipped, optimizer update.
+
+The model's backward is PyTorch autograd over plain tensor code, as the
+JAX package leaves it to XLA.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.comm.executor import RandFn, execute_plan_spmd
+from repro_torch.comm.plan import SyncPlan, build_sync_plan
+from repro_torch.core.qsgd import random_bits
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model, init_params
+from repro_torch.models.specs import param_specs
+from repro_torch.optim.optimizers import (clip_by_global_norm, init_opt_state,
+                                          opt_update)
+from repro_torch.optim.schedule import make_schedule
+from repro_torch.train.state import TrainConfig, TrainState
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+
+def build_plan(model: Model, tcfg: TrainConfig, dp_total: int
+               ) -> Optional[SyncPlan]:
+    """The sync plan of a sparcml config (None in dense mode), built from
+    shapes only."""
+    if tcfg.sync.mode != "sparcml":
+        return None
+    pshapes = init_params(model.cfg, device="meta")
+    return build_sync_plan(pshapes, param_specs(pshapes, model.cfg),
+                           tcfg.sync, dp_total)
+
+
+def init_state(model: Model, tcfg: TrainConfig, plan: Optional[SyncPlan],
+               device="cuda", params=None) -> TrainState:
+    """Fresh state: params from a generator seeded with ``tcfg.seed`` (or
+    the given ``params``), zero optimizer moments and EF residuals."""
+    dev = resolve_device(device)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
+        params = model.init(gen, dev)
+    res = plan.init_residuals(dev) if plan is not None else None
+    return TrainState(params, init_opt_state(params, tcfg.optimizer), res, 0)
+
+
+def _accumulated_grads(model: Model, params, batch, n_micro: int):
+    """Mean loss + mean f32 grads (a flat list in tree_flatten order) over
+    n_micro microbatches of consecutive rows. Functional
+    (``torch.func``), so the sparcml step can ``vmap`` it over ranks."""
+    leaves, paths = tree_flatten(params)
+    grad_and_loss = grad_and_value(
+        lambda lv, b: model.loss(tree_unflatten(paths, lv), b))
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n_micro:
+        raise ValueError(f"batch of {rows} rows does not split into "
+                         f"{n_micro} microbatches")
+    mb = rows // n_micro
+    acc_loss, acc_g = None, None
+    for i in range(n_micro):
+        grads, loss = grad_and_loss(
+            leaves, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
+        if n_micro == 1:
+            return loss, list(grads)
+        if acc_g is None:
+            acc_loss, acc_g = loss, [g.to(torch.float32) for g in grads]
+        else:
+            acc_loss = acc_loss + loss
+            acc_g = [a + g.to(torch.float32) for a, g in zip(acc_g, grads)]
+    inv = 1.0 / n_micro
+    return acc_loss * inv, [g * inv for g in acc_g]
+
+
+def step_rand_fn(seed: int, step: int, device) -> RandFn:
+    """Default QSGD bits of one step: a generator (Philox on CUDA) seeded
+    from (seed, step), so a replayed step draws the same bits."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((seed * 1_000_003 + step) % (2**63))
+    return lambda bucket_idx, n: random_bits(n, gen, device)
+
+
+def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
+                     device="cuda"):
+    """Returns (step_fn, plan). ``step_fn(state, batch, rand_fn=None) ->
+    (new_state, metrics)``; batch values may be numpy or tensors.
+    ``rand_fn(bucket_idx, n)`` overrides the QSGD rounding bits (see
+    ``comm/executor.py``)."""
+    dev = resolve_device(device)
+    sched = make_schedule(tcfg.schedule)
+    n_micro = tcfg.microbatches
+    plan = build_plan(model, tcfg, dp_total)
+
+    def to_device(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def finish(state, loss, synced, paths):
+        lr = sched(state.step)
+        grads = tree_unflatten(paths, synced)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.optimizer.grad_clip)
+        new_p, new_opt = opt_update(state.params, grads, state.opt, lr,
+                                    tcfg.optimizer)
+        return new_p, new_opt, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    if plan is None:
+        def dense_step(state: TrainState, batch, rand_fn=None):
+            batch = to_device(batch)
+            loss, grads = _accumulated_grads(model, state.params, batch,
+                                             n_micro)
+            _, paths = tree_flatten(state.params)
+            new_p, new_opt, metrics = finish(state, loss, grads, paths)
+            return TrainState(new_p, new_opt, None, state.step + 1), metrics
+
+        return dense_step, None
+
+    def sparcml_step(state: TrainState, batch, rand_fn: Optional[RandFn] = None):
+        batch = to_device(batch)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % dp_total:
+            raise ValueError(f"global batch {rows} does not split into "
+                             f"{dp_total} ranks")
+        # every rank's grads on its slice, stacked (R, *leaf): the
+        # reference's jax.vmap over ranks
+        batch_r = {k: v.reshape((dp_total, rows // dp_total) + v.shape[1:])
+                   for k, v in batch.items()}
+        loss_r, leaves_r = vmap(lambda b: _accumulated_grads(
+            model, state.params, b, n_micro))(batch_r)
+        loss = loss_r.mean()
+        _, paths = tree_flatten(state.params)
+        if rand_fn is None:
+            rand_fn = step_rand_fn(tcfg.seed, state.step, dev)
+        synced, new_res = execute_plan_spmd(
+            plan, leaves_r, state.residuals, p_data=dp_total, rand_fn=rand_fn)
+        new_p, new_opt, metrics = finish(state, loss, synced, paths)
+        return TrainState(new_p, new_opt, new_res, state.step + 1), metrics
+
+    return sparcml_step, plan

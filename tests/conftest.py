@@ -28,6 +28,11 @@ from repro.compat import make_mesh  # noqa: E402
 jax.config.update("jax_platform_name", "cpu")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def mesh8():
     return make_mesh((8,), ("data",))

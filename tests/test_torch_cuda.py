@@ -1,0 +1,100 @@
+"""The CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test skips without CUDA. The file imports no JAX, so it runs on a
+machine with a GPU and without JAX:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+Tolerances: bit-equal, except bucket_scatter with duplicate indices
+(allclose, atol=1e-6: the adds of one row run in j order in both, but
+the plain version adds through scatter_add_).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.bucket_scatter import ops as scatter_ops
+from repro_torch.kernels.bucket_topk import ops as topk_ops
+from repro_torch.kernels.qsgd_pack import ops as pack_ops
+from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
+
+
+def _x_with_ties(seed, nb, b):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((nb, b)).astype(np.float32)
+    x[0] = 1.0
+    x[1, 1::2] = -x[1, ::2]
+    x[2] = np.round(x[2])
+    x[3] = 0.0
+    return x
+
+
+def _distinct_lidx(rng, nb, b, k):
+    return np.sort(np.stack([rng.choice(b, size=k, replace=False)
+                             for _ in range(nb)]), axis=1).astype(np.int32)
+
+
+def _u32(rng, shape):
+    return rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(
+        np.uint32)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(128, 4), (512, 8), (1024, 16)])
+def test_cuda_bucket_topk_matches_plain(cuda_device, b, k):
+    x = torch.from_numpy(_x_with_ties(b + k, 300, b)).to(cuda_device)
+    got = topk_ops.bucket_topk(x, k, impl="cuda")
+    want = topk_ops.bucket_topk(x, k, impl="ref")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_bucket_scatter_matches_plain(cuda_device):
+    rng = np.random.default_rng(3)
+    lidx = torch.from_numpy(_distinct_lidx(rng, 999, 512, 8)).to(cuda_device)
+    val = torch.from_numpy(
+        rng.standard_normal((999, 8)).astype(np.float32)).to(cuda_device)
+    assert torch.equal(scatter_ops.bucket_scatter(lidx, val, 512, impl="cuda"),
+                       scatter_ops.bucket_scatter(lidx, val, 512, impl="ref"))
+    dup = torch.randint(-2, 40, (999, 8), dtype=torch.int32, device=cuda_device)
+    dup[dup >= 32] = 512
+    torch.testing.assert_close(
+        scatter_ops.bucket_scatter(dup, val, 512, impl="cuda"),
+        scatter_ops.bucket_scatter(dup, val, 512, impl="ref"),
+        rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_cuda_qsgd_matches_plain(cuda_device, bits):
+    rng = np.random.default_rng(bits)
+    x = torch.from_numpy(rng.standard_normal((333, 1024)).astype(np.float32))
+    x[7] = 0.0
+    rand = torch.from_numpy(_u32(rng, (333, 1024)))
+    x, rand = x.to(cuda_device), rand.to(cuda_device)
+    p, s = pack_ops.qsgd_pack(x, rand, bits, "max", impl="cuda")
+    pr, sr = pack_ops.qsgd_pack(x, rand, bits, "max", impl="ref")
+    assert torch.equal(s, sr)
+    assert torch.equal(p.view(torch.int32), pr.view(torch.int32))
+    assert torch.equal(unpack_ops.qsgd_unpack(p, s, bits, impl="cuda"),
+                       unpack_ops.qsgd_unpack(p, s, bits, impl="ref"))
+
+
+@pytest.mark.cuda
+def test_cuda_qsgd_pack_refuses_unaligned_rows(cuda_device):
+    """A contiguous view that starts off a 16-byte boundary would fault in
+    the kernel's float4 loads; the launcher raises instead."""
+    flat = torch.randn(4 * 128 + 1, device=cuda_device)
+    x = flat[1:].view(4, 128)
+    rand = torch.zeros((4, 128), dtype=torch.uint32, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        pack_ops.qsgd_pack(x, rand, 4, "max", impl="cuda")

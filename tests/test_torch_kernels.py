@@ -1,0 +1,231 @@
+"""The port's kernel wrappers against the JAX package's kernels.
+
+Each plain PyTorch version (what a CPU tensor runs) is held against the
+Pallas kernel (interpret mode on the CPU, ``impl="pallas"``) and the jnp
+oracle (``impl="ref"``) on the same numpy inputs. Tolerances: bit-equal,
+except
+  * bucket_scatter with duplicate indices: allclose(rtol=0, atol=1e-6)
+    — the one-hot contraction sums duplicates in another order;
+  * qsgd_pack in 'l2' mode: the order of the σ sum may move σ by ulps,
+    so σ is allclose(rtol=1e-6) and a code may differ by one level on at
+    most 1e-4 of the entries (at least one entry).
+The CUDA kernels themselves are held against the plain versions in
+``test_torch_cuda.py`` (on a card) and by ``chip_smoke.py``.
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.bucket_scatter.ops import bucket_scatter as jax_scatter
+from repro.kernels.bucket_topk.ops import bucket_topk as jax_topk
+from repro.kernels.qsgd_pack.ops import qsgd_pack as jax_pack
+from repro.kernels.qsgd_unpack.ops import qsgd_unpack as jax_unpack
+from repro_torch.kernels.bucket_scatter import ops as scatter_ops
+from repro_torch.kernels.bucket_topk import ops as topk_ops
+from repro_torch.kernels.qsgd_pack import ops as pack_ops
+from repro_torch.kernels.qsgd_pack.ref import u32_to_i64
+from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
+
+JAX_IMPLS = ("ref", "pallas")
+
+
+def _x_with_ties(seed, nb, b):
+    """Gaussian rows plus rows full of magnitude ties and a zero row."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((nb, b)).astype(np.float32)
+    x[0] = 1.0                                        # every entry ties
+    if nb > 1:
+        x[1, 1::2] = -x[1, ::2]                       # pairs of equal |x|
+    if nb > 2:
+        x[2] = np.round(x[2])                         # few distinct values
+    if nb > 3:
+        x[3] = 0.0                                    # all-zero bucket
+    return x
+
+
+def _u32(rng, shape):
+    return rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(
+        np.uint32)
+
+
+# --------------------------------------------------------------------------
+# bucket_topk
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nb,b,k", [(8, 128, 4), (16, 512, 8), (6, 256, 16),
+                                    (3, 512, 16)])
+def test_bucket_topk_plain_matches_jax(nb, b, k):
+    x = _x_with_ties(nb * 131 + k, nb, b)
+    val, lidx, res = topk_ops.bucket_topk(torch.from_numpy(x), k)
+    assert lidx.dtype == torch.int32
+    for impl in JAX_IMPLS:
+        jv, jl, jr = jax_topk(jnp.asarray(x), k, impl=impl)
+        np.testing.assert_array_equal(lidx.numpy(), np.asarray(jl), impl)
+        np.testing.assert_array_equal(val.numpy(), np.asarray(jv), impl)
+        np.testing.assert_array_equal(res.numpy(), np.asarray(jr), impl)
+
+
+# --------------------------------------------------------------------------
+# bucket_scatter
+# --------------------------------------------------------------------------
+
+def _distinct_lidx(rng, nb, b, k):
+    return np.sort(np.stack([rng.choice(b, size=k, replace=False)
+                             for _ in range(nb)]), axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("nb,b,k", [(8, 128, 4), (16, 512, 8), (5, 256, 16)])
+def test_bucket_scatter_plain_matches_jax_distinct(nb, b, k):
+    rng = np.random.default_rng(nb + b + k)
+    lidx = _distinct_lidx(rng, nb, b, k)
+    val = rng.standard_normal((nb, k)).astype(np.float32)
+    out = scatter_ops.bucket_scatter(torch.from_numpy(lidx),
+                                     torch.from_numpy(val), b)
+    for impl in JAX_IMPLS:
+        ref = np.asarray(jax_scatter(jnp.asarray(lidx), jnp.asarray(val), b,
+                                     impl=impl))
+        np.testing.assert_array_equal(out.numpy(), ref, impl)
+
+
+@pytest.mark.parametrize("nb,b,k", [(8, 128, 8), (12, 512, 16)])
+def test_bucket_scatter_plain_duplicates_and_sentinels(nb, b, k):
+    rng = np.random.default_rng(7 * nb + k)
+    lidx = rng.integers(0, b // 16, size=(nb, k)).astype(np.int32)  # dups
+    lidx[rng.random((nb, k)) < 0.2] = b + 5                       # sentinel
+    lidx[0] = np.iinfo(np.int32).max
+    val = rng.standard_normal((nb, k)).astype(np.float32)
+    out = scatter_ops.bucket_scatter(torch.from_numpy(lidx),
+                                     torch.from_numpy(val), b).numpy()
+    assert not out[0].any()
+    for impl in JAX_IMPLS:
+        ref = np.asarray(jax_scatter(jnp.asarray(lidx), jnp.asarray(val), b,
+                                     impl=impl))
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6, err_msg=impl)
+
+
+def test_bucket_scatter_plain_drops_negative_indices():
+    """Negative indices are dropped, as the Pallas kernel's one-hot drops
+    them (the jnp oracle would wrap them around)."""
+    lidx = torch.tensor([[-1, 3, 3, 9]], dtype=torch.int32)
+    val = torch.tensor([[5.0, 1.0, 2.0, 7.0]])
+    out = scatter_ops.bucket_scatter(lidx, val, 8)
+    expect = torch.zeros(1, 8)
+    expect[0, 3] = 3.0
+    assert torch.equal(out, expect)
+
+
+# --------------------------------------------------------------------------
+# qsgd_pack / qsgd_unpack
+# --------------------------------------------------------------------------
+
+def _codes(packed_u32: np.ndarray, bits: int) -> np.ndarray:
+    vpw = 32 // bits
+    p = packed_u32.astype(np.int64)[:, :, None] >> (np.arange(vpw) * bits)
+    return (p & (2**bits - 1)).reshape(packed_u32.shape[0], -1)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("mode", ["l2", "max"])
+def test_qsgd_pack_plain_matches_jax(bits, mode):
+    rng = np.random.default_rng(bits * 10 + len(mode))
+    nb, bq = 12, 1024
+    x = rng.standard_normal((nb, bq)).astype(np.float32)
+    x[3] = 0.0                                   # zero bucket -> code s
+    x[5] *= 1e-3
+    rand = _u32(rng, (nb, bq))
+    packed, scale = pack_ops.qsgd_pack(torch.from_numpy(x),
+                                       torch.from_numpy(rand), bits, mode)
+    assert packed.dtype == torch.uint32 and packed.shape == (nb, bq * bits // 32)
+    codes = _codes(u32_to_i64(packed).numpy(), bits)
+    assert (codes[3] == 2 ** (bits - 1) - 1).all()
+    for impl in JAX_IMPLS:
+        jp, js = jax_pack(jnp.asarray(x), jnp.asarray(rand), bits, mode,
+                          impl=impl)
+        jcodes = _codes(np.asarray(jp), bits)
+        if mode == "max":
+            np.testing.assert_array_equal(scale.numpy(), np.asarray(js), impl)
+            np.testing.assert_array_equal(codes, jcodes, impl)
+        else:
+            np.testing.assert_allclose(scale.numpy(), np.asarray(js),
+                                       rtol=1e-6, err_msg=impl)
+            diff = np.abs(codes - jcodes)
+            assert diff.max() <= 1, impl
+            assert (diff > 0).sum() <= max(1, math.floor(1e-4 * diff.size)), impl
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_qsgd_unpack_plain_matches_jax(bits):
+    rng = np.random.default_rng(100 + bits)
+    nb, w = 10, 64
+    packed = _u32(rng, (nb, w))
+    scale = np.abs(rng.standard_normal((nb, 1))).astype(np.float32)
+    scale[2] = 0.0
+    out = unpack_ops.qsgd_unpack(
+        torch.from_numpy(packed), torch.from_numpy(scale), bits)
+    for impl in JAX_IMPLS:
+        ref = np.asarray(jax_unpack(jnp.asarray(packed), jnp.asarray(scale),
+                                    bits, impl=impl))
+        np.testing.assert_array_equal(out.numpy(), ref, impl)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_qsgd_roundtrip_plain_matches_jax(bits):
+    rng = np.random.default_rng(200 + bits)
+    x = rng.standard_normal((6, 256)).astype(np.float32)
+    rand = _u32(rng, x.shape)
+    p, s = pack_ops.qsgd_pack(torch.from_numpy(x), torch.from_numpy(rand),
+                              bits, "max")
+    xhat = unpack_ops.qsgd_unpack(p, s, bits).numpy()
+    jp, js = jax_pack(jnp.asarray(x), jnp.asarray(rand), bits, "max",
+                      impl="ref")
+    ref = np.asarray(jax_unpack(jp, js, bits, impl="ref"))
+    np.testing.assert_array_equal(xhat, ref)
+    # unbiased rounding: every entry lands on one of its two nearest levels
+    step = s.numpy() / (2 ** (bits - 1) - 1)
+    assert (np.abs(xhat - x) <= step * (1 + 1e-6)).all()
+
+
+# --------------------------------------------------------------------------
+# dispatch by device
+# --------------------------------------------------------------------------
+
+def _calls():
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 128)).astype(np.float32))
+    rand = torch.from_numpy(_u32(rng, (4, 128)))
+    lidx = torch.zeros((4, 2), dtype=torch.int32)
+    val = torch.ones((4, 2))
+    packed = torch.zeros((4, 16), dtype=torch.uint32)
+    scale = torch.ones((4, 1))
+    return [
+        (topk_ops.bucket_topk, lambda impl: topk_ops.bucket_topk(x, 2, impl=impl)),
+        (scatter_ops.bucket_scatter,
+         lambda impl: scatter_ops.bucket_scatter(lidx, val, 128, impl=impl)),
+        (pack_ops.qsgd_pack,
+         lambda impl: pack_ops.qsgd_pack(x, rand, 4, impl=impl)),
+        (unpack_ops.qsgd_unpack,
+         lambda impl: unpack_ops.qsgd_unpack(packed, scale, 4, impl=impl)),
+    ]
+
+
+@pytest.mark.parametrize("which", range(4))
+def test_cpu_tensor_takes_plain_version_without_a_launch(which):
+    wrapper, call = _calls()[which]
+    before = wrapper.launches
+    call("auto")
+    call("ref")
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("which", range(4))
+def test_cuda_impl_on_cpu_tensor_raises(which):
+    wrapper, call = _calls()[which]
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        call("cuda")
+    with pytest.raises(ValueError, match="unknown impl"):
+        call("triton")
+    assert wrapper.launches == before

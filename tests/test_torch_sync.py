@@ -1,0 +1,227 @@
+"""The port's compression core, sync plan and stacked-replica executor
+against the JAX package.
+
+Tolerances: ``compress2d`` and the plan geometry are bit-equal / equal
+field by field; the executor's reduced leaves and new residuals are
+allclose(rtol=1e-5, atol=1e-6) — the sum over ranks may be taken in
+another order. QSGD rounding bits are the reference's own
+``_qsgd_rand_all`` bits, fed to the port through ``rand_fn``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.comm import executor as jax_exec
+from repro.comm.plan import build_sync_plan as jax_build_plan
+from repro.core import qsgd as jax_qsgd
+from repro.core import topk as jax_topk
+from repro.core.qsgd import QSGDConfig as JaxQSGDConfig
+from repro.core.compressor import SyncConfig as JaxSyncConfig
+from repro.models.config import ModelConfig as JaxModelConfig
+from repro.models.model import build_model as jax_build_model
+from repro.models.specs import param_specs as jax_param_specs
+from repro_torch.comm.executor import execute_plan_spmd
+from repro_torch.comm.plan import build_sync_plan
+from repro_torch.core import qsgd, topk
+from repro_torch.core.qsgd import QSGDConfig
+from repro_torch.core.compressor import SyncConfig
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import init_params
+from repro_torch.models.specs import param_specs
+from repro_torch.utils.tree import tree_flatten
+
+P_DATA = 4
+TINY = dict(name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
+            num_kv_heads=2, d_ff=128, vocab_size=256, max_seq_len=64)
+LM100M = dict(name="lm-100m", family="dense", num_layers=12, d_model=768,
+              num_heads=12, num_kv_heads=4, d_ff=2048, vocab_size=32768,
+              max_seq_len=1024)
+
+
+# --------------------------------------------------------------------------
+# compress2d
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lead,cols,b,k", [((4, 3), 1024, 512, 8),
+                                           ((2, 5), 512, 128, 4),
+                                           ((6,), 256, 128, 16)])
+def test_compress2d_matches_jax(lead, cols, b, k):
+    rng = np.random.default_rng(cols + k)
+    x = rng.standard_normal(lead + (cols,)).astype(np.float32)
+    x[0, ..., :b] = np.round(x[0, ..., :b])       # magnitude ties
+    u, res = topk.compress2d(torch.from_numpy(x), k, b)
+    ju, jres = jax_topk.compress2d(jnp.asarray(x), k, b)
+    np.testing.assert_array_equal(u.lidx.numpy(), np.asarray(ju.lidx))
+    np.testing.assert_array_equal(u.val.numpy(), np.asarray(ju.val))
+    np.testing.assert_array_equal(res.numpy(), np.asarray(jres))
+    np.testing.assert_array_equal(u.densify().numpy(),
+                                  np.asarray(ju.densify()))
+
+
+def test_qsgd_quantize_dequantize_match_jax():
+    """The flat-vector QSGD API, padding included (n not a bucket
+    multiple); 'max' scale, so bit-equal."""
+    rng = np.random.default_rng(9)
+    n = 1000
+    x = rng.standard_normal(n).astype(np.float32)
+    rand = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+    cfg = QSGDConfig(4, 256, "max")
+    packed, scale = qsgd.quantize(torch.from_numpy(x), cfg,
+                                  torch.from_numpy(rand))
+    jp, js = jax_qsgd.quantize(jnp.asarray(x), JaxQSGDConfig(4, 256, "max"),
+                               jnp.asarray(rand))
+    np.testing.assert_array_equal(packed.view(torch.int32).numpy(),
+                                  np.asarray(jp).view(np.int32))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(js))
+    xhat = qsgd.dequantize(packed, scale, cfg, n)
+    jxhat = jax_qsgd.dequantize(jp, js, JaxQSGDConfig(4, 256, "max"), n)
+    assert xhat.shape == (n,)
+    np.testing.assert_array_equal(xhat.numpy(), np.asarray(jxhat))
+
+
+def test_compress_flat_matches_jax():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(1000).astype(np.float32)
+    u, res = topk.compress(torch.from_numpy(x), 4, 128)
+    ju, jres = jax_topk.compress(jnp.asarray(x), 4, 128)
+    np.testing.assert_array_equal(u.lidx.numpy(), np.asarray(ju.lidx))
+    np.testing.assert_array_equal(res.numpy(), np.asarray(jres))
+    np.testing.assert_array_equal(u.densify().numpy(),
+                                  np.asarray(ju.densify()))
+
+
+# --------------------------------------------------------------------------
+# build_sync_plan, shape only: eval_shape on the JAX side, meta tensors here
+# --------------------------------------------------------------------------
+
+def _sync_kwargs(**kw):
+    base = dict(mode="sparcml", k_per_bucket=8, bucket_size=512,
+                algorithm="dsar_split_allgather", qsgd_bits=4,
+                min_sparse_size=65536)
+    base.update(kw)
+    return base
+
+
+def _plans(model_kw, **sync_kw):
+    jcfg = JaxModelConfig(**model_kw, dtype=jnp.float32,
+                          param_dtype=jnp.float32)
+    jmodel = jax_build_model(jcfg)
+    jshapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    jspecs = jax_param_specs(jshapes, jcfg, None)
+    jplan = jax_build_plan(jshapes, jspecs, JaxSyncConfig(**sync_kw), P_DATA)
+
+    cfg = ModelConfig(**model_kw, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    shapes = init_params(cfg, device="meta")
+    plan = build_sync_plan(shapes, param_specs(shapes, cfg),
+                           SyncConfig(**sync_kw), P_DATA)
+    return jplan, plan, jshapes, shapes
+
+
+def _assert_plans_equal(jplan, plan):
+    assert plan.dp_total == jplan.dp_total
+    assert plan.num_leaves == jplan.num_leaves
+    assert len(plan.groups) == len(jplan.groups)
+    for g, jg in zip(plan.groups, jplan.groups):
+        assert (g.gid, g.rows, g.model_sharded, g.cols) == \
+            (jg.gid, jg.rows, jg.model_sharded, jg.cols)
+        assert len(g.slots) == len(jg.slots)
+        for s, js in zip(g.slots, jg.slots):
+            assert (s.leaf_id, s.shape, s.rows, s.cols, s.offset) == \
+                (js.leaf_id, tuple(js.shape), js.rows, js.cols, js.offset)
+            assert tuple(s.spec) == tuple(js.spec)
+        assert [(b.name, b.col_start, b.cols, b.rows, b.algorithm,
+                 b.sparse) for b in g.buckets] == \
+            [(b.name, b.col_start, b.cols, b.rows, b.algorithm,
+              b.has_residual) for b in jg.buckets]
+
+
+@pytest.mark.parametrize("model_kw,sync_kw", [
+    (TINY, _sync_kwargs(bucket_size=128, qsgd_bucket=128,
+                        min_sparse_size=1024)),
+    (TINY, _sync_kwargs(bucket_size=128, qsgd_bits=None,
+                        min_sparse_size=1024, fusion_bucket_bytes=1 << 16)),
+    (LM100M, _sync_kwargs()),
+])
+def test_build_sync_plan_matches_jax(model_kw, sync_kw):
+    jplan, plan, jshapes, shapes = _plans(model_kw, **sync_kw)
+    _assert_plans_equal(jplan, plan)
+    # the flatten order the plan's leaf ids index
+    jpaths = [tuple(k.key for k in path) for path, _ in
+              jax.tree_util.tree_flatten_with_path(jshapes)[0]]
+    assert tree_flatten(shapes)[1] == jpaths
+
+
+def test_lm100m_plan_geometry():
+    """The slice's configuration: 27 buckets, 26 sparse DSAR buckets of
+    4096 columns, 239,075,328 top-k entries per replica."""
+    _, plan, _, _ = _plans(LM100M, **_sync_kwargs())
+    assert plan.num_buckets == 27 and plan.num_sparse_buckets == 26
+    assert [g.rows for g in plan.groups] == [1, 256, 768, 2048, 32768]
+    sparse = [b for b in plan.buckets if b.sparse]
+    assert {b.cols for b in sparse} == {4096}
+    assert sum(b.n for b in sparse) == 239_075_328
+    dense = [b for b in plan.buckets if not b.sparse]
+    assert [(b.name, b.rows, b.cols) for b in dense] == [("g0b0", 1, 20480)]
+
+
+def test_auto_algorithm_is_not_ported():
+    with pytest.raises(NotImplementedError, match="cost_model"):
+        _plans(TINY, **_sync_kwargs(bucket_size=128, qsgd_bucket=128,
+                                     min_sparse_size=1024, algorithm="auto"))
+
+
+# --------------------------------------------------------------------------
+# execute_plan_spmd over 2 error-feedback steps
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,sync_kw", [
+    ("dense_only", _sync_kwargs(bucket_size=128, qsgd_bits=None,
+                                min_sparse_size=1 << 30)),
+    ("dsar", _sync_kwargs(bucket_size=128, k_per_bucket=4, qsgd_bits=None,
+                          min_sparse_size=1024)),
+    ("dsar_qsgd4", _sync_kwargs(bucket_size=128, k_per_bucket=4,
+                                qsgd_bucket=128, min_sparse_size=1024)),
+])
+def test_execute_plan_spmd_matches_jax(name, sync_kw):
+    jplan, plan, jshapes, shapes = _plans(TINY, **sync_kw)
+    leaves, _ = tree_flatten(shapes)
+    rng = np.random.default_rng(len(name))
+    key = jax.random.PRNGKey(3)
+
+    jres = {n: jnp.zeros(s.shape, s.dtype)
+            for n, s in jplan.residual_shapes().items()}
+    res = plan.init_residuals()
+    if name == "dense_only":
+        assert not res and not jres
+    else:
+        assert set(res) == set(jres) and res
+
+    @jax.jit
+    def jax_step(leaves_r, residuals, k):
+        return jax_exec.execute_plan_spmd(jplan, leaves_r, residuals, k,
+                                          p_data=P_DATA)
+
+    for step in range(2):
+        grads = [rng.standard_normal((P_DATA,) + tuple(leaf.shape))
+                 .astype(np.float32) for leaf in leaves]
+        skey = jax.random.fold_in(key, step)
+
+        def rand_fn(bucket_idx, n, skey=skey):
+            bits = jax_exec._qsgd_rand_all(skey, bucket_idx, 1, P_DATA,
+                                           n // P_DATA)
+            return torch.from_numpy(np.array(bits).reshape(-1))
+
+        jout, jres = jax_step([jnp.asarray(g) for g in grads], jres, skey)
+        out, res = execute_plan_spmd(
+            plan, [torch.from_numpy(g) for g in grads], res, p_data=P_DATA,
+            rand_fn=rand_fn)
+        for a, b in zip(out, jout):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       atol=1e-6)
+        assert set(res) == set(jres)
+        for n in res:
+            np.testing.assert_allclose(res[n].numpy(), np.asarray(jres[n]),
+                                       rtol=1e-5, atol=1e-6)
