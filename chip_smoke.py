@@ -10,11 +10,15 @@ Phases, in order; any failure exits non-zero:
      buckets of lm-100m, R = 4 replicas): each kernel is held against its
      plain PyTorch version on the card, and timed with CUDA events beside
      the plain version, a PyTorch library call where one computes the
-     same function, and the memory-bandwidth bound;
+     same function, and the memory-bandwidth bound; qsgd_unpack is timed
+     as the main path calls it, one grouped launch over the 26 buckets
+     that writes their reduced buffers, and its single-bucket form is
+     checked on every bucket and timed alone on the largest;
   3. main path: Trainer.run of lm-100m with SparCML sync (DSAR + 4-bit
      QSGD, k = 8 of 512, R = 4 stacked replicas) for 6 steps, with every
-     kernel's launch count reset before and read after; then as many
-     dense-mode steps for comparison;
+     kernel's launch count reset before and read after (26 a step of
+     bucket_topk, bucket_scatter and qsgd_pack, one grouped qsgd_unpack a
+     step); then as many dense-mode steps for comparison;
   4. small-input check: 3 steps of a 2-layer model on the card (kernels)
      and on the CPU (plain versions, the path the tests hold against the
      JAX package) with the same QSGD bits must give the same losses;
@@ -83,6 +87,30 @@ def time_ms(torch, fn, reps: int = REPS) -> float:
     return statistics.median(out)
 
 
+def host_ms(torch, fn, reps: int = REPS) -> float:
+    """Median host-clock time fn() takes to return (to enqueue its work),
+    starting each run with the card idle."""
+    out = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(out[1:])
+
+
+def graph_ms(torch, fn, replays: int = 10) -> float:
+    """CUDA-event time of fn()'s work replayed from a CUDA graph, ``replays``
+    times back to back, per replay: the device's time without the host's."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(torch, lambda: [graph.replay() for _ in range(replays)])
+    del graph
+    return ms / replays
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail("src/repro_torch not found next to chip_smoke.py: run it from "
@@ -100,7 +128,8 @@ def main() -> None:
     from repro_torch.kernels.qsgd_pack import ops as pack_ops
     from repro_torch.kernels.qsgd_pack.ref import u32_to_i64
     from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
-    from repro_torch.kernels.qsgd_unpack.ref import qsgd_unpack_ref
+    from repro_torch.kernels.qsgd_unpack.ref import (UnpackSegment,
+                                                     qsgd_unpack_ref)
     from repro_torch.core.qsgd import random_bits
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.model import build_model
@@ -170,7 +199,7 @@ def main() -> None:
     kernels = []
 
     def entry(kname, route_src, replaces, checked, ms_step, plain_step,
-              lib_step, nbytes, nops, err, ms_big, plain_big):
+              lib_step, nbytes, nops, err, ms_big, plain_big, **extra):
         t_bytes = nbytes / bw * 1e3
         t_ops = nops / f32_peak * 1e3
         row = {"name": kname, "route": "cuda", "source": route_src,
@@ -182,6 +211,7 @@ def main() -> None:
                "launches_per_step": len(sparse),
                "largest_bucket": {"name": sparse[big].name, "ms": ms_big,
                                   "plain_ms": plain_big}}
+        row.update(extra)
         kernels.append(row)
         log(json.dumps({"kernel": kname, "kernel_ms": ms_step,
                         "plain_ms": plain_step, "library_ms": lib_step,
@@ -314,27 +344,44 @@ def main() -> None:
           time_ms(torch, lambda: pack_ops.qsgd_pack(qx[big], qr[big], bits,
                                                     mode, impl="ref"),
                   reps=3))
+    # -- qsgd_unpack: the single-bucket API on the path's packed shards,
+    #    then the grouped launch the executor makes, at its geometry
     for p, sc in packs:
         if not torch.equal(unpack_ops.qsgd_unpack(p, sc, bits, impl="cuda"),
                            unpack_ops.qsgd_unpack(p, sc, bits, impl="ref")):
             fail("qsgd_unpack kernel differs from its plain version")
+    mean = 1.0 / r
+    segs = [UnpackSegment(p, sc, 1, r, bk.rows, bk.cols // r, bq, mean)
+            for bk, (p, sc) in zip(sparse, packs)]
+    got = unpack_ops.qsgd_unpack_grouped(segs, bits, impl="cuda")
+    want = unpack_ops.qsgd_unpack_grouped(segs, bits, impl="ref")
+    for g_, w_ in zip(got, want):
+        if not torch.equal(g_, w_):
+            fail("grouped qsgd_unpack differs from its plain version")
+    del got, want
+    gc.collect()
     entry("qsgd_unpack", "src/repro_torch/csrc/qsgd_unpack.cu",
           "src/repro/kernels/qsgd_unpack/kernel.py:27",
-          "phase 2: bit-equal to qsgd_unpack_ref on the path's packed "
-          "shards (26 buckets)",
-          time_ms(torch, lambda: [unpack_ops.qsgd_unpack(p, sc, bits,
-                                                         impl="cuda")
-                                  for p, sc in packs]),
-          time_ms(torch, lambda: [unpack_ops.qsgd_unpack(p, sc, bits,
-                                                         impl="ref")
-                                  for p, sc in packs], reps=3),
+          "phase 2: the grouped launch bit-equal to qsgd_unpack_grouped_ref "
+          "on the 26 buckets at the executor's geometry (p_pod 1, p_data "
+          f"{r}, shard = cols/{r}, bq {bq}, mean 1/{r}); the single-bucket "
+          "API bit-equal to qsgd_unpack_ref on the path's packed shards",
+          time_ms(torch, lambda: unpack_ops.qsgd_unpack_grouped(
+              segs, bits, impl="cuda")),
+          time_ms(torch, lambda: unpack_ops.qsgd_unpack_grouped(
+              segs, bits, impl="ref"), reps=3),
           None,
           n_q * bits // 8 + 4 * rows_q + 4 * n_q, 2 * n_q, 0.0,
           time_ms(torch, lambda: unpack_ops.qsgd_unpack(*packs[big], bits,
                                                         impl="cuda")),
           time_ms(torch, lambda: unpack_ops.qsgd_unpack(*packs[big], bits,
-                                                        impl="ref"), reps=3))
-    del qx, qr, packs
+                                                        impl="ref"), reps=3),
+          launches_per_step=1,
+          device_ms=graph_ms(torch, lambda: unpack_ops.qsgd_unpack_grouped(
+              segs, bits, impl="cuda")),
+          host_ms=host_ms(torch, lambda: unpack_ops.qsgd_unpack_grouped(
+              segs, bits, impl="cuda")))
+    del segs, qx, qr, packs
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -342,7 +389,13 @@ def main() -> None:
     wrappers = {"bucket_topk": topk_ops.bucket_topk,
                 "bucket_scatter": scatter_ops.bucket_scatter,
                 "qsgd_pack": pack_ops.qsgd_pack,
-                "qsgd_unpack": unpack_ops.qsgd_unpack}
+                "qsgd_unpack": unpack_ops.qsgd_unpack,
+                "qsgd_unpack_grouped": unpack_ops.qsgd_unpack_grouped}
+    expect = {"bucket_topk": len(sparse) * STEPS,
+              "bucket_scatter": len(sparse) * STEPS,
+              "qsgd_pack": len(sparse) * STEPS,
+              "qsgd_unpack": 0,                     # the grouped form instead
+              "qsgd_unpack_grouped": STEPS}
     cfg, data = run_lm.lm_config(fast=False)
     trainer = Trainer(build_model(cfg), run_lm.train_config(STEPS), data,
                       dp_total=run_lm.DP, device=dev)
@@ -363,11 +416,14 @@ def main() -> None:
     if not all(math.isfinite(v) for v in tlog.losses):
         fail(f"non-finite losses {tlog.losses}")
     for n, c in launches.items():
-        if c != len(sparse) * STEPS:
+        if c != expect[n]:
             fail(f"{n} launched {c} times in {STEPS} steps, expected "
-                 f"{len(sparse)} a step")
+                 f"{expect[n]}")
     for row in kernels:
         row["launches"] = launches[row["name"]]
+        if row["name"] == "qsgd_unpack":
+            row["launches"] = launches["qsgd_unpack_grouped"]
+            row["single_bucket_launches"] = launches["qsgd_unpack"]
     record["main_path"] = {"losses": tlog.losses, "step_times_s":
                            tlog.step_times, "median_step_ms": step_ms,
                            "peak_memory_gb": peak_gb, "launches": launches}

@@ -11,8 +11,10 @@ canonical (R, rows, cols) buffer, then per fusion bucket:
     stream, residual' = bucket_topk(acc)      (Alg. 2 line 2)
     dense     =  bucket_scatter(stream)       (each rank's densified stream)
     reduced   =  sum over ranks               (Alg. 2 line 3)
-    [DSAR + QSGD: every range owner's quantize -> dequantize round trip
-     of its shard, replayed on the sum, before the allgather-sum]
+    [DSAR + QSGD: every range owner quantizes its shard of the sum
+     (qsgd_pack); after the last bucket one grouped qsgd_unpack
+     dequantizes the shards of all such buckets, sums the pods, applies
+     the mean and writes each bucket's (rows, cols) buffer]
 
 Raw-dense buckets (below ``min_sparse_size``) are a plain sum. SSAR
 algorithms reduce exactly, so in this form they fold into the same sum.
@@ -31,8 +33,10 @@ import torch
 
 from repro_torch.comm.buckets import pack_group, unpack_group
 from repro_torch.comm.plan import SyncPlan
-from repro_torch.core.allreduce import _qsgd_roundtrip
 from repro_torch.core.topk import compress2d
+from repro_torch.kernels.qsgd_pack.ops import qsgd_pack
+from repro_torch.kernels.qsgd_unpack.ops import qsgd_unpack_grouped
+from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
 
 RandFn = Callable[[int, int], torch.Tensor]
 
@@ -62,6 +66,7 @@ def reduce_buckets_spmd(
 
     reduced: dict = {}
     new_residuals: dict = {}
+    quantized: dict = {}            # bucket name -> UnpackSegment
     bucket_idx = 0
     for group in plan.groups:
         buf = pack_group(group, leaves_r, cfg.bucket_size, batch_dims=1)
@@ -78,6 +83,8 @@ def reduce_buckets_spmd(
             dens = u.densify(impl=cfg.impl)                  # (R, rows, m*B)
             rows, mb = dens.shape[1], dens.shape[2]
             dpod = dens.reshape(p_pod, p_data, rows, mb).sum(dim=1)
+            del acc, u, dens                 # freed before the pack allocates
+            new_residuals[b.name] = residual.to(res.dtype)
             if qsgd is not None and b.algorithm == "dsar_split_allgather":
                 if rand_fn is None:
                     raise ValueError("QSGD needs stochastic-rounding bits: "
@@ -86,14 +93,20 @@ def reduce_buckets_spmd(
                 bq = qsgd.bucket_size
                 x = dpod.reshape(p_pod, rows, p_data, shard).permute(0, 2, 1, 3)
                 rand = rand_fn(bucket_idx, p_pod * p_data * rows * shard)
-                xq = _qsgd_roundtrip(
-                    x.reshape(-1, bq), rand.reshape(-1, bq), qsgd, cfg.impl)
-                dpod = (xq.reshape(p_pod, p_data, rows, shard)
-                        .permute(0, 2, 1, 3).reshape(p_pod, rows, mb))
-            out = dpod.sum(dim=0)
-            reduced[b.name] = out * scale
-            new_residuals[b.name] = residual.to(res.dtype)
+                packed, sc = qsgd_pack(x.reshape(-1, bq), rand.reshape(-1, bq),
+                                       qsgd.bits, qsgd.scale_mode,
+                                       impl=cfg.impl)
+                quantized[b.name] = UnpackSegment(packed, sc, p_pod, p_data,
+                                                  rows, shard, bq, scale)
+                del x, rand
+            else:
+                reduced[b.name] = dpod.sum(dim=0) * scale
+            del dpod            # only the packed codes wait for the unpack
             bucket_idx += 1
+    if quantized:
+        outs = qsgd_unpack_grouped(list(quantized.values()), qsgd.bits,
+                                   impl=cfg.impl)
+        reduced.update(zip(quantized, outs))
     return reduced, new_residuals
 
 

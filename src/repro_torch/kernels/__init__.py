@@ -8,7 +8,9 @@ The PyTorch counterparts of the four Pallas TPU kernels in
 - ``bucket_scatter`` — stream densification (a direct shared-memory
                        scatter on Hopper; a one-hot contraction on the TPU).
 - ``qsgd_pack``      — QSGD bucketed stochastic quantization + bit-packing.
-- ``qsgd_unpack``    — inverse of qsgd_pack.
+- ``qsgd_unpack``    — inverse of qsgd_pack; its grouped form unpacks every
+                       DSAR + QSGD bucket of a step in one launch and writes
+                       each bucket's reduced buffer (pod sum and mean fused).
 
 Each directory holds ``kernel.py`` (the ctypes launcher of the CUDA
 source in ``src/repro_torch/csrc``), ``ops.py`` (the public wrapper:

@@ -42,7 +42,7 @@ ENTRY_POINTS = {
     "bucket_topk_f32": (_P, _P, _P, _P, _LL, _I, _I, _P),
     "bucket_scatter_f32": (_P, _P, _P, _LL, _I, _I, _P),
     "qsgd_pack_f32": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
-    "qsgd_unpack_f32": (_P, _P, _P, _LL, _I, _I, _P),
+    "qsgd_unpack_grouped_f32": (_P, _I, _I, _P, _P),
 }
 
 _lib = None
@@ -134,13 +134,14 @@ def stream(t: torch.Tensor) -> int:
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on one device."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, "
                              f"got one on {t.device}")
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if t.get_device() != dev:
+            raise ValueError(f"{name}: tensors on {tensors[0].device} and "
+                             f"{t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel takes contiguous "
                              "tensors")

@@ -1,1 +1,3 @@
-from repro_torch.kernels.qsgd_unpack.ops import qsgd_unpack  # noqa: F401
+from repro_torch.kernels.qsgd_unpack.ops import (  # noqa: F401
+    qsgd_unpack, qsgd_unpack_grouped)
+from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment  # noqa: F401

@@ -1,11 +1,13 @@
-"""Public wrapper for qsgd_unpack with dispatch by the tensor's device (see
+"""Public wrappers for qsgd_unpack with dispatch by the tensor's device (see
 ``bucket_topk/ops.py`` for the impl values and the launch count)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.qsgd_unpack.kernel import qsgd_unpack_cuda
-from repro_torch.kernels.qsgd_unpack.ref import qsgd_unpack_ref
+from repro_torch.kernels.qsgd_unpack.kernel import (qsgd_unpack_cuda,
+                                                    qsgd_unpack_grouped_cuda)
+from repro_torch.kernels.qsgd_unpack.ref import (qsgd_unpack_grouped_ref,
+                                                 qsgd_unpack_ref)
 
 
 def qsgd_unpack(packed: torch.Tensor, scale: torch.Tensor, bits: int = 4,
@@ -19,9 +21,30 @@ def qsgd_unpack(packed: torch.Tensor, scale: torch.Tensor, bits: int = 4,
         return qsgd_unpack_ref(packed, scale, bits, out_dtype)
     if impl != "cuda":
         raise ValueError(f"qsgd_unpack: unknown impl {impl!r}")
-    out = qsgd_unpack_cuda(packed, scale, bits).to(out_dtype)
-    qsgd_unpack.launches += 1
-    return out
+    out, launched = qsgd_unpack_cuda(packed, scale, bits)
+    qsgd_unpack.launches += launched
+    return out.to(out_dtype)
 
 
 qsgd_unpack.launches = 0
+
+
+def qsgd_unpack_grouped(segments, bits: int = 4, impl: str = "auto") -> list:
+    """Every DSAR + QSGD bucket's reduced (rows, p_data*shard) f32 buffer
+    from its packed shards (``ref.UnpackSegment``): unpack, sum over pods,
+    times the mean. One library call for all segments, one kernel launch
+    for every 48 non-empty ones; ``launches`` counts kernel launches."""
+    if not segments:
+        return []
+    if impl == "auto":
+        impl = "cuda" if segments[0].packed.is_cuda else "ref"
+    if impl == "ref":
+        return qsgd_unpack_grouped_ref(segments, bits)
+    if impl != "cuda":
+        raise ValueError(f"qsgd_unpack_grouped: unknown impl {impl!r}")
+    outs, launched = qsgd_unpack_grouped_cuda(segments, bits)
+    qsgd_unpack_grouped.launches += launched
+    return outs
+
+
+qsgd_unpack_grouped.launches = 0

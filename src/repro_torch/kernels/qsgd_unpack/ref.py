@@ -5,12 +5,57 @@ The reference source writes ``code / s * scale``. XLA compiles that as
 a multiply by its f32 reciprocal and reassociates it with the scale. The
 port reproduces that compiled arithmetic, which is what the reference
 package computes, bit for bit.
+
+The grouped form (:func:`qsgd_unpack_grouped_ref`) is what the
+stacked-replica executor does with the dequantized shards of every DSAR +
+QSGD bucket: the reference's ``reduce_buckets_spmd`` unpacks the flat
+(p_pod*p_data*rows*shard/bq, bq) codes, permutes them back from
+(p_pod, p_data, rows, shard) to (p_pod, rows, p_data*shard), sums over the
+pods and multiplies by the mean scale.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.qsgd_pack.ref import levels, u32_to_i64
+
+
+class UnpackSegment(NamedTuple):
+    """One bucket's packed shards and where they land.
+
+    Entry e = ((pod*p_data + rank)*rows + row)*shard + j of the flat codes
+    (QSGD row e // bq) belongs to ``out[row, rank*shard + j]``."""
+    packed: torch.Tensor   # (p_pod*p_data*rows*shard//bq, bq*bits//32) u32
+    scale: torch.Tensor    # (p_pod*p_data*rows*shard//bq, 1) f32
+    p_pod: int
+    p_data: int
+    rows: int
+    shard: int
+    bq: int
+    mean: float            # the factor applied after the sum over pods
+
+
+def check_segment(seg: UnpackSegment, bits: int) -> None:
+    """Raise unless the segment's geometry and shapes agree."""
+    if bits not in (2, 4, 8):
+        raise ValueError(f"qsgd_unpack: bits={bits}")
+    if min(seg.p_pod, seg.p_data, seg.bq) < 1 or min(seg.rows, seg.shard) < 0:
+        raise ValueError(f"qsgd_unpack: bad geometry {seg[2:]}")
+    if seg.bq % (32 // bits):
+        raise ValueError(f"qsgd_unpack: bq={seg.bq} is not a whole number "
+                         "of words")
+    if seg.shard % seg.bq:
+        raise ValueError(f"qsgd_unpack: shard={seg.shard} is not a multiple "
+                         f"of bq={seg.bq}, so a QSGD row would cross an "
+                         "output row")
+    nq = seg.p_pod * seg.p_data * seg.rows * (seg.shard // seg.bq)
+    want = (nq, seg.bq * bits // 32)
+    if seg.packed.shape != want or seg.scale.shape != (nq, 1):
+        raise ValueError(f"qsgd_unpack: packed {tuple(seg.packed.shape)} and "
+                         f"scale {tuple(seg.scale.shape)}, the geometry needs "
+                         f"{want} and ({nq}, 1)")
 
 
 def qsgd_unpack_ref(packed: torch.Tensor, scale: torch.Tensor, bits: int,
@@ -26,3 +71,17 @@ def qsgd_unpack_ref(packed: torch.Tensor, scale: torch.Tensor, bits: int,
     step = scale.to(torch.float32) * recip.to(scale.device)      # (nb, 1)
     xhat = code * step[:, :, None]
     return xhat.reshape(nb, w * vpw).to(out_dtype)
+
+
+def qsgd_unpack_grouped_ref(segments, bits: int) -> list:
+    """One (rows, p_data*shard) f32 buffer per segment:
+    ``sum over pods of unpack(...)[row, rank*shard + j]``, then ``* mean``."""
+    outs = []
+    for seg in segments:
+        check_segment(seg, bits)
+        mb = seg.p_data * seg.shard
+        xq = qsgd_unpack_ref(seg.packed, seg.scale, bits)
+        dpod = (xq.reshape(seg.p_pod, seg.p_data, seg.rows, seg.shard)
+                .permute(0, 2, 1, 3).reshape(seg.p_pod, seg.rows, mb))
+        outs.append(dpod.sum(dim=0) * seg.mean)
+    return outs

@@ -7,7 +7,9 @@ machine with a GPU and without JAX:
 
 Tolerances: bit-equal, except bucket_scatter with duplicate indices
 (allclose, atol=1e-6: the adds of one row run in j order in both, but
-the plain version adds through scatter_add_).
+the plain version adds through scatter_add_). The grouped unpack sums
+two pods, and a two-term sum has one rounding in any order, so it is
+bit-equal too.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from repro_torch.kernels.bucket_scatter import ops as scatter_ops
 from repro_torch.kernels.bucket_topk import ops as topk_ops
 from repro_torch.kernels.qsgd_pack import ops as pack_ops
 from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
+from repro_torch.kernels.qsgd_unpack.kernel import launch_grouped
+from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
 
 
 def _x_with_ties(seed, nb, b):
@@ -98,3 +102,57 @@ def test_cuda_qsgd_pack_refuses_unaligned_rows(cuda_device):
     rand = torch.zeros((4, 128), dtype=torch.uint32, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
         pack_ops.qsgd_pack(x, rand, 4, "max", impl="cuda")
+
+
+def _grouped_segments(rng, nseg, bits, device, p_pod=2, mean=1.0 / 3.0):
+    """Segments of mixed geometry: QSGD rows of 48 to 1200 entries (whole
+    16-byte groups of words or not, one to three tiles of 128 words), one
+    to three ranks and QSGD rows a rank, and an empty bucket."""
+    segs = []
+    for i in range(nseg):
+        bq = int(rng.choice([48, 128, 1024, 1200]))
+        p_data, nbq = int(rng.integers(1, 4)), int(rng.integers(1, 4))
+        rows = 0 if i == 1 else int(rng.integers(1, 6))
+        nq = p_pod * p_data * rows * nbq
+        packed = torch.from_numpy(_u32(rng, (nq, bq * bits // 32)))
+        scale = torch.from_numpy(
+            np.abs(rng.standard_normal((nq, 1))).astype(np.float32))
+        scale[::5] = 0.0
+        segs.append(UnpackSegment(packed.to(device), scale.to(device), p_pod,
+                                  p_data, rows, nbq * bq, bq, mean))
+    return segs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nseg", [30, 101])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_cuda_qsgd_unpack_grouped_matches_plain(cuda_device, bits, nseg):
+    """Segment 1 is empty: 30 segments take one launch, 101 take three
+    (48 + 48 + 4 non-empty ones)."""
+    segs = _grouped_segments(np.random.default_rng(nseg + bits), nseg, bits,
+                             cuda_device)
+    before = unpack_ops.qsgd_unpack_grouped.launches
+    got = unpack_ops.qsgd_unpack_grouped(segs, bits, impl="cuda")
+    assert unpack_ops.qsgd_unpack_grouped.launches == before + (
+        3 if nseg == 101 else 1)
+    torch.cuda.synchronize()
+    want = unpack_ops.qsgd_unpack_grouped(segs, bits, impl="ref")
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_qsgd_unpack_grouped_refuses_unaligned_buffers(cuda_device):
+    """A view that starts off a 16-byte boundary would fault in the kernel's
+    float4 stores or uint4 loads; the launcher raises instead."""
+    seg = _grouped_segments(np.random.default_rng(0), 1, 4, cuda_device)[0]
+    size = seg.rows * seg.p_data * seg.shard
+    flat = torch.empty(size + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        launch_grouped([seg], flat[1:], 4)
+    words = torch.empty(seg.packed.numel() + 1, dtype=torch.uint32,
+                        device=cuda_device)
+    shifted = seg._replace(packed=words[1:].view(seg.packed.shape))
+    with pytest.raises(ValueError, match="16-byte"):
+        launch_grouped([shifted], flat[:size], 4)

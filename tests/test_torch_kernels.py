@@ -9,6 +9,10 @@ except
   * qsgd_pack in 'l2' mode: the order of the σ sum may move σ by ulps,
     so σ is allclose(rtol=1e-6) and a code may differ by one level on at
     most 1e-4 of the entries (at least one entry).
+The grouped unpack is held bit for bit to the JAX package's unpack,
+transpose, pod sum and mean run op by op as ``reduce_buckets_spmd``
+writes them. (Under ``jax.jit`` XLA-CPU contracts a two-pod sum into an
+FMA, one rounding fewer, so the jitted executor agrees only to an ulp.)
 The CUDA kernels themselves are held against the plain versions in
 ``test_torch_cuda.py`` (on a card) and by ``chip_smoke.py``.
 """
@@ -28,6 +32,7 @@ from repro_torch.kernels.bucket_topk import ops as topk_ops
 from repro_torch.kernels.qsgd_pack import ops as pack_ops
 from repro_torch.kernels.qsgd_pack.ref import u32_to_i64
 from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
+from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
 
 JAX_IMPLS = ("ref", "pallas")
 
@@ -188,6 +193,55 @@ def test_qsgd_roundtrip_plain_matches_jax(bits):
     assert (np.abs(xhat - x) <= step * (1 + 1e-6)).all()
 
 
+def _segment(rng, p_pod, p_data, rows, shard, bq, bits, mean):
+    nq = p_pod * p_data * rows * (shard // bq)
+    packed = _u32(rng, (nq, bq * bits // 32))
+    scale = (np.abs(rng.standard_normal((nq, 1))) * rng.uniform(0.01, 100)
+             ).astype(np.float32)
+    if nq > 2:
+        scale[2] = 0.0
+    return UnpackSegment(torch.from_numpy(packed), torch.from_numpy(scale),
+                         p_pod, p_data, rows, shard, bq, mean)
+
+
+@pytest.mark.parametrize("mean_is_1_over_r", [False, True])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("p_pod,p_data", [(1, 2), (1, 4), (2, 2), (2, 4)])
+def test_qsgd_unpack_grouped_plain_matches_jax(p_pod, p_data, bits,
+                                               mean_is_1_over_r):
+    """Three buckets of different geometry (shard = bq and 2*bq) against
+    the reference's unpack -> transpose(0, 2, 1, 3) -> sum over pods ->
+    times the mean (``src/repro/comm/executor.py`` reduce_buckets_spmd)."""
+    rng = np.random.default_rng(1000 * p_pod + 100 * p_data + bits)
+    mean = 1.0 / (p_pod * p_data) if mean_is_1_over_r else 1.0
+    segs = [_segment(rng, p_pod, p_data, rows, shard, bq, bits, mean)
+            for rows, shard, bq in ((3, 128, 128), (5, 256, 128),
+                                    (2, 128, 64))]
+    outs = unpack_ops.qsgd_unpack_grouped(segs, bits)
+    assert len(outs) == len(segs)
+    for seg, out in zip(segs, outs):
+        mb = p_data * seg.shard
+        for impl in JAX_IMPLS:
+            xq = jax_unpack(jnp.asarray(seg.packed.numpy()),
+                            jnp.asarray(seg.scale.numpy()), bits, impl=impl)
+            dpod = (xq.reshape(p_pod, p_data, seg.rows, seg.shard)
+                    .transpose(0, 2, 1, 3).reshape(p_pod, seg.rows, mb))
+            ref = np.asarray(dpod.sum(axis=0) * mean)
+            assert out.shape == ref.shape == (seg.rows, mb)
+            np.testing.assert_array_equal(out.numpy(), ref, impl)
+
+
+@pytest.mark.parametrize("impl", ["auto", "cuda"])
+def test_qsgd_unpack_grouped_refuses_shard_not_multiple_of_bq(impl):
+    rng = np.random.default_rng(5)
+    seg = _segment(rng, 1, 2, 3, 128, 128, 4, 1.0)
+    bad = seg._replace(shard=192, packed=seg.packed[:, :12].contiguous())
+    before = unpack_ops.qsgd_unpack_grouped.launches
+    with pytest.raises(ValueError, match="multiple of bq"):
+        unpack_ops.qsgd_unpack_grouped([seg, bad], 4, impl=impl)
+    assert unpack_ops.qsgd_unpack_grouped.launches == before
+
+
 # --------------------------------------------------------------------------
 # dispatch by device
 # --------------------------------------------------------------------------
@@ -200,6 +254,7 @@ def _calls():
     val = torch.ones((4, 2))
     packed = torch.zeros((4, 16), dtype=torch.uint32)
     scale = torch.ones((4, 1))
+    seg = UnpackSegment(packed, scale, 1, 2, 2, 128, 128, 0.5)
     return [
         (topk_ops.bucket_topk, lambda impl: topk_ops.bucket_topk(x, 2, impl=impl)),
         (scatter_ops.bucket_scatter,
@@ -208,10 +263,12 @@ def _calls():
          lambda impl: pack_ops.qsgd_pack(x, rand, 4, impl=impl)),
         (unpack_ops.qsgd_unpack,
          lambda impl: unpack_ops.qsgd_unpack(packed, scale, 4, impl=impl)),
+        (unpack_ops.qsgd_unpack_grouped,
+         lambda impl: unpack_ops.qsgd_unpack_grouped([seg], 4, impl=impl)),
     ]
 
 
-@pytest.mark.parametrize("which", range(4))
+@pytest.mark.parametrize("which", range(5))
 def test_cpu_tensor_takes_plain_version_without_a_launch(which):
     wrapper, call = _calls()[which]
     before = wrapper.launches
@@ -220,7 +277,7 @@ def test_cpu_tensor_takes_plain_version_without_a_launch(which):
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("which", range(4))
+@pytest.mark.parametrize("which", range(5))
 def test_cuda_impl_on_cpu_tensor_raises(which):
     wrapper, call = _calls()[which]
     before = wrapper.launches

@@ -184,8 +184,12 @@ def test_auto_algorithm_is_not_ported():
                           min_sparse_size=1024)),
     ("dsar_qsgd4", _sync_kwargs(bucket_size=128, k_per_bucket=4,
                                 qsgd_bucket=128, min_sparse_size=1024)),
+    ("dsar_qsgd4_pods", _sync_kwargs(bucket_size=128, k_per_bucket=4,
+                                     qsgd_bucket=128, min_sparse_size=1024)),
 ])
 def test_execute_plan_spmd_matches_jax(name, sync_kw):
+    # (p_pod, p_data): the pods case splits the same 4 replicas 2 x 2
+    p_pod, p_data = (2, 2) if name.endswith("_pods") else (1, P_DATA)
     jplan, plan, jshapes, shapes = _plans(TINY, **sync_kw)
     leaves, _ = tree_flatten(shapes)
     rng = np.random.default_rng(len(name))
@@ -202,7 +206,7 @@ def test_execute_plan_spmd_matches_jax(name, sync_kw):
     @jax.jit
     def jax_step(leaves_r, residuals, k):
         return jax_exec.execute_plan_spmd(jplan, leaves_r, residuals, k,
-                                          p_data=P_DATA)
+                                          p_data=p_data, p_pod=p_pod)
 
     for step in range(2):
         grads = [rng.standard_normal((P_DATA,) + tuple(leaf.shape))
@@ -210,14 +214,14 @@ def test_execute_plan_spmd_matches_jax(name, sync_kw):
         skey = jax.random.fold_in(key, step)
 
         def rand_fn(bucket_idx, n, skey=skey):
-            bits = jax_exec._qsgd_rand_all(skey, bucket_idx, 1, P_DATA,
+            bits = jax_exec._qsgd_rand_all(skey, bucket_idx, p_pod, p_data,
                                            n // P_DATA)
             return torch.from_numpy(np.array(bits).reshape(-1))
 
         jout, jres = jax_step([jnp.asarray(g) for g in grads], jres, skey)
         out, res = execute_plan_spmd(
-            plan, [torch.from_numpy(g) for g in grads], res, p_data=P_DATA,
-            rand_fn=rand_fn)
+            plan, [torch.from_numpy(g) for g in grads], res, p_data=p_data,
+            p_pod=p_pod, rand_fn=rand_fn)
         for a, b in zip(out, jout):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                        atol=1e-6)
