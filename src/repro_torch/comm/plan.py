@@ -15,7 +15,8 @@ world size. It decides:
   needs the cost model, which this slice does not port yet.
 
 Error-feedback residual state is keyed by bucket: a bucket is the unit
-of compression, so it is the unit of feedback.
+of compression, so it is the unit of feedback. So are the non-blocking
+runtime's in-flight reduced buffers (``inflight_shapes``).
 
 The geometry is the JAX package's ``repro.comm.plan`` field for field;
 the tests hold the two plans equal.
@@ -106,6 +107,18 @@ class SyncPlan:
         return {b.name: torch.zeros((self.dp_total, g.rows, b.cols),
                                     dtype=self.cfg.ef_dtype, device=device)
                 for g in self.groups for b in g.buckets if b.sparse}
+
+    def inflight_shapes(self) -> dict[str, tuple[int, int]]:
+        """Bucket name -> shape of the REDUCED f32 buffer held between one
+        step's reduce and the next step's apply (non-blocking runtime).
+        Every bucket has one, dense buckets too; only sparse buckets carry
+        residuals. Replicated output mode: the full (rows, cols) buffer."""
+        return {b.name: (g.rows, b.cols)
+                for g in self.groups for b in g.buckets}
+
+    def init_inflight(self, device="cpu") -> dict[str, torch.Tensor]:
+        return {k: torch.zeros(s, dtype=torch.float32, device=device)
+                for k, s in self.inflight_shapes().items()}
 
     def describe(self) -> str:
         lines = [f"SyncPlan: {self.num_leaves} leaves -> "

@@ -53,9 +53,11 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _bias_corrections(count: torch.Tensor, cfg: OptimizerConfig):
+    # torch.full, not torch.tensor: a scalar copied to the card would make
+    # the host wait for the stream (the pipelined step never does)
     cf = count.to(torch.float32)
-    b1 = torch.tensor(cfg.beta1, dtype=torch.float32, device=count.device)
-    b2 = torch.tensor(cfg.beta2, dtype=torch.float32, device=count.device)
+    b1 = torch.full((), cfg.beta1, dtype=torch.float32, device=count.device)
+    b2 = torch.full((), cfg.beta2, dtype=torch.float32, device=count.device)
     return 1.0 - b1 ** cf, 1.0 - b2 ** cf
 
 

@@ -1,0 +1,276 @@
+"""Pipelined stale-gradient steps, stacked-replica form (the JAX
+package's ``repro.runtime.pipeline``, DESIGN.md §6).
+
+The synchronous SparCML step puts the reduce half of the sync between
+step t's backward and step t+1's forward:
+
+    grads_t -> reduce(grads_t) -> apply -> update
+
+The pipelined step splits the executor into its halves
+(``reduce_buckets_spmd`` / ``apply_buckets_spmd``) and staggers them by
+``staleness`` steps (bounded at 1):
+
+    step t:  grads_t = backward(params_t, batch_t)
+             params_{t+1} = update(params_t, apply(inflight))   # = R(g_{t-1})
+             inflight' = reduce(grads_t)                        # in flight
+                                                                # until t+1
+
+so reduce(t) no longer sits in front of step t+1's forward. On a CUDA
+device the reduce half runs on a side stream, one per built step:
+
+    main stream:  forward/backward(t) -> grads, guard verdict -> event A
+    side stream:  wait A; reduce(grads, residuals); guard select of the
+                  residuals and in-flight buffers -> event B(t)
+    main stream:  wait B(t-1); apply(inflight); clip; AdamW
+
+and reduce(t) can run beside apply(t) and forward/backward(t+1). The caching
+allocator hands a freed block back to the stream that allocated it, so
+every tensor made on one stream and read on the other is marked with
+``record_stream``: without it step t+1's forward could reuse the memory
+of gradients reduce(t) is still reading, a silent wrong answer. A CPU
+device runs the same ops in the same order on one thread. The step never
+waits on the card from the host: no ``.item()``, no host copy.
+
+Error-feedback residuals stay keyed by bucket and are updated by the
+reduce half every step, exactly as in the synchronous executor.
+``staleness=0`` is the synchronous step: the same ops in the same order,
+no side stream, so its output equals ``build_train_step``'s bit for bit.
+
+In-flight buffers carry a scalar validity flag (``VALID_KEY``): a step
+that applies INVALID (all-zero) buffers, the first one and the first
+after every attach or resume, runs at lr 0, so parameters stay untouched
+until a real reduction lands (the optimizer's count still advances and
+its moments decay once).
+
+``build_superstep`` chains K steps with no host sync in between and
+stacks their metrics: the counterpart of the reference's ``lax.scan``.
+
+Only the stacked-replica lowering (``"spmd"``) exists in the port; the
+reference's ``manual`` and ``emulated`` lowerings need the per-rank
+``torch.distributed`` form (ROADMAP Queue 1 item 7).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.comm.executor import (RandFn, apply_buckets_spmd,
+                                       reduce_buckets_spmd)
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model
+from repro_torch.optim.schedule import make_schedule
+from repro_torch.train import train_step as ts
+from repro_torch.train.state import TrainConfig, TrainState
+from repro_torch.utils.tree import tree_leaves
+
+LOWERINGS = ("manual", "emulated", "spmd")
+
+# Scalar validity flag carried inside the in-flight dict (f32 0/1). Bucket
+# names are "g<gid>b<idx>", so the key cannot collide.
+VALID_KEY = "__valid__"
+
+
+def resolve_lowering(lowering: Optional[str] = None) -> str:
+    """The lowering the port runs: the stacked-replica one. The per-rank
+    lowerings raise until their form is ported."""
+    if lowering is None:
+        return "spmd"
+    if lowering not in LOWERINGS:
+        raise ValueError(f"lowering must be one of {LOWERINGS}: {lowering!r}")
+    if lowering != "spmd":
+        raise NotImplementedError(
+            f"lowering={lowering!r} needs the per-rank torch.distributed "
+            "form (ROADMAP Queue 1 item 7); the port runs 'spmd'")
+    return lowering
+
+
+def attach_inflight(state: TrainState, plan) -> TrainState:
+    """Zero in-flight buffers onto a synchronous-shaped TrainState (a
+    resume from a checkpoint, or a hand-off from ``Trainer.run``). The
+    validity flag starts at 0, so the first pipelined step applies at
+    lr 0, whatever the step."""
+    if state.inflight is not None:
+        return state
+    dev = tree_leaves(state.params)[0].device
+    zeros = plan.init_inflight(dev)
+    zeros[VALID_KEY] = torch.zeros((), dtype=torch.float32, device=dev)
+    return state._replace(inflight=zeros)
+
+
+def _refuse_unported(lowering, plan, telemetry, inject) -> None:
+    """Options of the reference's builders that the port does not have
+    yet raise, naming the ROADMAP item that brings them."""
+    resolve_lowering(lowering)
+    if plan is not None:
+        raise NotImplementedError(
+            "a replanned SyncPlan needs SyncPlan.replan and the cost model "
+            "(ROADMAP Queue 1 item 9)")
+    if telemetry:
+        raise NotImplementedError(
+            "per-bucket telemetry is not ported (ROADMAP Queue 1 item 4)")
+    if inject:
+        raise NotImplementedError(
+            "fault injection is not ported (ROADMAP Queue 1 item 13)")
+
+
+class PipelinedStep:
+    """``step(state, batch, rand_fn=None) -> (state, metrics)``, one
+    pipelined step; ``rand_fn`` overrides the QSGD rounding bits as in
+    ``build_train_step``. ``drain()`` makes the caller's current stream
+    wait for the last reduce this step enqueued: call it before the
+    returned state is read outside the next step (a checkpoint, the
+    synchronous loop, a host copy)."""
+
+    def __init__(self, model: Model, tcfg: TrainConfig, dp_total: int,
+                 device, staleness: int, guard: bool):
+        if tcfg.sync.mode != "sparcml":
+            raise ValueError(
+                "the pipelined runtime overlaps the planned sparse sync and "
+                "requires sync.mode='sparcml'")
+        if staleness not in (0, 1):
+            raise ValueError(f"staleness is bounded at 1, got {staleness}")
+        self.model = model
+        self.tcfg = tcfg
+        self.dp_total = dp_total
+        self.device = resolve_device(device)
+        self.staleness = staleness
+        self.guard = guard
+        self.plan = ts.build_plan(model, tcfg, dp_total)
+        self._sched = make_schedule(tcfg.schedule)
+        self._side = (torch.cuda.Stream(self.device)
+                      if staleness and self.device.type == "cuda" else None)
+        self._reduce_done: Optional[torch.cuda.Event] = None
+
+    def drain(self) -> None:
+        if self._reduce_done is not None:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._reduce_done)
+
+    def _reduce_body(self, state, leaves_r, fin, rand_fn):
+        new_inflight, new_res = reduce_buckets_spmd(
+            self.plan, leaves_r, state.residuals, p_data=self.dp_total,
+            rand_fn=rand_fn)
+        new_inflight[VALID_KEY] = torch.ones((), dtype=torch.float32,
+                                             device=self.device)
+        # a trip keeps the old residuals and the old (clean) in-flight
+        # reduction, which the next clean step applies
+        return (ts.guard_select(fin, new_inflight, state.inflight),
+                ts.guard_select(fin, new_res, state.residuals))
+
+    def _reduce(self, state, leaves_r, fin, rand_fn):
+        """The reduce half of staleness 1: on the side stream on CUDA."""
+        side = self._side
+        if side is None:
+            return self._reduce_body(state, leaves_r, fin, rand_fn)
+        main = torch.cuda.current_stream(self.device)
+        grads_ready = torch.cuda.Event()
+        grads_ready.record(main)
+        read_on_side = [*leaves_r, *state.residuals.values(),
+                        *state.inflight.values()]
+        if fin is not None:
+            read_on_side.append(fin)
+        for t in read_on_side:
+            t.record_stream(side)
+        with torch.cuda.stream(side):
+            side.wait_event(grads_ready)
+            new_inflight, new_res = self._reduce_body(state, leaves_r, fin,
+                                                      rand_fn)
+            done = torch.cuda.Event()
+            done.record(side)
+        for t in [*new_inflight.values(), *new_res.values()]:
+            t.record_stream(main)
+        self._reduce_done = done
+        return new_inflight, new_res
+
+    def __call__(self, state: TrainState, batch,
+                 rand_fn: Optional[RandFn] = None):
+        tcfg, dev = self.tcfg, self.device
+        if self.staleness and state.inflight is None:
+            raise ValueError("a staleness-1 step needs in-flight buffers: "
+                             "attach_inflight(state, plan) first")
+        batch = ts.batch_to_device(batch, dev)
+        loss, leaves_r = ts.rank_grads(self.model, state.params, batch,
+                                       self.dp_total, tcfg.microbatches)
+        fin = ts.all_finite_leaves(leaves_r) if self.guard else None
+        if rand_fn is None:
+            rand_fn = ts.step_rand_fn(tcfg.seed, state.step, dev)
+        lr = self._sched(state.step)
+        if self.staleness == 0:
+            # execute_plan_spmd: the synchronous step's ops, in its order
+            reduced, new_res = reduce_buckets_spmd(
+                self.plan, leaves_r, state.residuals, p_data=self.dp_total,
+                rand_fn=rand_fn)
+            applied = apply_buckets_spmd(self.plan, reduced, leaves_r)
+            new_res = ts.guard_select(fin, new_res, state.residuals)
+            new_inflight, lr_eff = None, lr
+        else:
+            prev = self._reduce_done
+            new_inflight, new_res = self._reduce(state, leaves_r, fin,
+                                                 rand_fn)
+            if prev is not None:
+                torch.cuda.current_stream(dev).wait_event(prev)
+            applied = apply_buckets_spmd(self.plan, state.inflight, leaves_r)
+            lr_eff = lr * state.inflight[VALID_KEY]
+        new_p, new_opt, gnorm = ts.update(state, applied, lr_eff, tcfg)
+        new_p = ts.guard_select(fin, new_p, state.params)
+        new_opt = ts.guard_select(fin, new_opt, state.opt)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr_eff}
+        if fin is not None:
+            metrics["nonfinite"] = 1.0 - fin
+        return (TrainState(new_p, new_opt, new_res, state.step + 1,
+                           new_inflight), metrics)
+
+
+class Superstep:
+    """``superstep(state, batches, rand_fns=None) -> (state, metrics)``:
+    the batch values stacked on a leading (K,) axis, one rand_fn a step
+    (or None), K pipelined steps enqueued back to back with no host sync,
+    and every metric stacked to (K,). A shorter leading axis runs fewer
+    steps (the driver's trailing unit)."""
+
+    def __init__(self, step: PipelinedStep, steps: int):
+        if steps < 1:
+            raise ValueError(f"superstep needs steps >= 1, got {steps}")
+        self.step = step
+        self.plan = step.plan
+
+    def drain(self) -> None:
+        self.step.drain()
+
+    def __call__(self, state: TrainState, batches, rand_fns=None):
+        batches = ts.batch_to_device(batches, self.step.device)
+        n = next(iter(batches.values())).shape[0]
+        ms = []
+        for i in range(n):
+            state, m = self.step(state, {k: v[i] for k, v in batches.items()},
+                                 None if rand_fns is None else rand_fns[i])
+            ms.append(m)
+        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+
+def build_pipelined_step(model: Model, tcfg: TrainConfig, dp_total: int = 4,
+                         device="cuda", *, staleness: int = 1,
+                         guard: bool = False,
+                         lowering: Optional[str] = None, plan=None,
+                         telemetry: bool = False, inject: bool = False):
+    """One pipelined step. Returns (step, plan); see :class:`PipelinedStep`.
+    ``guard=True`` adds the all-finite check over the raw grads: a
+    non-finite gradient makes the step a no-op on params, optimizer
+    state, residuals and in-flight buffers (the step counter still
+    advances) and ``metrics["nonfinite"]`` reads 1.0."""
+    _refuse_unported(lowering, plan, telemetry, inject)
+    step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard)
+    return step, step.plan
+
+
+def build_superstep(model: Model, tcfg: TrainConfig, dp_total: int = 4,
+                    device="cuda", *, staleness: int = 1, steps: int = 4,
+                    guard: bool = False, lowering: Optional[str] = None,
+                    plan=None, telemetry: bool = False,
+                    inject: bool = False):
+    """K-step superstep over the pipelined step. Returns (superstep,
+    plan); see :class:`Superstep`."""
+    _refuse_unported(lowering, plan, telemetry, inject)
+    step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard)
+    return Superstep(step, steps), step.plan

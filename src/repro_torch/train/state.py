@@ -15,6 +15,11 @@ class TrainState(NamedTuple):
     residuals: Any       # EF state: bucket-keyed {name: (dp, rows, cols)}
                          # from the SyncPlan (sparcml) or None
     step: int
+    inflight: Any = None # non-blocking runtime: bucket-keyed {name: (rows,
+                         # cols)} REDUCED buffers of the previous step plus
+                         # the validity flag, applied this step
+                         # (staleness 1); None when synchronous. Stripped
+                         # before checkpointing.
 
 
 @dataclass(frozen=True)

@@ -33,7 +33,7 @@ from repro_torch.optim.optimizers import (clip_by_global_norm, init_opt_state,
                                           opt_update)
 from repro_torch.optim.schedule import make_schedule
 from repro_torch.train.state import TrainConfig, TrainState
-from repro_torch.utils.tree import tree_flatten, tree_unflatten
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 
 def build_plan(model: Model, tcfg: TrainConfig, dp_total: int
@@ -86,6 +86,75 @@ def _accumulated_grads(model: Model, params, batch, n_micro: int):
     return acc_loss * inv, [g * inv for g in acc_g]
 
 
+def batch_to_device(batch, dev: torch.device) -> dict:
+    """Batch values (numpy arrays or tensors) on ``dev``. A host array
+    bound for the card is copied through pinned memory without blocking,
+    so the host never waits for the card here."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        if dev.type == "cuda" and not t.is_cuda:
+            t = t.pin_memory().to(dev, non_blocking=True)
+        out[k] = t.to(dev)
+    return out
+
+
+def rank_grads(model: Model, params, batch, dp_total: int, n_micro: int):
+    """Mean loss and every rank's grads on its slice of the global batch,
+    stacked (R, *leaf) in tree_flatten order: the reference's jax.vmap
+    over ranks."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % dp_total:
+        raise ValueError(f"global batch {rows} does not split into "
+                         f"{dp_total} ranks")
+    batch_r = {k: v.reshape((dp_total, rows // dp_total) + v.shape[1:])
+               for k, v in batch.items()}
+    loss_r, leaves_r = vmap(lambda b: _accumulated_grads(
+        model, params, b, n_micro))(batch_r)
+    return loss_r.mean(), leaves_r
+
+
+def update(state: TrainState, synced: list, lr, tcfg: TrainConfig):
+    """Clip the synced grads (flat, tree_flatten order) and run the
+    optimizer at ``lr``: (new params, new opt, grad norm)."""
+    _, paths = tree_flatten(state.params)
+    grads, gnorm = clip_by_global_norm(tree_unflatten(paths, synced),
+                                       tcfg.optimizer.grad_clip)
+    new_p, new_opt = opt_update(state.params, grads, state.opt, lr,
+                                tcfg.optimizer)
+    return new_p, new_opt, gnorm
+
+
+# --------------------------------------------------------------------------
+# Guarded-step helpers: the all-finite check over the raw gradient leaves
+# and the select that rolls state back on a trip (the JAX package's
+# ``all_finite_leaves`` / ``guard_select``). Both are tensor ops on the
+# device: the verdict is never read on the host inside a step.
+# --------------------------------------------------------------------------
+
+def all_finite_leaves(leaves) -> torch.Tensor:
+    """f32 scalar: 1.0 iff every element of every leaf is finite. Checked
+    on the RAW grads, before the reduce half: in a staleness-1 pipeline a
+    NaN entering the reduce poisons the residuals that same step, while
+    the norm of the applied (stale, clean) buffers stays finite."""
+    fin = None
+    for g in leaves:
+        ok = torch.isfinite(g).all().to(torch.float32)
+        fin = ok if fin is None else fin * ok
+    return fin
+
+
+def guard_select(fin, new_tree, old_tree):
+    """Leafwise select on the guard verdict: ``fin`` 1.0 keeps
+    ``new_tree`` bit for bit, 0.0 rolls every leaf back to ``old_tree``.
+    A select (``torch.where``), never arithmetic, so the NaNs of the
+    branch not taken never propagate."""
+    if fin is None:
+        return new_tree
+    pred = fin > 0.5
+    return tree_map(lambda a, b: torch.where(pred, a, b), new_tree, old_tree)
+
+
 def step_rand_fn(seed: int, step: int, device) -> RandFn:
     """Default QSGD bits of one step: a generator (Philox on CUDA) seeded
     from (seed, step), so a replayed step draws the same bits."""
@@ -105,47 +174,29 @@ def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
     n_micro = tcfg.microbatches
     plan = build_plan(model, tcfg, dp_total)
 
-    def to_device(batch):
-        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-
-    def finish(state, loss, synced, paths):
-        lr = sched(state.step)
-        grads = tree_unflatten(paths, synced)
-        grads, gnorm = clip_by_global_norm(grads, tcfg.optimizer.grad_clip)
-        new_p, new_opt = opt_update(state.params, grads, state.opt, lr,
-                                    tcfg.optimizer)
-        return new_p, new_opt, {"loss": loss, "grad_norm": gnorm, "lr": lr}
-
     if plan is None:
         def dense_step(state: TrainState, batch, rand_fn=None):
-            batch = to_device(batch)
+            batch = batch_to_device(batch, dev)
             loss, grads = _accumulated_grads(model, state.params, batch,
                                              n_micro)
-            _, paths = tree_flatten(state.params)
-            new_p, new_opt, metrics = finish(state, loss, grads, paths)
-            return TrainState(new_p, new_opt, None, state.step + 1), metrics
+            lr = sched(state.step)
+            new_p, new_opt, gnorm = update(state, grads, lr, tcfg)
+            return (TrainState(new_p, new_opt, None, state.step + 1),
+                    {"loss": loss, "grad_norm": gnorm, "lr": lr})
 
         return dense_step, None
 
     def sparcml_step(state: TrainState, batch, rand_fn: Optional[RandFn] = None):
-        batch = to_device(batch)
-        rows = next(iter(batch.values())).shape[0]
-        if rows % dp_total:
-            raise ValueError(f"global batch {rows} does not split into "
-                             f"{dp_total} ranks")
-        # every rank's grads on its slice, stacked (R, *leaf): the
-        # reference's jax.vmap over ranks
-        batch_r = {k: v.reshape((dp_total, rows // dp_total) + v.shape[1:])
-                   for k, v in batch.items()}
-        loss_r, leaves_r = vmap(lambda b: _accumulated_grads(
-            model, state.params, b, n_micro))(batch_r)
-        loss = loss_r.mean()
-        _, paths = tree_flatten(state.params)
+        batch = batch_to_device(batch, dev)
+        loss, leaves_r = rank_grads(model, state.params, batch, dp_total,
+                                    n_micro)
         if rand_fn is None:
             rand_fn = step_rand_fn(tcfg.seed, state.step, dev)
         synced, new_res = execute_plan_spmd(
             plan, leaves_r, state.residuals, p_data=dp_total, rand_fn=rand_fn)
-        new_p, new_opt, metrics = finish(state, loss, synced, paths)
-        return TrainState(new_p, new_opt, new_res, state.step + 1), metrics
+        lr = sched(state.step)
+        new_p, new_opt, gnorm = update(state, synced, lr, tcfg)
+        return (TrainState(new_p, new_opt, new_res, state.step + 1),
+                {"loss": loss, "grad_norm": gnorm, "lr": lr})
 
     return sparcml_step, plan

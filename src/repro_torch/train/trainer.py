@@ -1,28 +1,38 @@
-"""Synchronous training driver (the JAX package's ``Trainer.run``).
+"""Training driver (the JAX package's ``repro.train.trainer``).
 
-Each step takes the deterministic synthetic batch of its step number,
-runs the train step, waits for its loss and records the loss and the
-wall time of the step. Checkpoints, the straggler watchdog, the
-pipelined runtime, observability and fault injection are not ported yet.
+Two loops:
+
+* :meth:`Trainer.run`, the synchronous reference: each step takes the
+  deterministic synthetic batch of its step number, runs the train step
+  and waits for its loss;
+* :meth:`Trainer.run_pipelined`, the non-blocking runtime: pipelined
+  stale-gradient supersteps (``runtime/pipeline.py``) dispatched by the
+  double-buffered async driver (``runtime/driver.py``).
+
+Both record losses and step times through one logging policy with the
+straggler watchdog, checkpoint every ``ckpt_every`` steps and at the end
+when a ``ckpt_dir`` is given, and resume from the newest checkpoint that
+passes CRC verification. Their checkpoints are interchangeable, and
+interchangeable with the JAX package's: the pipelined loop strips the
+in-flight buffers before saving and attaches zeros after every restore.
+Observability, adaptive re-planning and fault injection are not ported
+yet.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
 
 from repro_torch.data.pipeline import DataConfig, synthetic_batch
 from repro_torch.device import resolve_device
+from repro_torch.runtime.driver import DriverLog, record_step
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.state import TrainConfig, TrainState
 from repro_torch.train.train_step import build_train_step, init_state
 
-
-@dataclass
-class TrainerLog:
-    losses: list = field(default_factory=list)
-    step_times: list = field(default_factory=list)   # seconds
+TrainerLog = DriverLog
 
 
 class Trainer:
@@ -30,38 +40,161 @@ class Trainer:
     on ``device`` (the card unless the caller asks for the CPU)."""
 
     def __init__(self, model, tcfg: TrainConfig, data_cfg: DataConfig, *,
-                 dp_total: int = 4, device="cuda"):
+                 dp_total: int = 4, device="cuda",
+                 ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
+                 straggler_factor: float = 3.0):
         self.device = resolve_device(device)
         self.model = model
         self.tcfg = tcfg
         self.data_cfg = data_cfg
         self.dp_total = dp_total
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
+        self.straggler_factor = straggler_factor
         self.log = TrainerLog()
         self.step_fn, self.plan = build_train_step(model, tcfg, dp_total,
                                                    self.device)
         self.state: Optional[TrainState] = None
 
+    # -- lifecycle ---------------------------------------------------------
     def init(self, params=None) -> int:
+        """Fresh state (from ``params`` when given), ignoring checkpoints."""
         self.state = init_state(self.model, self.tcfg, self.plan, self.device,
                                 params=params)
         return self.state.step
 
-    def run(self, num_steps: int, rand_fn_for_step=None) -> TrainerLog:
+    def init_or_resume(self, params=None) -> int:
+        """Fresh state, or the newest checkpoint under ``ckpt_dir`` that
+        passes CRC verification. Returns the step to start from."""
+        self.init(params)
+        if self.ckpt_dir and ckpt.latest_step(self.ckpt_dir) is not None:
+            self.state = self._restore()
+            self.log.restarts += 1
+        return self.state.step
+
+    def _restore(self) -> TrainState:
+        step = self._verified_step()
+        layout = ckpt.load_meta(self.ckpt_dir, step).get(
+            "opt_layout", ckpt.opt_layout_of(self.tcfg))
+        if layout != ckpt.opt_layout_of(self.tcfg):
+            raise NotImplementedError(
+                f"checkpoint opt layout {layout!r}: resuming a ZeRO layout "
+                "needs ROADMAP Queue 1 item 10")
+        return ckpt.restore(self.ckpt_dir, self.state._replace(inflight=None),
+                            dp_total=self.dp_total, step=step, verify=True)
+
+    def _verified_step(self) -> int:
+        """The newest checkpoint that passes CRC verification; falls back
+        past corrupt newer ones, raises when none verifies."""
+        step = ckpt.latest_valid_step(self.ckpt_dir)
+        if step is None:
+            raise ckpt.CheckpointCorrupt(
+                f"no checkpoint under {self.ckpt_dir} passes CRC "
+                "verification (retention window exhausted)")
+        return step
+
+    def _save(self, state: TrainState) -> None:
+        ckpt.save(self.ckpt_dir, state._replace(inflight=None),
+                  dp_total=self.dp_total,
+                  opt_layout=ckpt.opt_layout_of(self.tcfg))
+
+    # -- synchronous loop --------------------------------------------------
+    def run(self, num_steps: int, rand_fn_for_step=None,
+            fail_at: Optional[int] = None) -> TrainerLog:
         """Train up to step ``num_steps`` (absolute). ``rand_fn_for_step``
-        (step -> rand_fn) overrides the QSGD rounding bits."""
+        (step -> rand_fn) overrides the QSGD rounding bits; ``fail_at``
+        raises once before that step, for tests of the restore path."""
         if self.state is None:
-            self.init()
+            self.init_or_resume()
+        if self.state.inflight is not None:
+            # hand-off from a pipelined run: drop the in-flight reduction
+            # (one step of gradients, as on a restart)
+            self.state = self.state._replace(inflight=None)
         while self.state.step < num_steps:
             step = self.state.step
             batch = synthetic_batch(self.data_cfg, step)
             rand_fn = rand_fn_for_step(step) if rand_fn_for_step else None
             t0 = time.perf_counter()
-            new_state, metrics = self.step_fn(self.state, batch, rand_fn)
-            loss = float(metrics["loss"])
+            try:
+                if fail_at is not None and step == fail_at:
+                    fail_at = None
+                    raise RuntimeError("injected node failure")
+                new_state, metrics = self.step_fn(self.state, batch, rand_fn)
+                loss = float(metrics["loss"])
+            except Exception:
+                if not self.ckpt_dir:
+                    raise
+                self.log.restarts += 1
+                self.state = self._restore()
+                continue
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
             self.state = new_state
-            self.log.losses.append(loss)
-            self.log.step_times.append(dt)
+            record_step(self.log, step, dt, loss, self.straggler_factor)
+            if self.ckpt_dir and (step + 1) % self.ckpt_every == 0:
+                self._save(self.state)
+        if self.ckpt_dir:
+            self._save(self.state)
+        return self.log
+
+    # -- non-blocking runtime ----------------------------------------------
+    def run_pipelined(self, num_steps: int, *, staleness: int = 1,
+                      superstep: int = 4, depth: int = 2, prefetch: int = 2,
+                      guard: bool = True, rand_fn_for_step=None,
+                      adapt=False, injector=None,
+                      recovery=None) -> TrainerLog:
+        """Train up to step ``num_steps`` (absolute) with the pipelined
+        runtime: ``superstep``-step units of stale-gradient steps
+        (``staleness`` in {0, 1}; at 1 the reduce half runs on a side
+        CUDA stream) dispatched ``depth`` deep by the async driver, with
+        background data prefetch. ``guard`` builds the guarded step:
+        non-finite gradients skip the apply with residuals and optimizer
+        state kept, and three trips in a row rewind to the last
+        checkpoint. Checkpoints store the synchronous state (in-flight
+        buffers stripped). Adaptive re-planning, fault injection and the
+        retry supervisor raise until ported (ROADMAP Queue 1 items 9
+        and 13)."""
+        from repro_torch.runtime import driver as rt_driver
+        from repro_torch.runtime import pipeline as rt_pipeline
+
+        if adapt or injector is not None or recovery is not None:
+            raise NotImplementedError(
+                "adaptive re-planning (ROADMAP Queue 1 item 9), fault "
+                "injection and the retry supervisor (item 13) are not "
+                "ported")
+        if self.state is None:
+            self.init_or_resume()
+        kw = dict(staleness=staleness, guard=guard)
+        if superstep > 1:
+            fn, plan = rt_pipeline.build_superstep(
+                self.model, self.tcfg, self.dp_total, self.device,
+                steps=superstep, **kw)
+        else:
+            fn, plan = rt_pipeline.build_pipelined_step(
+                self.model, self.tcfg, self.dp_total, self.device, **kw)
+        state = self.state
+        if staleness:
+            state = rt_pipeline.attach_inflight(state, plan)
+        elif state.inflight is not None:
+            state = state._replace(inflight=None)
+
+        def restore_fn():
+            restored = self._restore()
+            return (rt_pipeline.attach_inflight(restored, plan) if staleness
+                    else restored)
+
+        state, _ = rt_driver.run_pipelined(
+            fn, state, start_step=state.step, num_steps=num_steps,
+            batch_fn=lambda step: synthetic_batch(self.data_cfg, step),
+            rand_fn_for_step=rand_fn_for_step,
+            cfg=rt_driver.DriverConfig(depth=depth, prefetch=prefetch,
+                                       steps_per_unit=superstep),
+            log=self.log, straggler_factor=self.straggler_factor,
+            ckpt_every=self.ckpt_every if self.ckpt_dir else None,
+            ckpt_fn=self._save if self.ckpt_dir else None,
+            restore_fn=restore_fn if self.ckpt_dir else None)
+        self.state = state
+        if self.ckpt_dir:
+            self._save(self.state)
         return self.log

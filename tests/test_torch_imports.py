@@ -28,5 +28,6 @@ def test_port_never_imports_jax_or_repro(path):
 
 def test_the_walk_sees_the_port():
     names = {p.name for p in FILES}
-    assert {"executor.py", "train_step.py", "_build.py",
+    assert {"executor.py", "train_step.py", "_build.py", "pipeline.py",
+            "driver.py", "faults.py", "checkpoint.py",
             "chip_smoke.py"} <= names
