@@ -44,7 +44,28 @@ Phases, in order; any failure exits non-zero:
      bit for bit; staleness 1 on the card equals the CPU path within rtol
      2e-4 with the same QSGD bits; a pipelined run with checkpoints and a
      fresh Trainer resumed from them hold the same state bit for bit;
-  7. the kernels line, the card line, and last the result line
+  7. the sparse allreduce library at the paper's Fig. 3 size:
+     make_sparse_allreduce over StackedCollectives(8) at N = 2^24, k = 4
+     and 64 of 512, for every algorithm (DSAR also with 4-bit QSGD),
+     each held against the exact f64 sum of the 8 ranks' TopK streams,
+     built with the plain versions alone (the clamped ones with their
+     folds; DSAR + QSGD also against the same pipeline through the plain
+     versions with the same rounding bits), bit-equal across two calls,
+     timed (CUDA events, and the device alone from a CUDA-graph replay)
+     with the kernels' launches, and one call of each profiled (device
+     time, the costliest kernels; valid only where the trace holds the
+     launches the counters saw); recursive doubling's switch to dense at
+     k = 64; at both densities the four kernels held against their plain
+     versions on the tensors this path hands them, then timed at these
+     shapes beside their bounds;
+  8. the per-rank lm-100m step: Trainer.run with lowering="manual" (the
+     wire protocols over the 4 stacked ranks, the single-bucket
+     qsgd_unpack) for 6 steps, against phase 3's stacked run (same seed,
+     same QSGD bits);
+  9. sparse classification (run_classify) at full size on the card:
+     ssar_split_allgather's accuracy within 0.01 of dense's, and the
+     weights after 2 steps within rtol 1e-5 of the CPU path;
+ 10. the kernels line, the card line, and last the result line
      {"ok": true, "device": {...}}.
 
 It imports torch and the port (``src/repro_torch``), never JAX. A longer
@@ -158,6 +179,7 @@ def main() -> None:
     from repro_torch.kernels.qsgd_unpack.ref import (UnpackSegment,
                                                      qsgd_unpack_ref)
     from repro_torch.core.qsgd import random_bits
+    from repro_torch.train import run_classify
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.model import build_model
     from repro_torch.data.pipeline import DataConfig
@@ -802,6 +824,33 @@ def main() -> None:
                                "resume_bit_equal": resume_same}
 
     # ---------------------------------------------------------------- 7
+    new_paths = {}
+    record["fig3"], new_paths["fig3"] = phase_fig3(torch, dev, wrappers,
+                                                   kernels, bw, f32_peak,
+                                                   profile=scratch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 8
+    record["manual_lm100m"], new_paths["manual_lm100m"] = phase_manual(
+        torch, dev, wrappers, record["main_path"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 9
+    record["classify"], new_paths["classify"] = phase_classify(
+        torch, dev, wrappers, run_classify)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 10
+    for row in kernels:
+        row["launches_new_paths"] = {
+            path: counts[row["name"]] for path, counts in new_paths.items()}
+        if row["name"] == "qsgd_unpack":
+            row["grouped_launches_new_paths"] = {
+                path: counts["qsgd_unpack_grouped"]
+                for path, counts in new_paths.items()}
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -809,6 +858,423 @@ def main() -> None:
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def fig3_bounds(n, p, b, k, bits, bq, bw, f32_peak) -> dict:
+    """Each kernel's least time at the Fig. 3 shapes (N = n per rank, p
+    ranks stacked): the larger of its bytes (each input read once, each
+    output written once) over the memory rate and its operations over the
+    f32 peak, as phase 2 counts them."""
+    rows = p * n // b                        # bucket rows of all ranks
+    shard = n // p                           # an owner's range
+    qn = p * shard                           # entries quantized (all owners)
+    qrows = qn // bq
+
+    def bound(nbytes, nops):
+        t_b, t_o = nbytes / bw * 1e3, nops / f32_peak * 1e3
+        return {"bound_ms": max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+    return {
+        "bucket_topk": dict(shape=f"({rows}, {b}) k={k}", **bound(
+            8 * p * n + 8 * rows * k, rows * k * b)),
+        # the split phase's owner densify: every source's rows of my range
+        "bucket_scatter": dict(shape=f"({rows}, {k}) -> ({rows}, {b})",
+                               **bound(4 * rows * b + 8 * rows * k,
+                                       rows * k)),
+        "qsgd_pack": dict(shape=f"({qrows}, {bq})", **bound(
+            8 * qn + qn * bits // 8 + 4 * qrows, 6 * qn)),
+        # the gathered codes are unpacked once (the stacked ranks share them)
+        "qsgd_unpack": dict(shape=f"({n // bq}, {bq * bits // 32})", **bound(
+            n * bits // 8 + 4 * (n // bq) + 4 * n, 2 * n)),
+    }
+
+
+# the CUDA kernel each launch counter counts, by its name in a trace
+KERNEL_OF = {"bucket_topk": "bucket_topk_kernel",
+             "bucket_scatter": "bucket_scatter_kernel",
+             "qsgd_pack": "qsgd_pack_kernel",
+             "qsgd_unpack": "qsgd_unpack_grouped_kernel",
+             "qsgd_unpack_grouped": "qsgd_unpack_grouped_kernel"}
+
+
+def kernel_breakdown(torch, fn, scratch: Path, launches: dict,
+                     top: int = 6) -> dict:
+    """fn() under torch.profiler: the device's kernel time, the kernel
+    count, and the ``top`` kernels by summed time (name, ms, count), read
+    from the trace. A trace can lose its first kernels, so fn() runs
+    twice, a spin kernel before each, and only the kernels after the last
+    spin count. ``valid`` says whether the trace holds a spin marker and,
+    of each of the port's kernels, as many launches as ``launches`` (the
+    counters of one call) says; only a valid breakdown is evidence."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    events = [e for e in events if "dur" in e and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    spins = [float(e["ts"]) + float(e["dur"]) for e in events
+             if "spin" in e.get("name", "")]
+    mark = max(spins, default=float("-inf"))
+    after = [e for e in events if float(e["ts"]) >= mark]
+    by_name: dict = {}
+    for e in after:
+        c = by_name.setdefault(e.get("name", "?")[:60], [0.0, 0])
+        c[0] += float(e["dur"]) / 1e3
+        c[1] += 1
+    want: dict = {}
+    for nm, c in launches.items():
+        want[KERNEL_OF[nm]] = want.get(KERNEL_OF[nm], 0) + c
+    seen = {kn: sum(kn in e.get("name", "") for e in after) for kn in want}
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return {"valid": bool(spins) and seen == want,
+            "spin_markers": len(spins), "port_kernels_in_trace": seen,
+            "device_ms": round(sum(v[0] for v in by_name.values()), 3),
+            "kernels": sum(v[1] for v in by_name.values()),
+            "top": [(nm, round(v[0], 3), v[1]) for nm, v in ranked[:top]]}
+
+
+def fig3_kernel_checks(torch, ar, coll, u, u_ref, rand, b, bits, bq):
+    """The four kernels against their plain versions on the tensors the
+    Fig. 3 path hands them at one density: bucket_topk (already compared
+    by the caller: ``u`` from the card, ``u_ref`` plain), the owner
+    densify of the split phase (bucket_scatter, bit-equal), qsgd_pack on
+    the owners' summed shards (bit-equal in 'max' mode; in 'l2' mode, the
+    path's, a code may move one level where the L2 scale was summed in
+    another order, in at most 1e-4 of the codes) and the single-bucket
+    qsgd_unpack of those codes (bit-equal). Returns the inputs (for the
+    timings) and a line saying what was checked."""
+    from repro_torch.kernels.bucket_scatter import ops as scatter_ops
+    from repro_torch.kernels.qsgd_pack import ops as pack_ops
+    from repro_torch.kernels.qsgd_pack.ref import u32_to_i64
+    from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
+
+    lidx, val = ar._split_uniform(u, coll)
+    k2 = lidx.shape[-1]
+    li2 = lidx.transpose(0, 1).reshape(-1, k2).contiguous()
+    va2 = val.transpose(0, 1).reshape(-1, k2).contiguous()
+    dense = scatter_ops.bucket_scatter(li2, va2, b)
+    if not torch.equal(dense, scatter_ops.bucket_scatter(li2, va2, b,
+                                                         impl="ref")):
+        fail(f"fig3 k={k2}: bucket_scatter differs from its plain version")
+    del dense
+    lr, vr = ar._split_uniform(u_ref, coll)
+    shard = ar._reduce_range_dense(lr, vr, b, impl="ref")    # (L, n/p)
+    if not torch.equal(ar._reduce_range_dense(lidx, val, b), shard):
+        fail(f"fig3 k={k2}: the owner densify differs from its plain form")
+    del lr, vr
+    sx = shard.reshape(-1, bq)
+    sr = rand[:, :shard.shape[1]].reshape(-1, bq).contiguous()
+    pm, sm = pack_ops.qsgd_pack(sx, sr, bits, "max")
+    pmr, smr = pack_ops.qsgd_pack(sx, sr, bits, "max", impl="ref")
+    if not (torch.equal(sm, smr)
+            and torch.equal(pm.view(torch.int32), pmr.view(torch.int32))):
+        fail(f"fig3 k={k2}: qsgd_pack ('max') differs from its plain version")
+    packed, sc = pack_ops.qsgd_pack(sx, sr, bits, "l2")
+    pr, scr = pack_ops.qsgd_pack(sx, sr, bits, "l2", impl="ref")
+    shifts = torch.arange(32 // bits, device=sx.device) * bits
+    dc = ((u32_to_i64(packed)[..., None] >> shifts) & (2**bits - 1)) - (
+        (u32_to_i64(pr)[..., None] >> shifts) & (2**bits - 1))
+    flips = int((dc != 0).sum())
+    if int(dc.abs().max()) > 1 or flips > 1e-4 * dc.numel():
+        fail(f"fig3 k={k2}: qsgd_pack ('l2') moved {flips} of {dc.numel()} "
+             "codes, or one by more than a level")
+    pk, sk = packed, sc           # every owner's codes, as gathered
+    if not torch.equal(unpack_ops.qsgd_unpack(pk, sk, bits),
+                       unpack_ops.qsgd_unpack(pk, sk, bits, impl="ref")):
+        fail(f"fig3 k={k2}: qsgd_unpack differs from its plain version")
+    what = (f"bucket_topk, bucket_scatter, the owner densify, qsgd_pack "
+            f"('max') and qsgd_unpack bit-equal to their plain versions; "
+            f"qsgd_pack ('l2') {flips} of {dc.numel()} codes one level apart")
+    return (li2, va2, sx, sr, pk, sk), what
+
+
+def phase_fig3(torch, dev, wrappers, kernels, bw, f32_peak, n=1 << 24, p=8,
+               ks=(4, 64), timer=None, need_launches=True, profile=None):
+    """Phase 7 (see the module docstring). Returns (record, the kernels'
+    launches summed over the phase's algorithm runs). ``profile``: a
+    directory for the traces of one call of each algorithm (device time,
+    kernel count, the costliest kernels), or None."""
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.core import allreduce as ar
+    from repro_torch.core.qsgd import QSGDConfig, random_bits
+    from repro_torch.core.sparse_stream import delta_threshold
+    from repro_torch.core.topk import compress
+    from repro_torch.kernels.bucket_scatter import ops as scatter_ops
+    from repro_torch.kernels.bucket_topk import ops as topk_ops
+    from repro_torch.kernels.qsgd_pack import ops as pack_ops
+    from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
+
+    timer = timer or time_ms
+    b, bits, bq = 512, 4, 1024
+    qsgd = QSGDConfig(bits, bq)
+    coll = StackedCollectives(p, dev)
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    x = torch.randn((p, n), device=dev, generator=gen)
+    rand = random_bits(p * n, gen, dev).reshape(p, n)
+    algos = [("ssar_recursive_double", None), ("ssar_split_allgather", None),
+             ("dsar_split_allgather", None), ("dsar_split_allgather", qsgd),
+             ("ssar_balanced_split", None), ("ssar_rearranged_rs", None),
+             ("dense", None)]
+    clamped = {"ssar_balanced_split": ar.ssar_balanced_split_inside,
+               "ssar_rearranged_rs": ar.ssar_rearranged_rs_inside}
+    total = {name: 0 for name in wrappers}
+    rec = {"n": n, "p": p, "runs": [], "kernel_checks": {}}
+    for k in ks:
+        # the exact sum comes from the plain versions alone, so that it
+        # does not share a kernel with what it checks
+        u, res = compress(x, k, b)
+        u_ref, res_ref = compress(x, k, b, impl="ref")
+        if not (torch.equal(u.val, u_ref.val) and torch.equal(u.lidx, u_ref.lidx)
+                and torch.equal(res, res_ref)):
+            fail(f"fig3 k={k}: bucket_topk differs from its plain version")
+        del res, res_ref
+        exact32 = u_ref.densify(impl="ref")
+        if not torch.equal(u.densify(), exact32):
+            fail(f"fig3 k={k}: bucket_scatter (densify) differs from its "
+                 "plain version")
+        exact = exact32.double().sum(0)
+        del exact32
+        scale = float(exact.abs().max())
+        inputs, checked = fig3_kernel_checks(torch, ar, coll, u, u_ref, rand,
+                                             b, bits, bq)
+        rec["kernel_checks"][k] = checked
+        log(f"[7] k={k}: {checked}")
+        del u_ref
+        # recursive doubling's capacity schedule and its switch to dense
+        delta = delta_threshold(n, 4)
+        cap, switch = u.nnz, None
+        for t in range(int(math.log2(p))):
+            if 2 * cap > delta:
+                switch = t
+                break
+            cap = min(2 * cap, n, delta)
+        rd = ar.ssar_recursive_double_inside(u.to_stream(), coll=coll, n=n)
+        fired = rd.dense is not None
+        if fired != (switch is not None):
+            fail(f"fig3 k={k}: recursive doubling switched={fired}, the "
+                 f"capacity schedule says round {switch}")
+        log(f"[7] k={k} of {b} (d={k / b:.3%}): recursive doubling "
+            + (f"switches to dense in round {switch} of {int(math.log2(p))} "
+               f"(2 x {cap} > delta {delta}): the switch fired"
+               if fired else f"stays sparse (final capacity {cap} <= delta "
+               f"{delta})"))
+        del rd
+        for algo, q in algos:
+            label = algo + ("+qsgd4" if q else "")
+            f = ar.make_sparse_allreduce(coll, n, k, b, algorithm=algo,
+                                         qsgd=q)
+            r_in = rand if q else None
+            for w in wrappers.values():
+                w.launches = 0
+            out = f(x, r_in)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = {nm: w.launches for nm, w in wrappers.items()}
+            for nm, c in launches.items():
+                total[nm] += c
+            got = out[0].double()
+            if not all(torch.equal(out[r], out[0]) for r in range(1, p)):
+                fail(f"fig3 {label} k={k}: the ranks' sums differ")
+            if q is not None:
+                # stochastic rounding moves an entry less than one level,
+                # sigma/s (sigma its QSGD bucket's L2 norm, s = 7 at 4
+                # bits); at the reference test's density (k = 4) also its
+                # mean relative error bound, 0.5
+                mask = exact != 0
+                err = float((got - exact)[mask].abs().mean()
+                            / exact[mask].abs().mean())
+                level = (exact.reshape(-1, bq).norm(dim=1, keepdim=True)
+                         / (2 ** (bits - 1) - 1)).expand(-1, bq).reshape(-1)
+                over = float(((got - exact).abs() - level * (1 + 1e-5)
+                              ).max()) / scale
+                # the same pipeline through the plain versions with the same
+                # rounding bits: the same codes, except where the L2 scale's
+                # sum order moves one a level, in at most 1e-4 of them
+                want = ar.make_sparse_allreduce(
+                    coll, n, k, b, algorithm=algo, qsgd=q, impl="ref")(
+                        x, r_in)[0].double()
+                diff = (got - want).abs()
+                moved = diff > 1e-5 * want.abs()
+                flips = int(moved.sum())
+                beyond = float((diff - level * (1 + 1e-5))[moved].max()) \
+                    / scale if flips else -1.0
+                ok = (over <= 1e-6 and (k != 4 or err < 0.5)
+                      and beyond <= 1e-6 and flips <= 1e-4 * n)
+                what = (f"mean rel err {err:.3e} (limit 0.5 at k=4), "
+                        f"max (|err| - level) / max|sum| {over:.3e} "
+                        f"(limit 1e-6); against the plain pipeline with the "
+                        f"same bits {flips} of {n} entries a level apart "
+                        f"(limit 1e-4 n), max (|diff| - level) / max|sum| "
+                        f"{beyond:.3e} (limit 1e-6)")
+                del want, diff, moved, level
+            else:
+                if algo in clamped:
+                    dense, fold = clamped[algo](u, coll=coll)
+                    if not torch.equal(dense, out):
+                        fail(f"fig3 {label} k={k}: make_sparse_allreduce "
+                             "differs from its *_inside function")
+                    got = got + fold.double().sum(0)
+                    del dense, fold
+                err = float(((got - exact).abs()
+                             - 1e-5 * exact.abs()).max()) / scale
+                ok, what = err <= 1e-6, (
+                    f"max (|err| - 1e-5 |sum|) / max|sum| {err:.3e} "
+                    "(limit 1e-6)")
+            again = torch.equal(f(x, r_in), out)
+            del got, out
+            ms = timer(torch, lambda: f(x, r_in))
+            row = {"algorithm": label, "k": k, "ms": ms, "check": what,
+                   "bit_equal_rerun": again, "launches": launches}
+            if dev.type == "cuda":
+                row["device_ms"] = graph_ms(torch, lambda: f(x, r_in),
+                                           replays=5)
+            if profile:
+                row["kernels"] = kernel_breakdown(torch, lambda: f(x, r_in),
+                                                  profile, launches)
+            rec["runs"].append(row)
+            log(f"[7] fig3 N=2^{int(math.log2(n))} P={p} k={k} {label}: "
+                f"{ms:.3f} ms (device alone, CUDA graph: "
+                f"{row.get('device_ms')}); {what}; rerun bit-equal {again}; "
+                f"launches { {nm: c for nm, c in launches.items() if c} }")
+            if profile:
+                log(f"[7]   where the time goes: {row['kernels']}")
+            if not ok:
+                fail(f"fig3 {label} k={k}: {what}")
+            if not again:
+                fail(f"fig3 {label} k={k}: a second call gave other bits")
+        del u, exact
+        gc.collect()
+    if need_launches:
+        for nm in ("bucket_topk", "bucket_scatter", "qsgd_pack",
+                   "qsgd_unpack"):
+            if not total[nm]:
+                fail(f"fig3: {nm} was never launched")
+    # -- the four kernels alone at these shapes (k = the last density), on
+    #    the inputs its checks above held against the plain versions
+    k = ks[-1]
+    bounds = fig3_bounds(n, p, b, k, bits, bq, bw, f32_peak)
+    xb = x.reshape(-1, b)
+    li2, va2, sx, sr, pk, sk = inputs
+    timed = {
+        "bucket_topk": lambda: topk_ops.bucket_topk(xb, k),
+        "bucket_scatter": lambda: scatter_ops.bucket_scatter(li2, va2, b),
+        "qsgd_pack": lambda: pack_ops.qsgd_pack(sx, sr, bits, "l2"),
+        "qsgd_unpack": lambda: unpack_ops.qsgd_unpack(pk, sk, bits)}
+    li64 = li2.to(torch.int64)
+    lib_out = torch.empty((li2.shape[0], b), device=dev)
+    library = {                  # one PyTorch call for the same function
+        "bucket_topk": lambda: torch.topk(xb.abs(), k, dim=1),
+        "bucket_scatter": lambda: lib_out.zero_().scatter_add_(1, li64, va2)}
+    rec["kernels"] = {}
+    for row in kernels:
+        nm = row["name"]
+        t = {"ms": timer(torch, timed[nm]), **bounds[nm],
+             "library_ms": (timer(torch, library[nm]) if nm in library
+                            else None), "check": checked}
+        rec["kernels"][nm] = t
+        row["fig3"] = t
+        log(f"[7] {nm} at the Fig. 3 shape {t['shape']}: {t['ms']:.3f} ms, "
+            f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}), library "
+            f"{t['library_ms']} ms")
+    return rec, total
+
+
+def phase_manual(torch, dev, wrappers, spmd_main):
+    """Phase 8 (see the module docstring). Returns (record, launches)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.train import run_lm
+    from repro_torch.train.trainer import Trainer
+
+    cfg, data = run_lm.lm_config(fast=False)
+    trainer = Trainer(build_model(cfg), run_lm.train_config(STEPS), data,
+                      dp_total=run_lm.DP, device=dev, lowering="manual")
+    trainer.init()
+    n_sparse = trainer.plan.num_sparse_buckets
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    tlog = trainer.run(STEPS)
+    launches = {nm: w.launches for nm, w in wrappers.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(tlog.step_times[1:]) * 1e3
+    ref = spmd_main["losses"]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(tlog.losses, ref))
+    same = tlog.losses == ref
+    log(f"[8] {cfg.name} lowering=manual (per-rank DSAR + QSGD4 over "
+        f"{run_lm.DP} stacked ranks): losses "
+        f"{[round(v, 5) for v in tlog.losses]}")
+    log(f"[8] step times ms {[round(t * 1e3, 1) for t in tlog.step_times]}; "
+        f"median of steps 2-{STEPS}: {step_ms:.1f} ms (stacked, phase 3: "
+        f"{spmd_main['median_step_ms']:.1f} ms); peak memory {peak_gb:.2f} "
+        f"GB; launches {launches}")
+    log(f"[8] manual vs stacked lowering, same seed and QSGD bits: max rel "
+        f"loss diff {rel:.2e} (limit 2e-4); bit-equal {same}")
+    expect = {"bucket_topk": n_sparse * STEPS,
+              "bucket_scatter": n_sparse * STEPS,
+              "qsgd_pack": n_sparse * STEPS, "qsgd_unpack": n_sparse * STEPS,
+              "qsgd_unpack_grouped": 0}
+    for nm, c in launches.items():
+        if c != expect[nm]:
+            fail(f"manual lowering: {nm} launched {c} times in {STEPS} "
+                 f"steps, expected {expect[nm]}")
+    if not all(math.isfinite(v) for v in tlog.losses) or not rel <= 2e-4:
+        fail("manual lowering: losses disagree with the stacked lowering")
+    return ({"losses": list(tlog.losses), "step_times_s": list(tlog.step_times),
+             "median_step_ms": step_ms, "peak_memory_gb": peak_gb,
+             "launches": launches, "max_rel_vs_spmd": rel,
+             "bit_equal_vs_spmd": same}, launches)
+
+
+def phase_classify(torch, dev, wrappers, rc, need_launches=True):
+    """Phase 9 (see the module docstring). Returns (record, launches)."""
+    data = rc.load(dev)
+    total = {nm: 0 for nm in wrappers}
+    rec = {}
+    for algo in rc.ALGORITHMS:
+        for w in wrappers.values():
+            w.launches = 0
+        w_, dt = rc.train(algo, data, rc.N_FEATURES, dev)
+        launches = {nm: w.launches for nm, w in wrappers.items()}
+        for nm, c in launches.items():
+            total[nm] += c
+        acc = rc.accuracy(w_, data)
+        rec[algo] = {"seconds": dt, "accuracy": acc, "launches": launches}
+        log(f"[9] run_classify {algo:22s}: {rc.STEPS} steps in {dt:.3f} s, "
+            f"train accuracy {acc:.4f}; launches "
+            f"{ {nm: c for nm, c in launches.items() if c} }")
+        if need_launches and launches["bucket_topk"] != rc.STEPS:
+            fail(f"run_classify {algo}: bucket_topk launched "
+                 f"{launches['bucket_topk']} times in {rc.STEPS} steps")
+    gap = abs(rec["ssar_split_allgather"]["accuracy"]
+              - rec["dense"]["accuracy"])
+    if not gap <= 0.01:
+        fail(f"run_classify: accuracies differ by {gap}")
+    cpu = torch.device("cpu")
+    data_cpu = rc.load(cpu)
+    for algo in rc.ALGORITHMS:
+        w_card, _ = rc.train(algo, data, rc.N_FEATURES, dev, steps=2)
+        w_cpu, _ = rc.train(algo, data_cpu, rc.N_FEATURES, cpu, steps=2)
+        w_card = w_card.cpu()
+        atol = 1e-6 * float(w_cpu.abs().max())
+        err = float(((w_card - w_cpu).abs() - 1e-5 * w_cpu.abs()).max())
+        rec[algo]["two_steps_card_vs_cpu"] = err
+        log(f"[9] {algo}: weights after 2 steps, card vs CPU plain path: "
+            f"max (|diff| - 1e-5 |w|) {err:.3e} (limit 1e-6 max|w| = "
+            f"{atol:.3e})")
+        if not err <= atol:
+            fail(f"run_classify {algo}: card and CPU weights disagree")
+    return rec, total
 
 
 def _union(intervals):

@@ -1,1 +1,2 @@
-"""Fused sync planning and the stacked-replica plan executor."""
+"""Fused sync planning, the collectives, and the plan executors (stacked
+and per rank)."""

@@ -12,7 +12,8 @@ world size. It decides:
   phase always divides, x the QSGD bucket when quantizing);
 * which algorithm each bucket runs (the configured one, DSAR for rowed
   buckets, plain sum below ``min_sparse_size``). ``algorithm='auto'``
-  needs the cost model, which this slice does not port yet.
+  selects by the cost model, whose network parameters are not measured
+  for the port's interconnect yet, and raises.
 
 Error-feedback residual state is keyed by bucket: a bucket is the unit
 of compression, so it is the unit of feedback. So are the non-blocking
@@ -30,6 +31,7 @@ from typing import Any
 import torch
 
 from repro_torch.comm.buckets import canonical_shape, model_axis
+from repro_torch.core.cost_model import AUTO_NOT_CALIBRATED
 from repro_torch.utils.tree import tree_flatten
 
 # The batched (rows > 1) pipeline keeps the model-sharded row axis as a
@@ -58,6 +60,10 @@ class BucketSpec:
     cols: int
     rows: int
     algorithm: str                # resolved: a sparse algorithm | 'dense'
+    # Route the cross-pod phase as a sparse (idx, val) stream exchange
+    # instead of the dense psum (flat buckets only). Set by re-planning
+    # (ROADMAP Queue 1 item 9); wire path only, the sum is exact.
+    pod_sparse: bool = False
 
     @property
     def sparse(self) -> bool:
@@ -100,6 +106,11 @@ class SyncPlan:
     @property
     def num_sparse_buckets(self) -> int:
         return sum(1 for b in self.buckets if b.sparse)
+
+    def bucket_k(self, group: GroupSpec, b: BucketSpec) -> int:
+        """TOTAL selected items of one bucket per rank per step."""
+        return group.rows * (b.cols // self.cfg.bucket_size) * \
+            self.cfg.k_per_bucket
 
     def init_residuals(self, device="cpu") -> dict[str, torch.Tensor]:
         """Zero error-feedback state, keyed by bucket name: (dp_total, rows,
@@ -156,9 +167,7 @@ def _resolve_algorithm(cfg, dp_total: int, rows: int, cols: int) -> str:
     if n < cfg.min_sparse_size:
         return "dense"
     if cfg.algorithm == "auto":
-        raise NotImplementedError(
-            "algorithm='auto' needs core/cost_model.py, which is not ported "
-            "yet: name the algorithm")
+        raise NotImplementedError(AUTO_NOT_CALIBRATED)
     algo = cfg.algorithm
     if rows > 1 and algo not in BATCHED_ALGORITHMS:
         algo = "dsar_split_allgather"   # batched pipeline: DSAR only

@@ -23,26 +23,33 @@ class QSGDConfig(NamedTuple):
 
 def quantize(x: torch.Tensor, cfg: QSGDConfig, rand: torch.Tensor,
              impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
-    """x: flat (n,), zero-padded to a multiple of cfg.bucket_size.
+    """x: (n,) or (*lead, n), zero-padded to a multiple of cfg.bucket_size.
 
-    rand: flat uint32 (n,). Returns (packed (nb, W) u32, scales (nb, 1) f32).
+    rand: uint32 of x's shape. Returns (packed (*lead, nb, W) u32,
+    scales (*lead, nb, 1) f32).
     """
-    (n,) = x.shape
+    *lead, n = x.shape
     bq = cfg.bucket_size
     nb = -(-n // bq)
     pad = nb * bq - n
     if pad:
         x = F.pad(x, (0, pad))
-        rand = F.pad(rand, (0, pad))
-    return qsgd_pack(x.reshape(nb, bq), rand.reshape(nb, bq), cfg.bits,
-                     cfg.scale_mode, impl=impl)
+        rand = F.pad(rand.view(torch.int32), (0, pad)).view(torch.uint32)
+    packed, scale = qsgd_pack(x.reshape(-1, bq).contiguous(),
+                              rand.reshape(-1, bq).contiguous(), cfg.bits,
+                              cfg.scale_mode, impl=impl)
+    return (packed.reshape(*lead, nb, packed.shape[-1]),
+            scale.reshape(*lead, nb, 1))
 
 
 def dequantize(packed: torch.Tensor, scale: torch.Tensor, cfg: QSGDConfig,
                n: int, out_dtype=torch.float32,
                impl: str = "auto") -> torch.Tensor:
-    xhat = qsgd_unpack(packed, scale, cfg.bits, out_dtype, impl=impl)
-    return xhat.reshape(-1)[:n]
+    """packed (*lead, nb, W), scale (*lead, nb, 1) -> (*lead, n)."""
+    *lead, nb, w = packed.shape
+    xhat = qsgd_unpack(packed.reshape(-1, w), scale.reshape(-1, 1), cfg.bits,
+                       out_dtype, impl=impl)
+    return xhat.reshape(*lead, -1)[..., :n]
 
 
 def random_bits(n: int, generator: Optional[torch.Generator] = None,

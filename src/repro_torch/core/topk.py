@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.sparse_stream import SparseStream
 from repro_torch.kernels.bucket_scatter.ops import bucket_scatter
 from repro_torch.kernels.bucket_topk.ops import bucket_topk
 
@@ -22,34 +23,70 @@ from repro_torch.kernels.bucket_topk.ops import bucket_topk
 class UniformStream(NamedTuple):
     """A bucket-uniform sparse vector: exactly k entries per B-wide bucket.
 
-    lidx: (nb, k) int32, ascending within bucket, values in [0, B)
-    val:  (nb, k)
+    lidx: (*lead, nb, k) int32, ascending within bucket, values in [0, B)
+    val:  (*lead, nb, k)
     Global index of entry (r, j) = r * B + lidx[r, j]; total length nb * B.
+    The optional leading axes hold independent vectors (the ranks a
+    process holds in the per-rank collectives).
     """
 
     lidx: torch.Tensor
     val: torch.Tensor
     bucket_size: int
 
+    @property
+    def num_buckets(self) -> int:
+        return self.lidx.shape[-2]
+
+    @property
+    def k(self) -> int:
+        return self.lidx.shape[-1]
+
+    @property
+    def n(self) -> int:
+        return self.num_buckets * self.bucket_size
+
+    @property
+    def nnz(self) -> int:
+        return self.num_buckets * self.k
+
+    def to_stream(self) -> SparseStream:
+        """Flat global-index stream (sorted: buckets are contiguous)."""
+        *lead, nb, k = self.lidx.shape
+        base = torch.arange(nb, dtype=torch.int32,
+                            device=self.lidx.device)[:, None] * self.bucket_size
+        return SparseStream(
+            idx=(base + self.lidx).reshape(*lead, nb * k),
+            val=self.val.reshape(*lead, nb * k),
+            nnz=torch.full(tuple(lead), nb * k, dtype=torch.int32,
+                           device=self.lidx.device))
+
     def densify(self, impl: str = "auto") -> torch.Tensor:
-        return bucket_scatter(self.lidx, self.val, self.bucket_size,
-                              impl=impl).reshape(-1)
+        """(*lead, nb*B) through ``bucket_scatter``."""
+        *lead, nb, k = self.lidx.shape
+        return bucket_scatter(self.lidx.reshape(-1, k), self.val.reshape(-1, k),
+                              self.bucket_size, impl=impl).reshape(
+                                  *lead, nb * self.bucket_size)
 
 
 def compress(x: torch.Tensor, k_per_bucket: int, bucket_size: int = 512,
              impl: str = "auto") -> tuple[UniformStream, torch.Tensor]:
-    """TopK-compress a flat vector. Returns (stream, residual).
+    """TopK-compress a vector (n,) or a batch of vectors (*lead, n).
+    Returns (stream, residual).
 
     x is zero-padded up to a bucket multiple. residual = x with the
     selected entries zeroed, restricted to the original length.
     """
-    (n,) = x.shape
+    *lead, n = x.shape
     nb = -(-n // bucket_size)
     pad = nb * bucket_size - n
     xp = F.pad(x, (0, pad)) if pad else x
-    val, lidx, res = bucket_topk(xp.reshape(nb, bucket_size), k_per_bucket,
+    val, lidx, res = bucket_topk(xp.reshape(-1, bucket_size), k_per_bucket,
                                  impl=impl)
-    return UniformStream(lidx, val, bucket_size), res.reshape(-1)[:n]
+    k = k_per_bucket
+    return (UniformStream(lidx.reshape(*lead, nb, k), val.reshape(*lead, nb, k),
+                          bucket_size),
+            res.reshape(*lead, nb * bucket_size)[..., :n])
 
 
 class BatchedStream(NamedTuple):

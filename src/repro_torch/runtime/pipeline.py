@@ -45,9 +45,10 @@ its moments decay once).
 ``build_superstep`` chains K steps with no host sync in between and
 stacks their metrics: the counterpart of the reference's ``lax.scan``.
 
-Only the stacked-replica lowering (``"spmd"``) exists in the port; the
-reference's ``manual`` and ``emulated`` lowerings need the per-rank
-``torch.distributed`` form (ROADMAP Queue 1 item 7).
+The pipelined step runs the stacked-replica lowering (``"spmd"``). The
+per-rank executor (the reference's ``manual`` lowering) drives the
+synchronous step so far; its pipelined form is ROADMAP Queue 1 item 7's
+open part, and the reference's ``emulated`` lowering is not ported.
 """
 from __future__ import annotations
 
@@ -72,16 +73,25 @@ VALID_KEY = "__valid__"
 
 
 def resolve_lowering(lowering: Optional[str] = None) -> str:
-    """The lowering the port runs: the stacked-replica one. The per-rank
-    lowerings raise until their form is ported."""
+    """The lowering the pipelined step runs: the stacked-replica one. The
+    per-rank executor runs the synchronous step (``Trainer.run``); its
+    pipelined form is open (ROADMAP Queue 1 item 7), and the reference's
+    emulated lowering works around an XLA fault that PyTorch does not
+    have."""
     if lowering is None:
         return "spmd"
     if lowering not in LOWERINGS:
         raise ValueError(f"lowering must be one of {LOWERINGS}: {lowering!r}")
+    if lowering == "manual":
+        raise NotImplementedError(
+            "lowering='manual' runs the synchronous step only (Trainer.run); "
+            "the pipelined per-rank step is not ported yet (ROADMAP Queue 1 "
+            "item 7)")
     if lowering != "spmd":
         raise NotImplementedError(
-            f"lowering={lowering!r} needs the per-rank torch.distributed "
-            "form (ROADMAP Queue 1 item 7); the port runs 'spmd'")
+            f"lowering={lowering!r} is not ported: the reference's psum-only "
+            "emulation works around an XLA-CPU fault that PyTorch does not "
+            "have (ROADMAP Queue 1 item 7)")
     return lowering
 
 

@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.train.run_lm --steps 20
     PYTHONPATH=src python -m repro_torch.train.run_lm --fast
     PYTHONPATH=src python -m repro_torch.train.run_lm --steps 40 --pipeline
+    PYTHONPATH=src python -m repro_torch.train.run_lm --steps 20 --lowering manual
 
 The PyTorch counterpart of ``examples/train_lm_topk.py``: lm-100m (12
 layers, d=768, GQA 12/4 heads, SwiGLU 2048, vocab 32768, f32) at global
@@ -17,8 +18,10 @@ prefetch, the reduce half on a side CUDA stream. A short synchronous
 probe runs first so the overlap win can be printed. ``--ckpt-dir``
 checkpoints every 25 steps and resumes from the newest checkpoint there
 (the example's default directory lies outside the checkout, so here
-there is none unless asked for). ZeRO-1 is not ported: the optimizer
-state stays replicated.
+there is none unless asked for). ``--lowering manual`` syncs through the
+per-rank executor (the wire protocols over the stacked ranks) instead of
+the stacked sum; the pipelined loop runs the stacked one. ZeRO-1 is not
+ported: the optimizer state stays replicated.
 """
 from __future__ import annotations
 
@@ -76,6 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "supersteps + async driver")
     ap.add_argument("--superstep", type=int, default=4,
                     help="steps per superstep (with --pipeline)")
+    ap.add_argument("--lowering", choices=("spmd", "manual"), default="spmd",
+                    help="sparcml executor of the synchronous step: the "
+                         "stacked sum or the per-rank wire protocols")
     return ap
 
 
@@ -86,8 +92,11 @@ def main(argv=None):
     steps = min(args.steps, 60) if args.fast else args.steps
     model = build_model(cfg)
     print(f"model: {cfg.name}, {cfg.param_count() / 1e6:.1f}M params")
+    if args.pipeline and args.lowering != "spmd":
+        raise SystemExit("--pipeline runs the stacked lowering only")
     trainer = Trainer(model, train_config(steps), data, dp_total=DP,
-                      ckpt_dir=args.ckpt_dir, ckpt_every=CKPT_EVERY)
+                      ckpt_dir=args.ckpt_dir, ckpt_every=CKPT_EVERY,
+                      lowering=args.lowering)
     if trainer.plan is not None:
         print(trainer.plan.describe())
     start = trainer.init_or_resume()

@@ -1,14 +1,21 @@
 """train_step builder: dense and sparcml (paper Alg. 2) gradient sync with
 microbatch accumulation.
 
-sparcml mode is the JAX package's stacked-replica formulation
-(``repro.train.train_step``, the auto-SPMD path): the global batch splits
-into R = dp_total rank slices, every rank's gradients are computed on its
-slice against the same params by ``torch.func.vmap`` over the rank axis
-(the reference's ``jax.vmap``), stacked on a leading (R,) axis, and
-``comm.execute_plan_spmd`` runs bucketed top-k with per-rank error
-feedback, the sum over ranks (the allreduce) and the optional QSGD round
-trip. Then the synced gradients are clipped and the optimizer updates the
+sparcml mode: the global batch splits into R = dp_total rank slices,
+every rank's gradients are computed on its slice against the same params
+by ``torch.func.vmap`` over the rank axis (the reference's ``jax.vmap``),
+stacked on a leading (R,) axis, and the plan executor syncs them in one
+of two lowerings:
+
+* ``"spmd"`` (the JAX package's auto-SPMD path): ``execute_plan_spmd``
+  runs bucketed top-k with per-rank error feedback, the sum over ranks
+  (the allreduce) and the optional QSGD round trip;
+* ``"manual"`` (its shard_map path): the per-rank ``execute_plan`` over a
+  ``StackedCollectives`` of the R ranks, so every bucket runs its planned
+  algorithm's wire protocol (all_to_all split, owner densify, allgather,
+  QSGD on the wire).
+
+Then the synced gradients are clipped and the optimizer updates the
 single params copy.
 
 dense mode: gradients of the global batch, clipped, optimizer update.
@@ -23,7 +30,8 @@ from typing import Optional
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.comm.executor import RandFn, execute_plan_spmd
+from repro_torch.comm.collectives import StackedCollectives
+from repro_torch.comm.executor import RandFn, execute_plan, execute_plan_spmd
 from repro_torch.comm.plan import SyncPlan, build_sync_plan
 from repro_torch.core.qsgd import random_bits
 from repro_torch.device import resolve_device
@@ -163,12 +171,18 @@ def step_rand_fn(seed: int, step: int, device) -> RandFn:
     return lambda bucket_idx, n: random_bits(n, gen, device)
 
 
+LOWERINGS = ("spmd", "manual")
+
+
 def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
-                     device="cuda"):
+                     device="cuda", lowering: str = "spmd"):
     """Returns (step_fn, plan). ``step_fn(state, batch, rand_fn=None) ->
     (new_state, metrics)``; batch values may be numpy or tensors.
     ``rand_fn(bucket_idx, n)`` overrides the QSGD rounding bits (see
-    ``comm/executor.py``)."""
+    ``comm/executor.py``; both lowerings lay them out alike, so the same
+    function drives either). ``lowering`` picks the sparcml executor."""
+    if lowering not in LOWERINGS:
+        raise ValueError(f"lowering must be one of {LOWERINGS}: {lowering!r}")
     dev = resolve_device(device)
     sched = make_schedule(tcfg.schedule)
     n_micro = tcfg.microbatches
@@ -186,14 +200,21 @@ def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
 
         return dense_step, None
 
+    coll = StackedCollectives(dp_total, dev) if lowering == "manual" else None
+
     def sparcml_step(state: TrainState, batch, rand_fn: Optional[RandFn] = None):
         batch = batch_to_device(batch, dev)
         loss, leaves_r = rank_grads(model, state.params, batch, dp_total,
                                     n_micro)
         if rand_fn is None:
             rand_fn = step_rand_fn(tcfg.seed, state.step, dev)
-        synced, new_res = execute_plan_spmd(
-            plan, leaves_r, state.residuals, p_data=dp_total, rand_fn=rand_fn)
+        if coll is not None:
+            synced, new_res = execute_plan(plan, leaves_r, state.residuals,
+                                           coll=coll, rand_fn=rand_fn)
+        else:
+            synced, new_res = execute_plan_spmd(
+                plan, leaves_r, state.residuals, p_data=dp_total,
+                rand_fn=rand_fn)
         lr = sched(state.step)
         new_p, new_opt, gnorm = update(state, synced, lr, tcfg)
         return (TrainState(new_p, new_opt, new_res, state.step + 1),

@@ -37,12 +37,15 @@ TrainerLog = DriverLog
 
 class Trainer:
     """Trains ``model`` under ``tcfg`` with ``dp_total`` stacked replicas
-    on ``device`` (the card unless the caller asks for the CPU)."""
+    on ``device`` (the card unless the caller asks for the CPU).
+    ``lowering`` picks the synchronous step's sparcml executor: "spmd"
+    (the stacked sum) or "manual" (the per-rank wire protocols); the
+    pipelined loop runs "spmd" only."""
 
     def __init__(self, model, tcfg: TrainConfig, data_cfg: DataConfig, *,
                  dp_total: int = 4, device="cuda",
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
-                 straggler_factor: float = 3.0):
+                 straggler_factor: float = 3.0, lowering: str = "spmd"):
         self.device = resolve_device(device)
         self.model = model
         self.tcfg = tcfg
@@ -52,8 +55,9 @@ class Trainer:
         self.ckpt_every = ckpt_every
         self.straggler_factor = straggler_factor
         self.log = TrainerLog()
+        self.lowering = lowering
         self.step_fn, self.plan = build_train_step(model, tcfg, dp_total,
-                                                   self.device)
+                                                   self.device, lowering)
         self.state: Optional[TrainState] = None
 
     # -- lifecycle ---------------------------------------------------------
@@ -165,7 +169,7 @@ class Trainer:
                 "ported")
         if self.state is None:
             self.init_or_resume()
-        kw = dict(staleness=staleness, guard=guard)
+        kw = dict(staleness=staleness, guard=guard, lowering=self.lowering)
         if superstep > 1:
             fn, plan = rt_pipeline.build_superstep(
                 self.model, self.tcfg, self.dp_total, self.device,

@@ -207,3 +207,66 @@ def test_cuda_pipelined_driver_matches_sequential_steps(cuda_device):
         for a, b in zip(tree_leaves(getattr(state, f)),
                         tree_leaves(getattr(ref, f))):
             assert torch.equal(a, b)
+
+
+ALGORITHMS = ("ssar_recursive_double", "ssar_split_allgather",
+              "dsar_split_allgather", "ssar_balanced_split",
+              "ssar_rearranged_rs", "dense")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_cuda_make_sparse_allreduce_matches_exact_sum(cuda_device, algo):
+    """Every algorithm over StackedCollectives(8) on the card, at a small
+    N with fully overlapping supports (no capacity binds), against the
+    exact sum of the 8 ranks' TopK streams in f64; the kernels' launch
+    counts show the path went through them, and a second call gives the
+    same bits."""
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.core.allreduce import make_sparse_allreduce
+    from repro_torch.core.topk import compress
+
+    n, k, b = 1 << 15, 8, 512
+    rng = np.random.default_rng(len(algo))
+    x = rng.standard_normal((8, n)).astype(np.float32) * 0.01
+    hot = (np.arange(n // b)[:, None] * b + np.arange(k)).reshape(-1)
+    big = 1 + np.abs(rng.standard_normal((8, hot.size)))   # always selected
+    x[:, hot] += (np.sign(rng.standard_normal((8, hot.size))) * big).astype(
+        np.float32)
+    x = torch.from_numpy(x).to(cuda_device)
+    f = make_sparse_allreduce(StackedCollectives(8, cuda_device), n, k, b,
+                              algorithm=algo)
+    topk_ops.bucket_topk.launches = 0
+    out = f(x)
+    assert topk_ops.bucket_topk.launches == 1
+    exact = compress(x, k, b, impl="ref")[0].densify(impl="ref").double().sum(0)
+    tol = 1e-6 * float(exact.abs().max())
+    for r in range(8):
+        torch.testing.assert_close(out[r].double(), exact, rtol=1e-5, atol=tol)
+    assert torch.equal(f(x), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ssar_balanced_split_inside",
+                                  "ssar_rearranged_rs_inside"])
+def test_cuda_clamped_algorithms_fold_what_they_clip(cuda_device, name):
+    """The two capacity-clamped algorithms on the card on plain normals,
+    where their caps bind: the replicated result plus the ranks' folds is
+    the exact sum of the 8 ranks' TopK streams (built with the plain
+    versions, in f64), at the tolerance of the test above."""
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.core import allreduce as ar
+    from repro_torch.core.topk import compress
+
+    n, k, b = 1 << 15, 8, 512
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, n)).astype(np.float32)).to(cuda_device)
+    topk_ops.bucket_topk.launches = 0
+    u, _ = compress(x, k, b)
+    assert topk_ops.bucket_topk.launches == 1
+    dense, fold = getattr(ar, name)(u, coll=StackedCollectives(8, cuda_device))
+    assert int((fold != 0).sum()) > 0                     # the cap binds
+    assert all(torch.equal(dense[r], dense[0]) for r in range(8))
+    exact = compress(x, k, b, impl="ref")[0].densify(impl="ref").double().sum(0)
+    torch.testing.assert_close(dense[0].double() + fold.double().sum(0), exact,
+                               rtol=1e-5, atol=1e-6 * float(exact.abs().max()))

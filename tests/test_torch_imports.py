@@ -31,3 +31,8 @@ def test_the_walk_sees_the_port():
     assert {"executor.py", "train_step.py", "_build.py", "pipeline.py",
             "driver.py", "faults.py", "checkpoint.py",
             "chip_smoke.py"} <= names
+    # the sparse allreduce library, its collectives and the classification
+    # entry point
+    assert {"sparse_stream.py", "density.py", "cost_model.py",
+            "collectives.py", "allreduce.py", "sparse_datasets.py",
+            "run_classify.py"} <= names

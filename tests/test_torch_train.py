@@ -240,3 +240,99 @@ def test_model_init_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert model.init(device="meta")["embed"].device.type == "meta"
     assert model.init(torch.Generator().manual_seed(0),
                       device="cpu")["embed"].device.type == "cpu"
+
+
+# --------------------------------------------------------------------------
+# the per-rank (manual) lowering of the synchronous step
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("qsgd_bits,rtol", [(None, 1e-5), (4, 2e-4)])
+def test_manual_lowering_matches_spmd_and_reference(qsgd_bits, rtol,
+                                                    monkeypatch):
+    """Three steps through the per-rank executor over the stacked ranks
+    (all_to_all split, owner densify, allgather, QSGD on the wire) against
+    the stacked sum and against the reference, with its QSGD bits."""
+    params0, ref_losses = _reference_losses("sparcml", qsgd_bits, monkeypatch)
+    tcfg = TrainConfig(sync=SyncConfig(**_sync_kwargs("sparcml", qsgd_bits)),
+                       optimizer=OptimizerConfig(),
+                       schedule=ScheduleConfig(**SCHED), microbatches=2)
+    runs = {}
+    for lowering in ("spmd", "manual"):
+        model = build_model(ModelConfig(**TINY, dtype=torch.float32,
+                                        param_dtype=torch.float32))
+        trainer = Trainer(model, tcfg, DataConfig(**DATA), dp_total=P_DATA,
+                          device="cpu", lowering=lowering)
+        trainer.init(params=params_from_jax(params0))
+        runs[lowering] = (trainer.run(STEPS, rand_fn_for_step=
+                                      _reference_rand_fn).losses,
+                          trainer.state)
+    np.testing.assert_allclose(runs["manual"][0], runs["spmd"][0], rtol=rtol)
+    np.testing.assert_allclose(runs["manual"][0], ref_losses, rtol=rtol)
+    for n, r in runs["manual"][1].residuals.items():
+        np.testing.assert_allclose(r.numpy(),
+                                   runs["spmd"][1].residuals[n].numpy(),
+                                   rtol=rtol, atol=1e-5)
+    with pytest.raises(ValueError, match="lowering"):
+        build_train_step(model, tcfg, P_DATA, device="cpu",
+                         lowering="emulated")
+
+
+# --------------------------------------------------------------------------
+# sparse classification (examples/classify_sparse.py)
+# --------------------------------------------------------------------------
+
+def _example_loop(algo, idx, val, y, n_feat, steps):
+    """examples/classify_sparse.py's loop, at the test's size."""
+    from repro.core.allreduce import make_sparse_allreduce as jax_make
+
+    mesh = compat.make_mesh((8,), ("data",))
+    lr, bs, n_samples = 0.5, 16, idx.shape[0]
+
+    def rank_grad(w, rank, step):
+        lo = (step * 8 + rank) * bs % n_samples
+        ii, vv, yy = idx[lo:lo + bs], val[lo:lo + bs], y[lo:lo + bs]
+        m = (vv * w[ii]).sum(1)
+        coef = (-yy / (1 + np.exp(yy * m)) / bs).astype(np.float32)
+        g = np.zeros(n_feat, np.float32)
+        np.add.at(g, ii.ravel(), (coef[:, None] * vv).ravel())
+        return g
+
+    f = jax_make(mesh, "data", n_feat, k_per_bucket=8, bucket_size=512,
+                 algorithm=algo)
+    w = np.zeros(n_feat, np.float32)
+    for step in range(steps):
+        grads = np.stack([rank_grad(w, r, step) for r in range(8)])
+        summed = np.asarray(f(jnp.asarray(grads).reshape(-1), None))
+        w -= lr * summed / 8
+    return w
+
+
+@pytest.mark.parametrize("algo", ["dense", "ssar_split_allgather"])
+def test_classification_loop_matches_the_example(algo):
+    from repro.data.sparse_datasets import make_url_like_dataset
+    from repro_torch.train import run_classify as rc
+
+    n_feat, n_samples, steps = 1 << 14, 256, 4
+    idx, val, y = make_url_like_dataset(n_samples=n_samples,
+                                        n_features=n_feat, nnz_per_sample=64)
+    want = _example_loop(algo, idx, val, y, n_feat, steps)
+    dev = torch.device("cpu")
+    data = rc.load(dev, n_samples, n_feat, 64)
+    for a, b in zip(data, (idx, val, y)):
+        np.testing.assert_array_equal(a.numpy(), b)     # the same dataset
+    w, _ = rc.train(algo, data, n_feat, dev, steps=steps)
+    np.testing.assert_allclose(w.numpy(), want, rtol=1e-5,
+                               atol=1e-6 * np.abs(want).max())
+    acc = rc.accuracy(w, data)
+    m = (val * want[idx]).sum(1)
+    assert acc == pytest.approx(float((np.sign(m) == y).mean()), abs=1e-2)
+
+
+def test_new_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.train import run_classify
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_classify.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_lm.main(["--fast", "--steps", "1", "--lowering", "manual"])
