@@ -16,7 +16,16 @@ Phases, in order; any failure exits non-zero:
      checked on every bucket and timed alone on the largest;
      The three per-bucket kernels are also timed as their 26 launches
      replayed from a CUDA graph (the device alone) and as the host's
-     enqueue time;
+     enqueue time. Then bucket_topk's k sweep: at the Fig. 3 rows
+     (262144, 512) with k in {1, 4, 8, 16, 32, 64, 128, 512} and at
+     (131072, 1024) with k in {16, 128}, each point bit-equal to the plain
+     version on all three outputs and timed (CUDA events, the device alone
+     from a CUDA-graph replay) beside torch.topk(x.abs(), k), the bound
+     and a copy of x (the same bytes, device alone); and the adversarial
+     row sets of repro_torch.kernels.bucket_topk.cases (one magnitude,
+     signed zeros, infinities, denormals, ties at the k-th key, keys
+     differing only in their lowest bits) at every supported B with k in
+     {1, 4, 8, 64, B/2, B}, bit-equal to the plain version;
   3. main paths, each with every kernel's launch count reset before and
      read after: Trainer.run of lm-100m with SparCML sync (DSAR + 4-bit
      QSGD, k = 8 of 512, R = 4 stacked replicas) for 6 steps (26 launches
@@ -92,6 +101,10 @@ K_UNIT = 4           # superstep of the pipelined runs, as the example's
 PIPE_STEPS = 12      # pipelined steps after phase 3's synchronous ones
 RACE_STEPS = 8
 
+# bucket_topk's k sweep: (rows, B, k); the Fig. 3 rows, then B = 1024
+TOPK_SWEEP = tuple((262144, 512, k) for k in (1, 4, 8, 16, 32, 64, 128, 512)
+                   ) + ((131072, 1024, 16), (131072, 1024, 128))
+
 # Published peaks (NVIDIA data sheets): memory bytes/s and f32 (non-tensor)
 # FLOP/s, by the card's name. An unknown card is refused rather than
 # measured against the wrong roofline.
@@ -159,6 +172,51 @@ def graph_ms(torch, fn, replays: int = 10) -> float:
     return ms / replays
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    import torch
+
+    card = f"{torch.cuda.get_device_name(0)}, power limit not read"
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        if smi.returncode == 0 and smi.stdout.strip():
+            card = smi.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        card += f" ({exc})"
+    return card
+
+
+def lm_sparse_buckets():
+    """lm-100m's sparse buckets and its sync config: the main path's
+    kernel shapes."""
+    from repro_torch.models.model import build_model
+    from repro_torch.train import run_lm
+    from repro_torch.train.train_step import build_plan
+
+    cfg, _ = run_lm.lm_config(fast=False)
+    tcfg = run_lm.train_config(STEPS)
+    plan = build_plan(build_model(cfg), tcfg, run_lm.DP)
+    return [bk for bk in plan.buckets if bk.sparse], tcfg.sync
+
+
+def topk_inputs(torch, dev, sparse, r, b):
+    """bucket_topk's inputs at the main path's shapes, one (R * rows *
+    cols / B, B) tensor a bucket, normal values with magnitude ties in
+    every 7th row and all-zero rows; and the generator, to draw on."""
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    xs = []
+    for bk in sparse:
+        x = torch.randn((r * bk.rows * (bk.cols // b), b), device=dev,
+                        generator=gen)
+        x[::7] = torch.round(x[::7] * 4) / 4          # magnitude ties
+        x[::101] = 0.0                                # all-zero buckets
+        xs.append(x)
+    return xs, gen
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail("src/repro_torch not found next to chip_smoke.py: run it from "
@@ -190,7 +248,7 @@ def main() -> None:
     from repro_torch.runtime.pipeline import attach_inflight, build_superstep
     from repro_torch.train import run_lm
     from repro_torch.train import train_step as ts
-    from repro_torch.train.train_step import build_plan, init_state
+    from repro_torch.train.train_step import init_state
     from repro_torch.train.trainer import Trainer
     from repro_torch.utils.tree import tree_leaves
 
@@ -200,16 +258,7 @@ def main() -> None:
     # ---------------------------------------------------------------- 0
     dev = resolve_device("cuda")
     name = torch.cuda.get_device_name(0)
-    card = f"{name}, power limit not read"
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60)
-        if smi.returncode == 0 and smi.stdout.strip():
-            card = smi.stdout.strip().splitlines()[0]
-    except (OSError, subprocess.TimeoutExpired) as exc:
-        card += f" ({exc})"
+    card = card_line()
     bw, f32_peak = peaks_for(name)
     log(f"[0] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -228,13 +277,9 @@ def main() -> None:
     record["build"] = info
 
     # ---------------------------------------------------------------- 2
-    cfg, _ = run_lm.lm_config(fast=False)
-    tcfg = run_lm.train_config(STEPS)
-    plan = build_plan(build_model(cfg), tcfg, run_lm.DP)
-    sync = tcfg.sync
+    sparse, sync = lm_sparse_buckets()
     r, b, k = run_lm.DP, sync.bucket_size, sync.k_per_bucket
     bq, bits = sync.qsgd_bucket, sync.qsgd_bits
-    sparse = [bk for bk in plan.buckets if bk.sparse]
     if len(sparse) != 26:
         fail(f"lm-100m plan has {len(sparse)} sparse buckets, expected 26")
     big = max(range(len(sparse)), key=lambda i: sparse[i].n)
@@ -242,14 +287,7 @@ def main() -> None:
         f"({sparse[big].rows} x {sparse[big].cols}) = "
         f"{sparse[big].n / sum(bk.n for bk in sparse):.1%} of the entries")
 
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    xs = []
-    for i, bk in enumerate(sparse):
-        x = torch.randn((r * bk.rows * (bk.cols // b), b), device=dev,
-                        generator=gen)
-        x[::7] = torch.round(x[::7] * 4) / 4          # magnitude ties
-        x[::101] = 0.0                                # all-zero buckets
-        xs.append(x)
+    xs, gen = topk_inputs(torch, dev, sparse, r, b)
     n_top = sum(x.numel() for x in xs)
     rows_top = sum(x.shape[0] for x in xs)
     kernels = []
@@ -295,7 +333,7 @@ def main() -> None:
                                   for x in xs], reps=3),
           time_ms(torch, lambda: [torch.topk(x.abs(), k, dim=1)
                                   for x in xs]),
-          8 * n_top + 8 * rows_top * k, rows_top * k * b, 0.0,
+          8 * n_top + 8 * rows_top * k, rows_top * b, 0.0,
           time_ms(torch, lambda: topk_ops.bucket_topk(xs[big], k,
                                                       impl="cuda")),
           time_ms(torch, lambda: topk_ops.bucket_topk(xs[big], k,
@@ -452,6 +490,13 @@ def main() -> None:
           host_ms=host_ms(torch, lambda: unpack_ops.qsgd_unpack_grouped(
               segs, bits, impl="cuda")))
     del segs, qx, qr, packs
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["topk_sweep"] = phase_topk_sweep(torch, dev, bw, f32_peak)
+    kernels[0]["k_sweep"] = [
+        {key: row[key] for key in ("shape", "k", "ms", "device_ms",
+                                   "bound_ms", "library_ms")}
+        for row in record["topk_sweep"]["sweep"]]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -860,6 +905,66 @@ def main() -> None:
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
 
+def phase_topk_sweep(torch, dev, bw, f32_peak):
+    """bucket_topk's k sweep and its adversarial rows (phase 2, see the
+    module docstring). The bound counts each input byte read once and each
+    output byte written once (x and res 8 bytes an entry, val and lidx 8
+    a selected entry) and B operations a row."""
+    from repro_torch.kernels.bucket_topk import ops as topk_ops
+    from repro_torch.kernels.bucket_topk.cases import adversarial_rows
+    from repro_torch.kernels.bucket_topk.kernel import SUPPORTED_B
+
+    def same_bits(got, want):
+        return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want))
+
+    rec = {"sweep": []}
+    gen = torch.Generator(device=dev).manual_seed(99)
+    for n, b, k in TOPK_SWEEP:
+        x = torch.randn((n, b), device=dev, generator=gen)
+        kern = lambda: topk_ops.bucket_topk(x, k, impl="cuda")
+        if not same_bits(kern(), topk_ops.bucket_topk(x, k, impl="ref")):
+            fail(f"bucket_topk at ({n}, {b}) k={k} differs from its plain "
+                 "version")
+        t_b = (8 * n * b + 8 * n * k) / bw * 1e3
+        t_o = n * b / f32_peak * 1e3
+        row = {"shape": [n, b], "k": k, "ms": time_ms(torch, kern),
+               "device_ms": graph_ms(torch, kern),
+               "library_ms": time_ms(torch, lambda: torch.topk(
+                   x.abs(), k, dim=1)),
+               "bound_ms": max(t_b, t_o),
+               "bound_by": "bytes" if t_b >= t_o else "operations"}
+        row["device_share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        # what the card reaches on the same bytes: x read, res written
+        out = torch.empty_like(x)
+        row["copy_device_ms"] = graph_ms(torch, lambda: out.copy_(x))
+        rec["sweep"].append(row)
+        log(f"[2] bucket_topk ({n}, {b}) k={k}: bit-equal; {row['ms']:.4f} "
+            f"ms, device alone {row['device_ms']:.4f} ms "
+            f"({row['device_share_of_bound']:.0%} of the bound "
+            f"{row['bound_ms']:.4f} ms, {row['bound_by']}); torch.topk "
+            f"{row['library_ms']:.4f} ms; a copy of x, device alone "
+            f"{row['copy_device_ms']:.4f} ms")
+        del x, out
+    cases = []
+    for b in SUPPORTED_B:
+        sets = {nm: rows.to(dev) for nm, rows in
+                adversarial_rows(64, b, seed=b).items()}
+        for k in sorted({1, 4, 8, 64, b // 2, b}):
+            bad = [nm for nm, x in sets.items() if not same_bits(
+                topk_ops.bucket_topk(x, k, impl="cuda"),
+                topk_ops.bucket_topk(x, k, impl="ref"))]
+            if bad:
+                fail(f"bucket_topk B={b} k={k} differs from its plain "
+                     f"version on the adversarial rows {bad}")
+            cases.append([b, k])
+    rec["adversarial"] = {"sets": list(sets), "rows_a_set": 64,
+                          "cases_b_k": cases}
+    log(f"[2] bucket_topk bit-equal to its plain version on the adversarial "
+        f"rows {list(sets)} (64 rows each) at {len(cases)} (B, k) cases")
+    return rec
+
+
 def fig3_bounds(n, p, b, k, bits, bq, bw, f32_peak) -> dict:
     """Each kernel's least time at the Fig. 3 shapes (N = n per rank, p
     ranks stacked): the larger of its bytes (each input read once, each
@@ -876,8 +981,9 @@ def fig3_bounds(n, p, b, k, bits, bq, bw, f32_peak) -> dict:
                 "bound_by": "bytes" if t_b >= t_o else "operations"}
 
     return {
+        # operations: the function's own, one look at each entry
         "bucket_topk": dict(shape=f"({rows}, {b}) k={k}", **bound(
-            8 * p * n + 8 * rows * k, rows * k * b)),
+            8 * p * n + 8 * rows * k, rows * b)),
         # the split phase's owner densify: every source's rows of my range
         "bucket_scatter": dict(shape=f"({rows}, {k}) -> ({rows}, {b})",
                                **bound(4 * rows * b + 8 * rows * k,

@@ -2,8 +2,9 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/bucket_topk/kernel.py``
 (``bucket_topk_pallas``). Bound by bytes: x is read once and the residual
-written once; the k selection rounds are warp shuffles on registers (see
-the source for the design).
+written once; the selection is a radix select of the k-th largest |x| in
+at most four digit passes over a warp's shared-memory histogram, whatever
+k is (see the source for the design).
 """
 from __future__ import annotations
 

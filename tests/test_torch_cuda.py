@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels.bucket_scatter import ops as scatter_ops
 from repro_torch.kernels.bucket_topk import ops as topk_ops
+from repro_torch.kernels.bucket_topk.cases import adversarial_rows
 from repro_torch.kernels.qsgd_pack import ops as pack_ops
 from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
 from repro_torch.kernels.qsgd_unpack.kernel import launch_grouped
@@ -52,13 +53,18 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k", [(128, 4), (512, 8), (1024, 16)])
+@pytest.mark.parametrize("b,k", [(b, k) for b in (128, 256, 512, 1024)
+                                 for k in sorted({1, 4, 8, 16, 64, b // 2, b})])
 def test_cuda_bucket_topk_matches_plain(cuda_device, b, k):
-    x = torch.from_numpy(_x_with_ties(b + k, 300, b)).to(cuda_device)
+    """Bit for bit on val, lidx and res (signed zeros included): rows with
+    ties and an all-zero row, then every adversarial row set."""
+    rows = [torch.from_numpy(_x_with_ties(b + k, 300, b))]
+    rows += list(adversarial_rows(16, b, seed=k).values())
+    x = torch.cat(rows).to(cuda_device)
     got = topk_ops.bucket_topk(x, k, impl="cuda")
     want = topk_ops.bucket_topk(x, k, impl="ref")
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.cuda

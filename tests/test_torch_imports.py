@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package ``repro``."""
+``chip_smoke.py`` or the scripts in ``tools/``) imports JAX or the JAX
+package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -14,7 +14,9 @@ transpose, pod sum and mean run op by op as ``reduce_buckets_spmd``
 writes them. (Under ``jax.jit`` XLA-CPU contracts a two-pod sum into an
 FMA, one rounding fewer, so the jitted executor agrees only to an ulp.)
 The CUDA kernels themselves are held against the plain versions in
-``test_torch_cuda.py`` (on a card) and by ``chip_smoke.py``.
+``test_torch_cuda.py`` (on a card) and by ``chip_smoke.py``; the radix
+select of ``csrc/bucket_topk.cu`` is also modelled here in numpy, so that a
+mistake in its digit passes or its tie rule shows on the CPU.
 """
 import math
 
@@ -29,6 +31,7 @@ from repro.kernels.qsgd_pack.ops import qsgd_pack as jax_pack
 from repro.kernels.qsgd_unpack.ops import qsgd_unpack as jax_unpack
 from repro_torch.kernels.bucket_scatter import ops as scatter_ops
 from repro_torch.kernels.bucket_topk import ops as topk_ops
+from repro_torch.kernels.bucket_topk.cases import adversarial_rows
 from repro_torch.kernels.qsgd_pack import ops as pack_ops
 from repro_torch.kernels.qsgd_pack.ref import u32_to_i64
 from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
@@ -61,9 +64,15 @@ def _u32(rng, shape):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("nb,b,k", [(8, 128, 4), (16, 512, 8), (6, 256, 16),
-                                    (3, 512, 16)])
+                                    (3, 512, 16), (8, 128, 1), (5, 512, 64),
+                                    (4, 128, 128), (3, 1024, 128)])
 def test_bucket_topk_plain_matches_jax(nb, b, k):
-    x = _x_with_ties(nb * 131 + k, nb, b)
+    """Rows with ties, then rows of one magnitude with mixed signs, of
+    +0.0 and -0.0, with a few infinities and of infinities only."""
+    adv = adversarial_rows(2, b, seed=nb + k)
+    x = np.concatenate([_x_with_ties(nb * 131 + k, nb, b)] + [
+        adv[name].numpy() for name in ("one_magnitude", "signed_zeros",
+                                       "infinities", "all_infinite")])
     val, lidx, res = topk_ops.bucket_topk(torch.from_numpy(x), k)
     assert lidx.dtype == torch.int32
     for impl in JAX_IMPLS:
@@ -71,6 +80,80 @@ def test_bucket_topk_plain_matches_jax(nb, b, k):
         np.testing.assert_array_equal(lidx.numpy(), np.asarray(jl), impl)
         np.testing.assert_array_equal(val.numpy(), np.asarray(jv), impl)
         np.testing.assert_array_equal(res.numpy(), np.asarray(jr), impl)
+
+
+def _radix_select_model(x: np.ndarray, k: int):
+    """``csrc/bucket_topk.cu``'s selection, row by row in numpy: digit
+    passes over the 31-bit key (the bits of |x|: 30-23, 22-15, 14-7, 6-0),
+    each a histogram of the keys that match the prefix found so far, the
+    bin of the k-th key from the top found by a suffix sum, an early stop
+    when that bin holds exactly the keys still needed; then every key above
+    the bin and the lowest-indexed ``need`` inside it. Returns (val, lidx,
+    res) and the number of passes each row took."""
+    keys = (x.view(np.uint32) & 0x7FFFFFFF).astype(np.int64)
+    sel = np.zeros(x.shape, bool)
+    passes = []
+    for r, key in enumerate(keys):
+        prefix, need, low = 0, k, 31
+        for p, shift in enumerate((23, 15, 7, 0)):
+            cand = (key >> low) == (prefix >> low)
+            hist = np.bincount((key[cand] >> shift) & ((1 << (low - shift)) - 1),
+                               minlength=256)
+            from_top = np.cumsum(hist[::-1])[::-1]   # keys in bin d and above
+            digit = int(np.flatnonzero(from_top >= need)[-1])
+            need -= int(from_top[digit] - hist[digit])
+            prefix |= digit << shift
+            low = shift
+            if hist[digit] == need:
+                break
+        passes.append(p + 1)
+        top = prefix | ((1 << low) - 1)
+        in_bin = (key >> low) == (prefix >> low)
+        rank = np.cumsum(in_bin) - in_bin            # in index order
+        sel[r] = (key > top) | (in_bin & (rank < need))
+    return _selected(x, sel), passes
+
+
+def _threshold_rule(x: np.ndarray, k: int):
+    """T = the k-th largest key of the row; every key above T, then the
+    lowest indices among the keys equal to T."""
+    keys = (x.view(np.uint32) & 0x7FFFFFFF).astype(np.int64)
+    sel = np.zeros(x.shape, bool)
+    for r, key in enumerate(keys):
+        t = np.sort(key)[::-1][k - 1]
+        eq = key == t
+        sel[r] = (key > t) | (eq & (np.cumsum(eq) <= k - (key > t).sum()))
+    return _selected(x, sel)
+
+
+def _selected(x, sel):
+    lidx = np.stack([np.flatnonzero(s) for s in sel]).astype(np.int32)
+    return (np.take_along_axis(x, lidx, 1), lidx,
+            np.where(sel, np.float32(0), x))
+
+
+def _topk_cases():
+    return [(b, k) for b in (128, 256, 512, 1024)
+            for k in sorted({1, 4, 8, 64, b // 2, b})]
+
+
+@pytest.mark.parametrize("b,k", _topk_cases())
+def test_bucket_topk_radix_model_matches_plain(b, k):
+    """The kernel's radix select and its tie rule, modelled in numpy, and
+    the plain threshold rule, against the plain version, bit for bit
+    (signed zeros included), on Gaussian rows with ties and on every
+    adversarial row set."""
+    rng = np.random.default_rng(b + k)
+    x = np.concatenate([_x_with_ties(b * k, 4, b),
+                        rng.standard_normal((4, b)).astype(np.float32)] + [
+        rows.numpy() for rows in adversarial_rows(3, b, seed=k).values()])
+    want = topk_ops.bucket_topk(torch.from_numpy(x), k)
+    got, passes = _radix_select_model(x, k)
+    assert max(passes) <= 4
+    for model in (got, _threshold_rule(x, k)):
+        for g, w in zip(model, want):
+            np.testing.assert_array_equal(g.view(np.int32),
+                                          w.numpy().view(np.int32))
 
 
 # --------------------------------------------------------------------------
