@@ -24,8 +24,12 @@ Phases, in order; any failure exits non-zero:
      and a copy of x (the same bytes, device alone); and the adversarial
      row sets of repro_torch.kernels.bucket_topk.cases (one magnitude,
      signed zeros, infinities, denormals, ties at the k-th key, keys
-     differing only in their lowest bits) at every supported B with k in
-     {1, 4, 8, 64, B/2, B}, bit-equal to the plain version;
+     differing only in their lowest bits) at B in {128, 256, 384, 512,
+     640, 1024, 2048, 4096, 8192} with k in {1, 4, 8, 64, B/64, B/2, B},
+     bit-equal to the plain version; then the B sweep: at B in {384, 640,
+     2048, 4096, 8192} (2^26 entries) with k in {1, 8, B/64, B/2, B}, each
+     point bit-equal and timed (CUDA events, the device alone from a
+     CUDA-graph replay) beside its bound and torch.topk(x.abs(), k);
   3. main paths, each with every kernel's launch count reset before and
      read after: Trainer.run of lm-100m with SparCML sync (DSAR + 4-bit
      QSGD, k = 8 of 512, R = 4 stacked replicas) for 6 steps (26 launches
@@ -41,8 +45,9 @@ Phases, in order; any failure exits non-zero:
      and on the CPU (plain versions, the path the tests hold against the
      JAX package) with the same QSGD bits must give the same losses;
   5. overlap race check at lm-100m: 8 staleness-1 steps through the async
-     driver (K = 4, depth 2, under the profiler: the streams' busy and
-     overlapping shares) must equal, bit for bit, the same step function
+     driver (K = 4, depth 2, telemetry on, under the profiler: the
+     streams' busy and overlapping shares) must equal, bit for bit, the
+     same step function
      called 8 times with a device synchronisation after each (losses,
      final params, EF residuals, in-flight buffers); two such sequential
      runs show whether the sequential run is itself reproducible. No
@@ -68,13 +73,32 @@ Phases, in order; any failure exits non-zero:
      versions on the tensors this path hands them, then timed at these
      shapes beside their bounds;
   8. the per-rank lm-100m step: Trainer.run with lowering="manual" (the
-     wire protocols over the 4 stacked ranks, the single-bucket
-     qsgd_unpack) for 6 steps, against phase 3's stacked run (same seed,
-     same QSGD bits);
+     wire protocols over the 4 stacked ranks, one grouped qsgd_unpack a
+     step) for 6 steps, against phase 3's stacked run (same seed, same
+     QSGD bits); both executors' reduce halves alone, in turns; the
+     per-rank half's grouped qsgd_unpack segments (the received row-major
+     layout) captured from one call and the CUDA launch held bit for bit
+     against qsgd_unpack_grouped_ref on them; both synchronous steps
+     timed in turns from one state;
   9. sparse classification (run_classify) at full size on the card:
      ssar_split_allgather's accuracy within 0.01 of dense's, and the
      weights after 2 steps within rtol 1e-5 of the CPU path;
- 10. the kernels line, the card line, and last the result line
+ 10. the pipelined per-rank lm-100m step: phase 8's trainer takes the 3
+     more synchronous steps phase 3's did, then Trainer.run_pipelined with
+     lowering="manual" for the same 12 steps (K = 4, depth 2), against
+     phase 3's pipelined losses, with its launch counts, step time, peak
+     memory and overlap win;
+ 11. telemetry: the stacked pipelined lm-100m step through the driver
+     with telemetry off, on, on, off (20 steps each after a warm-up run:
+     step times, losses bit-equal), and the reduce half alone the same
+     way; one step's 26 rows checked (finite, 0 <= nnz <= n,
+     0 < coverage <= 1, DSAR wire bytes summing to the plan's); on the
+     small model, both executors' rows on the card against the CPU
+     path's on the same gradients;
+ 12. NCCL: a one-process NCCL group (world size 1) runs 2 synchronous and
+     2 pipelined per-rank steps of the small model, bit-equal to the
+     same steps over StackedCollectives(1);
+ 13. the kernels line, the card line, and last the result line
      {"ok": true, "device": {...}}.
 
 It imports torch and the port (``src/repro_torch``), never JAX. A longer
@@ -82,6 +106,7 @@ record of the run goes to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -104,6 +129,10 @@ RACE_STEPS = 8
 # bucket_topk's k sweep: (rows, B, k); the Fig. 3 rows, then B = 1024
 TOPK_SWEEP = tuple((262144, 512, k) for k in (1, 4, 8, 16, 32, 64, 128, 512)
                    ) + ((131072, 1024, 16), (131072, 1024, 128))
+# its B sweep: the bucket sizes beyond the main path's, 2^26 entries each
+TOPK_B_SWEEP = tuple((2**26 // b, b, k) for b in (384, 640, 2048, 4096, 8192)
+                     for k in sorted({1, 8, b // 64, b // 2, b}))
+TOPK_ADVERSARIAL_B = (128, 256, 384, 512, 640, 1024, 2048, 4096, 8192)
 
 # Published peaks (NVIDIA data sheets): memory bytes/s and f32 (non-tensor)
 # FLOP/s, by the card's name. An unknown card is refused rather than
@@ -170,6 +199,17 @@ def graph_ms(torch, fn, replays: int = 10) -> float:
     ms = time_ms(torch, lambda: [graph.replay() for _ in range(replays)])
     del graph
     return ms / replays
+
+
+def steady_ms(times) -> tuple[float, list]:
+    """ms a step of a pipelined run of K-step units, from the units'
+    retire intervals (each step time is its unit's / K). The host runs
+    only as far ahead as the launch queue lets it, so the first interval
+    holds the fill (the first unit and most of the second) and the last
+    one only the drain; the median of the units between them is the
+    steady state. Returns (ms a step, the units' intervals in ms)."""
+    units = [times[i] * K_UNIT * 1e3 for i in range(0, len(times), K_UNIT)]
+    return statistics.median(units[1:-1]) / K_UNIT, units
 
 
 def card_line() -> str:
@@ -489,7 +529,10 @@ def main() -> None:
               segs, bits, impl="cuda")),
           host_ms=host_ms(torch, lambda: unpack_ops.qsgd_unpack_grouped(
               segs, bits, impl="cuda")))
-    del segs, qx, qr, packs
+    # the loops' variables still hold the last bucket's tensors (gigabytes
+    # at lm-100m): drop them before the paths' memory is measured
+    del segs, qx, qr, packs, x, g_, w_, li, va, dup, d, summed, rd, p, sc
+    del pr, scr, c, cr, dc, gen
     gc.collect()
     torch.cuda.empty_cache()
     record["topk_sweep"] = phase_topk_sweep(torch, dev, bw, f32_peak)
@@ -497,6 +540,10 @@ def main() -> None:
         {key: row[key] for key in ("shape", "k", "ms", "device_ms",
                                    "bound_ms", "library_ms")}
         for row in record["topk_sweep"]["sweep"]]
+    kernels[0]["b_sweep"] = [
+        {key: row[key] for key in ("shape", "k", "ms", "device_ms",
+                                   "bound_ms", "library_ms")}
+        for row in record["topk_sweep"]["b_sweep"]]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -512,6 +559,8 @@ def main() -> None:
               "qsgd_unpack": 0,                     # the grouped form instead
               "qsgd_unpack_grouped": STEPS}
     cfg, data = run_lm.lm_config(fast=False)
+    log(f"[3] device memory in use before the main path: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     trainer = Trainer(build_model(cfg), run_lm.train_config(STEPS), data,
                       dp_total=run_lm.DP, device=dev)
     trainer.init()
@@ -572,14 +621,7 @@ def main() -> None:
     allocator["max_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
     pipe_losses = tlog.losses[n_sync:]
     pipe_times = tlog.step_times[n_sync:]
-    # retire intervals of the units (each step time is its unit's / K).
-    # The host runs only as far ahead as the launch queue lets it, so the
-    # first interval holds the fill (the first unit and most of the
-    # second) and the last one only the drain; the units between them
-    # are the steady state.
-    units_ms = [pipe_times[i] * K_UNIT * 1e3
-                for i in range(0, len(pipe_times), K_UNIT)]
-    pipe_ms = statistics.median(units_ms[1:-1]) / K_UNIT
+    pipe_ms, units_ms = steady_ms(pipe_times)
     pipe_all_ms = sum(pipe_times) / len(pipe_times) * 1e3
     log(f"[3] pipelined (staleness 1, superstep {K_UNIT}, depth 2): losses "
         f"{[round(x, 5) for x in pipe_losses]}")
@@ -625,9 +667,9 @@ def main() -> None:
     rand0 = ts.step_rand_fn(tcfg3.seed, 0, dev)
     reduce = lambda: reduce_buckets_spmd(trainer.plan, leaves_r,
                                          st.residuals, p_data=run_lm.DP,
-                                         rand_fn=rand0)
+                                         rand_fn=rand0, telemetry=False)
     reduce_ms = time_ms(torch, reduce, reps=3)
-    reduced, new_res = reduce()
+    reduced, new_res, _ = reduce()
     lr0 = torch.tensor(1e-4)
     update_ms = time_ms(torch, lambda: ts.update(
         st, apply_buckets_spmd(trainer.plan, reduced, leaves_r), lr0, tcfg3),
@@ -707,7 +749,8 @@ def main() -> None:
     race_tcfg = run_lm.train_config(RACE_STEPS)
     race_model = build_model(cfg)
     sup, race_plan = build_superstep(race_model, race_tcfg, run_lm.DP, dev,
-                                     steps=K_UNIT, guard=True)
+                                     steps=K_UNIT, guard=True,
+                                     telemetry=True)
 
     def fresh_state():
         return attach_inflight(init_state(race_model, race_tcfg, race_plan,
@@ -877,8 +920,16 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 8
-    record["manual_lm100m"], new_paths["manual_lm100m"] = phase_manual(
-        torch, dev, wrappers, record["main_path"])
+    record["manual_lm100m"], new_paths["manual_lm100m"], manual = \
+        phase_manual(torch, dev, wrappers, record["main_path"])
+    for row in kernels:
+        if row["name"] == "qsgd_unpack":
+            row["checked_by"] += (
+                "; phase 8: the grouped launch bit-equal to "
+                "qsgd_unpack_grouped_ref on one step's segments of the "
+                "per-rank reduce half at lm-100m (row-major, p_pod 1, "
+                f"p_data {run_lm.DP}, rows = held x r, shard = cols/"
+                f"{run_lm.DP}, mean 1)")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -889,6 +940,36 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 10
+    (record["manual_pipelined_lm100m"],
+     new_paths["manual_pipelined_lm100m"]) = phase_manual_pipelined(
+        torch, dev, wrappers, manual, record["pipelined"],
+        record["manual_lm100m"]["median_step_ms"])
+    for row in kernels:
+        row["launches_pipelined_manual"] = new_paths[
+            "manual_pipelined_lm100m"][row["name"]]
+        if row["name"] == "qsgd_unpack":
+            row["launches_pipelined_manual"] = new_paths[
+                "manual_pipelined_lm100m"]["qsgd_unpack_grouped"]
+            row["single_bucket_launches_pipelined_manual"] = new_paths[
+                "manual_pipelined_lm100m"]["qsgd_unpack"]
+    manual.state = None
+    del manual
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 11
+    record["telemetry"], new_paths["telemetry"] = phase_telemetry(
+        torch, dev, wrappers, tiny, tiny_data, params0, bits_for)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 12
+    record["nccl"], new_paths["nccl"] = phase_nccl(
+        torch, dev, wrappers, tiny, tiny_data, params0, bits_for)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 13
     for row in kernels:
         row["launches_new_paths"] = {
             path: counts[row["name"]] for path, counts in new_paths.items()}
@@ -912,15 +993,14 @@ def phase_topk_sweep(torch, dev, bw, f32_peak):
     a selected entry) and B operations a row."""
     from repro_torch.kernels.bucket_topk import ops as topk_ops
     from repro_torch.kernels.bucket_topk.cases import adversarial_rows
-    from repro_torch.kernels.bucket_topk.kernel import SUPPORTED_B
 
     def same_bits(got, want):
         return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
                    for g, w in zip(got, want))
 
-    rec = {"sweep": []}
+    rec = {"sweep": [], "b_sweep": []}
     gen = torch.Generator(device=dev).manual_seed(99)
-    for n, b, k in TOPK_SWEEP:
+    for n, b, k in TOPK_SWEEP + TOPK_B_SWEEP:
         x = torch.randn((n, b), device=dev, generator=gen)
         kern = lambda: topk_ops.bucket_topk(x, k, impl="cuda")
         if not same_bits(kern(), topk_ops.bucket_topk(x, k, impl="ref")):
@@ -938,7 +1018,7 @@ def phase_topk_sweep(torch, dev, bw, f32_peak):
         # what the card reaches on the same bytes: x read, res written
         out = torch.empty_like(x)
         row["copy_device_ms"] = graph_ms(torch, lambda: out.copy_(x))
-        rec["sweep"].append(row)
+        rec["sweep" if (n, b, k) in TOPK_SWEEP else "b_sweep"].append(row)
         log(f"[2] bucket_topk ({n}, {b}) k={k}: bit-equal; {row['ms']:.4f} "
             f"ms, device alone {row['device_ms']:.4f} ms "
             f"({row['device_share_of_bound']:.0%} of the bound "
@@ -947,10 +1027,10 @@ def phase_topk_sweep(torch, dev, bw, f32_peak):
             f"{row['copy_device_ms']:.4f} ms")
         del x, out
     cases = []
-    for b in SUPPORTED_B:
+    for b in TOPK_ADVERSARIAL_B:
         sets = {nm: rows.to(dev) for nm, rows in
                 adversarial_rows(64, b, seed=b).items()}
-        for k in sorted({1, 4, 8, 64, b // 2, b}):
+        for k in sorted({1, 4, 8, 64, max(1, b // 64), b // 2, b}):
             bad = [nm for nm, x in sets.items() if not same_bits(
                 topk_ops.bucket_topk(x, k, impl="cuda"),
                 topk_ops.bucket_topk(x, k, impl="ref"))]
@@ -1296,9 +1376,14 @@ def phase_fig3(torch, dev, wrappers, kernels, bw, f32_peak, n=1 << 24, p=8,
 
 
 def phase_manual(torch, dev, wrappers, spmd_main):
-    """Phase 8 (see the module docstring). Returns (record, launches)."""
+    """Phase 8 (see the module docstring). Returns (record, launches, the
+    trainer, which phase 10 continues)."""
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.comm.executor import reduce_buckets, reduce_buckets_spmd
+    from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.models.model import build_model
     from repro_torch.train import run_lm
+    from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer
 
     cfg, data = run_lm.lm_config(fast=False)
@@ -1326,10 +1411,43 @@ def phase_manual(torch, dev, wrappers, spmd_main):
         f"GB; launches {launches}")
     log(f"[8] manual vs stacked lowering, same seed and QSGD bits: max rel "
         f"loss diff {rel:.2e} (limit 2e-4); bit-equal {same}")
+    # the two executors' reduce halves alone on one step's grads (CUDA
+    # events, in turns stacked / per rank / per rank / stacked): where the
+    # steps' gap lies
+    st = trainer.state
+    _, leaves = ts.rank_grads(trainer.model, st.params, ts.batch_to_device(
+        synthetic_batch(data, 0), dev), run_lm.DP, trainer.tcfg.microbatches)
+    rand0 = ts.step_rand_fn(trainer.tcfg.seed, 0, dev)
+    coll = StackedCollectives(run_lm.DP, dev)
+    halves = {
+        "stacked": lambda: reduce_buckets_spmd(
+            trainer.plan, leaves, st.residuals, p_data=run_lm.DP,
+            rand_fn=rand0, telemetry=False),
+        "per_rank": lambda: reduce_buckets(
+            trainer.plan, leaves, st.residuals, coll=coll, rand_fn=rand0,
+            telemetry=False)}
+    alone = [(nm, time_ms(torch, halves[nm], reps=3)) for nm in (
+        "stacked", "per_rank", "per_rank", "stacked")]
+    host = {nm: host_ms(torch, fn, reps=3) for nm, fn in halves.items()}
+    log(f"[8] reduce half alone, CUDA events (stacked / per rank / per rank "
+        f"/ stacked): {[round(a, 2) for _, a in alone]} ms; host enqueue "
+        f"{ {nm: round(h, 2) for nm, h in host.items()} } ms")
+    one_call = {nm: (n_sparse if nm in ("bucket_topk", "bucket_scatter",
+                                        "qsgd_pack") else
+                     int(nm == "qsgd_unpack_grouped")) for nm in wrappers}
+    breakdown = {nm: kernel_breakdown(torch, fn, ROOT / "chiprun_out",
+                                      one_call, top=8)
+                 for nm, fn in halves.items()}
+    for nm, bd in breakdown.items():
+        log(f"[8]   {nm} reduce half, where the device time goes: {bd}")
+    unpack_check = check_row_major_unpack(torch, halves["per_rank"],
+                                          trainer.plan.cfg.qsgd_bits)
+    del leaves, st
+    turns = steps_in_turns(torch, trainer, dev, data)
     expect = {"bucket_topk": n_sparse * STEPS,
               "bucket_scatter": n_sparse * STEPS,
-              "qsgd_pack": n_sparse * STEPS, "qsgd_unpack": n_sparse * STEPS,
-              "qsgd_unpack_grouped": 0}
+              "qsgd_pack": n_sparse * STEPS, "qsgd_unpack": 0,
+              "qsgd_unpack_grouped": STEPS}
     for nm, c in launches.items():
         if c != expect[nm]:
             fail(f"manual lowering: {nm} launched {c} times in {STEPS} "
@@ -1339,7 +1457,373 @@ def phase_manual(torch, dev, wrappers, spmd_main):
     return ({"losses": list(tlog.losses), "step_times_s": list(tlog.step_times),
              "median_step_ms": step_ms, "peak_memory_gb": peak_gb,
              "launches": launches, "max_rel_vs_spmd": rel,
-             "bit_equal_vs_spmd": same}, launches)
+             "bit_equal_vs_spmd": same,
+             "reduce_alone_ms": alone, "reduce_host_ms": host,
+             "reduce_breakdown": breakdown, "row_major_unpack": unpack_check,
+             "steps_in_turns": turns}, launches, trainer)
+
+
+def check_row_major_unpack(torch, reduce_half, bits):
+    """Phase 8: one call of the per-rank reduce half at lm-100m, with the
+    segments it hands its grouped qsgd_unpack captured (the received,
+    row-major layout: p_pod 1, p_data = the ranks, mean 1); the CUDA
+    launch on those segments held bit for bit against
+    qsgd_unpack_grouped_ref on the same ones."""
+    from repro_torch.comm import executor
+    from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
+
+    captured = []
+    grouped = executor.qsgd_unpack_grouped
+
+    def capture(segments, *args, **kw):
+        captured.append(list(segments))
+        return grouped(segments, *args, **kw)
+
+    executor.qsgd_unpack_grouped = capture
+    try:
+        reduce_half()
+        torch.cuda.synchronize()
+    finally:
+        executor.qsgd_unpack_grouped = grouped
+    if len(captured) != 1:
+        fail(f"per-rank reduce half made {len(captured)} grouped unpack "
+             "calls, expected 1")
+    segs = captured[0]
+    if not segs or not all(sg.row_major and sg.p_pod == 1 and sg.mean == 1.0
+                           for sg in segs):
+        fail("per-rank reduce half: the grouped unpack's segments are not "
+             "the received row-major layout")
+    got = unpack_ops.qsgd_unpack_grouped(segs, bits, impl="cuda")
+    want = unpack_ops.qsgd_unpack_grouped(segs, bits, impl="ref")
+    n_diff = sum(int((g_ != w_).sum()) for g_, w_ in zip(got, want))
+    geometry = sorted({(sg.p_data, sg.rows, sg.shard, sg.bq) for sg in segs})
+    entries = sum(g_.numel() for g_ in got)
+    log(f"[8] row-major grouped qsgd_unpack on the per-rank half's "
+        f"{len(segs)} segments ({entries} entries; (p_data, rows, shard, "
+        f"bq) {geometry}): {n_diff} entries differ from "
+        "qsgd_unpack_grouped_ref")
+    if n_diff:
+        fail("row-major grouped qsgd_unpack differs from its plain version")
+    return {"segments": len(segs), "entries": entries,
+            "geometry": [list(g) for g in geometry], "entries_differ": n_diff}
+
+
+def steps_in_turns(torch, trainer, dev, data, rounds: int = 3):
+    """Phase 8: the stacked and the per-rank synchronous lm-100m steps
+    timed in turns (stacked, per rank, per rank, stacked, ``rounds``
+    times) from the same state, each after one warm-up call; step time as
+    Trainer.run takes it (wall clock to the loss on the host and a device
+    synchronisation). The state is not advanced."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train import run_lm
+    from repro_torch.train import train_step as ts
+
+    stacked, _ = ts.build_train_step(trainer.model, trainer.tcfg, run_lm.DP,
+                                     device=dev, lowering="spmd")
+    fns = {"stacked": stacked, "per_rank": trainer.step_fn}
+    st = trainer.state
+    batch = synthetic_batch(data, st.step)
+
+    def one(nm):
+        t0 = time.perf_counter()
+        _, metrics = fns[nm](st, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for nm in fns:
+        one(nm)
+    times = {nm: [] for nm in fns}
+    for _ in range(rounds):
+        for nm in ("stacked", "per_rank", "per_rank", "stacked"):
+            times[nm].append(one(nm))
+    med = {nm: statistics.median(t) for nm, t in times.items()}
+    gap = med["per_rank"] / med["stacked"] - 1
+    log(f"[8] synchronous steps in turns from one state (ms): stacked "
+        f"{[round(t, 1) for t in times['stacked']]}, per rank "
+        f"{[round(t, 1) for t in times['per_rank']]}; medians "
+        f"{med['stacked']:.1f} / {med['per_rank']:.1f} ({gap:+.2%})")
+    return {"ms": times, "median_ms": med, "per_rank_over_stacked": gap}
+
+
+def phase_manual_pipelined(torch, dev, wrappers, trainer, spmd_pipe,
+                           sync_ms):
+    """Phase 10 (see the module docstring): ``trainer`` is phase 8's,
+    after its 6 steps. Returns (record, launches)."""
+    trainer.run(STEPS + 3)              # phase 3's 3 profiled steps
+    n_sync = len(trainer.log.step_times)
+    n_sparse = trainer.plan.num_sparse_buckets
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    trainer.run_pipelined(trainer.state.step + PIPE_STEPS, staleness=1,
+                          superstep=K_UNIT, depth=2)
+    launches = {nm: w.launches for nm, w in wrappers.items()}
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = trainer.log.losses[n_sync:]
+    pipe_ms, units_ms = steady_ms(trainer.log.step_times[n_sync:])
+    ref = spmd_pipe["losses"]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(losses, ref))
+    same = losses == ref
+    log(f"[10] pipelined lowering=manual (staleness 1, superstep {K_UNIT}, "
+        f"depth 2): losses {[round(v, 5) for v in losses]}")
+    log(f"[10] unit retire intervals ms {[round(u, 1) for u in units_ms]}; "
+        f"ms a step {pipe_ms:.1f} (stacked, phase 3: "
+        f"{spmd_pipe['ms_a_step']:.1f}); peak memory {peak_gb:.2f} GB "
+        f"(stacked: {spmd_pipe['peak_memory_gb']:.2f}); launches {launches}")
+    log(f"[10] overlap win: sync {sync_ms:.1f} ms/step (phase 8) -> "
+        f"pipelined {pipe_ms:.1f} ms/step ({sync_ms / pipe_ms:.2f}x); vs the "
+        f"stacked pipelined run: max rel loss diff {rel:.2e} (limit 2e-4), "
+        f"bit-equal {same}")
+    expect = {"bucket_topk": n_sparse * PIPE_STEPS,
+              "bucket_scatter": n_sparse * PIPE_STEPS,
+              "qsgd_pack": n_sparse * PIPE_STEPS, "qsgd_unpack": 0,
+              "qsgd_unpack_grouped": PIPE_STEPS}
+    for nm, c in launches.items():
+        if c != expect[nm]:
+            fail(f"pipelined manual lowering: {nm} launched {c} times in "
+                 f"{PIPE_STEPS} steps, expected {expect[nm]}")
+    if (len(losses) != PIPE_STEPS or not all(math.isfinite(v) for v in losses)
+            or not rel <= 2e-4):
+        fail(f"pipelined manual lowering: losses {losses} disagree with the "
+             "stacked pipelined run")
+    return ({"losses": losses, "unit_retire_ms": units_ms,
+             "ms_a_step": pipe_ms, "sync_ms_a_step": sync_ms,
+             "overlap_win": sync_ms / pipe_ms, "peak_memory_gb": peak_gb,
+             "launches": launches, "max_rel_vs_spmd": rel,
+             "bit_equal_vs_spmd": same,
+             "spmd_ms_a_step": spmd_pipe["ms_a_step"]}, launches)
+
+
+def phase_telemetry(torch, dev, wrappers, tiny, tiny_data, params0, bits_for):
+    """Phase 11 (see the module docstring). Returns (record, launches of
+    the lm-100m runs with telemetry on)."""
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.comm.executor import reduce_buckets, reduce_buckets_spmd
+    from repro_torch.core.compressor import SyncConfig
+    from repro_torch.core.cost_model import bucket_wire_bytes
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.driver import DriverConfig, run_pipelined
+    from repro_torch.runtime.pipeline import attach_inflight, build_superstep
+    from repro_torch.train import run_lm
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.train_step import init_state
+
+    log(f"[11] device memory in use at the start: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    cfg, data = run_lm.lm_config(fast=False)
+    tcfg = run_lm.train_config(PIPE_STEPS)
+    model = build_model(cfg)
+    sups = {tel: build_superstep(model, tcfg, run_lm.DP, dev, steps=K_UNIT,
+                                 guard=True, telemetry=tel)
+            for tel in (False, True)}
+    plan = sups[True][1]
+    batch = lambda step: synthetic_batch(data, step)
+    fresh = lambda: attach_inflight(init_state(model, tcfg, plan, dev), plan)
+    runs, total = [], {nm: 0 for nm in wrappers}
+    steps = 5 * K_UNIT                  # 5 units: 3 between fill and drain
+    # a warm-up run first, so that no timed run grows the allocator's pool
+    for tel in (None, False, True, True, False):
+        state = fresh()
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        state, dlog = run_pipelined(sups[bool(tel)][0], state, start_step=0,
+                                    num_steps=steps, batch_fn=batch,
+                                    cfg=DriverConfig(depth=2,
+                                                     steps_per_unit=K_UNIT))
+        torch.cuda.synchronize()
+        if tel:
+            for nm, w in wrappers.items():
+                total[nm] += w.launches
+        ms, units = steady_ms(dlog.step_times)
+        if tel is not None:
+            runs.append({"telemetry": tel, "ms_a_step": ms,
+                         "unit_retire_ms": units,
+                         "losses": list(dlog.losses)})
+        del state
+    for nm in ("bucket_topk", "bucket_scatter", "qsgd_pack",
+               "qsgd_unpack_grouped"):
+        if not total[nm]:
+            fail(f"telemetry phase: {nm} was never launched")
+    same = all(r["losses"] == runs[0]["losses"] for r in runs)
+    on = statistics.mean(r["ms_a_step"] for r in runs if r["telemetry"])
+    off = statistics.mean(r["ms_a_step"] for r in runs if not r["telemetry"])
+    log(f"[11] stacked pipelined lm-100m, telemetry off/on/on/off: ms a step "
+        f"{[round(r['ms_a_step'], 2) for r in runs]} (on {on:.2f}, off "
+        f"{off:.2f}: {on / off - 1:+.2%}); losses bit-equal {same}")
+    if not same:
+        fail("telemetry changed the pipelined run's losses")
+    # the reduce half alone (CUDA events), off/on/on/off
+    st = fresh()
+    _, leaves = ts.rank_grads(model, st.params, ts.batch_to_device(
+        batch(0), dev), run_lm.DP, tcfg.microbatches)
+    rand0 = ts.step_rand_fn(tcfg.seed, 0, dev)
+    alone = [time_ms(torch, lambda tel=tel: reduce_buckets_spmd(
+        plan, leaves, st.residuals, p_data=run_lm.DP, rand_fn=rand0,
+        telemetry=tel), reps=3) for tel in (False, True, True, False)]
+    reduce_off = (alone[0] + alone[3]) / 2
+    reduce_on = (alone[1] + alone[2]) / 2
+    log(f"[11] the stacked reduce half alone, telemetry off/on/on/off: "
+        f"{[round(a, 3) for a in alone]} ms (+{reduce_on - reduce_off:.3f} "
+        f"ms with telemetry)")
+    del st, leaves
+
+    # one step's rows
+    step = sups[True][0].step
+    state, m = step(fresh(), batch(0))
+    rows = {nm: r.cpu() for nm, r in m["telemetry"].items()}
+    del state, m
+    sparse = {b.name: (g, b) for g in plan.groups for b in g.buckets
+              if b.sparse}
+    bad = [nm for nm, r in rows.items() if not (
+        bool(torch.isfinite(r).all()) and 0 <= float(r[0]) <= sparse[nm][1].n
+        and 0 < float(r[2]) <= 1)]
+    vb = tcfg.sync.qsgd_bits
+    dsar = [nm for nm, (g, b) in sparse.items()
+            if b.algorithm == "dsar_split_allgather"]
+    want_wire = plan.wire_bytes() - sum(
+        bucket_wire_bytes(b.algorithm, plan.dp_total, plan.bucket_k(g, b), b.n,
+                          value_bits=vb)
+        for g in plan.groups for b in g.buckets
+        if b.algorithm != "dsar_split_allgather")
+    got_wire = sum(float(rows[nm][1]) for nm in dsar)
+    wire_rel = abs(got_wire - want_wire) / want_wire
+    log(f"[11] one step's rows: {len(rows)} (expected {len(sparse)}); invalid "
+        f"{bad}; DSAR wire bytes {got_wire:.0f} vs the plan's {want_wire:.0f} "
+        f"(rel {wire_rel:.1e}, limit 1e-6); coverage "
+        f"{min(float(r[2]) for r in rows.values()):.4f}-"
+        f"{max(float(r[2]) for r in rows.values()):.4f}")
+    if set(rows) != set(sparse) or bad or not wire_rel <= 1e-6:
+        fail("telemetry rows of the lm-100m step are not valid")
+    del sups, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the small model: both executors on the card and on the CPU, on the
+    # same gradients with the same bits
+    small = {}
+    for qsgd_bits in (None, 4):
+        sync = SyncConfig(mode="sparcml", k_per_bucket=8, bucket_size=512,
+                          algorithm="dsar_split_allgather",
+                          qsgd_bits=qsgd_bits, min_sparse_size=65536)
+        tmodel = build_model(tiny)
+        tplan = ts.build_plan(tmodel, dataclasses.replace(tcfg, sync=sync),
+                              run_lm.DP)
+        bt = ts.batch_to_device(synthetic_batch(tiny_data, 0),
+                                torch.device("cpu"))
+        _, leaves = ts.rank_grads(tmodel, params0, bt, run_lm.DP, 2)
+        res = {nm: torch.randn(r.shape, generator=torch.Generator()
+                               .manual_seed(5)) * 1e-3
+               for nm, r in tplan.init_residuals().items()}
+        out = {}
+        for key, where in (("cpu", torch.device("cpu")), ("card", dev)):
+            lv = [l.to(where) for l in leaves]
+            rs = {nm: r.to(where) for nm, r in res.items()}
+            _, _, t_spmd = reduce_buckets_spmd(
+                tplan, lv, rs, p_data=run_lm.DP, rand_fn=bits_for(0, where))
+            _, _, t_rank = reduce_buckets(
+                tplan, lv, rs, coll=StackedCollectives(run_lm.DP, where),
+                rand_fn=bits_for(0, where))
+            out[key] = {"spmd": {nm: r.cpu() for nm, r in
+                                        t_spmd.items()},
+                               "manual": {nm: r[0].cpu() for nm, r in
+                                          t_rank.items()}}
+        worst = {}
+        for form in ("spmd", "manual"):
+            a, c = out["card"][form], out["cpu"][form]
+            diff = torch.stack([(a[nm].double() - c[nm].double()).abs()
+                                / c[nm].double().abs().clamp_min(1e-30)
+                                for nm in c])
+            worst[form] = [float(v) for v in diff.max(dim=0).values]
+        small[str(qsgd_bits)] = worst
+        log(f"[11] small model, qsgd_bits={qsgd_bits}: the card's rows vs the "
+            f"CPU path's, max rel diff [nnz, wire, coverage, EF norm] "
+            f"{worst}")
+        for form, w in worst.items():
+            exact = qsgd_bits is None
+            if (exact and (w[0] or w[1])) or max(w[:2]) > 1e-3 or \
+                    max(w[2:]) > 1e-5:
+                fail(f"small-model telemetry ({form}, bits {qsgd_bits}): "
+                     "the card's rows disagree with the CPU path's")
+    return ({"runs": runs, "losses_bit_equal": same, "ms_on": on,
+             "ms_off": off, "reduce_alone_ms_off_on_on_off": alone,
+             "rows_step0": {nm: r.tolist()
+                                           for nm, r in rows.items()},
+             "dsar_wire_rel": wire_rel, "small_model_max_rel": small}, total)
+
+
+def phase_nccl(torch, dev, wrappers, tiny, tiny_data, params0, bits_for):
+    """Phase 12 (see the module docstring). Returns (record, launches of
+    the NCCL runs)."""
+    import torch.distributed as dist
+
+    from repro_torch.comm.collectives import (ProcessGroupCollectives,
+                                              StackedCollectives)
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.pipeline import attach_inflight, build_superstep
+    from repro_torch.train import run_lm
+    from repro_torch.train import train_step as ts
+    from repro_torch.utils.tree import tree_leaves
+
+    model = build_model(tiny)
+    tcfg = run_lm.train_config(STEPS)
+
+    def run(coll):
+        step, plan = ts.build_train_step(model, tcfg, 1, dev,
+                                         lowering="manual", coll=coll)
+        state = ts.init_state(model, tcfg, plan, dev,
+                              params=_to(params0, dev), coll=coll)
+        losses = []
+        for i in range(2):
+            state, m = step(state, synthetic_batch(tiny_data, i),
+                            bits_for(i, dev))
+            losses.append(float(m["loss"]))
+        sup, _ = build_superstep(model, tcfg, 1, dev, steps=2, guard=True,
+                                 lowering="manual", coll=coll)
+        pstate = attach_inflight(state, plan)
+        pstate, pm = sup(pstate, {k: torch.stack([
+            torch.as_tensor(synthetic_batch(tiny_data, 2 + i)[k])
+            for i in range(2)]) for k in synthetic_batch(tiny_data, 0)},
+            [bits_for(2 + i, dev) for i in range(2)])
+        sup.drain()
+        torch.cuda.synchronize()
+        losses += [float(v) for v in pm["loss"]]
+        return losses, [t.cpu() for f in ("params", "opt", "residuals",
+                                          "inflight")
+                        for t in tree_leaves(getattr(pstate, f))] + [
+            r.cpu() for nm in sorted(pm["telemetry"])
+            for r in pm["telemetry"][nm]]
+
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/rendezvous",
+                                world_size=1, rank=0)
+        try:
+            for w in wrappers.values():
+                w.launches = 0
+            got = run(ProcessGroupCollectives(device=dev))
+            launches = {nm: w.launches for nm, w in wrappers.items()}
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    want = run(StackedCollectives(1, dev))
+    same = got[0] == want[0] and len(got[1]) == len(want[1]) and all(
+        torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    log(f"[12] {backend} world of 1: 2 synchronous + 2 pipelined per-rank "
+        f"steps of the small model, losses {got[0]}; bit-equal to "
+        f"StackedCollectives(1) {same}; launches {launches}")
+    if not same:
+        fail("the NCCL per-rank step differs from the stacked one")
+    for nm in ("bucket_topk", "bucket_scatter", "qsgd_pack",
+               "qsgd_unpack_grouped"):
+        if not launches[nm]:
+            fail(f"NCCL phase: {nm} was never launched")
+    return {"backend": backend, "losses": got[0], "bit_equal": same,
+            "launches": launches}, launches
 
 
 def phase_classify(torch, dev, wrappers, rc, need_launches=True):

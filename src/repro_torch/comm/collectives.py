@@ -67,6 +67,7 @@ class CollectiveContext:
 
     p: int
     local_ranks: int
+    device: torch.device
 
     def axis_rank(self) -> torch.Tensor:
         raise NotImplementedError

@@ -1,35 +1,52 @@
 """Plan executor: one TopK-compress + reduction per fusion bucket.
 
-Two forms. The per-rank form (:func:`reduce_buckets`,
-:func:`execute_plan`, the JAX package's manual lowering) is the code each
-rank runs, talking to the others through a ``CollectiveContext``: each
-bucket runs its planned algorithm of ``core/allreduce.py`` on the wire,
-with the clamp folds of the capacity-bound ones, over stacked ranks on
-one device or over ``torch.distributed``. The stacked-replica form
-(:func:`reduce_buckets_spmd`, :func:`execute_plan_spmd`) is described
-next.
-
-On one device the R ranks of the JAX package's auto-SPMD formulation
-(``repro.comm.executor.reduce_buckets_spmd``) are a leading axis of every
-tensor, and a sum over that axis is the allreduce. Per-rank top-k and
-error feedback stay exact. For each group the leaves are fused into one
-canonical (R, rows, cols) buffer, then per fusion bucket:
+Two forms share one bucket loop (:func:`_buckets`): pack each group's
+leaves into one canonical (L, rows, cols) buffer (L the ranks the caller
+holds), then per fusion bucket
 
     acc       =  residual + bucket slice      (error feedback, Alg. 2 line 1)
     stream, residual' = bucket_topk(acc)      (Alg. 2 line 2)
-    dense     =  bucket_scatter(stream)       (each rank's densified stream)
-    reduced   =  sum over ranks               (Alg. 2 line 3)
-    [DSAR + QSGD: every range owner quantizes its shard of the sum
-     (qsgd_pack); after the last bucket one grouped qsgd_unpack
-     dequantizes the shards of all such buckets, sums the pods, applies
-     the mean and writes each bucket's (rows, cols) buffer]
 
-Raw-dense buckets (below ``min_sparse_size``) are a plain sum. SSAR
-algorithms reduce exactly, so in this form they fold into the same sum.
+and each form runs only its own reduction (Alg. 2 line 3):
+
+* the per-rank form (:func:`reduce_buckets`, :func:`execute_plan`, the
+  JAX package's manual lowering) is the code each rank runs, talking to
+  the others through a ``CollectiveContext``: each bucket runs its planned
+  algorithm of ``core/allreduce.py`` on the wire, with the clamp folds of
+  the capacity-bound ones, over stacked ranks on one device or over
+  ``torch.distributed``;
+* the stacked-replica form (:func:`reduce_buckets_spmd`,
+  :func:`execute_plan_spmd`, the reference's auto-SPMD formulation) holds
+  all R ranks on a leading axis of one device's tensors, where a sum over
+  that axis is the allreduce:
+
+    dense     =  bucket_scatter(stream)       (each rank's densified stream)
+    reduced   =  sum over ranks
+
+  SSAR algorithms reduce exactly, so in this form they fold into the same
+  sum.
+
+Raw-dense buckets (below ``min_sparse_size``) carry no residual and are a
+plain sum. DSAR + QSGD buckets quantize every range owner's shard of the
+sum (qsgd_pack); their dequantization waits for the end of the loop,
+where ONE grouped qsgd_unpack launch a step writes every such bucket's
+buffer, in both forms. The stacked form's unpack also sums the pods and
+applies the mean; the per-rank form's reads the codes as its allgather
+received them and runs the pod phase and the mean after it, in the
+reference's order.
+
+Telemetry (``telemetry=True``, the reference's default) adds, for every
+EF bucket, a row of 4 f32 on the device: [post-reduction nnz, the wire
+bytes ``cost_model.bucket_wire_bytes`` charges at that nnz, the mass
+coverage ||topk||^2 / ||g + r||^2, the EF residual's norm ||r'||]. The
+per-rank form sums the mass terms over the ranks with one extra psum a
+bucket, as the reference does. No telemetry op runs when it is off, and
+none reads the device from the host.
 
 The QSGD rounding bits of bucket ``i`` come from ``rand_fn(i, n)``, which
 returns n uint32 words laid out (p_pod, p_data, rows * shard) as the
-reference's ``_qsgd_rand_all``. The train step draws them from a seeded
+reference's ``_qsgd_rand_all`` (the per-rank form: each held rank's own,
+see :func:`reduce_buckets`). The train step draws them from a seeded
 ``torch.Generator`` (Philox on a CUDA device); tests pass the reference's
 own bits instead. ``bucket_idx`` counts every bucket, dense ones too.
 """
@@ -40,16 +57,100 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from repro_torch.comm.buckets import pack_group, unpack_group
-from repro_torch.comm.collectives import CollectiveContext
+from repro_torch.comm.collectives import CollectiveContext, once_if_shared
 from repro_torch.comm.plan import SyncPlan
 from repro_torch.core import allreduce as ar
 from repro_torch.core import sparse_stream as ss
+from repro_torch.core.cost_model import bucket_wire_bytes, pod_wire_bytes
 from repro_torch.core.topk import UniformStream, compress2d
 from repro_torch.kernels.qsgd_pack.ops import qsgd_pack
 from repro_torch.kernels.qsgd_unpack.ops import qsgd_unpack_grouped
 from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
 
 RandFn = Callable[[int, int], torch.Tensor]
+
+
+class _EF:
+    """One EF bucket in the loop: the accumulator, its TopK stream and the
+    residual. A form drops ``acc`` and ``u`` when it is done with them, and
+    may add a clamp fold into ``residual`` before it stores it."""
+
+    __slots__ = ("acc", "u", "residual")
+
+
+def _buckets(plan: SyncPlan, leaves: Sequence[torch.Tensor], residuals: dict):
+    """The loop both forms run, in plan order. Yields (bucket_idx, group,
+    bucket, seg, ef): ``seg`` the bucket's (L, rows, cols) slice of its
+    packed group; ``ef`` None for a raw-dense bucket, else an :class:`_EF`
+    with the EF add and the TopK compression done. The caller stores the
+    residual (after any clamp fold) with :func:`_store_residual`."""
+    cfg = plan.cfg
+    bucket_idx = 0
+    for group in plan.groups:
+        buf = pack_group(group, leaves, cfg.bucket_size, batch_dims=1)
+        for b in group.buckets:
+            seg = buf[:, :, b.col_start:b.col_start + b.cols]
+            if not b.sparse:
+                yield bucket_idx, group, b, seg, None
+            else:
+                res = residuals[b.name]                      # (L, rows, cols)
+                ef = _EF()
+                ef.acc = res.to(torch.float32) + seg         # Alg. 2 line 1
+                ef.u, ef.residual = compress2d(              # Alg. 2 line 2
+                    ef.acc, cfg.k_per_bucket, cfg.bucket_size, impl=cfg.impl)
+                yield bucket_idx, group, b, seg, ef
+            bucket_idx += 1
+
+
+def _store_residual(new_residuals: dict, residuals: dict, b, ef: _EF) -> None:
+    """The bucket's new EF residual, in the dtype of its old one."""
+    new_residuals[b.name] = ef.residual.to(residuals[b.name].dtype)
+
+
+def _plan_order(plan: SyncPlan, d: dict) -> dict:
+    return {b.name: d[b.name] for b in plan.buckets if b.name in d}
+
+
+def _local_mass(ef: _EF, lead: Optional[int] = None) -> torch.Tensor:
+    """[sum topk^2, sum (g+r)^2, sum r'^2] in f32, the summands of the
+    coverage and EF-norm telemetry: (3,) over every axis, or (lead, 3),
+    each held rank's own. Summed by ``torch.sum``, whose CPU reduction is
+    pairwise (the CPU's 2-norm reduction is not, and drifts by 1e-5 to
+    1e-3 over a bucket)."""
+    def sq(x):
+        x = x.to(torch.float32).square()
+        return x.sum() if lead is None else x.reshape(lead, -1).sum(dim=1)
+    return torch.stack([sq(ef.u.val), sq(ef.acc), sq(ef.residual)], dim=-1)
+
+
+def _bucket_telemetry(out: torch.Tensor, plan: SyncPlan, group, b,
+                      p_data: int, p_pod: int, mass: torch.Tensor,
+                      per_rank: bool = False) -> torch.Tensor:
+    """The (4,) f32 row of one EF bucket (see the module), or (L, 4) for
+    the per-rank form's (L, rows, cols) ``out``, from the reduced sum
+    ``out`` and the globally summed ``mass``. An all-zero accumulator
+    counts as full coverage."""
+    cfg = plan.cfg
+    if per_rank:
+        nnz = once_if_shared(lambda o: torch.count_nonzero(o, dim=(1, 2)),
+                             out).to(torch.float32)
+    else:
+        nnz = torch.count_nonzero(out).to(torch.float32)
+    k = plan.bucket_k(group, b)
+    vb = cfg.qsgd_bits if cfg.qsgd_bits is not None else 32
+    wire = bucket_wire_bytes(b.algorithm, p_data, k, b.n, nnz=nnz,
+                             value_bits=vb)
+    if p_pod > 1:
+        sparse_pod = b.pod_sparse and group.rows == 1
+        wire = wire + pod_wire_bytes(p_pod, b.n, min(b.n, p_data * k),
+                                     pod_sparse=sparse_pod)
+    if not torch.is_tensor(wire):
+        wire = torch.full_like(nnz, wire)
+    covered, total, ef_sq = mass.unbind(-1)
+    coverage = torch.where(total > 0, covered / total.clamp_min(1e-30),
+                           torch.ones_like(total))
+    return torch.stack([nnz, wire.to(torch.float32), coverage, ef_sq.sqrt()],
+                       dim=-1)
 
 
 def reduce_buckets_spmd(
@@ -60,13 +161,19 @@ def reduce_buckets_spmd(
     p_data: int,
     p_pod: int = 1,
     rand_fn: Optional[RandFn] = None,
+    telemetry: bool = True,
 ):
     """The REDUCE half in the stacked-replica form.
 
     leaves_r: per-rank grads stacked as (R, *leaf_shape), R = p_pod*p_data.
     residuals: bucket-keyed (R, rows, cols) error-feedback tensors.
     Returns (reduced {bucket name -> (rows, cols) f32 buffer}, new
-    bucket-keyed residuals)."""
+    bucket-keyed residuals, telemetry {EF bucket name -> (4,) f32}; the
+    last is empty when ``telemetry`` is off). The mass sums need no
+    collective here: the (R, ...) stacks hold every rank. A quantized
+    bucket's nnz is counted on its buffer after the mean (the grouped
+    unpack fuses it), which is the count of the sum but for products
+    below the smallest denormal."""
     cfg = plan.cfg
     replicas = p_data * p_pod
     if leaves_r and leaves_r[0].shape[0] != replicas:
@@ -77,48 +184,51 @@ def reduce_buckets_spmd(
 
     reduced: dict = {}
     new_residuals: dict = {}
-    quantized: dict = {}            # bucket name -> UnpackSegment
-    bucket_idx = 0
-    for group in plan.groups:
-        buf = pack_group(group, leaves_r, cfg.bucket_size, batch_dims=1)
-        for b in group.buckets:
-            seg = buf[:, :, b.col_start:b.col_start + b.cols]
-            if not b.sparse:
-                reduced[b.name] = seg.sum(dim=0) * scale
-                bucket_idx += 1
-                continue
-            res = residuals[b.name]                          # (R, rows, cols)
-            acc = res.to(torch.float32) + seg
-            u, residual = compress2d(acc, cfg.k_per_bucket, cfg.bucket_size,
-                                     impl=cfg.impl)
-            dens = u.densify(impl=cfg.impl)                  # (R, rows, m*B)
-            rows, mb = dens.shape[1], dens.shape[2]
-            dpod = dens.reshape(p_pod, p_data, rows, mb).sum(dim=1)
-            del acc, u, dens                 # freed before the pack allocates
-            new_residuals[b.name] = residual.to(res.dtype)
-            if qsgd is not None and b.algorithm == "dsar_split_allgather":
-                if rand_fn is None:
-                    raise ValueError("QSGD needs stochastic-rounding bits: "
-                                     "pass rand_fn")
-                shard = mb // p_data
-                bq = qsgd.bucket_size
-                x = dpod.reshape(p_pod, rows, p_data, shard).permute(0, 2, 1, 3)
-                rand = rand_fn(bucket_idx, p_pod * p_data * rows * shard)
-                packed, sc = qsgd_pack(x.reshape(-1, bq), rand.reshape(-1, bq),
-                                       qsgd.bits, qsgd.scale_mode,
-                                       impl=cfg.impl)
-                quantized[b.name] = UnpackSegment(packed, sc, p_pod, p_data,
-                                                  rows, shard, bq, scale)
-                del x, rand
-            else:
-                reduced[b.name] = dpod.sum(dim=0) * scale
-            del dpod            # only the packed codes wait for the unpack
-            bucket_idx += 1
+    telem: dict = {}
+    mass: dict = {}
+    quantized: dict = {}            # bucket name -> (group, bucket, segment)
+    for bucket_idx, group, b, seg, ef in _buckets(plan, leaves_r, residuals):
+        if ef is None:
+            reduced[b.name] = seg.sum(dim=0) * scale
+            continue
+        _store_residual(new_residuals, residuals, b, ef)
+        dens = ef.u.densify(impl=cfg.impl)                   # (R, rows, m*B)
+        rows, mb = dens.shape[1], dens.shape[2]
+        dpod = dens.reshape(p_pod, p_data, rows, mb).sum(dim=1)
+        if telemetry:
+            mass[b.name] = _local_mass(ef)
+        ef.acc = ef.u = None             # freed before the pack allocates
+        del dens
+        if qsgd is not None and b.algorithm == "dsar_split_allgather":
+            if rand_fn is None:
+                raise ValueError("QSGD needs stochastic-rounding bits: "
+                                 "pass rand_fn")
+            shard = mb // p_data
+            bq = qsgd.bucket_size
+            x = dpod.reshape(p_pod, rows, p_data, shard).permute(0, 2, 1, 3)
+            rand = rand_fn(bucket_idx, p_pod * p_data * rows * shard)
+            packed, sc = qsgd_pack(x.reshape(-1, bq), rand.reshape(-1, bq),
+                                   qsgd.bits, qsgd.scale_mode, impl=cfg.impl)
+            quantized[b.name] = (group, b, UnpackSegment(
+                packed, sc, p_pod, p_data, rows, shard, bq, scale))
+            del x, rand
+        else:
+            out = dpod.sum(dim=0)
+            reduced[b.name] = out * scale
+            if telemetry:
+                telem[b.name] = _bucket_telemetry(out, plan, group, b, p_data,
+                                                  p_pod, mass[b.name])
+        del dpod                # only the packed codes wait for the unpack
     if quantized:
-        outs = qsgd_unpack_grouped(list(quantized.values()), qsgd.bits,
-                                   impl=cfg.impl)
-        reduced.update(zip(quantized, outs))
-    return reduced, new_residuals
+        outs = qsgd_unpack_grouped([q[2] for q in quantized.values()],
+                                   qsgd.bits, impl=cfg.impl)
+        for (group, b, _), out in zip(quantized.values(), outs):
+            reduced[b.name] = out
+            if telemetry:
+                telem[b.name] = _bucket_telemetry(out, plan, group, b, p_data,
+                                                  p_pod, mass[b.name])
+    return (_plan_order(plan, reduced), new_residuals,
+            _plan_order(plan, telem))
 
 
 def apply_buckets(plan: SyncPlan, reduced: dict,
@@ -161,9 +271,9 @@ def execute_plan_spmd(
     """Synchronous stacked-replica sync: :func:`reduce_buckets_spmd`
     composed with :func:`apply_buckets_spmd`. Returns (synced leaves in
     their original layout, new residuals)."""
-    reduced, new_residuals = reduce_buckets_spmd(
+    reduced, new_residuals, _ = reduce_buckets_spmd(
         plan, leaves_r, residuals, p_data=p_data, p_pod=p_pod,
-        rand_fn=rand_fn)
+        rand_fn=rand_fn, telemetry=False)
     return apply_buckets_spmd(plan, reduced, leaves_r), new_residuals
 
 
@@ -220,7 +330,7 @@ def reduce_buckets(
     coll: CollectiveContext,
     pod_coll: Optional[CollectiveContext] = None,
     rand_fn: Optional[RandFn] = None,
-    telemetry: bool = False,
+    telemetry: bool = True,
 ):
     """The REDUCE half, per rank: pack -> EF add -> TopK -> the bucket's
     collective.
@@ -233,11 +343,9 @@ def reduce_buckets(
     ``rand_fn(i, n)``: n u32 words laid out (L, rows * shard), each held
     rank's own bits for its shard (the reference's ``_qsgd_rand``).
     Returns (reduced {name -> (L, rows, cols) f32, every rank's
-    replicated sum}, new residuals). Telemetry is not ported yet."""
-    if telemetry:
-        raise NotImplementedError(
-            "per-bucket telemetry needs ROADMAP Queue 1 item 4's "
-            "_bucket_telemetry; pass telemetry=False")
+    replicated sum, broadcast (stride 0) where the stacked ranks share
+    one}, new residuals, telemetry {EF bucket name -> (L, 4) f32, the same
+    row on every rank}; empty when ``telemetry`` is off)."""
     cfg = plan.cfg
     p_data = coll.p
     p_pod = pod_coll.p if pod_coll is not None else 1
@@ -249,65 +357,78 @@ def reduce_buckets(
         raise ValueError(f"the plan is for {plan.dp_total} ranks, the "
                          f"contexts span {p_data} x {p_pod}")
     scale = 1.0 / plan.dp_total if cfg.mean else 1.0
+    qsgd = cfg.qsgd()
 
     reduced: dict = {}
     new_residuals: dict = {}
-    bucket_idx = 0
-    for group in plan.groups:
-        buf = pack_group(group, leaves, cfg.bucket_size, batch_dims=1)
-        for b in group.buckets:
-            seg = buf[:, :, b.col_start:b.col_start + b.cols]
-            if not b.sparse:
-                out = coll.psum(seg)
-                if pod_coll is not None:
-                    out = pod_coll.psum(out)
-                reduced[b.name] = out * scale
-                bucket_idx += 1
-                continue
-            res = residuals[b.name]                          # (L, rows, cols)
-            acc = res.to(torch.float32) + seg                # Alg. 2 line 1
-            u, residual = compress2d(acc, cfg.k_per_bucket, cfg.bucket_size,
-                                     impl=cfg.impl)          # Alg. 2 line 2
-            del acc
-            algorithm = b.algorithm
-            fold = None
-            if algorithm == "dense":
-                # compress + EF, then allreduce the densified stream
-                out = coll.psum(u.densify(impl=cfg.impl))
-            elif algorithm == "dsar_split_allgather":     # Alg. 2 line 3
-                qsgd = cfg.qsgd()
-                rand = None
-                if qsgd is not None:
-                    if rand_fn is None:
-                        raise ValueError("QSGD needs stochastic-rounding "
-                                         "bits: pass rand_fn")
-                    rand = rand_fn(bucket_idx,
-                                   lead * group.rows * b.cols // p_data)
-                out = ar.dsar_split_allgather_batched_inside(
-                    u, coll=coll, qsgd=qsgd, rand=rand, impl=cfg.impl)
+    telem: dict = {}
+    mass: dict = {}
+    pending: dict = {}              # bucket name -> (group, bucket, gather)
+
+    def finish(group, b, out):
+        """The pod phase, the mean and the telemetry row of one EF
+        bucket's sum over the data axis."""
+        if pod_coll is not None:
+            if b.pod_sparse and group.rows == 1:
+                cap = min(b.n, p_data * plan.bucket_k(group, b))
+                out = _pod_sparse_exchange(out, pod_coll, cap)
             else:
-                # SSAR keeps a sparse end-representation; flat rows only.
-                assert group.rows == 1, (b.name, algorithm)
-                flat = UniformStream(u.lidx[:, 0], u.val[:, 0],
-                                     cfg.bucket_size)
-                out, fold = _reduce_flat_sparse(flat, algorithm, coll=coll,
-                                                impl=cfg.impl)
-                out = out[:, None, :]
+                out = pod_coll.psum(out)                     # hierarchical
+        reduced[b.name] = once_if_shared(lambda o: o * scale, out)
+        if telemetry:
+            telem[b.name] = _bucket_telemetry(out, plan, group, b, p_data,
+                                              p_pod, mass[b.name],
+                                              per_rank=True)
+
+    for bucket_idx, group, b, seg, ef in _buckets(plan, leaves, residuals):
+        if ef is None:
+            out = coll.psum(seg)
             if pod_coll is not None:
-                if b.pod_sparse and group.rows == 1:
-                    cap = min(b.n, p_data * plan.bucket_k(group, b))
-                    out = _pod_sparse_exchange(out, pod_coll, cap)
-                else:
-                    out = pod_coll.psum(out)                 # hierarchical
-            reduced[b.name] = out * scale
-            if fold is not None:
-                # Global-residual rule: mass clamped off the wire re-enters
-                # THIS rank's residual at pre-scale magnitude, so it is
-                # contributed exactly once on a later step.
-                residual = residual + fold[:, None, :]
-            new_residuals[b.name] = residual.to(res.dtype)
-            bucket_idx += 1
-    return reduced, new_residuals
+                out = pod_coll.psum(out)
+            reduced[b.name] = once_if_shared(lambda o: o * scale, out)
+            continue
+        fold = None
+        if b.algorithm == "dsar_split_allgather":           # Alg. 2 line 3
+            rand = None
+            if qsgd is not None:
+                if rand_fn is None:
+                    raise ValueError("QSGD needs stochastic-rounding bits: "
+                                     "pass rand_fn")
+                rand = rand_fn(bucket_idx,
+                               lead * group.rows * b.cols // p_data)
+            out = ar.dsar_split_allgather_batched_inside(
+                ef.u, coll=coll, qsgd=qsgd, rand=rand, impl=cfg.impl)
+        else:
+            # SSAR keeps a sparse end-representation; flat rows only.
+            assert group.rows == 1, (b.name, b.algorithm)
+            flat = UniformStream(ef.u.lidx[:, 0], ef.u.val[:, 0],
+                                 cfg.bucket_size)
+            out, fold = _reduce_flat_sparse(flat, b.algorithm, coll=coll,
+                                            impl=cfg.impl)
+            out = out[:, None, :]
+        if fold is not None:
+            # Global-residual rule: mass clamped off the wire re-enters
+            # THIS rank's residual at pre-scale magnitude, so it is
+            # contributed exactly once on a later step (and the EF norm
+            # below covers it).
+            ef.residual = ef.residual + fold[:, None, :]
+        _store_residual(new_residuals, residuals, b, ef)
+        if telemetry:
+            m = coll.psum(_local_mass(ef, lead))
+            mass[b.name] = pod_coll.psum(m) if pod_coll is not None else m
+        ef.acc = ef.u = None
+        if isinstance(out, ar.PendingUnpack):
+            pending[b.name] = (group, b, out)
+        else:
+            finish(group, b, out)
+    if pending:
+        bufs = qsgd_unpack_grouped([pu.segment for _, _, pu in
+                                    pending.values()], qsgd.bits,
+                                   impl=cfg.impl)
+        for (group, b, pu), buf in zip(pending.values(), bufs):
+            finish(group, b, pu.result(buf))
+    return (_plan_order(plan, reduced), new_residuals,
+            _plan_order(plan, telem))
 
 
 def execute_plan(
@@ -324,8 +445,8 @@ def execute_plan(
     layout, new residuals (L, rows, cols)). Every held rank holds the same
     replicated buffers after the collectives (they hand every rank the
     same bytes), so the apply half runs once, on the first held rank's."""
-    reduced, new_residuals = reduce_buckets(
+    reduced, new_residuals, _ = reduce_buckets(
         plan, leaves, residuals, coll=coll, pod_coll=pod_coll,
-        rand_fn=rand_fn)
+        rand_fn=rand_fn, telemetry=False)
     first = {name: v[0] for name, v in reduced.items()}
     return apply_buckets(plan, first, [l[0] for l in leaves]), new_residuals

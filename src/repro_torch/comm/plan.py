@@ -19,19 +19,26 @@ Error-feedback residual state is keyed by bucket: a bucket is the unit
 of compression, so it is the unit of feedback. So are the non-blocking
 runtime's in-flight reduced buffers (``inflight_shapes``).
 
+The plan also accounts for its wire: ``wire_bytes`` charges every bucket
+through ``cost_model.bucket_wire_bytes``, the same entry the executors'
+per-bucket telemetry charges. ``build_per_leaf_plan`` is the legacy
+routing (one bucket per qualifying leaf) behind ``core/compressor.py``'s
+per-leaf wrappers.
+
 The geometry is the JAX package's ``repro.comm.plan`` field for field;
-the tests hold the two plans equal.
+the tests hold the two plans equal. Re-planning (``replan``) and the
+scattered output mode are not ported (ROADMAP Queue 1 items 9 and 10).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.comm.buckets import canonical_shape, model_axis
-from repro_torch.core.cost_model import AUTO_NOT_CALIBRATED
+from repro_torch.core.cost_model import AUTO_NOT_CALIBRATED, bucket_wire_bytes
 from repro_torch.utils.tree import tree_flatten
 
 # The batched (rows > 1) pipeline keeps the model-sharded row axis as a
@@ -107,15 +114,57 @@ class SyncPlan:
     def num_sparse_buckets(self) -> int:
         return sum(1 for b in self.buckets if b.sparse)
 
+    def covered_leaf_ids(self) -> set[int]:
+        return {s.leaf_id for g in self.groups for s in g.slots}
+
+    def algorithms(self) -> dict[str, str]:
+        """Bucket name -> resolved algorithm."""
+        return {b.name: b.algorithm for b in self.buckets}
+
+    def pod_sparse_flags(self) -> dict[str, bool]:
+        return {b.name: b.pod_sparse for b in self.buckets}
+
+    def signature(self) -> str:
+        """Per-bucket algorithm (with a ``+ps`` marker for a sparse pod
+        phase) in geometry order: the reference's key of a replicated
+        plan."""
+        return ",".join(
+            f"{b.name}={b.algorithm}{'+ps' if b.pod_sparse else ''}"
+            for b in self.buckets)
+
+    def wire_bytes(self, p: Optional[int] = None, *,
+                   aggregate: bool = False) -> float:
+        """Gradient-exchange bytes on the wire a rank a step under this
+        plan (``aggregate=True``: times ``p``, the whole data axis). Each
+        bucket is charged by ``cost_model.bucket_wire_bytes``, the entry
+        the executors' telemetry charges, at its worst-case nnz."""
+        p = p or self.dp_total
+        vb = self.cfg.qsgd_bits if self.cfg.qsgd_bits is not None else 32
+        total = sum(bucket_wire_bytes(b.algorithm, p, self.bucket_k(g, b),
+                                      b.n, value_bits=vb)
+                    for g in self.groups for b in g.buckets)
+        return total * (p if aggregate else 1)
+
+    def param_allgather_bytes(self, p: Optional[int] = None, *,
+                              aggregate: bool = False) -> float:
+        """Bytes of the dense parameter allgather that the scattered
+        output mode pays: 0 in the replicated mode, the only one ported
+        (parameters never leave the rank)."""
+        return 0.0
+
     def bucket_k(self, group: GroupSpec, b: BucketSpec) -> int:
         """TOTAL selected items of one bucket per rank per step."""
         return group.rows * (b.cols // self.cfg.bucket_size) * \
             self.cfg.k_per_bucket
 
-    def init_residuals(self, device="cpu") -> dict[str, torch.Tensor]:
-        """Zero error-feedback state, keyed by bucket name: (dp_total, rows,
-        cols) for every sparse bucket (raw-dense buckets carry none)."""
-        return {b.name: torch.zeros((self.dp_total, g.rows, b.cols),
+    def init_residuals(self, device="cpu", ranks: Optional[int] = None
+                       ) -> dict[str, torch.Tensor]:
+        """Zero error-feedback state, keyed by bucket name: (ranks, rows,
+        cols) for every sparse bucket (raw-dense buckets carry none).
+        ``ranks``: the ranks this process holds, all ``dp_total`` by
+        default (one over ``torch.distributed``)."""
+        ranks = self.dp_total if ranks is None else ranks
+        return {b.name: torch.zeros((ranks, g.rows, b.cols),
                                     dtype=self.cfg.ef_dtype, device=device)
                 for g in self.groups for b in g.buckets if b.sparse}
 
@@ -219,4 +268,47 @@ def build_sync_plan(param_shapes, param_specs, cfg, dp_total: int) -> SyncPlan:
             model_axis(spec) is not None for _, _, spec, _, _ in entries)
         groups.append(GroupSpec(gid, rows, model_sharded, group_cols,
                                 tuple(slots), tuple(buckets)))
+    return SyncPlan(cfg, dp_total, len(leaves), tuple(groups))
+
+
+# --------------------------------------------------------------------------
+# Legacy per-leaf routing (behind core/compressor.py's per-leaf wrappers)
+# --------------------------------------------------------------------------
+
+def leaf_sparse_ok(shape, spec, cfg, dp_total: int) -> bool:
+    """The per-leaf qualification rule of the pre-fusion pipeline: big
+    enough (paper §8: N > 65k) and the per-row bucket count divides the
+    split phase's group size (and, quantized, each shard whole QSGD
+    buckets)."""
+    if cfg.mode != "sparcml" or math.prod(shape) < cfg.min_sparse_size:
+        return False
+    _, cols = canonical_shape(tuple(shape), spec, cfg.bucket_size)
+    if cfg.qsgd_bits is not None and (cols // dp_total) % cfg.qsgd_bucket:
+        return False
+    return (cols // cfg.bucket_size) % dp_total == 0
+
+
+def build_per_leaf_plan(param_shapes, param_specs, cfg, dp_total: int
+                        ) -> SyncPlan:
+    """One group and one bucket per qualifying leaf (legacy routing);
+    leaves that fail :func:`leaf_sparse_ok` are not covered, and callers
+    sum them densely."""
+    leaves, _ = tree_flatten(param_shapes)
+    specs, _ = tree_flatten(param_specs)
+    groups = []
+    for i, (leaf, spec) in enumerate(zip(leaves, specs)):
+        shape = tuple(leaf.shape)
+        if not leaf_sparse_ok(shape, spec, cfg, dp_total):
+            continue
+        rows, cols = canonical_shape(shape, spec, cfg.bucket_size)
+        gid = len(groups)
+        algo = cfg.algorithm
+        if algo == "auto":
+            algo = _resolve_algorithm(cfg, dp_total, rows, cols)
+        elif rows > 1 and algo not in BATCHED_ALGORITHMS:
+            algo = "dsar_split_allgather"
+        bucket = BucketSpec(f"g{gid}b0", 0, cols, rows, algo)
+        groups.append(GroupSpec(
+            gid, rows, rows > 1 and model_axis(spec) is not None, cols,
+            (LeafSlot(i, shape, spec, rows, cols, 0),), (bucket,)))
     return SyncPlan(cfg, dp_total, len(leaves), tuple(groups))

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -53,8 +53,9 @@ from repro_torch.core.qsgd import QSGDConfig, dequantize, quantize
 from repro_torch.core.sparse_stream import SENTINEL, SparseStream
 from repro_torch.core.topk import UniformStream
 from repro_torch.kernels.bucket_scatter.ops import bucket_scatter
+from repro_torch.kernels.bucket_topk.ops import check_bucket_size
 from repro_torch.kernels.qsgd_pack.ops import qsgd_pack
-from repro_torch.kernels.qsgd_unpack.ops import qsgd_unpack
+from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
 
 
 @dataclass(frozen=True)
@@ -400,24 +401,44 @@ def dsar_split_allgather_inside(
 # collectives as a pure batch dim (the per-rank executor's rowed buckets).
 # --------------------------------------------------------------------------
 
+class PendingUnpack(NamedTuple):
+    """A quantized DSAR gather whose dequantization the caller runs later,
+    batched with the other buckets' into one ``qsgd_unpack_grouped``
+    launch (``comm/executor.py``). ``segment`` holds the codes and scales
+    as received: row-major, p_pod = 1, mean 1, its (rows, p*shard) output
+    the (held, r, m*B) result of ``shape``. When the stacked ranks
+    received one shared copy, held = 1 and :meth:`result` broadcasts it
+    back to ``lead`` ranks."""
+
+    segment: UnpackSegment
+    shape: tuple
+    lead: int
+
+    def result(self, buf: torch.Tensor) -> torch.Tensor:
+        out = buf.view(self.shape)
+        if self.shape[0] == self.lead:
+            return out
+        return out.expand((self.lead,) + tuple(self.shape[1:]))
+
+
 def dsar_split_allgather_batched_inside(
     u,  # BatchedStream: lidx/val (L, r, m, k)
     *,
     coll: CollectiveContext,
     qsgd: QSGDConfig | None = None,
     rand: torch.Tensor | None = None,
-    out_dtype=torch.float32,
     impl: str = "auto",
-) -> torch.Tensor:
-    """DSAR over the data axis with a batched row dim. Returns (L, r, m*B).
+):
+    """DSAR over the data axis with a batched row dim. Returns the (L, r,
+    m*B) f32 sum, or, QSGD-quantized, the received codes as a
+    :class:`PendingUnpack` that the caller dequantizes.
 
     ONE collective a phase:
       split: a single fused all_to_all on the bucket axis carrying
              [val | lidx-as-f32] (lidx < B <= 2^24 is exact in f32);
       densify my bucket range and sum the p sources (bucket_scatter);
       gather: a single all_gather of [packed-as-f32 | scale] when
-             QSGD-quantized (qsgd_pack, then qsgd_unpack a bucket), of the
-             f32 shard otherwise.
+             QSGD-quantized (qsgd_pack), of the f32 shard otherwise.
     rand: each held rank's bits for its shard, (L, >= r*m*B/p) u32."""
     p = coll.p
     lead, r, m, k = u.lidx.shape
@@ -438,7 +459,7 @@ def dsar_split_allgather_batched_inside(
                            impl=impl)
     shard = ordered_sum(dense.reshape(p, lead, r, shard_cols), 0)
     if qsgd is None:
-        return coll.all_gather(shard.to(out_dtype), axis=1)
+        return coll.all_gather(shard.to(torch.float32), axis=1)
     if rand is None:
         raise ValueError("QSGD second phase needs stochastic-rounding bits")
     bq = qsgd.bucket_size
@@ -453,16 +474,15 @@ def dsar_split_allgather_batched_inside(
     wire = torch.cat([packed.view(torch.float32).reshape(lead, r, nbq * w),
                       scale.reshape(lead, r, nbq)], dim=2)
     wire = coll.all_gather(wire, axis=1).reshape(lead, r, p, nbq * w + nbq)
-
-    def unpack(wr):
-        packed_all = wr[..., :nbq * w].contiguous().view(torch.uint32)
-        scale_all = wr[..., nbq * w:].contiguous()
-        xhat = qsgd_unpack(packed_all.reshape(-1, w), scale_all.reshape(-1, 1),
-                           qsgd.bits, torch.float32, impl=impl)
-        # received order is (r, p, shard): the (r, m*B) layout as it is
-        return xhat.reshape(wr.shape[0], r, m * b).to(out_dtype)
-
-    return once_if_shared(unpack, wire)
+    if lead > 1 and wire.stride(0) == 0:
+        wire = wire[:1]          # the stacked ranks share one copy
+    held = wire.shape[0]
+    # received order is (held, r, p, shard): the (r, m*B) layout as it is
+    packed_all = wire[..., :nbq * w].contiguous().view(torch.uint32)
+    scale_all = wire[..., nbq * w:].contiguous()
+    seg = UnpackSegment(packed_all.reshape(-1, w), scale_all.reshape(-1, 1),
+                        1, p, held * r, shard_cols, bq, 1.0, row_major=True)
+    return PendingUnpack(seg, (held, r, m * b), lead)
 
 
 # --------------------------------------------------------------------------
@@ -528,9 +548,11 @@ def make_sparse_allreduce(
     """Returns f(x (L, n), rand (L, nbq*bq) u32 | None) -> (L, n): each held
     rank's vector TopK-compressed (k of every ``bucket_size``) and summed
     over the axis with ``algorithm``; every rank gets the sum.
-    ``algorithm='auto'`` raises (ROADMAP Queue 1 item 9)."""
+    ``algorithm='auto'`` raises (ROADMAP Queue 1 item 9), and so does, on
+    a card, a ``bucket_size`` that bucket_topk's kernel does not take."""
     if algorithm == "auto":
         raise NotImplementedError(AUTO_NOT_CALIBRATED)
+    check_bucket_size(bucket_size, coll.device, impl)
     from repro_torch.core.topk import compress
 
     def f(x: torch.Tensor, rand: torch.Tensor | None = None) -> torch.Tensor:

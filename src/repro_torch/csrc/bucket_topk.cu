@@ -41,6 +41,20 @@
 // shared-memory unit serialises those conflicts; aggregating each group
 // with __match_any_sync into one atomic measured no faster (up to 10 %
 // slower at B = 1024, PERF.md), so plain atomics stay.
+//
+// B takes every multiple of 128 up to 8192 (bucket_scatter's limit too).
+// Up to B = 1024 the warp above holds the row in registers, B/32 keys a
+// lane (bucket_topk_kernel<VPL>). Above 1024 a row no longer fits a
+// warp's registers, and bucket_topk_block_kernel gives it a block of 256
+// threads and holds it in shared memory (32 KB at 8192): the same digit
+// passes on one block-wide 256-bin histogram, whose suffix sum runs by
+// shuffles in each warp and across the 8 warps' totals, and the same tie
+// rule. The selection walks the row in chunks of 256 keys in index order;
+// inside a chunk a key's rank among the tied keys (and its place among
+// the selected ones) is its warp's ballot prefix plus the counts of the
+// lower warps of the chunk plus those of every earlier chunk. It is the
+// first, simple form of the large-B path: one row a block, one pass over
+// shared memory a digit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -165,33 +179,144 @@ bucket_topk_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ val,
   }
 }
 
+constexpr int kBlockThreads = kWarpsPerBlock * 32;
+constexpr int kMaxWarpB = 1024;
+constexpr int kMaxB = 8192;
+
+__global__ void __launch_bounds__(kBlockThreads)
+bucket_topk_block_kernel(const uint32_t* __restrict__ x,
+                         uint32_t* __restrict__ val,
+                         int32_t* __restrict__ lidx,
+                         uint32_t* __restrict__ res, int b, int k) {
+  extern __shared__ __align__(16) uint32_t row_s[];  // the row's bits, B words
+  __shared__ uint32_t hist[kBins];
+  __shared__ uint32_t warp_count[kWarpsPerBlock];
+  __shared__ uint32_t warp_count2[kWarpsPerBlock];
+  __shared__ uint32_t found[3];  // the bin, keys above it, keys in it
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long row = blockIdx.x;
+
+  const uint4* xr4 = reinterpret_cast<const uint4*>(x + row * b);
+  uint4* row4 = reinterpret_cast<uint4*>(row_s);
+  for (int i = t; i < b / 4; i += kBlockThreads) row4[i] = xr4[i];
+
+  uint32_t prefix = 0u;          // the digits found so far
+  uint32_t need = (uint32_t)k;   // keys still to take inside the prefix's bin
+  int low = 31;                  // bits below `low` are not decided yet
+  for (int p = 0; p < kPasses; ++p) {
+    const int shift = p == kPasses - 1 ? 0 : 23 - 8 * p;
+    const uint32_t digit_mask = (1u << (low - shift)) - 1u;
+    hist[t] = 0u;
+    __syncthreads();  // the bins are zero and the row is loaded
+    for (int i = t; i < b; i += kBlockThreads) {
+      const uint32_t key = row_s[i] & kAbs;
+      if ((key >> low) == (prefix >> low))
+        atomicAdd(&hist[(key >> shift) & digit_mask], 1u);
+    }
+    __syncthreads();
+    // incl: keys in bin t and every higher bin
+    const uint32_t c = hist[t];
+    uint32_t incl = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t v = __shfl_down_sync(kFull, incl, off);
+      if (lane + off < 32) incl += v;
+    }
+    if (lane == 0) warp_count[warp] = incl;
+    __syncthreads();
+    for (int w = warp + 1; w < kWarpsPerBlock; ++w) incl += warp_count[w];
+    // incl falls as the bin grows: exactly one bin reaches `need` while
+    // the bins above it do not
+    if (incl >= need && incl - c < need) {
+      found[0] = (uint32_t)t;
+      found[1] = incl - c;
+      found[2] = c;
+    }
+    __syncthreads();
+    need -= found[1];
+    prefix |= found[0] << shift;
+    low = shift;
+    if (found[2] == need) break;  // the bin holds exactly the keys still needed
+  }
+
+  // keys above the bin are taken; inside it the `need` lowest indices
+  const uint32_t top = prefix | ((1u << low) - 1u);
+  uint32_t* resr = res + row * b;
+  uint32_t* valr = val + row * k;
+  int32_t* lidxr = lidx + row * k;
+  const unsigned below = (1u << lane) - 1u;
+  uint32_t tied = 0u, taken = 0u;  // in the chunks before this one
+  for (int base = 0; base < b; base += kBlockThreads) {
+    const int i = base + t;
+    const bool live = i < b;     // whole warps: b is a multiple of 128
+    const uint32_t bits = live ? row_s[i] : 0u;
+    const uint32_t key = bits & kAbs;
+    const bool in_bin = live && (key >> low) == (prefix >> low);
+    const unsigned tie = __ballot_sync(kFull, in_bin);
+    if (lane == 0) warp_count[warp] = __popc(tie);
+    __syncthreads();
+    uint32_t tie_before = tied, tie_chunk = 0u;
+    for (int w = 0; w < kWarpsPerBlock; ++w) {
+      const uint32_t n = warp_count[w];
+      tie_before += w < warp ? n : 0u;
+      tie_chunk += n;
+    }
+    const bool s = live && (key > top ||
+                            (in_bin && tie_before + __popc(tie & below) < need));
+    const unsigned sel = __ballot_sync(kFull, s);
+    if (lane == 0) warp_count2[warp] = __popc(sel);
+    __syncthreads();
+    uint32_t sel_before = taken, sel_chunk = 0u;
+    for (int w = 0; w < kWarpsPerBlock; ++w) {
+      const uint32_t n = warp_count2[w];
+      sel_before += w < warp ? n : 0u;
+      sel_chunk += n;
+    }
+    if (s) {
+      const uint32_t pos = sel_before + __popc(sel & below);
+      valr[pos] = bits;
+      lidxr[pos] = i;
+    }
+    if (live) resr[i] = s ? 0u : bits;
+    tied += tie_chunk;
+    taken += sel_chunk;
+    __syncthreads();  // the counts are read before the next chunk's
+  }
+}
+
 }  // namespace
 
+// x (nb, b) -> val (nb, k), lidx (nb, k), res (nb, b). b is a multiple of
+// 128 up to 8192 and 1 <= k <= b; returns a CUDA error code.
 extern "C" int bucket_topk_f32(const float* x, float* val, int32_t* lidx,
                                float* res, long long nb, int b, int k,
                                cudaStream_t stream) {
   if (nb <= 0) return (int)cudaSuccess;
-  if (k < 1 || k > b) return (int)cudaErrorInvalidValue;
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((unsigned)((nb + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  if (k < 1 || k > b || b < 128 || b % 128 || b > kMaxB)
+    return (int)cudaErrorInvalidValue;
   const uint32_t* xu = reinterpret_cast<const uint32_t*>(x);
   uint32_t* vu = reinterpret_cast<uint32_t*>(val);
   uint32_t* ru = reinterpret_cast<uint32_t*>(res);
-  switch (b) {
-    case 128:
-      bucket_topk_kernel<4><<<grid, block, 0, stream>>>(xu, vu, lidx, ru, nb, k);
-      break;
-    case 256:
-      bucket_topk_kernel<8><<<grid, block, 0, stream>>>(xu, vu, lidx, ru, nb, k);
-      break;
-    case 512:
-      bucket_topk_kernel<16><<<grid, block, 0, stream>>>(xu, vu, lidx, ru, nb, k);
-      break;
-    case 1024:
-      bucket_topk_kernel<32><<<grid, block, 0, stream>>>(xu, vu, lidx, ru, nb, k);
-      break;
+  if (b > kMaxWarpB) {
+    if (nb > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    bucket_topk_block_kernel<<<(unsigned)nb, kBlockThreads,
+                               b * sizeof(uint32_t), stream>>>(xu, vu, lidx,
+                                                               ru, b, k);
+    return (int)cudaGetLastError();
+  }
+  const dim3 block(kWarpsPerBlock * 32);
+  const dim3 grid((unsigned)((nb + kWarpsPerBlock - 1) / kWarpsPerBlock));
+#define TOPK_WARP(VPL)                                                      \
+  case VPL:                                                                 \
+    bucket_topk_kernel<VPL><<<grid, block, 0, stream>>>(xu, vu, lidx, ru,   \
+                                                        nb, k);             \
+    break;
+  switch (b / 32) {
+    TOPK_WARP(4) TOPK_WARP(8) TOPK_WARP(12) TOPK_WARP(16)
+    TOPK_WARP(20) TOPK_WARP(24) TOPK_WARP(28) TOPK_WARP(32)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef TOPK_WARP
   return (int)cudaGetLastError();
 }

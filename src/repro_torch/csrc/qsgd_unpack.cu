@@ -9,6 +9,9 @@
 //
 // For every segment (one bucket), flat entry
 //   e = ((pod*p_data + rank)*rows + row)*shard + j,   QSGD row e / bq,
+// (or, in a row-major segment, e = ((pod*rows + row)*p_data + rank)*shard
+// + j: the layout the per-rank executor's allgather receives, already the
+// output's order)
 // decodes to code(e) * (sigma[e / bq] * fl(1/s)) with
 // code = ((word >> shift) & mask) - s, and
 //   out[row, rank*shard + j] = (0 + the pods' values, ascending) * mean.
@@ -50,6 +53,7 @@ struct QsgdUnpackSeg {
   float* out;              // (rows, p_data*shard)
   int p_pod, p_data, rows, shard, bq;
   float mean;
+  int row_major;           // codes laid out (p_pod, rows, p_data, shard)
 };
 
 namespace {
@@ -68,6 +72,7 @@ struct Seg {                      // the kernel's view of one bucket
   int qstride;                    // QSGD rows a pod: p_data*rows*nbq
   int bq, words, tiles, tasks;    // tasks = rows*upr*tiles, one a warp
   float mean;
+  int row_major;
 };
 
 struct Params {
@@ -104,7 +109,8 @@ qsgd_unpack_grouped_kernel(const __grid_constant__ Params p) {
   const int rq = unit - row * g.upr;             // rank*nbq + jq
   const int rank = rq / g.nbq;
   const int jq = rq - rank * g.nbq;
-  const long long q0 = ((long long)rank * g.rows + row) * g.nbq + jq;
+  const long long q0 =
+      g.row_major ? unit : ((long long)rank * g.rows + row) * g.nbq + jq;
   const int w0 = tile * kTileWords;
   const int tw = min(kTileWords, g.words - w0);  // words in this tile
   const int ts = tw * SPW;                       // float4 slots in it
@@ -213,6 +219,7 @@ extern "C" int qsgd_unpack_grouped_f32(const QsgdUnpackSeg* segs, int nseg,
     g.tiles = (int)tiles;
     g.tasks = (int)(units * tiles);
     g.mean = s.mean;
+    g.row_major = s.row_major;
     p.first_block[n] = (int)blocks;
     blocks += (g.tasks + kWarps - 1) / kWarps;
     if (++n == kMaxSegs) {

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.bucket_topk.kernel import bucket_topk_cuda
+from repro_torch.kernels.bucket_topk.kernel import (bucket_topk_cuda,
+                                                    require_supported_b)
 from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
 
 
@@ -34,3 +35,14 @@ def bucket_topk(x: torch.Tensor, k: int, impl: str = "auto"):
 
 
 bucket_topk.launches = 0
+
+
+def check_bucket_size(bucket_size: int, device, impl: str = "auto") -> None:
+    """Raise, naming the limit, when ``bucket_topk`` would launch its CUDA
+    kernel on ``device`` for rows of ``bucket_size`` that the kernel does
+    not take: the builders of the step and of the allreduce call this, so
+    the refusal comes before any launch."""
+    if impl == "ref" or (impl == "auto"
+                         and torch.device(device).type != "cuda"):
+        return
+    require_supported_b(bucket_size)

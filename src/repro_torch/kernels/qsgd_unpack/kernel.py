@@ -22,7 +22,7 @@ class _Seg(ctypes.Structure):
                 ("out", ctypes.c_void_p), ("p_pod", ctypes.c_int),
                 ("p_data", ctypes.c_int), ("rows", ctypes.c_int),
                 ("shard", ctypes.c_int), ("bq", ctypes.c_int),
-                ("mean", ctypes.c_float)]
+                ("mean", ctypes.c_float), ("row_major", ctypes.c_int)]
 
 
 def launch_grouped(segments, out: torch.Tensor, bits: int) -> int:
@@ -60,7 +60,7 @@ def launch_grouped(segments, out: torch.Tensor, bits: int) -> int:
             raise ValueError("qsgd_unpack: packed must start on a 16-byte "
                              "boundary (the kernel loads uint4)")
         descs[i] = _Seg(packed, seg.scale.data_ptr(), base, *seg[2:7],
-                        seg.mean)
+                        seg.mean, int(seg.row_major))
         base += 4 * size
     launched = ctypes.c_int(0)
     with torch.cuda.device(out.device):

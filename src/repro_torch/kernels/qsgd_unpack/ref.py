@@ -11,7 +11,11 @@ stacked-replica executor does with the dequantized shards of every DSAR +
 QSGD bucket: the reference's ``reduce_buckets_spmd`` unpacks the flat
 (p_pod*p_data*rows*shard/bq, bq) codes, permutes them back from
 (p_pod, p_data, rows, shard) to (p_pod, rows, p_data*shard), sums over the
-pods and multiplies by the mean scale.
+pods and multiplies by the mean scale. The per-rank executor's segments
+are ``row_major``: its allgather hands every rank the codes laid out
+(rows, p_data, shard), already the output's order, and it runs the pod
+phase (a collective) and the mean after the unpack, so there p_pod = 1
+and mean = 1.
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ class UnpackSegment(NamedTuple):
     """One bucket's packed shards and where they land.
 
     Entry e = ((pod*p_data + rank)*rows + row)*shard + j of the flat codes
-    (QSGD row e // bq) belongs to ``out[row, rank*shard + j]``."""
+    (QSGD row e // bq) belongs to ``out[row, rank*shard + j]``; with
+    ``row_major``, entry e = ((pod*rows + row)*p_data + rank)*shard + j
+    does."""
     packed: torch.Tensor   # (p_pod*p_data*rows*shard//bq, bq*bits//32) u32
     scale: torch.Tensor    # (p_pod*p_data*rows*shard//bq, 1) f32
     p_pod: int
@@ -35,6 +41,7 @@ class UnpackSegment(NamedTuple):
     shard: int
     bq: int
     mean: float            # the factor applied after the sum over pods
+    row_major: bool = False
 
 
 def check_segment(seg: UnpackSegment, bits: int) -> None:
@@ -42,7 +49,7 @@ def check_segment(seg: UnpackSegment, bits: int) -> None:
     if bits not in (2, 4, 8):
         raise ValueError(f"qsgd_unpack: bits={bits}")
     if min(seg.p_pod, seg.p_data, seg.bq) < 1 or min(seg.rows, seg.shard) < 0:
-        raise ValueError(f"qsgd_unpack: bad geometry {seg[2:]}")
+        raise ValueError(f"qsgd_unpack: bad geometry {seg[2:7]}")
     if seg.bq % (32 // bits):
         raise ValueError(f"qsgd_unpack: bq={seg.bq} is not a whole number "
                          "of words")
@@ -81,7 +88,10 @@ def qsgd_unpack_grouped_ref(segments, bits: int) -> list:
         check_segment(seg, bits)
         mb = seg.p_data * seg.shard
         xq = qsgd_unpack_ref(seg.packed, seg.scale, bits)
-        dpod = (xq.reshape(seg.p_pod, seg.p_data, seg.rows, seg.shard)
-                .permute(0, 2, 1, 3).reshape(seg.p_pod, seg.rows, mb))
+        if seg.row_major:
+            dpod = xq.reshape(seg.p_pod, seg.rows, mb)
+        else:
+            dpod = (xq.reshape(seg.p_pod, seg.p_data, seg.rows, seg.shard)
+                    .permute(0, 2, 1, 3).reshape(seg.p_pod, seg.rows, mb))
         outs.append(dpod.sum(dim=0) * seg.mean)
     return outs

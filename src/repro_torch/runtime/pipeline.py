@@ -1,5 +1,5 @@
-"""Pipelined stale-gradient steps, stacked-replica form (the JAX
-package's ``repro.runtime.pipeline``, DESIGN.md §6).
+"""Pipelined stale-gradient steps (the JAX package's
+``repro.runtime.pipeline``, DESIGN.md §6), in both lowerings.
 
 The synchronous SparCML step puts the reduce half of the sync between
 step t's backward and step t+1's forward:
@@ -7,7 +7,8 @@ step t's backward and step t+1's forward:
     grads_t -> reduce(grads_t) -> apply -> update
 
 The pipelined step splits the executor into its halves
-(``reduce_buckets_spmd`` / ``apply_buckets_spmd``) and staggers them by
+(``reduce_buckets_spmd`` / ``apply_buckets_spmd``, or the per-rank
+``reduce_buckets`` / ``apply_buckets``) and staggers them by
 ``staleness`` steps (bounded at 1):
 
     step t:  grads_t = backward(params_t, batch_t)
@@ -27,9 +28,19 @@ and reduce(t) can run beside apply(t) and forward/backward(t+1). The caching
 allocator hands a freed block back to the stream that allocated it, so
 every tensor made on one stream and read on the other is marked with
 ``record_stream``: without it step t+1's forward could reuse the memory
-of gradients reduce(t) is still reading, a silent wrong answer. A CPU
-device runs the same ops in the same order on one thread. The step never
-waits on the card from the host: no ``.item()``, no host copy.
+of gradients reduce(t) is still reading, a silent wrong answer. The
+per-rank reduce issues its collectives with the side stream current, so
+NCCL orders them after that stream's work. A CPU device runs the same ops
+in the same order on one thread. The step never waits on the card from
+the host: no ``.item()``, no host copy.
+
+Lowerings: ``"spmd"`` (the default) runs the stacked-replica executor;
+``"manual"`` runs the per-rank executor over a ``CollectiveContext``:
+``StackedCollectives(dp_total)`` on one device, or a given
+``ProcessGroupCollectives`` with one rank a process, where the loss is the
+mean over ranks and the guard's verdict the AND over ranks (the
+reference's ``pmin``). The reference's ``emulated`` lowering works around
+an XLA fault that PyTorch does not have and is not ported.
 
 Error-feedback residuals stay keyed by bucket and are updated by the
 reduce half every step, exactly as in the synchronous executor.
@@ -42,13 +53,13 @@ after every attach or resume, runs at lr 0, so parameters stay untouched
 until a real reduction lands (the optimizer's count still advances and
 its moments decay once).
 
+``telemetry=True`` (the reference's default) returns the reduce half's
+per-bucket rows as ``metrics["telemetry"]``: {EF bucket -> (4,) f32
+[nnz, wire bytes, mass coverage, EF norm]}, stacked to (K, 4) by the
+superstep; they stay on the device.
+
 ``build_superstep`` chains K steps with no host sync in between and
 stacks their metrics: the counterpart of the reference's ``lax.scan``.
-
-The pipelined step runs the stacked-replica lowering (``"spmd"``). The
-per-rank executor (the reference's ``manual`` lowering) drives the
-synchronous step so far; its pipelined form is ROADMAP Queue 1 item 7's
-open part, and the reference's ``emulated`` lowering is not ported.
 """
 from __future__ import annotations
 
@@ -56,9 +67,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.comm.collectives import CollectiveContext
 from repro_torch.comm.executor import (RandFn, apply_buckets_spmd,
-                                       reduce_buckets_spmd)
+                                       reduce_buckets, reduce_buckets_spmd)
 from repro_torch.device import resolve_device
+from repro_torch.kernels.bucket_topk.ops import check_bucket_size
 from repro_torch.models.model import Model
 from repro_torch.optim.schedule import make_schedule
 from repro_torch.train import train_step as ts
@@ -73,23 +86,16 @@ VALID_KEY = "__valid__"
 
 
 def resolve_lowering(lowering: Optional[str] = None) -> str:
-    """The lowering the pipelined step runs: the stacked-replica one. The
-    per-rank executor runs the synchronous step (``Trainer.run``); its
-    pipelined form is open (ROADMAP Queue 1 item 7), and the reference's
-    emulated lowering works around an XLA fault that PyTorch does not
-    have."""
+    """The lowering the pipelined step runs: the stacked-replica one by
+    default, or the per-rank one ("manual"). The reference's emulated
+    lowering works around an XLA fault that PyTorch does not have."""
     if lowering is None:
         return "spmd"
     if lowering not in LOWERINGS:
         raise ValueError(f"lowering must be one of {LOWERINGS}: {lowering!r}")
-    if lowering == "manual":
+    if lowering == "emulated":
         raise NotImplementedError(
-            "lowering='manual' runs the synchronous step only (Trainer.run); "
-            "the pipelined per-rank step is not ported yet (ROADMAP Queue 1 "
-            "item 7)")
-    if lowering != "spmd":
-        raise NotImplementedError(
-            f"lowering={lowering!r} is not ported: the reference's psum-only "
+            "lowering='emulated' is not ported: the reference's psum-only "
             "emulation works around an XLA-CPU fault that PyTorch does not "
             "have (ROADMAP Queue 1 item 7)")
     return lowering
@@ -108,17 +114,13 @@ def attach_inflight(state: TrainState, plan) -> TrainState:
     return state._replace(inflight=zeros)
 
 
-def _refuse_unported(lowering, plan, telemetry, inject) -> None:
+def _refuse_unported(plan, inject) -> None:
     """Options of the reference's builders that the port does not have
     yet raise, naming the ROADMAP item that brings them."""
-    resolve_lowering(lowering)
     if plan is not None:
         raise NotImplementedError(
             "a replanned SyncPlan needs SyncPlan.replan and the cost model "
             "(ROADMAP Queue 1 item 9)")
-    if telemetry:
-        raise NotImplementedError(
-            "per-bucket telemetry is not ported (ROADMAP Queue 1 item 4)")
     if inject:
         raise NotImplementedError(
             "fault injection is not ported (ROADMAP Queue 1 item 13)")
@@ -133,19 +135,26 @@ class PipelinedStep:
     synchronous loop, a host copy)."""
 
     def __init__(self, model: Model, tcfg: TrainConfig, dp_total: int,
-                 device, staleness: int, guard: bool):
+                 device, staleness: int, guard: bool,
+                 lowering: Optional[str] = None,
+                 coll: Optional[CollectiveContext] = None,
+                 telemetry: bool = True):
         if tcfg.sync.mode != "sparcml":
             raise ValueError(
                 "the pipelined runtime overlaps the planned sparse sync and "
                 "requires sync.mode='sparcml'")
         if staleness not in (0, 1):
             raise ValueError(f"staleness is bounded at 1, got {staleness}")
+        lowering = resolve_lowering(lowering)
         self.model = model
         self.tcfg = tcfg
         self.dp_total = dp_total
         self.device = resolve_device(device)
         self.staleness = staleness
         self.guard = guard
+        self.telemetry = telemetry
+        check_bucket_size(tcfg.sync.bucket_size, self.device, tcfg.sync.impl)
+        self.coll = ts.manual_context(lowering, coll, dp_total, self.device)
         self.plan = ts.build_plan(model, tcfg, dp_total)
         self._sched = make_schedule(tcfg.schedule)
         self._side = (torch.cuda.Stream(self.device)
@@ -157,26 +166,40 @@ class PipelinedStep:
             torch.cuda.current_stream(self.device).wait_event(
                 self._reduce_done)
 
-    def _reduce_body(self, state, leaves_r, fin, rand_fn):
-        new_inflight, new_res = reduce_buckets_spmd(
-            self.plan, leaves_r, state.residuals, p_data=self.dp_total,
-            rand_fn=rand_fn)
+    def _reduce_all(self, state, leaves, rand_fn):
+        """(reduced {name -> (rows, cols)}, new residuals, telemetry
+        {name -> (4,)}) of the chosen executor."""
+        if self.coll is None:
+            return reduce_buckets_spmd(
+                self.plan, leaves, state.residuals, p_data=self.dp_total,
+                rand_fn=rand_fn, telemetry=self.telemetry)
+        reduced, new_res, telem = reduce_buckets(
+            self.plan, leaves, state.residuals, coll=self.coll,
+            rand_fn=ts.rank_rand_fn(rand_fn, self.coll),
+            telemetry=self.telemetry)
+        # every held rank holds the same replicated buffers and rows
+        return ({n: v[0] for n, v in reduced.items()}, new_res,
+                {n: v[0] for n, v in telem.items()})
+
+    def _reduce_body(self, state, leaves, fin, rand_fn):
+        new_inflight, new_res, telem = self._reduce_all(state, leaves,
+                                                        rand_fn)
         new_inflight[VALID_KEY] = torch.ones((), dtype=torch.float32,
                                              device=self.device)
         # a trip keeps the old residuals and the old (clean) in-flight
         # reduction, which the next clean step applies
         return (ts.guard_select(fin, new_inflight, state.inflight),
-                ts.guard_select(fin, new_res, state.residuals))
+                ts.guard_select(fin, new_res, state.residuals), telem)
 
-    def _reduce(self, state, leaves_r, fin, rand_fn):
+    def _reduce(self, state, leaves, fin, rand_fn):
         """The reduce half of staleness 1: on the side stream on CUDA."""
         side = self._side
         if side is None:
-            return self._reduce_body(state, leaves_r, fin, rand_fn)
+            return self._reduce_body(state, leaves, fin, rand_fn)
         main = torch.cuda.current_stream(self.device)
         grads_ready = torch.cuda.Event()
         grads_ready.record(main)
-        read_on_side = [*leaves_r, *state.residuals.values(),
+        read_on_side = [*leaves, *state.residuals.values(),
                         *state.inflight.values()]
         if fin is not None:
             read_on_side.append(fin)
@@ -184,43 +207,45 @@ class PipelinedStep:
             t.record_stream(side)
         with torch.cuda.stream(side):
             side.wait_event(grads_ready)
-            new_inflight, new_res = self._reduce_body(state, leaves_r, fin,
-                                                      rand_fn)
+            new_inflight, new_res, telem = self._reduce_body(
+                state, leaves, fin, rand_fn)
             done = torch.cuda.Event()
             done.record(side)
-        for t in [*new_inflight.values(), *new_res.values()]:
+        for t in [*new_inflight.values(), *new_res.values(),
+                  *telem.values()]:
             t.record_stream(main)
         self._reduce_done = done
-        return new_inflight, new_res
+        return new_inflight, new_res, telem
 
     def __call__(self, state: TrainState, batch,
                  rand_fn: Optional[RandFn] = None):
-        tcfg, dev = self.tcfg, self.device
+        tcfg, dev, coll = self.tcfg, self.device, self.coll
         if self.staleness and state.inflight is None:
             raise ValueError("a staleness-1 step needs in-flight buffers: "
                              "attach_inflight(state, plan) first")
-        batch = ts.batch_to_device(batch, dev)
-        loss, leaves_r = ts.rank_grads(self.model, state.params, batch,
-                                       self.dp_total, tcfg.microbatches)
-        fin = ts.all_finite_leaves(leaves_r) if self.guard else None
+        batch = ts.batch_to_device(ts.local_batch(batch, coll), dev)
+        held = coll.local_ranks if coll is not None else self.dp_total
+        loss, leaves = ts.rank_grads(self.model, state.params, batch, held,
+                                     tcfg.microbatches)
+        loss = ts.global_loss(loss, coll)
+        fin = ts.ranks_all_finite(leaves, coll) if self.guard else None
         if rand_fn is None:
             rand_fn = ts.step_rand_fn(tcfg.seed, state.step, dev)
         lr = self._sched(state.step)
         if self.staleness == 0:
-            # execute_plan_spmd: the synchronous step's ops, in its order
-            reduced, new_res = reduce_buckets_spmd(
-                self.plan, leaves_r, state.residuals, p_data=self.dp_total,
-                rand_fn=rand_fn)
-            applied = apply_buckets_spmd(self.plan, reduced, leaves_r)
+            # execute_plan(_spmd): the synchronous step's ops, in its order
+            reduced, new_res, telem = self._reduce_all(state, leaves,
+                                                       rand_fn)
+            applied = apply_buckets_spmd(self.plan, reduced, leaves)
             new_res = ts.guard_select(fin, new_res, state.residuals)
             new_inflight, lr_eff = None, lr
         else:
             prev = self._reduce_done
-            new_inflight, new_res = self._reduce(state, leaves_r, fin,
-                                                 rand_fn)
+            new_inflight, new_res, telem = self._reduce(state, leaves, fin,
+                                                        rand_fn)
             if prev is not None:
                 torch.cuda.current_stream(dev).wait_event(prev)
-            applied = apply_buckets_spmd(self.plan, state.inflight, leaves_r)
+            applied = apply_buckets_spmd(self.plan, state.inflight, leaves)
             lr_eff = lr * state.inflight[VALID_KEY]
         new_p, new_opt, gnorm = ts.update(state, applied, lr_eff, tcfg)
         new_p = ts.guard_select(fin, new_p, state.params)
@@ -228,6 +253,8 @@ class PipelinedStep:
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr_eff}
         if fin is not None:
             metrics["nonfinite"] = 1.0 - fin
+        if self.telemetry:
+            metrics["telemetry"] = telem
         return (TrainState(new_p, new_opt, new_res, state.step + 1,
                            new_inflight), metrics)
 
@@ -256,31 +283,44 @@ class Superstep:
             state, m = self.step(state, {k: v[i] for k, v in batches.items()},
                                  None if rand_fns is None else rand_fns[i])
             ms.append(m)
-        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        return state, {k: _stack([m[k] for m in ms]) for k in ms[0]}
+
+
+def _stack(values):
+    """Metrics of K steps stacked on a leading (K,) axis; a dict metric
+    (the telemetry rows) entry by entry."""
+    if isinstance(values[0], dict):
+        return {n: torch.stack([v[n] for v in values]) for n in values[0]}
+    return torch.stack(values)
 
 
 def build_pipelined_step(model: Model, tcfg: TrainConfig, dp_total: int = 4,
                          device="cuda", *, staleness: int = 1,
                          guard: bool = False,
                          lowering: Optional[str] = None, plan=None,
-                         telemetry: bool = False, inject: bool = False):
+                         telemetry: bool = True, inject: bool = False,
+                         coll: Optional[CollectiveContext] = None):
     """One pipelined step. Returns (step, plan); see :class:`PipelinedStep`.
     ``guard=True`` adds the all-finite check over the raw grads: a
     non-finite gradient makes the step a no-op on params, optimizer
     state, residuals and in-flight buffers (the step counter still
-    advances) and ``metrics["nonfinite"]`` reads 1.0."""
-    _refuse_unported(lowering, plan, telemetry, inject)
-    step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard)
+    advances) and ``metrics["nonfinite"]`` reads 1.0. ``coll``: the
+    manual lowering's context (``StackedCollectives(dp_total)`` if None)."""
+    _refuse_unported(plan, inject)
+    step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard,
+                         lowering, coll, telemetry)
     return step, step.plan
 
 
 def build_superstep(model: Model, tcfg: TrainConfig, dp_total: int = 4,
                     device="cuda", *, staleness: int = 1, steps: int = 4,
                     guard: bool = False, lowering: Optional[str] = None,
-                    plan=None, telemetry: bool = False,
-                    inject: bool = False):
+                    plan=None, telemetry: bool = True,
+                    inject: bool = False,
+                    coll: Optional[CollectiveContext] = None):
     """K-step superstep over the pipelined step. Returns (superstep,
     plan); see :class:`Superstep`."""
-    _refuse_unported(lowering, plan, telemetry, inject)
-    step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard)
+    _refuse_unported(plan, inject)
+    step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard,
+                         lowering, coll, telemetry)
     return Superstep(step, steps), step.plan

@@ -4,6 +4,9 @@
     PYTHONPATH=src python -m repro_torch.train.run_lm --fast
     PYTHONPATH=src python -m repro_torch.train.run_lm --steps 40 --pipeline
     PYTHONPATH=src python -m repro_torch.train.run_lm --steps 20 --lowering manual
+    PYTHONPATH=src python -m repro_torch.train.run_lm --steps 40 --pipeline --lowering manual
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.train.run_lm \
+        --steps 20 --lowering manual
 
 The PyTorch counterpart of ``examples/train_lm_topk.py``: lm-100m (12
 layers, d=768, GQA 12/4 heads, SwiGLU 2048, vocab 32768, f32) at global
@@ -20,15 +23,23 @@ checkpoints every 25 steps and resumes from the newest checkpoint there
 (the example's default directory lies outside the checkout, so here
 there is none unless asked for). ``--lowering manual`` syncs through the
 per-rank executor (the wire protocols over the stacked ranks) instead of
-the stacked sum; the pipelined loop runs the stacked one. ZeRO-1 is not
-ported: the optimizer state stays replicated.
+the stacked sum, in both loops. Under ``torchrun`` (``WORLD_SIZE`` > 1)
+every process holds one rank of a ``torch.distributed`` group (NCCL on
+the card, each process on ``cuda:LOCAL_RANK``; gloo with ``--device
+cpu``), the data-parallel width is the world size, and only
+``--lowering manual`` runs; such a run takes no checkpoints. ZeRO-1 is
+not ported: the optimizer state stays replicated.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.comm.collectives import ProcessGroupCollectives
 
 from repro_torch.core.compressor import SyncConfig
 from repro_torch.data.pipeline import DataConfig
@@ -80,27 +91,57 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--superstep", type=int, default=4,
                     help="steps per superstep (with --pipeline)")
     ap.add_argument("--lowering", choices=("spmd", "manual"), default="spmd",
-                    help="sparcml executor of the synchronous step: the "
-                         "stacked sum or the per-rank wire protocols")
+                    help="sparcml executor: the stacked sum or the per-rank "
+                         "wire protocols")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="the card (default) or the CPU's plain versions")
     return ap
+
+
+def init_distributed(device: str):
+    """Under torchrun's variables (WORLD_SIZE > 1): join the process group
+    (NCCL on the card, gloo on the CPU) and return (this process's device,
+    its ``ProcessGroupCollectives``); otherwise (device, None)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return device, None
+    rank = int(os.environ["RANK"])
+    if device == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device != "cpu" else "gloo",
+                            init_method="env://", world_size=world, rank=rank)
+    return device, ProcessGroupCollectives(device=device)
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
+    device, coll = init_distributed(args.device)
+    if coll is not None and args.lowering != "manual":
+        raise SystemExit("a torch.distributed run needs --lowering manual")
+    try:
+        return _train(args, device, coll)
+    finally:
+        if coll is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, device, coll):
+    say = print if coll is None or coll.rank == 0 else (lambda *a: None)
     cfg, data = lm_config(args.fast)
     steps = min(args.steps, 60) if args.fast else args.steps
     model = build_model(cfg)
-    print(f"model: {cfg.name}, {cfg.param_count() / 1e6:.1f}M params")
-    if args.pipeline and args.lowering != "spmd":
-        raise SystemExit("--pipeline runs the stacked lowering only")
-    trainer = Trainer(model, train_config(steps), data, dp_total=DP,
-                      ckpt_dir=args.ckpt_dir, ckpt_every=CKPT_EVERY,
-                      lowering=args.lowering)
+    say(f"model: {cfg.name}, {cfg.param_count() / 1e6:.1f}M params")
+    trainer = Trainer(model, train_config(steps), data,
+                      dp_total=coll.p if coll is not None else DP,
+                      device=device, ckpt_dir=args.ckpt_dir,
+                      ckpt_every=CKPT_EVERY, lowering=args.lowering,
+                      coll=coll)
     if trainer.plan is not None:
-        print(trainer.plan.describe())
+        say(trainer.plan.describe())
     start = trainer.init_or_resume()
-    print(f"starting at step {start} (resume={'yes' if start else 'no'})")
+    say(f"starting at step {start} (resume={'yes' if start else 'no'})")
     if args.pipeline:
         # short synchronous probe first, so the overlap win is measurable
         probe_to = min(start + 8, steps)
@@ -116,16 +157,16 @@ def main(argv=None):
         if sync_times and pipe_times:
             sync_avg = sum(sync_times) / len(sync_times)
             pipe_avg = sum(pipe_times) / len(pipe_times)
-            print(f"overlap win: sync {sync_avg*1e3:.0f} ms/step -> "
-                  f"pipelined {pipe_avg*1e3:.0f} ms/step "
-                  f"({sync_avg/pipe_avg:.2f}x, staleness=1, "
-                  f"superstep={args.superstep}, depth=2)")
+            say(f"overlap win: sync {sync_avg*1e3:.0f} ms/step -> "
+                f"pipelined {pipe_avg*1e3:.0f} ms/step "
+                f"({sync_avg/pipe_avg:.2f}x, staleness=1, "
+                f"superstep={args.superstep}, depth=2)")
     else:
         log = trainer.run(steps)
-    print(f"done: step {steps}, loss {log.losses[0]:.3f} -> "
-          f"{log.losses[-1]:.3f}, median step "
-          f"{statistics.median(log.step_times) * 1e3:.1f} ms, "
-          f"restarts={log.restarts}, stragglers={len(log.straggler_events)}")
+    say(f"done: step {steps}, loss {log.losses[0]:.3f} -> "
+        f"{log.losses[-1]:.3f}, median step "
+        f"{statistics.median(log.step_times) * 1e3:.1f} ms, "
+        f"restarts={log.restarts}, stragglers={len(log.straggler_events)}")
     return log
 
 

@@ -11,9 +11,14 @@ of two lowerings:
   runs bucketed top-k with per-rank error feedback, the sum over ranks
   (the allreduce) and the optional QSGD round trip;
 * ``"manual"`` (its shard_map path): the per-rank ``execute_plan`` over a
-  ``StackedCollectives`` of the R ranks, so every bucket runs its planned
-  algorithm's wire protocol (all_to_all split, owner densify, allgather,
-  QSGD on the wire).
+  ``CollectiveContext``, so every bucket runs its planned algorithm's wire
+  protocol (all_to_all split, owner densify, allgather, QSGD on the
+  wire): a ``StackedCollectives`` of the R ranks on one device, or a
+  ``ProcessGroupCollectives`` over ``torch.distributed`` with one rank a
+  process. There each process takes its slice of the global batch, the
+  loss is the mean over ranks, the QSGD bits are its slice of the bits
+  the stacked ranks would draw, and the params start identical from the
+  seed, so the run gives the stacked run's bits.
 
 Then the synced gradients are clipped and the optimizer updates the
 single params copy.
@@ -30,11 +35,13 @@ from typing import Optional
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.comm.collectives import StackedCollectives
+from repro_torch.comm.collectives import (CollectiveContext,
+                                          StackedCollectives)
 from repro_torch.comm.executor import RandFn, execute_plan, execute_plan_spmd
 from repro_torch.comm.plan import SyncPlan, build_sync_plan
 from repro_torch.core.qsgd import random_bits
 from repro_torch.device import resolve_device
+from repro_torch.kernels.bucket_topk.ops import check_bucket_size
 from repro_torch.models.model import Model, init_params
 from repro_torch.models.specs import param_specs
 from repro_torch.optim.optimizers import (clip_by_global_norm, init_opt_state,
@@ -56,14 +63,17 @@ def build_plan(model: Model, tcfg: TrainConfig, dp_total: int
 
 
 def init_state(model: Model, tcfg: TrainConfig, plan: Optional[SyncPlan],
-               device="cuda", params=None) -> TrainState:
+               device="cuda", params=None,
+               coll: Optional[CollectiveContext] = None) -> TrainState:
     """Fresh state: params from a generator seeded with ``tcfg.seed`` (or
-    the given ``params``), zero optimizer moments and EF residuals."""
+    the given ``params``), zero optimizer moments and EF residuals for the
+    ranks the process holds (all of them unless ``coll`` says otherwise)."""
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
         params = model.init(gen, dev)
-    res = plan.init_residuals(dev) if plan is not None else None
+    ranks = coll.local_ranks if coll is not None else None
+    res = plan.init_residuals(dev, ranks) if plan is not None else None
     return TrainState(params, init_opt_state(params, tcfg.optimizer), res, 0)
 
 
@@ -134,6 +144,72 @@ def update(state: TrainState, synced: list, lr, tcfg: TrainConfig):
 
 
 # --------------------------------------------------------------------------
+# One rank a process: what differs from the stacked ranks
+# --------------------------------------------------------------------------
+
+def _one_rank_a_process(coll: Optional[CollectiveContext]) -> bool:
+    return coll is not None and coll.local_ranks < coll.p
+
+
+def manual_context(lowering: str, coll: Optional[CollectiveContext],
+                   dp_total: int, device) -> Optional[CollectiveContext]:
+    """The per-rank executor's context: ``coll``, or the dp_total ranks
+    stacked on ``device``; None for the stacked-replica lowering."""
+    if lowering != "manual":
+        if coll is not None:
+            raise ValueError("a collective context needs lowering='manual'")
+        return None
+    if coll is None:
+        return StackedCollectives(dp_total, device)
+    if coll.p != dp_total:
+        raise ValueError(f"the context spans {coll.p} ranks, dp_total is "
+                         f"{dp_total}")
+    return coll
+
+
+def local_batch(batch, coll: Optional[CollectiveContext]) -> dict:
+    """The rows of the global batch this process computes: all of them,
+    or, one rank a process, rank r's contiguous slice (the one the
+    stacked ranks give rank r)."""
+    if not _one_rank_a_process(coll):
+        return batch
+    rows = len(next(iter(batch.values())))
+    if rows % coll.p:
+        raise ValueError(f"global batch {rows} does not split into "
+                         f"{coll.p} ranks")
+    n = rows // coll.p
+    return {k: v[coll.rank * n:(coll.rank + 1) * n] for k, v in batch.items()}
+
+
+def global_loss(loss, coll: Optional[CollectiveContext]):
+    """The mean loss over ranks: one rank a process gathers every rank's
+    and takes the mean the stacked ranks take."""
+    if not _one_rank_a_process(coll):
+        return loss
+    return coll.all_gather(loss.reshape(1, 1), axis=0).mean()
+
+
+def ranks_all_finite(leaves, coll: Optional[CollectiveContext]):
+    """The guard verdict over every rank's raw grads: the AND over ranks
+    (the reference's pmin) when a process holds one."""
+    fin = all_finite_leaves(leaves)
+    if not _one_rank_a_process(coll):
+        return fin
+    return coll.all_gather(fin.reshape(1, 1), axis=0).amin()
+
+
+def rank_rand_fn(rand_fn: RandFn, coll: Optional[CollectiveContext]
+                 ) -> RandFn:
+    """The per-rank executor asks for its held ranks' bits; one rank a
+    process draws every rank's, as the stacked ranks do, and keeps its
+    own slice: p times the RNG work of its own draw (ROADMAP, item 7)."""
+    if not _one_rank_a_process(coll):
+        return rand_fn
+    p, r = coll.p, coll.rank
+    return lambda bucket_idx, n: rand_fn(bucket_idx, n * p).reshape(p, n)[r]
+
+
+# --------------------------------------------------------------------------
 # Guarded-step helpers: the all-finite check over the raw gradient leaves
 # and the select that rolls state back on a trip (the JAX package's
 # ``all_finite_leaves`` / ``guard_select``). Both are tensor ops on the
@@ -175,12 +251,16 @@ LOWERINGS = ("spmd", "manual")
 
 
 def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
-                     device="cuda", lowering: str = "spmd"):
+                     device="cuda", lowering: str = "spmd",
+                     coll: Optional[CollectiveContext] = None):
     """Returns (step_fn, plan). ``step_fn(state, batch, rand_fn=None) ->
-    (new_state, metrics)``; batch values may be numpy or tensors.
-    ``rand_fn(bucket_idx, n)`` overrides the QSGD rounding bits (see
-    ``comm/executor.py``; both lowerings lay them out alike, so the same
-    function drives either). ``lowering`` picks the sparcml executor."""
+    (new_state, metrics)``; batch values (the global batch) may be numpy
+    or tensors. ``rand_fn(bucket_idx, n)`` overrides the QSGD rounding bits
+    (see ``comm/executor.py``; both lowerings lay them out alike, so the
+    same function drives either). ``lowering`` picks the sparcml executor;
+    ``coll`` is the manual lowering's context (``StackedCollectives`` of
+    the dp_total ranks if None; a ``ProcessGroupCollectives`` runs one
+    rank a process)."""
     if lowering not in LOWERINGS:
         raise ValueError(f"lowering must be one of {LOWERINGS}: {lowering!r}")
     dev = resolve_device(device)
@@ -200,20 +280,23 @@ def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
 
         return dense_step, None
 
-    coll = StackedCollectives(dp_total, dev) if lowering == "manual" else None
+    check_bucket_size(tcfg.sync.bucket_size, dev, tcfg.sync.impl)
+    coll = manual_context(lowering, coll, dp_total, dev)
+    held = coll.local_ranks if coll is not None else dp_total
 
     def sparcml_step(state: TrainState, batch, rand_fn: Optional[RandFn] = None):
-        batch = batch_to_device(batch, dev)
-        loss, leaves_r = rank_grads(model, state.params, batch, dp_total,
-                                    n_micro)
+        batch = batch_to_device(local_batch(batch, coll), dev)
+        loss, leaves = rank_grads(model, state.params, batch, held, n_micro)
+        loss = global_loss(loss, coll)
         if rand_fn is None:
             rand_fn = step_rand_fn(tcfg.seed, state.step, dev)
         if coll is not None:
-            synced, new_res = execute_plan(plan, leaves_r, state.residuals,
-                                           coll=coll, rand_fn=rand_fn)
+            synced, new_res = execute_plan(plan, leaves, state.residuals,
+                                           coll=coll,
+                                           rand_fn=rank_rand_fn(rand_fn, coll))
         else:
             synced, new_res = execute_plan_spmd(
-                plan, leaves_r, state.residuals, p_data=dp_total,
+                plan, leaves, state.residuals, p_data=dp_total,
                 rand_fn=rand_fn)
         lr = sched(state.step)
         new_p, new_opt, gnorm = update(state, synced, lr, tcfg)

@@ -15,6 +15,7 @@ when a ``ckpt_dir`` is given, and resume from the newest checkpoint that
 passes CRC verification. Their checkpoints are interchangeable, and
 interchangeable with the JAX package's: the pipelined loop strips the
 in-flight buffers before saving and attaches zeros after every restore.
+Both run either lowering, over stacked ranks or one rank a process.
 Observability, adaptive re-planning and fault injection are not ported
 yet.
 """
@@ -36,16 +37,25 @@ TrainerLog = DriverLog
 
 
 class Trainer:
-    """Trains ``model`` under ``tcfg`` with ``dp_total`` stacked replicas
-    on ``device`` (the card unless the caller asks for the CPU).
-    ``lowering`` picks the synchronous step's sparcml executor: "spmd"
-    (the stacked sum) or "manual" (the per-rank wire protocols); the
-    pipelined loop runs "spmd" only."""
+    """Trains ``model`` under ``tcfg`` with ``dp_total`` data-parallel
+    replicas on ``device`` (the card unless the caller asks for the CPU).
+    ``lowering`` picks the sparcml executor of both loops: "spmd" (the
+    stacked sum) or "manual" (the per-rank wire protocols). ``coll``, a
+    ``ProcessGroupCollectives``, runs the manual lowering one rank a
+    process over ``torch.distributed`` (each process its own Trainer);
+    without it the ranks are stacked on one device. A process-group run
+    takes no checkpoints: each process holds one rank's residuals, and
+    the checkpoint format holds every rank's."""
 
     def __init__(self, model, tcfg: TrainConfig, data_cfg: DataConfig, *,
                  dp_total: int = 4, device="cuda",
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
-                 straggler_factor: float = 3.0, lowering: str = "spmd"):
+                 straggler_factor: float = 3.0, lowering: str = "spmd",
+                 coll=None):
+        if coll is not None and ckpt_dir:
+            raise NotImplementedError(
+                "checkpoints of a run with one rank a process: each process "
+                "holds one rank's residuals (ROADMAP Queue 1 item 7)")
         self.device = resolve_device(device)
         self.model = model
         self.tcfg = tcfg
@@ -56,15 +66,17 @@ class Trainer:
         self.straggler_factor = straggler_factor
         self.log = TrainerLog()
         self.lowering = lowering
+        self.coll = coll
         self.step_fn, self.plan = build_train_step(model, tcfg, dp_total,
-                                                   self.device, lowering)
+                                                   self.device, lowering,
+                                                   coll)
         self.state: Optional[TrainState] = None
 
     # -- lifecycle ---------------------------------------------------------
     def init(self, params=None) -> int:
         """Fresh state (from ``params`` when given), ignoring checkpoints."""
         self.state = init_state(self.model, self.tcfg, self.plan, self.device,
-                                params=params)
+                                params=params, coll=self.coll)
         return self.state.step
 
     def init_or_resume(self, params=None) -> int:
@@ -156,9 +168,10 @@ class Trainer:
         non-finite gradients skip the apply with residuals and optimizer
         state kept, and three trips in a row rewind to the last
         checkpoint. Checkpoints store the synchronous state (in-flight
-        buffers stripped). Adaptive re-planning, fault injection and the
-        retry supervisor raise until ported (ROADMAP Queue 1 items 9
-        and 13)."""
+        buffers stripped). The step is built with telemetry off, as the
+        reference's is when no metrics registry is on (ROADMAP Queue 1
+        item 13). Adaptive re-planning, fault injection and the retry
+        supervisor raise until ported (items 9 and 13)."""
         from repro_torch.runtime import driver as rt_driver
         from repro_torch.runtime import pipeline as rt_pipeline
 
@@ -169,7 +182,8 @@ class Trainer:
                 "ported")
         if self.state is None:
             self.init_or_resume()
-        kw = dict(staleness=staleness, guard=guard, lowering=self.lowering)
+        kw = dict(staleness=staleness, guard=guard, lowering=self.lowering,
+                  coll=self.coll, telemetry=False)
         if superstep > 1:
             fn, plan = rt_pipeline.build_superstep(
                 self.model, self.tcfg, self.dp_total, self.device,

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _telemetry_check import assert_telemetry_close
 from jax.sharding import PartitionSpec as P
 
 from repro import comm as jcomm
@@ -41,7 +42,7 @@ from repro_torch.core.topk import compress
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params
 from repro_torch.models.specs import param_specs
-from repro_torch.utils.tree import tree_flatten
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 N, B = 8192, 512
 ALGOS = ("ssar_recursive_double", "ssar_split_allgather",
@@ -316,12 +317,178 @@ def test_execute_plan_matches_jax_manual(name, algo, bits, grid):
 
 
 def test_reduce_buckets_refuses_telemetry_and_wrong_grids():
+    """Telemetry is ported: a row for every EF bucket, none when off.
+    Grids that do not match the plan or the leaves are refused."""
     _, plan, leaves = _plans("dsar_split_allgather", None, 4)
     grads = [torch.zeros((4,) + tuple(l.shape)) for l in leaves]
     res = plan.init_residuals()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        executor.reduce_buckets(plan, grads, res, coll=StackedCollectives(4),
-                                telemetry=True)
+    _, _, tel = executor.reduce_buckets(plan, grads, res,
+                                        coll=StackedCollectives(4))
+    assert set(tel) == {b.name for b in plan.buckets if b.sparse}
+    assert all(row.shape == (4, 4) for row in tel.values())
+    _, _, none = executor.reduce_buckets(plan, grads, res,
+                                         coll=StackedCollectives(4),
+                                         telemetry=False)
+    assert none == {}
     with pytest.raises(ValueError, match="ranks"):
         executor.reduce_buckets(plan, grads, res,
                                 coll=StackedCollectives(2, outer=2))
+
+
+def _grid(p_pod, p_data):
+    """(mesh, dp axes, reference kwargs, data ctx, pod ctx, R)."""
+    if p_pod > 1:
+        return (make_mesh((p_pod, p_data), ("pod", "data")), ("pod", "data"),
+                dict(pod_axis="pod", p_pod=p_pod),
+                StackedCollectives(p_data, outer=p_pod),
+                StackedCollectives(p_pod, inner=p_data), p_pod * p_data)
+    return (make_mesh((p_data,), ("data",)), "data", {},
+            StackedCollectives(p_data), None, p_data)
+
+
+def _reference_rand_fn(skey, p_pod, p_data):
+    def rand_fn(bucket_idx, n):
+        bits_ = jax_exec._qsgd_rand_all(skey, bucket_idx, p_pod, p_data,
+                                        n // (p_pod * p_data))
+        return _u32(np.asarray(bits_).reshape(-1))
+    return rand_fn
+
+
+@pytest.mark.parametrize("name,algo,bits,grid", EXEC_CASES,
+                         ids=[c[0] for c in EXEC_CASES])
+def test_reduce_buckets_telemetry_matches_jax_manual(name, algo, bits, grid):
+    """The per-rank reduce half with telemetry on, over two
+    error-feedback steps: every rank's row against the reference's
+    (shard_map, one extra psum a bucket for the mass terms), and the
+    same buffers and residuals as with telemetry off."""
+    p_pod, p_data = grid
+    mesh, dp, kw, coll, pod_coll, R = _grid(p_pod, p_data)
+    jplan, plan, leaves = _plans(algo, bits, R)
+    if name.endswith("pod_sparse"):
+        flat = [b.name for b in plan.buckets if b.rows == 1]
+        jplan = jplan.replan(algorithms=jplan.algorithms(),
+                             pod_sparse={nm: True for nm in flat})
+        plan = dataclasses.replace(plan, groups=tuple(
+            dataclasses.replace(g, buckets=tuple(
+                dataclasses.replace(b, pod_sparse=b.name in flat)
+                for b in g.buckets)) for g in plan.groups))
+    jres = {n: jnp.zeros(s.shape, s.dtype)
+            for n, s in jplan.residual_shapes().items()}
+    rspecs = {n: P(dp, None, None) for n in jres}
+    rid = jnp.arange(R, dtype=jnp.int32)
+
+    def inner(gs, res, rid, k):
+        _, new_res, tel = jax_exec.reduce_buckets(
+            jplan, [g[0] for g in gs], res, k, data_axis="data",
+            p_data=p_data, native=True, data_rank=rid[0] % p_data,
+            pod_rank=rid[0] // p_data if p_pod > 1 else None, telemetry=True,
+            **kw)
+        return new_res, tel
+
+    jf = jax.jit(shard_map(inner, mesh=mesh,
+                           in_specs=([P(dp) for _ in leaves], rspecs, P(dp),
+                                     P()),
+                           out_specs=(rspecs, {n: P() for n in jres}),
+                           check_vma=False))
+    res = plan.init_residuals()
+    rng = np.random.default_rng(len(name) + 70)
+    for step in range(2):
+        grads = [torch.from_numpy(rng.standard_normal(
+            (R,) + tuple(l.shape)).astype(np.float32)) for l in leaves]
+        skey = jax.random.fold_in(jax.random.PRNGKey(11), step)
+        rand_fn = _reference_rand_fn(skey, p_pod, p_data)
+        jres, jtel = jf([jnp.asarray(g.numpy()) for g in grads], jres, rid,
+                        skey)
+        reduced, new_res, tel = executor.reduce_buckets(
+            plan, grads, res, coll=coll, pod_coll=pod_coll, rand_fn=rand_fn)
+        if not plan.num_sparse_buckets:             # raw-dense: no rows
+            assert tel == {} and not jtel
+        for r in range(R if tel else 0):
+            assert_telemetry_close({n: v[r] for n, v in tel.items()}, jtel,
+                                   bits is not None)
+        off, off_res, none = executor.reduce_buckets(
+            plan, grads, res, coll=coll, pod_coll=pod_coll, rand_fn=rand_fn,
+            telemetry=False)
+        assert none == {} and list(off) == list(reduced)
+        for n in reduced:
+            assert torch.equal(off[n], reduced[n])
+        for n in new_res:
+            assert torch.equal(off_res[n], new_res[n])
+        res = new_res
+
+
+# --------------------------------------------------------------------------
+# the per-leaf library surface: sync_grads_inside
+# --------------------------------------------------------------------------
+
+SYNC_LEAF_CASES = [("dsar_qsgd4", "dsar_split_allgather", 4, (1, 4)),
+                   ("split_allgather", "ssar_split_allgather", None, (1, 4)),
+                   ("dsar_qsgd4_pods", "dsar_split_allgather", 4, (2, 2))]
+
+
+@pytest.mark.parametrize("name,algo,bits,grid", SYNC_LEAF_CASES,
+                         ids=[c[0] for c in SYNC_LEAF_CASES])
+def test_sync_grads_inside_matches_jax(name, algo, bits, grid):
+    """The per-leaf wrapper over two error-feedback steps: covered leaves
+    through a one-leaf-per-bucket plan, the rest summed densely."""
+    from repro.core import compressor as jax_compressor
+    from repro_torch.core import compressor
+
+    p_pod, p_data = grid
+    mesh, dp, kw, coll, pod_coll, R = _grid(p_pod, p_data)
+    sync = dict(mode="sparcml", k_per_bucket=2, bucket_size=32,
+                algorithm=algo, qsgd_bits=bits, qsgd_bucket=32,
+                min_sparse_size=1024)
+    jcfg = JaxModelConfig(**TINY, dtype=jnp.float32, param_dtype=jnp.float32)
+    jshapes = jax.eval_shape(jax_build_model(jcfg).init,
+                             jax.random.PRNGKey(0))
+    jspecs = jax_param_specs(jshapes, jcfg, None)
+    cfg = ModelConfig(**TINY, dtype=torch.float32, param_dtype=torch.float32)
+    shapes = init_params(cfg, device="meta")
+    specs = param_specs(shapes, cfg)
+    jsync, tsync = JaxSyncConfig(**sync, impl="ref"), SyncConfig(**sync)
+    jres = jax_compressor.init_residuals(jshapes, jspecs, jsync, R)
+    res = compressor.init_residuals(shapes, specs, tsync, R)
+    flat_j, tdef = jax.tree_util.tree_flatten(jres,
+                                              is_leaf=lambda x: x is None)
+    assert any(r is None for r in flat_j) and any(r is not None
+                                                  for r in flat_j)
+    res_specs = tdef.unflatten([None if r is None else P(dp, None, None)
+                                for r in flat_j])
+    gspecs = jax.tree.map(lambda _: P(dp), jshapes)
+    rid = jnp.arange(R, dtype=jnp.int32)
+
+    def inner(g, r, rid, k):
+        g = jax.tree.map(lambda x: x[0], g)
+        return jax_compressor.sync_grads_inside(
+            g, r, k, jsync, jspecs, data_axis="data", p_data=p_data,
+            native=True, data_rank=rid[0] % p_data,
+            pod_rank=rid[0] // p_data if p_pod > 1 else None, **kw)
+
+    jf = jax.jit(shard_map(inner, mesh=mesh,
+                           in_specs=(gspecs, res_specs, P(dp), P()),
+                           out_specs=(jax.tree.map(lambda _: P(), jshapes),
+                                      res_specs),
+                           check_vma=False))
+    leaves, paths = tree_flatten(shapes)
+    rng = np.random.default_rng(len(name) + 90)
+    for step in range(2):
+        grads = [rng.standard_normal((R,) + tuple(l.shape)).astype(np.float32)
+                 for l in leaves]
+        skey = jax.random.fold_in(jax.random.PRNGKey(13), step)
+        jg = jax.tree_util.tree_unflatten(
+            jax.tree_util.tree_structure(jshapes),
+            [jnp.asarray(g) for g in grads])
+        jout, jres = jf(jg, jres, rid, skey)
+        out, res = compressor.sync_grads_inside(
+            tree_unflatten(paths, [torch.from_numpy(g) for g in grads]), res,
+            tsync, specs, coll=coll, pod_coll=pod_coll,
+            rand_fn=_reference_rand_fn(skey, p_pod, p_data))
+        for a, b in zip(tree_flatten(out)[0], jax.tree.leaves(jout)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+        want_res = jax.tree_util.tree_flatten(jres,
+                                              is_leaf=lambda x: x is None)[0]
+        for a, b in zip(tree_flatten(res)[0], want_res):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)

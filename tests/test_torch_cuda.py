@@ -53,8 +53,9 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k", [(b, k) for b in (128, 256, 512, 1024)
-                                 for k in sorted({1, 4, 8, 16, 64, b // 2, b})])
+@pytest.mark.parametrize("b,k", [
+    (b, k) for b in (128, 256, 384, 512, 640, 1024, 2048, 4096, 8192)
+    for k in sorted({1, 4, 8, 16, 64, max(1, b // 64), b // 2, b})])
 def test_cuda_bucket_topk_matches_plain(cuda_device, b, k):
     """Bit for bit on val, lidx and res (signed zeros included): rows with
     ties and an all-zero row, then every adversarial row set."""
@@ -276,3 +277,116 @@ def test_cuda_clamped_algorithms_fold_what_they_clip(cuda_device, name):
     exact = compress(x, k, b, impl="ref")[0].densify(impl="ref").double().sum(0)
     torch.testing.assert_close(dense[0].double() + fold.double().sum(0), exact,
                                rtol=1e-5, atol=1e-6 * float(exact.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_unsupported_bucket_size_raises_when_built(cuda_device):
+    """B = 1000 is no multiple of 128: the step, the pipelined step and
+    the allreduce refuse it when built, naming the limit, before any
+    launch; the plain version takes it."""
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.core.allreduce import make_sparse_allreduce
+    from repro_torch.core.compressor import SyncConfig
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.pipeline import build_pipelined_step
+    from repro_torch.train.state import TrainConfig
+    from repro_torch.train.train_step import build_train_step
+
+    model = build_model(ModelConfig(
+        name="t", family="dense", num_layers=1, d_model=64, num_heads=4,
+        num_kv_heads=2, d_ff=1000, vocab_size=1000, dtype=torch.float32,
+        param_dtype=torch.float32, max_seq_len=64))
+    tcfg = TrainConfig(sync=SyncConfig(mode="sparcml", bucket_size=1000,
+                                       algorithm="dsar_split_allgather",
+                                       min_sparse_size=1024))
+    before = topk_ops.bucket_topk.launches
+    limit = "multiple of 128 up to 8192"
+    with pytest.raises(ValueError, match=limit):
+        build_train_step(model, tcfg, 4, cuda_device)
+    with pytest.raises(ValueError, match=limit):
+        build_train_step(model, tcfg, 4, cuda_device, lowering="manual")
+    with pytest.raises(ValueError, match=limit):
+        build_pipelined_step(model, tcfg, 4, cuda_device, lowering="manual")
+    with pytest.raises(ValueError, match=limit):
+        make_sparse_allreduce(StackedCollectives(4, cuda_device), 8000, 4,
+                              1000)
+    assert topk_ops.bucket_topk.launches == before
+    x = torch.randn(3, 1000, device=cuda_device)
+    assert topk_ops.bucket_topk(x, 4, impl="ref")[1].shape == (3, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_cuda_qsgd_unpack_grouped_row_major_matches_plain(cuda_device, bits):
+    """The per-rank executor's segments (codes as received: rows, ranks,
+    shard; p_pod 1, mean 1) through the kernel, bit-equal to the plain
+    grouped version."""
+    segs = [s._replace(row_major=True, mean=1.0) for s in _grouped_segments(
+        np.random.default_rng(7 + bits), 12, bits, cuda_device, p_pod=1)]
+    got = unpack_ops.qsgd_unpack_grouped(segs, bits, impl="cuda")
+    want = unpack_ops.qsgd_unpack_grouped(segs, bits, impl="ref")
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_manual_pipelined_step_matches_cpu(cuda_device):
+    """A 2-layer model, 3 staleness-1 per-rank steps (4 stacked ranks,
+    telemetry on) on the card against the CPU path with the same QSGD
+    bits: losses within rtol 2e-4; one grouped unpack a step and no
+    single-bucket one; the telemetry rows finite and their coverage in
+    (0, 1]."""
+    from repro_torch.core.compressor import SyncConfig
+    from repro_torch.core.qsgd import random_bits
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.schedule import ScheduleConfig
+    from repro_torch.runtime.pipeline import (attach_inflight,
+                                              build_pipelined_step)
+    from repro_torch.train.state import TrainConfig
+    from repro_torch.train.train_step import init_state
+    from repro_torch.utils.tree import tree_map
+
+    model = build_model(ModelConfig(
+        name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
+        num_kv_heads=2, d_ff=1024, vocab_size=512, dtype=torch.float32,
+        param_dtype=torch.float32, max_seq_len=64))
+    tcfg = TrainConfig(
+        sync=SyncConfig(mode="sparcml", k_per_bucket=8, bucket_size=512,
+                        algorithm="dsar_split_allgather", qsgd_bits=4,
+                        min_sparse_size=65536),
+        schedule=ScheduleConfig(kind="wsd", peak_lr=3e-3, warmup_steps=2,
+                                total_steps=10),
+        microbatches=2)
+    data = DataConfig(global_batch=8, seq_len=32, vocab_size=512)
+    params = model.init(torch.Generator().manual_seed(3), "cpu")
+
+    def bits_for(step, device):
+        def rand_fn(bucket_idx, n):
+            g = torch.Generator().manual_seed(step * 1000 + bucket_idx)
+            return random_bits(n, g, "cpu").to(device)
+        return rand_fn
+
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        step, plan = build_pipelined_step(model, tcfg, 4, dev, guard=True,
+                                          lowering="manual")
+        state = attach_inflight(init_state(
+            model, tcfg, plan, dev,
+            params=tree_map(lambda t: t.to(dev), params)), plan)
+        unpack_ops.qsgd_unpack.launches = 0
+        unpack_ops.qsgd_unpack_grouped.launches = 0
+        losses[str(dev)] = []
+        for i in range(3):
+            state, m = step(state, synthetic_batch(data, i), bits_for(i, dev))
+            losses[str(dev)].append(float(m["loss"]))
+            for row in m["telemetry"].values():
+                assert torch.isfinite(row).all()
+                assert 0 < float(row[2]) <= 1
+        if dev != "cpu":
+            assert unpack_ops.qsgd_unpack_grouped.launches == 3
+            assert unpack_ops.qsgd_unpack.launches == 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-4)

@@ -32,6 +32,8 @@ from repro.kernels.qsgd_unpack.ops import qsgd_unpack as jax_unpack
 from repro_torch.kernels.bucket_scatter import ops as scatter_ops
 from repro_torch.kernels.bucket_topk import ops as topk_ops
 from repro_torch.kernels.bucket_topk.cases import adversarial_rows
+from repro_torch.kernels.bucket_topk.kernel import (require_supported_b,
+                                                    supported_b)
 from repro_torch.kernels.qsgd_pack import ops as pack_ops
 from repro_torch.kernels.qsgd_pack.ref import u32_to_i64
 from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
@@ -133,7 +135,7 @@ def _selected(x, sel):
 
 
 def _topk_cases():
-    return [(b, k) for b in (128, 256, 512, 1024)
+    return [(b, k) for b in (128, 256, 384, 512, 640, 1024)
             for k in sorted({1, 4, 8, 64, b // 2, b})]
 
 
@@ -154,6 +156,91 @@ def test_bucket_topk_radix_model_matches_plain(b, k):
         for g, w in zip(model, want):
             np.testing.assert_array_equal(g.view(np.int32),
                                           w.numpy().view(np.int32))
+
+
+def _block_select_model(x: np.ndarray, k: int, threads: int = 256):
+    """``csrc/bucket_topk.cu``'s one-block-a-row form (B > 1024) in numpy,
+    step by step: the same digit passes, the 256-bin suffix sum taken as
+    the kernel takes it (within each warp of 32 bins, then the totals of
+    the higher warps added) and the bin found as the one whose suffix
+    reaches ``need`` while the bins above it do not; then the selection in
+    chunks of ``threads`` keys in index order, where a key's rank among the
+    tied keys and its output position are its warp's ballot prefix plus
+    the counts of the chunk's lower warps and of every earlier chunk.
+    Returns (val, lidx, res) from the positions it writes."""
+    keys = (x.view(np.uint32) & 0x7FFFFFFF).astype(np.int64)
+    n_rows, b = x.shape
+    warps = threads // 32
+    val = np.zeros((n_rows, k), np.float32)
+    lidx = np.full((n_rows, k), -1, np.int32)
+    res = x.copy()
+    for r, key in enumerate(keys):
+        prefix, need, low = 0, k, 31
+        for shift in (23, 15, 7, 0):
+            cand = (key >> low) == (prefix >> low)
+            digits = (key[cand] >> shift) & ((1 << (low - shift)) - 1)
+            hist = np.bincount(digits, minlength=256)
+            lanes = hist.reshape(warps, 32)
+            incl = np.cumsum(lanes[:, ::-1], axis=1)[:, ::-1]
+            totals = incl[:, 0]
+            incl = (incl + (np.cumsum(totals[::-1])[::-1] - totals)[:, None]
+                    ).reshape(-1)
+            found = np.flatnonzero((incl >= need) & (incl - hist < need))
+            assert found.size == 1
+            d = int(found[0])
+            need -= int(incl[d] - hist[d])
+            prefix |= d << shift
+            low = shift
+            if hist[d] == need:
+                break
+        top = prefix | ((1 << low) - 1)
+        tied = taken = 0
+        for base in range(0, b, threads):
+            i = base + np.arange(threads)
+            live = i < b
+            kk = key[np.minimum(i, b - 1)]
+            in_bin = live & ((kk >> low) == (prefix >> low))
+            tie = in_bin.reshape(warps, 32)
+            tie_rank = (tied + (np.cumsum(tie.sum(1)) - tie.sum(1))[:, None]
+                        + np.cumsum(tie, axis=1) - tie).reshape(-1)
+            s = live & ((kk > top) | (in_bin & (tie_rank < need)))
+            sel = s.reshape(warps, 32)
+            pos = (taken + (np.cumsum(sel.sum(1)) - sel.sum(1))[:, None]
+                   + np.cumsum(sel, axis=1) - sel).reshape(-1)
+            val[r, pos[s]] = x[r, i[s]]
+            lidx[r, pos[s]] = i[s]
+            res[r, i[s]] = 0.0
+            tied += int(tie.sum())
+            taken += int(sel.sum())
+        assert taken == k
+    return val, lidx, res
+
+
+@pytest.mark.parametrize("b,k", [(b, k) for b in (2048, 8192)
+                                 for k in sorted({1, 8, b // 64, b // 2, b})])
+def test_bucket_topk_block_model_matches_plain(b, k):
+    """The one-block-a-row form above B = 1024, modelled in numpy with its
+    chunked tie rule, against the plain version bit for bit on Gaussian
+    rows with ties and on every adversarial row set."""
+    rng = np.random.default_rng(b + k)
+    x = np.concatenate([_x_with_ties(b * k, 4, b),
+                        rng.standard_normal((2, b)).astype(np.float32)] + [
+        rows.numpy() for rows in adversarial_rows(2, b, seed=k).values()])
+    want = topk_ops.bucket_topk(torch.from_numpy(x), k)
+    for g, w in zip(_block_select_model(x, k), want):
+        np.testing.assert_array_equal(g.view(np.int32),
+                                      w.numpy().view(np.int32))
+
+
+def test_bucket_topk_b_limit():
+    """Every multiple of 128 up to 8192 and nothing else; the plain
+    version takes any B."""
+    assert [b for b in range(1, 9000) if supported_b(b)] == list(
+        range(128, 8193, 128))
+    with pytest.raises(ValueError, match="multiple of 128 up to 8192"):
+        require_supported_b(1000)
+    x = torch.randn(3, 1000)
+    assert topk_ops.bucket_topk(x, 5)[1].shape == (3, 5)
 
 
 # --------------------------------------------------------------------------
@@ -312,6 +399,29 @@ def test_qsgd_unpack_grouped_plain_matches_jax(p_pod, p_data, bits,
             ref = np.asarray(dpod.sum(axis=0) * mean)
             assert out.shape == ref.shape == (seg.rows, mb)
             np.testing.assert_array_equal(out.numpy(), ref, impl)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("held,p_data", [(1, 2), (1, 4), (4, 4)])
+def test_qsgd_unpack_grouped_row_major_matches_single_bucket(held, p_data,
+                                                             bits):
+    """The per-rank executor's segments: codes as its allgather receives
+    them, (held ranks, rows, p_data, shard), p_pod 1, mean 1. Each output
+    row is the single-bucket plain unpack of the codes in order, bit for
+    bit but for the sign of a zero: the pod sum starts at +0, as the
+    kernel's does, so a -0 (a negative code times a zero scale) comes out
+    +0."""
+    rng = np.random.default_rng(50 * held + p_data + bits)
+    segs = []
+    for rows, shard, bq in ((3, 128, 128), (2, 256, 128), (1, 128, 64)):
+        s = _segment(rng, 1, p_data, held * rows, shard, bq, bits, 1.0)
+        segs.append(s._replace(row_major=True))
+    outs = unpack_ops.qsgd_unpack_grouped(segs, bits)
+    for seg, out in zip(segs, outs):
+        want = unpack_ops.qsgd_unpack(seg.packed, seg.scale, bits)
+        assert out.shape == (seg.rows, p_data * seg.shard)
+        assert out.view(torch.int32).equal(
+            (want.reshape(out.shape) + 0.0).view(torch.int32))
 
 
 @pytest.mark.parametrize("impl", ["auto", "cuda"])

@@ -3,10 +3,14 @@ JAX package's pipelined step, and against the port's own synchronous
 step.
 
 The reference is ``repro.runtime.pipeline.build_pipelined_step`` forced
-onto its stacked-replica lowering (``lowering="spmd"``) with ZeRO-1 off
-and the same dp as the port; both start from the reference's weights and
-see the same batches, and QSGD runs get the reference's own rounding bits
-through ``rand_fn`` (``_qsgd_rand_all`` of the step's key).
+onto its stacked-replica lowering (``lowering="spmd"``) or its per-rank
+one (``"manual"``, shard_map over a (4, 1) mesh) with ZeRO-1 off and the
+same dp as the port; both start from the reference's weights and see the
+same batches, and QSGD runs get the reference's own rounding bits through
+``rand_fn`` (``_qsgd_rand_all`` of the step's key, which is also the
+manual lowering's per-rank layout). Its per-bucket telemetry rows are
+held to the port's as the executor tests hold them
+(``tests/_telemetry_check.py``).
 
 Tolerances on the three losses: rtol=1e-5 without QSGD; rtol=2e-4 with
 QSGD, where an L2 scale summed in another order can move one entry by a
@@ -16,6 +20,8 @@ guard trip) the ops are the same and the results bit-equal.
 """
 import ast
 from pathlib import Path
+
+from _telemetry_check import assert_telemetry_close
 
 import jax
 import jax.numpy as jnp
@@ -138,13 +144,15 @@ def _run(step_fn, state, n, start=0, rand=None):
 
 @pytest.fixture(scope="module")
 def reference_runs():
-    """(staleness, qsgd_bits) -> (params0, losses, lrs) of the reference's
-    guarded pipelined step, built once each."""
+    """(staleness, qsgd_bits, lowering) -> (params0, losses, lrs, telemetry
+    rows of each step) of the reference's guarded pipelined step, built
+    once each."""
     cache = {}
 
-    def get(staleness, qsgd_bits):
-        if (staleness, qsgd_bits) in cache:
-            return cache[staleness, qsgd_bits]
+    def get(staleness, qsgd_bits, lowering="spmd"):
+        key = (staleness, qsgd_bits, lowering)
+        if key in cache:
+            return cache[key]
         jmodel = jax_build_model(JaxModelConfig(**TINY, dtype=jnp.float32,
                                                 param_dtype=jnp.float32))
         tcfg = JaxTrainConfig(
@@ -154,48 +162,117 @@ def reference_runs():
         mesh = compat.make_mesh((P_DATA, 1), ("data", "model"))
         with mesh:
             fn, _, plan = jax_pipeline.build_pipelined_step(
-                jmodel, tcfg, mesh, staleness=staleness, lowering="spmd",
-                donate=False, telemetry=False, guard=True)
+                jmodel, tcfg, mesh, staleness=staleness, lowering=lowering,
+                donate=False, telemetry=True, guard=True)
             state, _ = jax_init_state(jmodel, tcfg, mesh)
             params0 = jax.tree.map(np.asarray, state.params)
             if staleness:
                 state = jax_pipeline.attach_inflight(state, plan, mesh)
-            losses, lrs = [], []
+            losses, lrs, tels = [], [], []
             for i in range(STEPS):
                 batch = jax.tree.map(jnp.asarray, jax_synthetic_batch(
                     JaxDataConfig(**DATA), i))
                 state, m = fn(state, batch, jax.random.fold_in(KEY, i))
                 losses.append(float(m["loss"]))
                 lrs.append(float(m["lr"]))
+                tels.append(jax.tree.map(np.asarray, m["telemetry"]))
                 assert float(m["nonfinite"]) == 0.0
-        cache[staleness, qsgd_bits] = params0, losses, lrs
-        return cache[staleness, qsgd_bits]
+        cache[key] = params0, losses, lrs, tels
+        return cache[key]
 
     return get
+
+
+def _port_run(model, params0, staleness, qsgd_bits, lowering=None,
+              telemetry=False):
+    """STEPS guarded pipelined steps of the port from the reference's
+    weights with its bits: (losses, lrs, telemetry rows, final state)."""
+    tcfg = _tcfg(qsgd_bits)
+    step, plan = rt_pipeline.build_pipelined_step(
+        model, tcfg, P_DATA, "cpu", staleness=staleness, guard=True,
+        lowering=lowering, telemetry=telemetry)
+    assert plan.num_sparse_buckets > 0
+    state = ts.init_state(model, tcfg, plan, "cpu",
+                          params=params_from_jax(params0))
+    if staleness:
+        state = rt_pipeline.attach_inflight(state, plan)
+    losses, lrs, tels = [], [], []
+    for i in range(STEPS):
+        state, m = step(state, _batch(i), _reference_rand_fn(i))
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+        tels.append(m.get("telemetry"))
+        assert float(m["nonfinite"]) == 0.0
+    assert (state.inflight is None) == (staleness == 0)
+    return losses, lrs, tels, state
 
 
 @pytest.mark.parametrize("staleness", [0, 1])
 @pytest.mark.parametrize("qsgd_bits,rtol", [(None, 1e-5), (4, 2e-4)])
 def test_pipelined_step_matches_jax(model, reference_runs, staleness,
                                     qsgd_bits, rtol):
-    params0, ref_losses, ref_lrs = reference_runs(staleness, qsgd_bits)
-    tcfg = _tcfg(qsgd_bits)
-    step, plan = rt_pipeline.build_pipelined_step(
-        model, tcfg, P_DATA, "cpu", staleness=staleness, guard=True)
-    assert plan.num_sparse_buckets > 0
-    state = ts.init_state(model, tcfg, plan, "cpu",
-                          params=params_from_jax(params0))
-    if staleness:
-        state = rt_pipeline.attach_inflight(state, plan)
-    losses, lrs = [], []
-    for i in range(STEPS):
-        state, m = step(state, _batch(i), _reference_rand_fn(i))
-        losses.append(float(m["loss"]))
-        lrs.append(float(m["lr"]))
-        assert float(m["nonfinite"]) == 0.0
+    params0, ref_losses, ref_lrs, _ = reference_runs(staleness, qsgd_bits)
+    losses, lrs, _, _ = _port_run(model, params0, staleness, qsgd_bits)
     np.testing.assert_allclose(losses, ref_losses, rtol=rtol)
     np.testing.assert_allclose(lrs, ref_lrs, rtol=1e-6)
-    assert (state.inflight is None) == (staleness == 0)
+
+
+@pytest.mark.parametrize("staleness", [0, 1])
+@pytest.mark.parametrize("qsgd_bits,rtol", [(None, 1e-5), (4, 2e-4)])
+def test_pipelined_manual_step_matches_jax(model, reference_runs, staleness,
+                                           qsgd_bits, rtol):
+    """The per-rank pipelined step (StackedCollectives of 4 ranks) against
+    the reference's manual lowering, and against the port's own stacked
+    pipelined step."""
+    params0, ref_losses, ref_lrs, _ = reference_runs(staleness, qsgd_bits,
+                                                     "manual")
+    losses, lrs, _, state = _port_run(model, params0, staleness, qsgd_bits,
+                                      lowering="manual")
+    np.testing.assert_allclose(losses, ref_losses, rtol=rtol)
+    np.testing.assert_allclose(lrs, ref_lrs, rtol=1e-6)
+    spmd_losses, _, _, spmd_state = _port_run(model, params0, staleness,
+                                              qsgd_bits)
+    np.testing.assert_allclose(losses, spmd_losses, rtol=rtol)
+    assert state.residuals.keys() == spmd_state.residuals.keys()
+
+
+@pytest.mark.parametrize("lowering", ["spmd", "manual"])
+@pytest.mark.parametrize("qsgd_bits", [None, 4])
+def test_pipelined_telemetry_matches_jax(model, reference_runs, lowering,
+                                         qsgd_bits):
+    """The rows the pipelined step returns (staleness 1), step by step,
+    against the reference's ``metrics["telemetry"]``."""
+    params0, _, _, ref_tels = reference_runs(1, qsgd_bits, lowering)
+    _, _, tels, _ = _port_run(model, params0, 1, qsgd_bits, lowering,
+                              telemetry=True)
+    for got, want in zip(tels, ref_tels):
+        assert all(row.shape == (4,) for row in got.values())
+        assert_telemetry_close(got, want, qsgd_bits is not None)
+
+
+@pytest.mark.parametrize("lowering", ["spmd", "manual"])
+def test_telemetry_leaves_the_run_bit_unchanged(model, lowering):
+    """Telemetry on and off: the same losses and state, bit for bit; the
+    superstep stacks the rows to (K, 4)."""
+    tcfg, k = _tcfg(4), 3
+    runs = {}
+    for tel in (False, True):
+        sup, plan = rt_pipeline.build_superstep(
+            model, tcfg, P_DATA, "cpu", steps=k, guard=True,
+            lowering=lowering, telemetry=tel)
+        batches = {key: np.stack([_batch(i)[key] for i in range(k)])
+                   for key in _batch(0)}
+        runs[tel] = sup(_fresh_pipelined(model, tcfg, plan), batches,
+                        [_reference_rand_fn(i) for i in range(k)])
+    (a, ma), (b, mb) = runs[False], runs[True]
+    assert "telemetry" not in ma
+    assert ma["loss"].tolist() == mb["loss"].tolist()
+    _assert_states_equal(a, b)
+    rows = mb["telemetry"]
+    assert set(rows) == {bk.name for bk in plan.buckets if bk.sparse}
+    for row in rows.values():
+        assert row.shape == (k, 4) and torch.isfinite(row).all()
+        assert ((row[:, 2] > 0) & (row[:, 2] <= 1)).all()
 
 
 def test_inflight_shapes_match_jax():
@@ -219,18 +296,30 @@ def test_inflight_shapes_match_jax():
 # within the port: the same ops give the same bits
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("guard", [False, True])
-def test_staleness0_matches_synchronous_bit_for_bit(model, guard):
+def _staleness0_matches_synchronous(model, guard, lowering):
     tcfg = _tcfg(4)
-    sync_fn, plan = ts.build_train_step(model, tcfg, P_DATA, "cpu")
+    sync_fn, plan = ts.build_train_step(model, tcfg, P_DATA, "cpu",
+                                        lowering=lowering)
     pipe_fn, _ = rt_pipeline.build_pipelined_step(
-        model, tcfg, P_DATA, "cpu", staleness=0, guard=guard)
+        model, tcfg, P_DATA, "cpu", staleness=0, guard=guard,
+        lowering=lowering)
     s0 = ts.init_state(model, tcfg, plan, "cpu")
     a, la = _run(sync_fn, s0, STEPS)
     b, lb = _run(pipe_fn, s0, STEPS)
     assert la == lb
     assert b.inflight is None
     _assert_states_equal(a, b)
+
+
+@pytest.mark.parametrize("guard", [False, True])
+def test_staleness0_matches_synchronous_bit_for_bit(model, guard):
+    _staleness0_matches_synchronous(model, guard, "spmd")
+
+
+@pytest.mark.parametrize("guard", [False, True])
+def test_staleness0_manual_matches_synchronous_bit_for_bit(model, guard):
+    """The per-rank lowering: staleness 0 is its synchronous step."""
+    _staleness0_matches_synchronous(model, guard, "manual")
 
 
 def _fresh_pipelined(model, tcfg, plan):
@@ -370,14 +459,10 @@ def _unported_calls(model):
                               dp_total=P_DATA, device="cpu")
     state = ts.init_state(model, tcfg, plan, "cpu")
     return {
-        "lowering=manual": lambda: build(model, tcfg, P_DATA, "cpu",
-                                         lowering="manual"),
         "lowering=emulated": lambda: rt_pipeline.build_superstep(
             model, tcfg, P_DATA, "cpu", lowering="emulated"),
         "plan=replanned": lambda: build(model, tcfg, P_DATA, "cpu",
                                         plan=plan),
-        "telemetry": lambda: build(model, tcfg, P_DATA, "cpu",
-                                   telemetry=True),
         "inject": lambda: build(model, tcfg, P_DATA, "cpu", inject=True),
         "driver adapt": lambda: drive(adapt=object()),
         "driver obs": lambda: drive(obs=object()),
@@ -397,9 +482,9 @@ def _unported_calls(model):
     }
 
 
-UNPORTED = ["lowering=manual", "lowering=emulated", "plan=replanned",
-            "telemetry", "inject", "driver adapt", "driver obs",
-            "driver phase_attr", "driver health", "driver recovery",
+UNPORTED = ["lowering=emulated", "plan=replanned", "inject", "driver adapt",
+            "driver obs", "driver phase_attr", "driver health",
+            "driver recovery",
             "driver injector", "trainer adapt", "trainer injector",
             "trainer recovery", "restore remesh", "convert_opt_layout"]
 
@@ -503,10 +588,8 @@ def test_run_lm_pipeline_trains_and_prints_the_overlap_win(
     cfg = ModelConfig(**TINY, dtype=torch.float32, param_dtype=torch.float32)
     monkeypatch.setattr(run_lm, "lm_config",
                         lambda fast: (cfg, DataConfig(**DATA)))
-    monkeypatch.setattr(run_lm, "Trainer",
-                        lambda *a, **kw: Trainer(*a, device="cpu", **kw))
     argv = ["--fast", "--steps", "12", "--pipeline", "--superstep", "2",
-            "--ckpt-dir", str(tmp_path)]
+            "--ckpt-dir", str(tmp_path), "--device", "cpu"]
     log = run_lm.main(argv)
     out = capsys.readouterr().out
     assert "starting at step 0 (resume=no)" in out
@@ -517,3 +600,20 @@ def test_run_lm_pipeline_trains_and_prints_the_overlap_win(
     out = capsys.readouterr().out
     assert "starting at step 12 (resume=yes)" in out
     assert len(log.losses) == 2
+
+
+def test_run_lm_pipeline_manual_trains(monkeypatch, capsys):
+    """run_lm --pipeline --lowering manual: the per-rank pipelined loop,
+    which the same stacked ranks give the same losses as the stacked
+    one's within rtol 2e-4."""
+    cfg = ModelConfig(**TINY, dtype=torch.float32, param_dtype=torch.float32)
+    monkeypatch.setattr(run_lm, "lm_config",
+                        lambda fast: (cfg, DataConfig(**DATA)))
+    argv = ["--fast", "--steps", "10", "--pipeline", "--superstep", "2",
+            "--device", "cpu"]
+    manual = run_lm.main(argv + ["--lowering", "manual"])
+    out = capsys.readouterr().out
+    assert "overlap win: sync" in out and "done: step 10" in out
+    stacked = run_lm.main(argv)
+    assert len(manual.losses) == 10 and np.isfinite(manual.losses).all()
+    np.testing.assert_allclose(manual.losses, stacked.losses, rtol=2e-4)

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _telemetry_check import assert_telemetry_close
 
 from repro.comm import executor as jax_exec
 from repro.comm.plan import build_sync_plan as jax_build_plan
@@ -22,8 +23,11 @@ from repro.core.compressor import SyncConfig as JaxSyncConfig
 from repro.models.config import ModelConfig as JaxModelConfig
 from repro.models.model import build_model as jax_build_model
 from repro.models.specs import param_specs as jax_param_specs
-from repro_torch.comm.executor import execute_plan_spmd
-from repro_torch.comm.plan import build_sync_plan
+from repro.comm.plan import build_per_leaf_plan as jax_build_per_leaf_plan
+from repro.core import compressor as jax_compressor
+from repro_torch.comm.executor import execute_plan_spmd, reduce_buckets_spmd
+from repro_torch.comm.plan import build_per_leaf_plan, build_sync_plan
+from repro_torch.core import compressor
 from repro_torch.core import qsgd, topk
 from repro_torch.core.qsgd import QSGDConfig
 from repro_torch.core.compressor import SyncConfig
@@ -229,3 +233,210 @@ def test_execute_plan_spmd_matches_jax(name, sync_kw):
         for n in res:
             np.testing.assert_allclose(res[n].numpy(), np.asarray(jres[n]),
                                        rtol=1e-5, atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# the plan's accounting, the per-leaf plan and the wire report
+# --------------------------------------------------------------------------
+
+ACCOUNTING_CASES = [
+    ("tiny_dsar_qsgd4", TINY, _sync_kwargs(bucket_size=128, qsgd_bucket=128,
+                                           min_sparse_size=1024)),
+    ("tiny_split_allgather", TINY, _sync_kwargs(
+        bucket_size=128, qsgd_bits=None, min_sparse_size=1024,
+        algorithm="ssar_split_allgather", fusion_bucket_bytes=1 << 16)),
+    ("tiny_rearranged", TINY, _sync_kwargs(
+        bucket_size=128, qsgd_bits=None, min_sparse_size=1024,
+        algorithm="ssar_rearranged_rs")),
+    ("lm100m", LM100M, _sync_kwargs()),
+]
+
+
+@pytest.mark.parametrize("name,model_kw,sync_kw", ACCOUNTING_CASES,
+                         ids=[c[0] for c in ACCOUNTING_CASES])
+def test_plan_accounting_matches_jax(name, model_kw, sync_kw):
+    jplan, plan, _, _ = _plans(model_kw, **sync_kw)
+    for p in (None, 2, 8):
+        for agg in (False, True):
+            assert plan.wire_bytes(p, aggregate=agg) == pytest.approx(
+                jplan.wire_bytes(p, aggregate=agg), rel=1e-12)
+            assert plan.param_allgather_bytes(p, aggregate=agg) == \
+                jplan.param_allgather_bytes(p, aggregate=agg) == 0.0
+    assert plan.algorithms() == jplan.algorithms()
+    assert plan.pod_sparse_flags() == jplan.pod_sparse_flags()
+    assert plan.signature() == jplan.signature()
+    assert plan.covered_leaf_ids() == jplan.covered_leaf_ids()
+
+
+def _assert_per_leaf_plans_equal(model_kw, sync_kw, p):
+    jcfg = JaxModelConfig(**model_kw, dtype=jnp.float32,
+                          param_dtype=jnp.float32)
+    jshapes = jax.eval_shape(jax_build_model(jcfg).init,
+                             jax.random.PRNGKey(0))
+    jplan = jax_build_per_leaf_plan(jshapes, jax_param_specs(jshapes, jcfg,
+                                                             None),
+                                    JaxSyncConfig(**sync_kw), p)
+    cfg = ModelConfig(**model_kw, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    shapes = init_params(cfg, device="meta")
+    plan = build_per_leaf_plan(shapes, param_specs(shapes, cfg),
+                               SyncConfig(**sync_kw), p)
+    _assert_plans_equal(jplan, plan)
+    return plan, jplan
+
+
+# per-leaf routing needs every row's bucket count to split over the
+# ranks: the tiny model's leaves qualify at B = 32
+PER_LEAF_CASES = [
+    ("tiny_dsar_qsgd4", TINY, _sync_kwargs(
+        bucket_size=32, k_per_bucket=2, qsgd_bucket=32,
+        min_sparse_size=1024)),
+    ("tiny_split_allgather", TINY, _sync_kwargs(
+        bucket_size=32, k_per_bucket=2, qsgd_bits=None, min_sparse_size=1024,
+        algorithm="ssar_split_allgather")),
+    ("lm100m", LM100M, _sync_kwargs()),
+]
+
+
+@pytest.mark.parametrize("name,model_kw,sync_kw", PER_LEAF_CASES,
+                         ids=[c[0] for c in PER_LEAF_CASES])
+def test_build_per_leaf_plan_matches_jax(name, model_kw, sync_kw):
+    plan, jplan = _assert_per_leaf_plans_equal(model_kw, sync_kw, P_DATA)
+    assert plan.num_buckets > 0
+    assert plan.covered_leaf_ids() == jplan.covered_leaf_ids()
+    assert plan.wire_bytes() == pytest.approx(jplan.wire_bytes(), rel=1e-12)
+
+
+def _shape_trees(model_kw):
+    jcfg = JaxModelConfig(**model_kw, dtype=jnp.float32,
+                          param_dtype=jnp.float32)
+    jshapes = jax.eval_shape(jax_build_model(jcfg).init,
+                             jax.random.PRNGKey(0))
+    cfg = ModelConfig(**model_kw, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    shapes = init_params(cfg, device="meta")
+    return (jshapes, jax_param_specs(jshapes, jcfg, None), shapes,
+            param_specs(shapes, cfg))
+
+
+@pytest.mark.parametrize("name,model_kw,sync_kw", PER_LEAF_CASES + [
+    ("tiny_dense_mode", TINY, dict(mode="dense"))],
+    ids=[c[0] for c in PER_LEAF_CASES] + ["tiny_dense_mode"])
+def test_wire_bytes_per_step_matches_jax(name, model_kw, sync_kw):
+    """Per leaf (with and without specs), per bucket of the fused plan,
+    and in dense mode."""
+    jshapes, jspecs, shapes, specs = _shape_trees(model_kw)
+    jcfg, cfg = JaxSyncConfig(**sync_kw), SyncConfig(**sync_kw)
+    for p in (2, P_DATA):
+        for with_specs in (False, True):
+            want = jax_compressor.wire_bytes_per_step(
+                jshapes, jcfg, p, jspecs if with_specs else None)
+            got = compressor.wire_bytes_per_step(
+                shapes, cfg, p, specs if with_specs else None)
+            assert got == pytest.approx(want, rel=1e-12)
+    if cfg.mode == "sparcml":
+        jplan = jax_build_plan(jshapes, jspecs, jcfg, P_DATA)
+        plan = build_sync_plan(shapes, specs, cfg, P_DATA)
+        assert compressor.wire_bytes_per_step(
+            shapes, cfg, P_DATA, specs, plan=plan) == pytest.approx(
+            jax_compressor.wire_bytes_per_step(jshapes, jcfg, P_DATA, jspecs,
+                                               plan=jplan), rel=1e-12)
+
+
+@pytest.mark.parametrize("name,model_kw,sync_kw", PER_LEAF_CASES[:2],
+                         ids=[c[0] for c in PER_LEAF_CASES[:2]])
+def test_per_leaf_residual_trees_match_jax(name, model_kw, sync_kw):
+    jshapes, jspecs, shapes, specs = _shape_trees(model_kw)
+    jcfg, cfg = JaxSyncConfig(**sync_kw), SyncConfig(**sync_kw)
+    want = jax.tree_util.tree_flatten(
+        jax_compressor.residual_shapes(jshapes, jspecs, jcfg, P_DATA),
+        is_leaf=lambda x: x is None)[0]
+    got = tree_flatten(compressor.residual_shapes(shapes, specs, cfg,
+                                                  P_DATA))[0]
+    assert [None if s is None else tuple(s.shape) for s in got] == \
+        [None if s is None else tuple(s.shape) for s in want]
+    assert any(s is not None for s in got) and any(s is None for s in got)
+    zeros = tree_flatten(compressor.init_residuals(shapes, specs, cfg,
+                                                   P_DATA))[0]
+    assert [None if z is None else (tuple(z.shape), bool(z.any()))
+            for z in zeros] == [None if s is None else (tuple(s.shape), False)
+                                for s in got]
+    jrs = jax.tree_util.tree_flatten(
+        jax_compressor.residual_specs(jshapes, jspecs, jcfg, P_DATA),
+        is_leaf=lambda x: x is None)[0]
+    rs = tree_flatten(compressor.residual_specs(shapes, specs, cfg, P_DATA))[0]
+    assert [None if s is None else tuple(s) for s in rs] == \
+        [None if s is None else tuple(s) for s in jrs]
+    assert [compressor.sparse_path_ok(tuple(l.shape), sp, cfg, P_DATA)
+            for l, sp in zip(tree_flatten(shapes)[0],
+                             tree_flatten(specs)[0])] == \
+        [s is not None for s in got]
+
+
+# --------------------------------------------------------------------------
+# the stacked executor's telemetry rows
+# --------------------------------------------------------------------------
+
+TELEMETRY_CASES = [
+    ("dsar", _sync_kwargs(bucket_size=128, k_per_bucket=4, qsgd_bits=None,
+                          min_sparse_size=1024), (1, P_DATA)),
+    ("dsar_qsgd4", _sync_kwargs(bucket_size=128, k_per_bucket=4,
+                                qsgd_bucket=128, min_sparse_size=1024),
+     (1, P_DATA)),
+    ("dsar_qsgd4_pods", _sync_kwargs(bucket_size=128, k_per_bucket=4,
+                                     qsgd_bucket=128, min_sparse_size=1024),
+     (2, 2)),
+    ("split_allgather", _sync_kwargs(bucket_size=128, k_per_bucket=4,
+                                     qsgd_bits=None, min_sparse_size=1024,
+                                     algorithm="ssar_split_allgather"),
+     (1, P_DATA)),
+]
+
+
+@pytest.mark.parametrize("name,sync_kw,grid", TELEMETRY_CASES,
+                         ids=[c[0] for c in TELEMETRY_CASES])
+def test_reduce_buckets_spmd_telemetry_matches_jax(name, sync_kw, grid):
+    """Two error-feedback steps of the reduce half with telemetry on, the
+    rows against the reference's; off, no rows and the same buffers."""
+    p_pod, p_data = grid
+    jplan, plan, _, shapes = _plans(TINY, **sync_kw)
+    leaves, _ = tree_flatten(shapes)
+    rng = np.random.default_rng(len(name) + 40)
+    key = jax.random.PRNGKey(5)
+    jres = {n: jnp.zeros(s.shape, s.dtype)
+            for n, s in jplan.residual_shapes().items()}
+    res = plan.init_residuals()
+
+    @jax.jit
+    def jax_reduce(leaves_r, residuals, k):
+        return jax_exec.reduce_buckets_spmd(jplan, leaves_r, residuals, k,
+                                            p_data=p_data, p_pod=p_pod,
+                                            telemetry=True)
+
+    for step in range(2):
+        grads = [torch.from_numpy(rng.standard_normal(
+            (P_DATA,) + tuple(leaf.shape)).astype(np.float32))
+            for leaf in leaves]
+        skey = jax.random.fold_in(key, step)
+
+        def rand_fn(bucket_idx, n, skey=skey):
+            bits = jax_exec._qsgd_rand_all(skey, bucket_idx, p_pod, p_data,
+                                           n // P_DATA)
+            return torch.from_numpy(np.array(bits).reshape(-1))
+
+        _, jres, jtel = jax_reduce([jnp.asarray(g.numpy()) for g in grads],
+                                   jres, skey)
+        reduced, new_res, tel = reduce_buckets_spmd(
+            plan, grads, res, p_data=p_data, p_pod=p_pod, rand_fn=rand_fn)
+        assert_telemetry_close(tel, jtel, sync_kw["qsgd_bits"] is not None)
+        assert set(tel) == {b.name for b in plan.buckets if b.sparse}
+        off, off_res, none = reduce_buckets_spmd(
+            plan, grads, res, p_data=p_data, p_pod=p_pod, rand_fn=rand_fn,
+            telemetry=False)
+        assert none == {}
+        assert list(off) == list(reduced) == [b.name for b in plan.buckets]
+        for n in reduced:
+            assert torch.equal(off[n], reduced[n])
+        for n in new_res:
+            assert torch.equal(off_res[n], new_res[n])
+        res = new_res
