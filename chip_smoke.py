@@ -5,18 +5,23 @@
 
 Phases, in order; any failure exits non-zero:
   0. environment: torch / CUDA versions, the card's name and power limit;
-  1. build: compile the four CUDA kernels from src/repro_torch/csrc;
+  1. build: compile the CUDA kernels from src/repro_torch/csrc;
   2. one phase per kernel at the shapes of the main path (the 26 sparse
      buckets of lm-100m, R = 4 replicas): each kernel is held against its
      plain PyTorch version on the card, and timed with CUDA events beside
      the plain version, a PyTorch library call where one computes the
-     same function, and the memory-bandwidth bound; qsgd_unpack is timed
-     as the main path calls it, one grouped launch over the 26 buckets
-     that writes their reduced buffers, and its single-bucket form is
-     checked on every bucket and timed alone on the largest;
-     The three per-bucket kernels are also timed as their 26 launches
-     replayed from a CUDA graph (the device alone) and as the host's
-     enqueue time. Then bucket_topk's k sweep: at the Fig. 3 rows
+     same function, and the memory-bandwidth bound; bucket_scatter_sum,
+     qsgd_pack and qsgd_unpack are timed as the main path calls them, one
+     grouped launch over the 26 buckets (the fused densify + rank-order
+     sum into one step buffer, the pack reading those sums where they
+     lie, the unpack writing the reduced buffers; the first also with
+     duplicates and sentinels, bit-equal); the single-source
+     bucket_scatter on the 26 buckets' streams, the single-bucket pack on
+     contiguous copies of the same QSGD rows, and the single-bucket unpack
+     checked on every bucket and timed alone on the largest. Every kernel
+     is also timed as its launches replayed from a CUDA graph (the device
+     alone) and as the host's enqueue time. Then bucket_topk's k sweep: at
+     the Fig. 3 rows
      (262144, 512) with k in {1, 4, 8, 16, 32, 64, 128, 512} and at
      (131072, 1024) with k in {16, 128}, each point bit-equal to the plain
      version on all three outputs and timed (CUDA events, the device alone
@@ -33,8 +38,8 @@ Phases, in order; any failure exits non-zero:
   3. main paths, each with every kernel's launch count reset before and
      read after: Trainer.run of lm-100m with SparCML sync (DSAR + 4-bit
      QSGD, k = 8 of 512, R = 4 stacked replicas) for 6 steps (26 launches
-     a step of bucket_topk, bucket_scatter and qsgd_pack, one grouped
-     qsgd_unpack a step); 3 more under the profiler (the device's idle
+     a step of bucket_topk, one each of bucket_scatter_sum, qsgd_pack and
+     qsgd_unpack); 3 more under the profiler (the device's idle
      share); then on the same trainer, as the example's --pipeline does,
      Trainer.run_pipelined for 12 more steps (staleness 1, supersteps of
      4, two units deep, the reduce half on a side CUDA stream), with its
@@ -69,13 +74,15 @@ Phases, in order; any failure exits non-zero:
      with the kernels' launches, and one call of each profiled (device
      time, the costliest kernels; valid only where the trace holds the
      launches the counters saw); recursive doubling's switch to dense at
-     k = 64; at both densities the four kernels held against their plain
-     versions on the tensors this path hands them, then timed at these
-     shapes beside their bounds;
+     k = 64; at both densities the kernels held against their plain
+     versions on the tensors this path hands them (the owner densify is
+     bucket_scatter_sum, G = S = 8), then timed at these shapes beside
+     their bounds;
   8. the per-rank lm-100m step: Trainer.run with lowering="manual" (the
-     wire protocols over the 4 stacked ranks, one grouped qsgd_unpack a
-     step) for 6 steps, against phase 3's stacked run (same seed, same
-     QSGD bits); both executors' reduce halves alone, in turns; the
+     wire protocols over the 4 stacked ranks: 26 launches a step of
+     bucket_topk, bucket_scatter_sum and qsgd_pack, one grouped
+     qsgd_unpack) for 6 steps, bit-equal to phase 3's stacked run (same
+     seed, same QSGD bits); both executors' reduce halves alone, in turns; the
      per-rank half's grouped qsgd_unpack segments (the received row-major
      layout) captured from one call and the CUDA launch held bit for bit
      against qsgd_unpack_grouped_ref on them; both synchronous steps
@@ -98,8 +105,10 @@ Phases, in order; any failure exits non-zero:
  12. NCCL: a one-process NCCL group (world size 1) runs 2 synchronous and
      2 pipelined per-rank steps of the small model, bit-equal to the
      same steps over StackedCollectives(1);
- 13. the kernels line, the card line, and last the result line
-     {"ok": true, "device": {...}}.
+ 13. the kernels line (a kernel's "launches" are the main path's, or,
+     for one the main path does not run, those of the first later path
+     that runs it, named in "launches_path"), the card line, and last the
+     result line {"ok": true, "device": {...}}.
 
 It imports torch and the port (``src/repro_torch``), never JAX. A longer
 record of the run goes to chiprun_out/chip_smoke.json.
@@ -270,9 +279,11 @@ def main() -> None:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
     from repro_torch.kernels.bucket_scatter import ops as scatter_ops
+    from repro_torch.kernels.bucket_scatter.ref import ScatterSumSegment
     from repro_torch.kernels.bucket_topk import ops as topk_ops
     from repro_torch.kernels.qsgd_pack import ops as pack_ops
-    from repro_torch.kernels.qsgd_pack.ref import u32_to_i64
+    from repro_torch.kernels.qsgd_pack.ref import (PackSegment, pack_rows,
+                                                   u32_to_i64)
     from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
     from repro_torch.kernels.qsgd_unpack.ref import (UnpackSegment,
                                                      qsgd_unpack_ref)
@@ -386,23 +397,23 @@ def main() -> None:
     del outs
     gc.collect()
 
-    # -- bucket_scatter: bit-equal on the path's (distinct) indices;
-    #    allclose 1e-6 with duplicates and sentinels
+    # -- bucket_scatter (one source): bit-equal on the path's (distinct)
+    #    indices, and with duplicates and sentinels
     dens = [scatter_ops.bucket_scatter(li, va, b, impl="cuda")
             for li, va in streams]
     for (li, va), got in zip(streams, dens):
         if not torch.equal(got, scatter_ops.bucket_scatter(li, va, b,
                                                            impl="ref")):
             fail("bucket_scatter kernel differs from its plain version")
+    del dens
     li, va = streams[big]
     dup = torch.randint(-2, 24, li.shape, dtype=torch.int32, device=dev,
                         generator=gen)
     dup[dup >= 16] = b + 3
-    dup_err = float((scatter_ops.bucket_scatter(dup, va, b, impl="cuda")
-                     - scatter_ops.bucket_scatter(dup, va, b, impl="ref"))
-                    .abs().max())
-    if not dup_err <= 1e-6:
-        fail(f"bucket_scatter with duplicates: max abs err {dup_err}")
+    if not torch.equal(scatter_ops.bucket_scatter(dup, va, b, impl="cuda"),
+                       scatter_ops.bucket_scatter(dup, va, b, impl="ref")):
+        fail("bucket_scatter with duplicates and sentinels differs from its "
+             "plain version")
     idx64 = [li_.to(torch.int64) for li_, _ in streams]
     lib_out = [torch.empty((li_.shape[0], b), device=dev) for li_, _ in streams]
 
@@ -413,7 +424,7 @@ def main() -> None:
     entry("bucket_scatter", "src/repro_torch/csrc/bucket_scatter.cu",
           "src/repro/kernels/bucket_scatter/kernel.py:29",
           "phase 2: bit-equal to bucket_scatter_ref on the path's streams "
-          f"(26 buckets); duplicates + sentinels max abs err {dup_err}",
+          "(26 buckets) and with duplicates + sentinels",
           time_ms(torch, lambda: [scatter_ops.bucket_scatter(
               li_, va_, b, impl="cuda") for li_, va_ in streams]),
           time_ms(torch, lambda: [scatter_ops.bucket_scatter(
@@ -428,70 +439,138 @@ def main() -> None:
               li_, va_, b, impl="cuda") for li_, va_ in streams]),
           host_ms=host_ms(torch, lambda: [scatter_ops.bucket_scatter(
               li_, va_, b, impl="cuda") for li_, va_ in streams]))
-    del lib_out, idx64, streams, xs
+    del lib_out, idx64
     gc.collect()
 
-    # -- qsgd_pack / qsgd_unpack on the owners' shards of the summed
-    #    densified streams, laid out as the executor lays them out
-    qx = []
-    for bk, d in zip(sparse, dens):
-        summed = d.reshape(r, bk.rows, bk.cols).sum(0)
-        shard = bk.cols // r
-        qx.append(summed.reshape(bk.rows, r, shard).permute(1, 0, 2)
-                  .reshape(-1, bq).contiguous())
-    del dens
+    # -- bucket_scatter_sum: the executor's one grouped launch a step (G =
+    #    p_pod = 1, S = R ranks), bit-equal on the path's streams, and with
+    #    duplicates and sentinels; beside one scatter_add_ a bucket into a
+    #    zeroed (G, nb, B) with the R ranks' indices side by side
+    ssegs = [ScatterSumSegment(li_.view(1, r, -1, k), va_.view(1, r, -1, k), b)
+             for li_, va_ in streams]
+    sums = scatter_ops.bucket_scatter_sum_grouped(ssegs, impl="cuda")
+    for sg, got in zip(ssegs, sums):
+        if not torch.equal(got, scatter_ops.bucket_scatter_sum(
+                *sg, impl="ref")):
+            fail("bucket_scatter_sum differs from its plain version")
+    dseg = ssegs[big]._replace(lidx=dup.view(1, r, -1, k))
+    if not torch.equal(scatter_ops.bucket_scatter_sum(*dseg, impl="cuda"),
+                       scatter_ops.bucket_scatter_sum(*dseg, impl="ref")):
+        fail("bucket_scatter_sum with duplicates and sentinels differs from "
+             "its plain version")
+    del dseg
+    n_sum = n_top // r                       # the pod sums' entries
+    side = [(sg.lidx.permute(0, 2, 1, 3).reshape(1, -1, r * k).to(torch.int64),
+             sg.val.permute(0, 2, 1, 3).reshape(1, -1, r * k))
+            for sg in ssegs]
+    lib_sum = [torch.empty(g_.shape, device=dev) for g_ in sums]
+
+    def lib_scatter_sum():
+        for o, (ix, va_) in zip(lib_sum, side):
+            o.zero_().scatter_add_(2, ix, va_)
+
+    grouped_sum = lambda: scatter_ops.bucket_scatter_sum_grouped(
+        ssegs, impl="cuda")
+    entry("bucket_scatter_sum", "src/repro_torch/csrc/bucket_scatter.cu",
+          "src/repro/kernels/bucket_scatter/kernel.py:29",
+          f"phase 2: the grouped launch bit-equal to bucket_scatter_sum_ref "
+          f"(each rank densified, summed in rank order) on the path's "
+          f"streams (26 buckets, G 1, S {r}), and with duplicates + "
+          "sentinels",
+          time_ms(torch, grouped_sum),
+          time_ms(torch, lambda: scatter_ops.bucket_scatter_sum_grouped(
+              ssegs, impl="ref"), reps=3),
+          time_ms(torch, lib_scatter_sum),
+          4 * n_sum + 8 * rows_top * k, rows_top * k, 0.0,
+          time_ms(torch, lambda: scatter_ops.bucket_scatter_sum(
+              *ssegs[big], impl="cuda")),
+          time_ms(torch, lambda: scatter_ops.bucket_scatter_sum(
+              *ssegs[big], impl="ref"), reps=3),
+          launches_per_step=1,
+          device_ms=graph_ms(torch, grouped_sum),
+          host_ms=host_ms(torch, grouped_sum))
+    del lib_sum, side, ssegs, streams, xs
     gc.collect()
-    qr = [random_bits(x.numel(), gen, dev).reshape(x.shape) for x in qx]
-    n_q = sum(x.numel() for x in qx)
-    rows_q = sum(x.shape[0] for x in qx)
+
+    # -- qsgd_pack: the executor's one grouped launch a step, reading each
+    #    bucket's pod sum where it lies ((1, rows, R*shard), the reference's
+    #    transposed QSGD-row order); then the single-bucket API on
+    #    contiguous copies of the same rows
+    qr = [random_bits(sm.numel(), gen, dev) for sm in sums]
+    psegs = [PackSegment(sm.view(1, bk.rows, bk.cols), rd, 1, r, bk.rows,
+                         bk.cols // r, bq)
+             for bk, sm, rd in zip(sparse, sums, qr)]
+    n_q = n_sum
+    rows_q = n_q // bq
     vpw = 32 // bits
-    s_lv = 2 ** (bits - 1) - 1
-    for x, rd in zip(qx, qr):                          # 'max': bit-equal
-        p, sc = pack_ops.qsgd_pack(x, rd, bits, "max", impl="cuda")
-        pr, scr = pack_ops.qsgd_pack(x, rd, bits, "max", impl="ref")
+    shifts = torch.arange(vpw, device=dev) * bits
+
+    def codes(words):
+        return (u32_to_i64(words)[..., None] >> shifts) & (2**bits - 1)
+
+    got = pack_ops.qsgd_pack_grouped(psegs, bits, "max", impl="cuda")
+    want = pack_ops.qsgd_pack_grouped(psegs, bits, "max", impl="ref")
+    for (p, sc), (pr, scr) in zip(got, want):       # 'max': bit-equal
         if not (torch.equal(sc, scr)
                 and torch.equal(p.view(torch.int32), pr.view(torch.int32))):
             fail("qsgd_pack ('max') differs from its plain version")
-    packs, pack_err, flips, n_codes = [], 0.0, 0, 0
-    shifts = torch.arange(vpw, device=dev) * bits
-    for x, rd in zip(qx, qr):                          # 'l2': the path's mode
-        p, sc = pack_ops.qsgd_pack(x, rd, bits, "l2", impl="cuda")
-        pr, scr = pack_ops.qsgd_pack(x, rd, bits, "l2", impl="ref")
-        c = (u32_to_i64(p)[..., None] >> shifts) & (2**bits - 1)
-        cr = (u32_to_i64(pr)[..., None] >> shifts) & (2**bits - 1)
-        dc = (c - cr).abs()
+    mode = sync.qsgd_scale
+    packs = pack_ops.qsgd_pack_grouped(psegs, bits, mode, impl="cuda")
+    want = pack_ops.qsgd_pack_grouped(psegs, bits, mode, impl="ref")
+    pack_err, flips, n_codes = 0.0, 0, 0
+    for (p, sc), (pr, scr) in zip(packs, want):     # 'l2': the path's mode
+        dc = (codes(p) - codes(pr)).abs()
         if int(dc.max()) > 1:
-            fail("qsgd_pack ('l2') codes differ by more than one level")
+            fail(f"qsgd_pack ('{mode}') codes differ by more than one level")
         flips += int((dc > 0).sum())
         n_codes += dc.numel()
         pack_err = max(pack_err, float(
             (qsgd_unpack_ref(p, sc, bits) - qsgd_unpack_ref(pr, scr, bits))
             .abs().max()))
-        packs.append((p, sc))
     if flips > 1e-4 * n_codes:
-        fail(f"qsgd_pack ('l2'): {flips} of {n_codes} codes moved a level")
-    mode = sync.qsgd_scale
+        fail(f"qsgd_pack ('{mode}'): {flips} of {n_codes} codes moved a level")
+    del got, want, dc
+    qx = [pack_rows(ps).contiguous() for ps in psegs]
+    qrr = [rd.view(-1, bq) for rd in qr]
+    for x, rd in zip(qx, qrr):                     # the single-bucket API
+        p, sc = pack_ops.qsgd_pack(x, rd, bits, "max", impl="cuda")
+        pr, scr = pack_ops.qsgd_pack(x, rd, bits, "max", impl="ref")
+        if not (torch.equal(sc, scr)
+                and torch.equal(p.view(torch.int32), pr.view(torch.int32))):
+            fail("single-bucket qsgd_pack ('max') differs from its plain "
+                 "version")
+    singles = lambda: [pack_ops.qsgd_pack(x, rd, bits, mode, impl="cuda")
+                       for x, rd in zip(qx, qrr)]
+    single_bucket = {"ms": time_ms(torch, singles),
+                     "device_ms": graph_ms(torch, singles),
+                     "host_ms": host_ms(torch, singles),
+                     "launches_per_step": len(sparse),
+                     "what": "26 one-segment calls on contiguous copies of "
+                             "the same QSGD rows"}
+    grouped_pack = lambda: pack_ops.qsgd_pack_grouped(psegs, bits, mode,
+                                                      impl="cuda")
     entry("qsgd_pack", "src/repro_torch/csrc/qsgd_pack.cu",
           "src/repro/kernels/qsgd_pack/kernel.py:46",
-          "phase 2: bit-equal to qsgd_pack_ref in 'max' mode; in 'l2' mode "
-          f"{flips} of {n_codes} codes one level apart (limit 1e-4)",
-          time_ms(torch, lambda: [pack_ops.qsgd_pack(x, rd, bits, mode,
-                                                     impl="cuda")
-                                  for x, rd in zip(qx, qr)]),
-          time_ms(torch, lambda: [pack_ops.qsgd_pack(x, rd, bits, mode,
-                                                     impl="ref")
-                                  for x, rd in zip(qx, qr)], reps=3),
+          "phase 2: the grouped launch on the path's pod sums read in place "
+          "bit-equal to qsgd_pack_grouped_ref in 'max' mode; in "
+          f"'{mode}' mode {flips} of {n_codes} codes one level apart (limit "
+          "1e-4); the single-bucket API bit-equal in 'max' mode on every "
+          "bucket",
+          time_ms(torch, grouped_pack),
+          time_ms(torch, lambda: pack_ops.qsgd_pack_grouped(
+              psegs, bits, mode, impl="ref"), reps=3),
           None,
           8 * n_q + n_q * bits // 8 + 4 * rows_q, 6 * n_q, pack_err,
-          time_ms(torch, lambda: pack_ops.qsgd_pack(qx[big], qr[big], bits,
-                                                    mode, impl="cuda")),
-          time_ms(torch, lambda: pack_ops.qsgd_pack(qx[big], qr[big], bits,
-                                                    mode, impl="ref"),
-                  reps=3),
-          device_ms=graph_ms(torch, lambda: [pack_ops.qsgd_pack(
-              x, rd, bits, mode, impl="cuda") for x, rd in zip(qx, qr)]),
-          host_ms=host_ms(torch, lambda: [pack_ops.qsgd_pack(
-              x, rd, bits, mode, impl="cuda") for x, rd in zip(qx, qr)]))
+          time_ms(torch, lambda: pack_ops.qsgd_pack_grouped(
+              psegs[big:big + 1], bits, mode, impl="cuda")),
+          time_ms(torch, lambda: pack_ops.qsgd_pack_grouped(
+              psegs[big:big + 1], bits, mode, impl="ref"), reps=3),
+          launches_per_step=1,
+          device_ms=graph_ms(torch, grouped_pack),
+          host_ms=host_ms(torch, grouped_pack),
+          single_bucket=single_bucket)
+    del qx, qrr, singles, sums, psegs, qr
+    gc.collect()
     # -- qsgd_unpack: the single-bucket API on the path's packed shards,
     #    then the grouped launch the executor makes, at its geometry
     for p, sc in packs:
@@ -531,8 +610,7 @@ def main() -> None:
               segs, bits, impl="cuda")))
     # the loops' variables still hold the last bucket's tensors (gigabytes
     # at lm-100m): drop them before the paths' memory is measured
-    del segs, qx, qr, packs, x, g_, w_, li, va, dup, d, summed, rd, p, sc
-    del pr, scr, c, cr, dc, gen
+    del segs, packs, x, g_, w_, li, va, dup, rd, p, sc, pr, scr, gen
     gc.collect()
     torch.cuda.empty_cache()
     record["topk_sweep"] = phase_topk_sweep(torch, dev, bw, f32_peak)
@@ -550,12 +628,16 @@ def main() -> None:
     # ---------------------------------------------------------------- 3
     wrappers = {"bucket_topk": topk_ops.bucket_topk,
                 "bucket_scatter": scatter_ops.bucket_scatter,
+                "bucket_scatter_sum": scatter_ops.bucket_scatter_sum,
                 "qsgd_pack": pack_ops.qsgd_pack,
                 "qsgd_unpack": unpack_ops.qsgd_unpack,
                 "qsgd_unpack_grouped": unpack_ops.qsgd_unpack_grouped}
+    # a step: a bucket_topk a sparse bucket, then one grouped launch each
+    # of the fused densify + sum, the pack and the unpack
     expect = {"bucket_topk": len(sparse) * STEPS,
-              "bucket_scatter": len(sparse) * STEPS,
-              "qsgd_pack": len(sparse) * STEPS,
+              "bucket_scatter": 0,                  # the fused form instead
+              "bucket_scatter_sum": STEPS,
+              "qsgd_pack": STEPS,
               "qsgd_unpack": 0,                     # the grouped form instead
               "qsgd_unpack_grouped": STEPS}
     cfg, data = run_lm.lm_config(fast=False)
@@ -585,6 +667,7 @@ def main() -> None:
                  f"{expect[n]}")
     for row in kernels:
         row["launches"] = launches[row["name"]]
+        row["launches_path"] = "main (phase 3)"
         if row["name"] == "qsgd_unpack":
             row["launches"] = launches["qsgd_unpack_grouped"]
             row["single_bucket_launches"] = launches["qsgd_unpack"]
@@ -977,6 +1060,14 @@ def main() -> None:
             row["grouped_launches_new_paths"] = {
                 path: counts["qsgd_unpack_grouped"]
                 for path, counts in new_paths.items()}
+        if not row["launches"]:
+            # a kernel the main path no longer runs (the single-source
+            # densify): its launches are those of the first path that runs it
+            ran = [(path, c) for path, c in row["launches_new_paths"].items()
+                   if c]
+            if not ran:
+                fail(f"{row['name']} was launched on no path")
+            row["launches_path"], row["launches"] = ran[0]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -1064,10 +1155,17 @@ def fig3_bounds(n, p, b, k, bits, bq, bw, f32_peak) -> dict:
         # operations: the function's own, one look at each entry
         "bucket_topk": dict(shape=f"({rows}, {b}) k={k}", **bound(
             8 * p * n + 8 * rows * k, rows * b)),
-        # the split phase's owner densify: every source's rows of my range
+        # the split phase's owner densify, one source at a time: every
+        # source's rows of my range
         "bucket_scatter": dict(shape=f"({rows}, {k}) -> ({rows}, {b})",
                                **bound(4 * rows * b + 8 * rows * k,
                                        rows * k)),
+        # the same, fused with the sum over the p sources: each owner's
+        # range written once
+        "bucket_scatter_sum": dict(
+            shape=f"({p}, {p}, {rows // p // p}, {k}) -> "
+                  f"({p}, {rows // p // p}, {b})",
+            **bound(4 * n + 8 * rows * k, rows * k)),
         "qsgd_pack": dict(shape=f"({qrows}, {bq})", **bound(
             8 * qn + qn * bits // 8 + 4 * qrows, 6 * qn)),
         # the gathered codes are unpacked once (the stacked ranks share them)
@@ -1078,8 +1176,9 @@ def fig3_bounds(n, p, b, k, bits, bq, bw, f32_peak) -> dict:
 
 # the CUDA kernel each launch counter counts, by its name in a trace
 KERNEL_OF = {"bucket_topk": "bucket_topk_kernel",
-             "bucket_scatter": "bucket_scatter_kernel",
-             "qsgd_pack": "qsgd_pack_kernel",
+             "bucket_scatter": "bucket_scatter_sum_kernel",
+             "bucket_scatter_sum": "bucket_scatter_sum_kernel",
+             "qsgd_pack": "qsgd_pack_grouped_kernel",
              "qsgd_unpack": "qsgd_unpack_grouped_kernel",
              "qsgd_unpack_grouped": "qsgd_unpack_grouped_kernel"}
 
@@ -1156,8 +1255,10 @@ def fig3_kernel_checks(torch, ar, coll, u, u_ref, rand, b, bits, bq):
     lr, vr = ar._split_uniform(u_ref, coll)
     shard = ar._reduce_range_dense(lr, vr, b, impl="ref")    # (L, n/p)
     if not torch.equal(ar._reduce_range_dense(lidx, val, b), shard):
-        fail(f"fig3 k={k2}: the owner densify differs from its plain form")
+        fail(f"fig3 k={k2}: the owner densify (bucket_scatter_sum) differs "
+             "from its plain form")
     del lr, vr
+    lidx, val = lidx.contiguous(), val.contiguous()
     sx = shard.reshape(-1, bq)
     sr = rand[:, :shard.shape[1]].reshape(-1, bq).contiguous()
     pm, sm = pack_ops.qsgd_pack(sx, sr, bits, "max")
@@ -1178,10 +1279,11 @@ def fig3_kernel_checks(torch, ar, coll, u, u_ref, rand, b, bits, bq):
     if not torch.equal(unpack_ops.qsgd_unpack(pk, sk, bits),
                        unpack_ops.qsgd_unpack(pk, sk, bits, impl="ref")):
         fail(f"fig3 k={k2}: qsgd_unpack differs from its plain version")
-    what = (f"bucket_topk, bucket_scatter, the owner densify, qsgd_pack "
-            f"('max') and qsgd_unpack bit-equal to their plain versions; "
-            f"qsgd_pack ('l2') {flips} of {dc.numel()} codes one level apart")
-    return (li2, va2, sx, sr, pk, sk), what
+    what = (f"bucket_topk, bucket_scatter, the owner densify "
+            f"(bucket_scatter_sum), qsgd_pack ('max') and qsgd_unpack "
+            f"bit-equal to their plain versions; qsgd_pack ('l2') {flips} of "
+            f"{dc.numel()} codes one level apart")
+    return (li2, va2, lidx, val, sx, sr, pk, sk), what
 
 
 def phase_fig3(torch, dev, wrappers, kernels, bw, f32_peak, n=1 << 24, p=8,
@@ -1341,8 +1443,8 @@ def phase_fig3(torch, dev, wrappers, kernels, bw, f32_peak, n=1 << 24, p=8,
         del u, exact
         gc.collect()
     if need_launches:
-        for nm in ("bucket_topk", "bucket_scatter", "qsgd_pack",
-                   "qsgd_unpack"):
+        for nm in ("bucket_topk", "bucket_scatter", "bucket_scatter_sum",
+                   "qsgd_pack", "qsgd_unpack"):
             if not total[nm]:
                 fail(f"fig3: {nm} was never launched")
     # -- the four kernels alone at these shapes (k = the last density), on
@@ -1350,17 +1452,26 @@ def phase_fig3(torch, dev, wrappers, kernels, bw, f32_peak, n=1 << 24, p=8,
     k = ks[-1]
     bounds = fig3_bounds(n, p, b, k, bits, bq, bw, f32_peak)
     xb = x.reshape(-1, b)
-    li2, va2, sx, sr, pk, sk = inputs
+    li2, va2, lis, vas, sx, sr, pk, sk = inputs
     timed = {
         "bucket_topk": lambda: topk_ops.bucket_topk(xb, k),
         "bucket_scatter": lambda: scatter_ops.bucket_scatter(li2, va2, b),
+        "bucket_scatter_sum": lambda: scatter_ops.bucket_scatter_sum(
+            lis, vas, b),
         "qsgd_pack": lambda: pack_ops.qsgd_pack(sx, sr, bits, "l2"),
         "qsgd_unpack": lambda: unpack_ops.qsgd_unpack(pk, sk, bits)}
     li64 = li2.to(torch.int64)
     lib_out = torch.empty((li2.shape[0], b), device=dev)
+    # the p sources' indices side by side: (L, rows, p*k) into (L, rows, B)
+    lead, _, rows_o, k_o = lis.shape
+    side64 = lis.permute(0, 2, 1, 3).reshape(lead, rows_o, -1).to(torch.int64)
+    side_v = vas.permute(0, 2, 1, 3).reshape(lead, rows_o, -1)
+    lib_sum = torch.empty((lead, rows_o, b), device=dev)
     library = {                  # one PyTorch call for the same function
         "bucket_topk": lambda: torch.topk(xb.abs(), k, dim=1),
-        "bucket_scatter": lambda: lib_out.zero_().scatter_add_(1, li64, va2)}
+        "bucket_scatter": lambda: lib_out.zero_().scatter_add_(1, li64, va2),
+        "bucket_scatter_sum": lambda: lib_sum.zero_().scatter_add_(
+            2, side64, side_v)}
     rec["kernels"] = {}
     for row in kernels:
         nm = row["name"]
@@ -1410,7 +1521,7 @@ def phase_manual(torch, dev, wrappers, spmd_main):
         f"{spmd_main['median_step_ms']:.1f} ms); peak memory {peak_gb:.2f} "
         f"GB; launches {launches}")
     log(f"[8] manual vs stacked lowering, same seed and QSGD bits: max rel "
-        f"loss diff {rel:.2e} (limit 2e-4); bit-equal {same}")
+        f"loss diff {rel:.2e}; bit-equal {same} (required)")
     # the two executors' reduce halves alone on one step's grads (CUDA
     # events, in turns stacked / per rank / per rank / stacked): where the
     # steps' gap lies
@@ -1432,11 +1543,15 @@ def phase_manual(torch, dev, wrappers, spmd_main):
     log(f"[8] reduce half alone, CUDA events (stacked / per rank / per rank "
         f"/ stacked): {[round(a, 2) for _, a in alone]} ms; host enqueue "
         f"{ {nm: round(h, 2) for nm, h in host.items()} } ms")
-    one_call = {nm: (n_sparse if nm in ("bucket_topk", "bucket_scatter",
-                                        "qsgd_pack") else
-                     int(nm == "qsgd_unpack_grouped")) for nm in wrappers}
+    # one call's launches: the stacked half groups the fused densify + sum
+    # and the pack, the per-rank half makes one of each a bucket
+    one_call = {half: {nm: 0 for nm in wrappers} for half in halves}
+    for half, grouped in (("stacked", 1), ("per_rank", n_sparse)):
+        one_call[half].update(bucket_topk=n_sparse,
+                              bucket_scatter_sum=grouped, qsgd_pack=grouped,
+                              qsgd_unpack_grouped=1)
     breakdown = {nm: kernel_breakdown(torch, fn, ROOT / "chiprun_out",
-                                      one_call, top=8)
+                                      one_call[nm], top=8)
                  for nm, fn in halves.items()}
     for nm, bd in breakdown.items():
         log(f"[8]   {nm} reduce half, where the device time goes: {bd}")
@@ -1444,16 +1559,17 @@ def phase_manual(torch, dev, wrappers, spmd_main):
                                           trainer.plan.cfg.qsgd_bits)
     del leaves, st
     turns = steps_in_turns(torch, trainer, dev, data)
-    expect = {"bucket_topk": n_sparse * STEPS,
-              "bucket_scatter": n_sparse * STEPS,
+    expect = {"bucket_topk": n_sparse * STEPS, "bucket_scatter": 0,
+              "bucket_scatter_sum": n_sparse * STEPS,
               "qsgd_pack": n_sparse * STEPS, "qsgd_unpack": 0,
               "qsgd_unpack_grouped": STEPS}
     for nm, c in launches.items():
         if c != expect[nm]:
             fail(f"manual lowering: {nm} launched {c} times in {STEPS} "
                  f"steps, expected {expect[nm]}")
-    if not all(math.isfinite(v) for v in tlog.losses) or not rel <= 2e-4:
-        fail("manual lowering: losses disagree with the stacked lowering")
+    # both executors sum over ranks in rank order: the same bits
+    if not all(math.isfinite(v) for v in tlog.losses) or not same:
+        fail("manual lowering: losses differ from the stacked lowering's")
     return ({"losses": list(tlog.losses), "step_times_s": list(tlog.step_times),
              "median_step_ms": step_ms, "peak_memory_gb": peak_gb,
              "launches": launches, "max_rel_vs_spmd": rel,
@@ -1577,8 +1693,8 @@ def phase_manual_pipelined(torch, dev, wrappers, trainer, spmd_pipe,
         f"pipelined {pipe_ms:.1f} ms/step ({sync_ms / pipe_ms:.2f}x); vs the "
         f"stacked pipelined run: max rel loss diff {rel:.2e} (limit 2e-4), "
         f"bit-equal {same}")
-    expect = {"bucket_topk": n_sparse * PIPE_STEPS,
-              "bucket_scatter": n_sparse * PIPE_STEPS,
+    expect = {"bucket_topk": n_sparse * PIPE_STEPS, "bucket_scatter": 0,
+              "bucket_scatter_sum": n_sparse * PIPE_STEPS,
               "qsgd_pack": n_sparse * PIPE_STEPS, "qsgd_unpack": 0,
               "qsgd_unpack_grouped": PIPE_STEPS}
     for nm, c in launches.items():
@@ -1645,7 +1761,7 @@ def phase_telemetry(torch, dev, wrappers, tiny, tiny_data, params0, bits_for):
                          "unit_retire_ms": units,
                          "losses": list(dlog.losses)})
         del state
-    for nm in ("bucket_topk", "bucket_scatter", "qsgd_pack",
+    for nm in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
                "qsgd_unpack_grouped"):
         if not total[nm]:
             fail(f"telemetry phase: {nm} was never launched")
@@ -1818,7 +1934,7 @@ def phase_nccl(torch, dev, wrappers, tiny, tiny_data, params0, bits_for):
         f"StackedCollectives(1) {same}; launches {launches}")
     if not same:
         fail("the NCCL per-rank step differs from the stacked one")
-    for nm in ("bucket_topk", "bucket_scatter", "qsgd_pack",
+    for nm in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
                "qsgd_unpack_grouped"):
         if not launches[nm]:
             fail(f"NCCL phase: {nm} was never launched")

@@ -20,17 +20,20 @@ and each form runs only its own reduction (Alg. 2 line 3):
   all R ranks on a leading axis of one device's tensors, where a sum over
   that axis is the allreduce:
 
-    dense     =  bucket_scatter(stream)       (each rank's densified stream)
-    reduced   =  sum over ranks
+    reduced   =  sum over ranks of densify(stream)
+                 (bucket_scatter_sum: one fused launch for every EF bucket
+                 of a step, each pod's ranks summed in rank order)
 
   SSAR algorithms reduce exactly, so in this form they fold into the same
   sum.
 
 Raw-dense buckets (below ``min_sparse_size``) carry no residual and are a
 plain sum. DSAR + QSGD buckets quantize every range owner's shard of the
-sum (qsgd_pack); their dequantization waits for the end of the loop,
-where ONE grouped qsgd_unpack launch a step writes every such bucket's
-buffer, in both forms. The stacked form's unpack also sums the pods and
+sum (qsgd_pack: one grouped launch a step in the stacked form, which
+reads the sums where they lie; one a bucket in the per-rank form); their
+dequantization waits for the end of the loop, where ONE grouped
+qsgd_unpack launch a step writes every such bucket's buffer, in both
+forms. The stacked form's unpack also sums the pods and
 applies the mean; the per-rank form's reads the codes as its allgather
 received them and runs the pod phase and the mean after it, in the
 reference's order.
@@ -57,13 +60,17 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from repro_torch.comm.buckets import pack_group, unpack_group
-from repro_torch.comm.collectives import CollectiveContext, once_if_shared
+from repro_torch.comm.collectives import (CollectiveContext, once_if_shared,
+                                          ordered_sum)
 from repro_torch.comm.plan import SyncPlan
 from repro_torch.core import allreduce as ar
 from repro_torch.core import sparse_stream as ss
 from repro_torch.core.cost_model import bucket_wire_bytes, pod_wire_bytes
 from repro_torch.core.topk import UniformStream, compress2d
-from repro_torch.kernels.qsgd_pack.ops import qsgd_pack
+from repro_torch.kernels.bucket_scatter.ops import bucket_scatter_sum_grouped
+from repro_torch.kernels.bucket_scatter.ref import ScatterSumSegment
+from repro_torch.kernels.qsgd_pack.ops import qsgd_pack_grouped
+from repro_torch.kernels.qsgd_pack.ref import PackSegment
 from repro_torch.kernels.qsgd_unpack.ops import qsgd_unpack_grouped
 from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
 
@@ -173,7 +180,17 @@ def reduce_buckets_spmd(
     collective here: the (R, ...) stacks hold every rank. A quantized
     bucket's nnz is counted on its buffer after the mean (the grouped
     unpack fuses it), which is the count of the sum but for products
-    below the smallest denormal."""
+    below the smallest denormal.
+
+    The loop keeps each EF bucket's TopK stream; after it, ONE grouped
+    bucket_scatter_sum launch writes every EF bucket's pod sums (each pod's
+    p_data ranks densified and added in rank order) into one step buffer,
+    ONE grouped qsgd_pack reads the quantized buckets' sums where they lie,
+    and ONE grouped qsgd_unpack writes their reduced buffers. The pod sums
+    are added in pod order, and raw-dense buckets sum each pod's ranks and
+    then the pods the same way: every sum over ranks runs in the per-rank
+    form's order (its data-axis psum, then its pod psum), so the two forms
+    give the same bits."""
     cfg = plan.cfg
     replicas = p_data * p_pod
     if leaves_r and leaves_r[0].shape[0] != replicas:
@@ -186,43 +203,57 @@ def reduce_buckets_spmd(
     new_residuals: dict = {}
     telem: dict = {}
     mass: dict = {}
-    quantized: dict = {}            # bucket name -> (group, bucket, segment)
+    kept: dict = {}        # EF bucket name -> (group, bucket, stream, rand)
     for bucket_idx, group, b, seg, ef in _buckets(plan, leaves_r, residuals):
-        if ef is None:
-            reduced[b.name] = seg.sum(dim=0) * scale
+        if ef is None:           # over each pod's ranks, then the pods
+            by_pod = seg.reshape((p_pod, p_data) + tuple(seg.shape[1:]))
+            reduced[b.name] = ordered_sum(ordered_sum(by_pod, 1), 0) * scale
             continue
         _store_residual(new_residuals, residuals, b, ef)
-        dens = ef.u.densify(impl=cfg.impl)                   # (R, rows, m*B)
-        rows, mb = dens.shape[1], dens.shape[2]
-        dpod = dens.reshape(p_pod, p_data, rows, mb).sum(dim=1)
         if telemetry:
             mass[b.name] = _local_mass(ef)
-        ef.acc = ef.u = None             # freed before the pack allocates
-        del dens
+        rand = None
         if qsgd is not None and b.algorithm == "dsar_split_allgather":
             if rand_fn is None:
                 raise ValueError("QSGD needs stochastic-rounding bits: "
                                  "pass rand_fn")
-            shard = mb // p_data
-            bq = qsgd.bucket_size
-            x = dpod.reshape(p_pod, rows, p_data, shard).permute(0, 2, 1, 3)
-            rand = rand_fn(bucket_idx, p_pod * p_data * rows * shard)
-            packed, sc = qsgd_pack(x.reshape(-1, bq), rand.reshape(-1, bq),
-                                   qsgd.bits, qsgd.scale_mode, impl=cfg.impl)
-            quantized[b.name] = (group, b, UnpackSegment(
-                packed, sc, p_pod, p_data, rows, shard, bq, scale))
-            del x, rand
-        else:
-            out = dpod.sum(dim=0)
+            rand = rand_fn(bucket_idx, p_pod * group.rows * b.cols)
+        kept[b.name] = (group, b, ef.u, rand)
+        ef.acc = None
+    if not kept:
+        return _plan_order(plan, reduced), new_residuals, {}
+
+    def pods(u):                                   # (p_pod, p_data, nb, k)
+        k = u.lidx.shape[-1]
+        return (u.lidx.reshape(p_pod, p_data, -1, k),
+                u.val.reshape(p_pod, p_data, -1, k))
+
+    sums = bucket_scatter_sum_grouped(
+        [ScatterSumSegment(*pods(u), cfg.bucket_size)
+         for _, _, u, _ in kept.values()], impl=cfg.impl)
+    quantized: dict = {}                           # name -> (group, bucket)
+    pack_segs = []
+    for (group, b, _, rand), dsum in zip(kept.values(), sums):
+        dpod = dsum.view(p_pod, group.rows, b.cols)
+        if rand is None:
+            out = ordered_sum(dpod, 0)
             reduced[b.name] = out * scale
             if telemetry:
                 telem[b.name] = _bucket_telemetry(out, plan, group, b, p_data,
                                                   p_pod, mass[b.name])
-        del dpod                # only the packed codes wait for the unpack
-    if quantized:
-        outs = qsgd_unpack_grouped([q[2] for q in quantized.values()],
-                                   qsgd.bits, impl=cfg.impl)
-        for (group, b, _), out in zip(quantized.values(), outs):
+        else:
+            quantized[b.name] = (group, b)
+            pack_segs.append(PackSegment(dpod, rand, p_pod, p_data, group.rows,
+                                         b.cols // p_data, qsgd.bucket_size))
+    del kept, sums, dsum, dpod          # only the codes wait for the unpack
+    if pack_segs:
+        codes = qsgd_pack_grouped(pack_segs, qsgd.bits, qsgd.scale_mode,
+                                  impl=cfg.impl)
+        useg = [UnpackSegment(packed, sc, *ps[2:7], scale)
+                for ps, (packed, sc) in zip(pack_segs, codes)]
+        del pack_segs, codes
+        outs = qsgd_unpack_grouped(useg, qsgd.bits, impl=cfg.impl)
+        for (group, b), out in zip(quantized.values(), outs):
             reduced[b.name] = out
             if telemetry:
                 telem[b.name] = _bucket_telemetry(out, plan, group, b, p_data,

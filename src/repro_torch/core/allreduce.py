@@ -17,9 +17,10 @@ Algorithms:
                           reduce-scatter), local merge, sparse allgather
                           (concatenation: the ranges are disjoint).
   dsar_split_allgather    split phase as above, then DENSIFY the owned
-                          range (bucket_scatter kernel) and run a dense
-                          allgather, optionally QSGD-quantized (paper §6:
-                          qsgd_pack / qsgd_unpack kernels).
+                          range and sum its sources (bucket_scatter_sum
+                          kernel) and run a dense allgather, optionally
+                          QSGD-quantized (paper §6: qsgd_pack /
+                          qsgd_unpack kernels).
   ssar_balanced_split     Ok-Top-k-style balanced split-and-gather: owner-
                           local re-top-k to (k/P)(1+eps) items, allgather
                           at that fixed capacity; the clamped-off mass
@@ -43,8 +44,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.comm.collectives import (CollectiveContext, once_if_shared,
-                                          ordered_sum)
+from repro_torch.comm.collectives import CollectiveContext, once_if_shared
 from repro_torch.core import sparse_stream as ss
 from repro_torch.core.cost_model import (AUTO_NOT_CALIBRATED,
                                          balanced_shard_cap,
@@ -52,7 +52,7 @@ from repro_torch.core.cost_model import (AUTO_NOT_CALIBRATED,
 from repro_torch.core.qsgd import QSGDConfig, dequantize, quantize
 from repro_torch.core.sparse_stream import SENTINEL, SparseStream
 from repro_torch.core.topk import UniformStream
-from repro_torch.kernels.bucket_scatter.ops import bucket_scatter
+from repro_torch.kernels.bucket_scatter.ops import bucket_scatter_sum
 from repro_torch.kernels.bucket_topk.ops import check_bucket_size
 from repro_torch.kernels.qsgd_pack.ops import qsgd_pack
 from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
@@ -146,14 +146,12 @@ def _split_uniform(u: UniformStream, coll: CollectiveContext):
 def _reduce_range_dense(lidx, val, bucket_size: int,
                         impl: str = "auto") -> torch.Tensor:
     """Densify the received (L, p, rows, k) contributions into my range
-    (bucket_scatter) and sum the p sources in rank order: (L, rows*B).
-    The sources go first, so each one's densified block is contiguous and
-    the sum runs as whole-tensor adds."""
+    and sum the p sources in rank order, in one bucket_scatter_sum:
+    (L, rows*B)."""
     lead, p, rows, k = lidx.shape
-    dense = bucket_scatter(lidx.transpose(0, 1).reshape(-1, k),
-                           val.transpose(0, 1).reshape(-1, k), bucket_size,
-                           impl=impl)
-    return ordered_sum(dense.reshape(p, lead, rows * bucket_size), 0)
+    return bucket_scatter_sum(lidx.contiguous(), val.contiguous(),
+                              bucket_size, impl=impl).reshape(
+                                  lead, rows * bucket_size)
 
 
 # --------------------------------------------------------------------------
@@ -261,7 +259,7 @@ def ssar_balanced_split_inside(
 
     Split phase: the bucket-uniform a2a route (exactly balanced by
     construction). Owner phase: scatter-add the received contributions
-    into my range (bucket_scatter), then re-top-k to the
+    into my range (bucket_scatter_sum), then re-top-k to the
     ``balanced_shard_cap`` capacity. Gather phase: allgather the clamped
     (idx, val) shards, (P-1) * cap items instead of split_allgather's
     O(kP) worst-case range union. Returns (dense (L, n), fold (L, n)):
@@ -436,7 +434,7 @@ def dsar_split_allgather_batched_inside(
     ONE collective a phase:
       split: a single fused all_to_all on the bucket axis carrying
              [val | lidx-as-f32] (lidx < B <= 2^24 is exact in f32);
-      densify my bucket range and sum the p sources (bucket_scatter);
+      densify my bucket range and sum the p sources (bucket_scatter_sum);
       gather: a single all_gather of [packed-as-f32 | scale] when
              QSGD-quantized (qsgd_pack), of the f32 shard otherwise.
     rand: each held rank's bits for its shard, (L, >= r*m*B/p) u32."""
@@ -450,14 +448,13 @@ def dsar_split_allgather_batched_inside(
     payload = torch.cat([u.val.to(torch.float32), u.lidx.to(torch.float32)],
                         dim=-1)
     payload = coll.all_to_all(payload, axis=1)               # ONE a2a
-    # sources first (a copy of the k-wide streams, not of the dense rows),
-    # so each source's densified block is contiguous for the sum
-    payload = payload.reshape(lead, r, p, mp, 2 * k).permute(2, 0, 1, 3, 4)
+    # received (L, r, p, m/p, 2k): as (L*r, p, m/p) every source's rows of
+    # my range, sources in rank order, for one densify + sum
+    payload = payload.reshape(lead * r, p, mp, 2 * k)
     val = payload[..., :k].contiguous()          # the kernels take
-    lidx = payload[..., k:].to(torch.int32)      # contiguous tensors
-    dense = bucket_scatter(lidx.reshape(-1, k), val.reshape(-1, k), b,
-                           impl=impl)
-    shard = ordered_sum(dense.reshape(p, lead, r, shard_cols), 0)
+    lidx = payload[..., k:].to(torch.int32).contiguous()   # contiguous ones
+    shard = bucket_scatter_sum(lidx, val, b, impl=impl).reshape(
+        lead, r, shard_cols)
     if qsgd is None:
         return coll.all_gather(shard.to(torch.float32), axis=1)
     if rand is None:

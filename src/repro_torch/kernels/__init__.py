@@ -6,8 +6,14 @@ The PyTorch counterparts of the four Pallas TPU kernels in
 - ``bucket_topk``    — per-bucket top-k selection + compaction + fused
                        error-feedback residual (Alg. 2 lines 1-3).
 - ``bucket_scatter`` — stream densification (a direct shared-memory
-                       scatter on Hopper; a one-hot contraction on the TPU).
-- ``qsgd_pack``      — QSGD bucketed stochastic quantization + bit-packing.
+                       scatter on Hopper; a one-hot contraction on the TPU);
+                       ``bucket_scatter_sum`` densifies S sources and sums
+                       them in source order in the same pass, grouped over
+                       every bucket of a step in one launch.
+- ``qsgd_pack``      — QSGD bucketed stochastic quantization + bit-packing;
+                       its grouped form packs every DSAR + QSGD bucket of a
+                       step in one launch, reading the summed buffers where
+                       they lie.
 - ``qsgd_unpack``    — inverse of qsgd_pack; its grouped form unpacks every
                        DSAR + QSGD bucket of a step in one launch and writes
                        each bucket's reduced buffer (pod sum and mean fused).

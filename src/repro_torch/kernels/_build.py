@@ -40,8 +40,8 @@ _LL = ctypes.c_longlong
 # name -> argtypes (every entry point returns an int CUDA error code)
 ENTRY_POINTS = {
     "bucket_topk_f32": (_P, _P, _P, _P, _LL, _I, _I, _P),
-    "bucket_scatter_f32": (_P, _P, _P, _LL, _I, _I, _P),
-    "qsgd_pack_f32": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
+    "bucket_scatter_sum_grouped_f32": (_P, _I, _P, _P),
+    "qsgd_pack_grouped_f32": (_P, _I, _I, _I, _P, _P),
     "qsgd_unpack_grouped_f32": (_P, _I, _I, _P, _P),
 }
 
@@ -130,6 +130,16 @@ def check(rc: int, name: str) -> None:
 def stream(t: torch.Tensor) -> int:
     """PyTorch's current stream on the tensor's device, as a raw handle."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def resolve_impl(impl: str, t: torch.Tensor, name: str) -> str:
+    """'ref' or 'cuda': ``impl``, with 'auto' taken from ``t``'s device
+    (see ``bucket_topk/ops.py`` for the values)."""
+    if impl == "auto":
+        impl = "cuda" if t.is_cuda else "ref"
+    if impl not in ("ref", "cuda"):
+        raise ValueError(f"{name}: unknown impl {impl!r}")
+    return impl
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -1,1 +1,3 @@
-from repro_torch.kernels.qsgd_pack.ops import qsgd_pack  # noqa: F401
+from repro_torch.kernels.qsgd_pack.ops import (  # noqa: F401
+    qsgd_pack, qsgd_pack_grouped)
+from repro_torch.kernels.qsgd_pack.ref import PackSegment  # noqa: F401

@@ -1,12 +1,16 @@
-"""Public wrapper for qsgd_pack with dispatch by the tensor's device (see
-``bucket_topk/ops.py`` for the impl values and the launch count; ref.py
-for the semantics)."""
+"""Public wrappers for qsgd_pack with dispatch by the tensor's device (see
+``bucket_topk/ops.py`` for the impl values; ref.py for the semantics).
+``qsgd_pack.launches`` counts the kernel's launches, from the
+single-bucket call and the grouped one alike."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.qsgd_pack.kernel import qsgd_pack_cuda
-from repro_torch.kernels.qsgd_pack.ref import qsgd_pack_ref
+from repro_torch.kernels import _build
+from repro_torch.kernels.qsgd_pack.kernel import (qsgd_pack_cuda,
+                                                  qsgd_pack_grouped_cuda)
+from repro_torch.kernels.qsgd_pack.ref import (qsgd_pack_grouped_ref,
+                                               qsgd_pack_ref)
 
 
 def qsgd_pack(x: torch.Tensor, rand: torch.Tensor, bits: int = 4,
@@ -18,15 +22,25 @@ def qsgd_pack(x: torch.Tensor, rand: torch.Tensor, bits: int = 4,
     if x.shape[1] % (32 // bits):
         raise ValueError(f"qsgd_pack: Bq={x.shape[1]} is not a whole number "
                          "of words")
-    if impl == "auto":
-        impl = "cuda" if x.is_cuda else "ref"
-    if impl == "ref":
+    if _build.resolve_impl(impl, x, "qsgd_pack") == "ref":
         return qsgd_pack_ref(x, rand, bits, scale_mode)
-    if impl != "cuda":
-        raise ValueError(f"qsgd_pack: unknown impl {impl!r}")
-    out = qsgd_pack_cuda(x, rand, bits, scale_mode)
-    qsgd_pack.launches += 1
+    out, launched = qsgd_pack_cuda(x, rand, bits, scale_mode)
+    qsgd_pack.launches += launched
     return out
 
 
 qsgd_pack.launches = 0
+
+
+def qsgd_pack_grouped(segments, bits: int = 4, scale_mode: str = "l2",
+                      impl: str = "auto") -> list:
+    """Every DSAR + QSGD bucket's (packed, scale) from its summed buffer
+    (``ref.PackSegment``): one library call, one kernel launch for every
+    48 non-empty segments (counted in ``qsgd_pack.launches``)."""
+    if not segments:
+        return []
+    if _build.resolve_impl(impl, segments[0].x, "qsgd_pack") == "ref":
+        return qsgd_pack_grouped_ref(segments, bits, scale_mode)
+    outs, launched = qsgd_pack_grouped_cuda(segments, bits, scale_mode)
+    qsgd_pack.launches += launched
+    return outs

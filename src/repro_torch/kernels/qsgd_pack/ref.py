@@ -18,8 +18,17 @@ norm (QSGD) or max-norm (scale_mode='max').
 PyTorch has no shifts or sums on ``torch.uint32``, so the bit work runs in
 int64 and the words are cast at the edges (:func:`u32_to_i64`,
 :func:`i64_to_u32`).
+
+The grouped form (:func:`qsgd_pack_grouped_ref`) packs every DSAR + QSGD
+bucket of a step, each a :class:`PackSegment`: its QSGD rows read where
+they lie in the summed (p_pod, rows, p_data*shard) buffer, in the
+reference's ``transpose(0, 2, 1, 3)`` order (``reduce_buckets_spmd``);
+with p_pod = p_data = 1 that is the rows in order. The codes come out in the layout ``qsgd_unpack``'s
+``UnpackSegment`` reads.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -66,3 +75,59 @@ def qsgd_pack_ref(x: torch.Tensor, rand: torch.Tensor, bits: int,
     shifts = torch.arange(vpw, dtype=torch.int64, device=x.device) * bits
     packed = (code.reshape(nb, bq // vpw, vpw) << shifts).sum(dim=2)
     return i64_to_u32(packed), scale
+
+
+class PackSegment(NamedTuple):
+    """One bucket's summed buffer and rounding bits.
+
+    QSGD row q = ((pod*p_data + rank)*rows + row)*(shard//bq) + jq is the
+    bq entries at ``x.view(p_pod, rows, p_data, shard)[pod, row, rank,
+    jq*bq:]`` (with p_pod = p_data = 1, the bq entries at q*bq of the flat
+    ``x``). Its bits are ``rand`` (flat, QSGD-row order: the layout of
+    ``rand_fn(bucket_idx, n)``) at q*bq, and its codes row q of the
+    packed output."""
+    x: torch.Tensor        # p_pod*rows*p_data*shard f32 entries
+    rand: torch.Tensor     # as many u32
+    p_pod: int
+    p_data: int
+    rows: int
+    shard: int
+    bq: int
+
+
+def check_pack_segment(seg: PackSegment, bits: int) -> int:
+    """Raise unless the segment's geometry and sizes agree; return its
+    number of QSGD rows."""
+    if bits not in (2, 4, 8):
+        raise ValueError(f"qsgd_pack: bits={bits}")
+    if min(seg.p_pod, seg.p_data, seg.bq) < 1 or min(seg.rows, seg.shard) < 0:
+        raise ValueError(f"qsgd_pack: bad geometry {tuple(seg[2:7])}")
+    if seg.bq % (32 // bits):
+        raise ValueError(f"qsgd_pack: Bq={seg.bq} is not a whole number of "
+                         "words")
+    if seg.shard % seg.bq:
+        raise ValueError(f"qsgd_pack: shard={seg.shard} is not a multiple of "
+                         f"bq={seg.bq}, so a QSGD row would cross a rank's "
+                         "shard")
+    n = seg.p_pod * seg.rows * seg.p_data * seg.shard
+    if seg.x.numel() != n or seg.rand.numel() != n:
+        raise ValueError(f"qsgd_pack: x has {seg.x.numel()} and rand "
+                         f"{seg.rand.numel()} entries, the geometry needs {n}")
+    return n // seg.bq
+
+
+def pack_rows(seg: PackSegment) -> torch.Tensor:
+    """The segment's (nq, bq) QSGD rows in q order (a copy unless they
+    lie in order)."""
+    return (seg.x.reshape(seg.p_pod, seg.rows, seg.p_data, seg.shard)
+            .permute(0, 2, 1, 3).reshape(-1, seg.bq))
+
+
+def qsgd_pack_grouped_ref(segments, bits: int, scale_mode: str = "l2"):
+    """(packed (nq, bq*bits//32) u32, scale (nq, 1) f32) per segment."""
+    outs = []
+    for seg in segments:
+        check_pack_segment(seg, bits)
+        outs.append(qsgd_pack_ref(pack_rows(seg), seg.rand.reshape(-1, seg.bq),
+                                  bits, scale_mode))
+    return outs

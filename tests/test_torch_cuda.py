@@ -7,9 +7,12 @@ machine with a GPU and without JAX:
 
 Tolerances: bit-equal, except bucket_scatter with duplicate indices
 (allclose, atol=1e-6: the adds of one row run in j order in both, but
-the plain version adds through scatter_add_). The grouped unpack sums
-two pods, and a two-term sum has one rounding in any order, so it is
-bit-equal too.
+the plain version adds through scatter_add_) and qsgd_pack in 'l2' mode
+(a code may move one level, in at most 1e-4 of the codes, where sigma's
+sum of squares ran in another order). bucket_scatter_sum is bit-equal
+with duplicates too: it sums a source's duplicates first, as the plain
+version's scatter does. The grouped unpack sums two pods, and a two-term
+sum has one rounding in any order, so it is bit-equal too.
 """
 import numpy as np
 import pytest
@@ -18,7 +21,9 @@ import torch
 from repro_torch.kernels.bucket_scatter import ops as scatter_ops
 from repro_torch.kernels.bucket_topk import ops as topk_ops
 from repro_torch.kernels.bucket_topk.cases import adversarial_rows
+from repro_torch.kernels.bucket_scatter.ref import ScatterSumSegment
 from repro_torch.kernels.qsgd_pack import ops as pack_ops
+from repro_torch.kernels.qsgd_pack.ref import PackSegment, u32_to_i64
 from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
 from repro_torch.kernels.qsgd_unpack.kernel import launch_grouped
 from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
@@ -390,3 +395,243 @@ def test_cuda_manual_pipelined_step_matches_cpu(cuda_device):
             assert unpack_ops.qsgd_unpack_grouped.launches == 3
             assert unpack_ops.qsgd_unpack.launches == 0
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-4)
+
+
+def _scatter_sum_segments(rng, device, dups):
+    """Segments of mixed geometry: G from 1 to 4, S from 1 to 5, k of 1 to
+    1000 (a flat k that leaves lanes idle, one to four 32-entry chunks, a
+    source of exactly three, and sources longer than the four chunks whose
+    loads are in flight at once, k = B included), B from 8 to 4096 (the
+    larger two past 48 KB of shared memory a block), an empty one; with
+    ``dups``, duplicate, sentinel and negative indices."""
+    geo = [(2, 4, 37, 8, 512), (1, 1, 0, 4, 128), (3, 2, 5, 40, 2048),
+           (1, 4, 9, 100, 256), (4, 3, 11, 1, 8), (1, 2, 3, 64, 4096),
+           (1, 3, 5, 160, 512), (2, 2, 4, 512, 512), (1, 2, 3, 1000, 2048),
+           (2, 3, 4, 96, 512), (1, 5, 6, 12, 256)]
+    segs = []
+    for g, s, nb, k, b in geo:
+        shape = (g, s, nb, k)
+        if dups:
+            lidx = rng.integers(-2, max(2, min(b, k) // 2) + 3, size=shape)
+            lidx[rng.random(shape) < 0.1] = b + 3
+        else:
+            lidx = np.sort(rng.random(shape[:3] + (b,)).argsort(-1)[..., :k], -1)
+        val = rng.standard_normal(shape).astype(np.float32)
+        segs.append(ScatterSumSegment(
+            torch.from_numpy(lidx.astype(np.int32)).to(device),
+            torch.from_numpy(val).to(device), b))
+    return segs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dups", [False, True])
+def test_cuda_bucket_scatter_sum_matches_plain(cuda_device, dups):
+    """The grouped launch and each one-segment call bit-equal to the plain
+    version (each source densified, then summed in source order), with
+    distinct indices and with duplicates, sentinels and negative indices;
+    one launch for the group, one for each non-empty segment alone; the
+    single-source densify of one source of each segment with k > 128
+    bit-equal too."""
+    segs = _scatter_sum_segments(np.random.default_rng(int(dups)),
+                                 cuda_device, dups)
+    before = scatter_ops.bucket_scatter_sum.launches
+    got = scatter_ops.bucket_scatter_sum_grouped(segs, impl="cuda")
+    assert scatter_ops.bucket_scatter_sum.launches == before + 1
+    for seg, g in zip(segs, got):
+        want = scatter_ops.bucket_scatter_sum(*seg, impl="ref")
+        assert g.shape == want.shape == (seg.lidx.shape[0],
+                                         seg.lidx.shape[2], seg.b)
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+        one = scatter_ops.bucket_scatter_sum(*seg, impl="cuda")
+        assert torch.equal(one.view(torch.int32), want.view(torch.int32))
+    assert scatter_ops.bucket_scatter_sum.launches == before + 1 + sum(
+        seg.lidx.shape[2] > 0 for seg in segs)
+    long = [seg for seg in segs if seg.lidx.shape[3] > 128]
+    n_before = scatter_ops.bucket_scatter.launches
+    for seg in long:
+        li, va = seg.lidx[-1, -1], seg.val[-1, -1]
+        one = scatter_ops.bucket_scatter(li, va, seg.b, impl="cuda")
+        want = scatter_ops.bucket_scatter(li, va, seg.b, impl="ref")
+        assert torch.equal(one.view(torch.int32), want.view(torch.int32))
+    assert len(long) == 3
+    assert scatter_ops.bucket_scatter.launches == n_before + len(long)
+
+
+@pytest.mark.cuda
+def test_cuda_bucket_scatter_sum_refuses_bad_segments(cuda_device):
+    """Shapes that disagree, a 3-D stream, a B that is no multiple of 4 or
+    over 8192, other dtypes and strided views raise before any launch."""
+    lidx = torch.zeros((1, 2, 3, 4), dtype=torch.int32, device=cuda_device)
+    val = torch.ones((1, 2, 3, 4), device=cuda_device)
+    bad = [(lidx, val[..., :3].contiguous(), 8), (lidx[0], val[0], 8),
+           (lidx, val, 6), (lidx, val, 8196), (lidx.long(), val, 8),
+           (lidx, val.double(), 8), (lidx.transpose(1, 2), val, 8)]
+    before = scatter_ops.bucket_scatter_sum.launches
+    for li, va, b in bad:
+        with pytest.raises(ValueError):
+            scatter_ops.bucket_scatter_sum_grouped(
+                [ScatterSumSegment(lidx, val, 8), ScatterSumSegment(li, va, b)],
+                impl="cuda")
+    assert scatter_ops.bucket_scatter_sum.launches == before
+
+
+def _pack_segments(rng, device, bits):
+    """Segments of mixed geometry: the stacked executor's strided layout and
+    ones whose rows lie in order (p_data 1 or one row), p_pod 1 or 2, p_data 1 to 4, QSGD rows of 64 to 2048
+    entries (2048: two register tiles), an empty one; zero rows (code s)
+    and tiny ones."""
+    geo = [(1, 4, 3, 2, 1024), (2, 2, 2, 3, 64), (1, 1, 0, 1, 128),
+           (2, 3, 2, 1, 2048), (1, 1, 7, 2, 256),
+           (1, 4, 1, 1, 96 if bits != 2 else 128)]
+    segs = []
+    for p_pod, p_data, rows, nbq, bq in geo:
+        shard = nbq * bq
+        n = p_pod * rows * p_data * shard
+        x = rng.standard_normal(n).astype(np.float32)
+        if n:
+            x[:bq] = 0.0
+            x[-bq:] *= 1e-30
+        rand = _u32(rng, (n,))
+        segs.append(PackSegment(
+            torch.from_numpy(x).to(device).view(p_pod, rows, p_data * shard),
+            torch.from_numpy(rand).to(device), p_pod, p_data, rows, shard, bq))
+    return segs
+
+
+def _codes_of(packed, bits):
+    shifts = torch.arange(32 // bits, device=packed.device) * bits
+    return (u32_to_i64(packed)[..., None] >> shifts) & (2**bits - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["max", "l2"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_cuda_qsgd_pack_grouped_matches_plain(cuda_device, bits, mode):
+    """The grouped launch (the summed buffer read in place, strided or
+    with its rows in order) and each one-segment call against the plain version: 'max'
+    bit-equal, 'l2' codes at most one level apart on at most 1e-4 of them
+    and scales within rtol 1e-6; the codes go straight into the grouped
+    unpack."""
+    segs = _pack_segments(np.random.default_rng(bits), cuda_device, bits)
+    before = pack_ops.qsgd_pack.launches
+    got = pack_ops.qsgd_pack_grouped(segs, bits, mode, impl="cuda")
+    assert pack_ops.qsgd_pack.launches == before + 1
+    want = pack_ops.qsgd_pack_grouped(segs, bits, mode, impl="ref")
+    moved, total = 0, 0
+    for seg, (p, sc), (pr, scr) in zip(segs, got, want):
+        assert p.shape == pr.shape and sc.shape == scr.shape
+        assert p.data_ptr() % 16 == 0
+        if mode == "max":
+            assert torch.equal(sc, scr)
+            assert torch.equal(p.view(torch.int32), pr.view(torch.int32))
+        else:
+            torch.testing.assert_close(sc, scr, rtol=1e-6, atol=0)
+            dc = (_codes_of(p, bits) - _codes_of(pr, bits)).abs()
+            assert dc.numel() == 0 or int(dc.max()) <= 1
+            moved += int((dc > 0).sum())
+            total += dc.numel()
+    assert moved <= max(1, int(1e-4 * total))
+    if mode == "max":
+        useg = [UnpackSegment(p, sc, *seg[2:7], 0.5)
+                for seg, (p, sc) in zip(segs, got)]
+        for g, w in zip(unpack_ops.qsgd_unpack_grouped(useg, bits, impl="cuda"),
+                        unpack_ops.qsgd_unpack_grouped(useg, bits, impl="ref")):
+            assert torch.equal(g, w)
+    n_before = pack_ops.qsgd_pack.launches
+    for seg in segs:
+        in_order = seg.p_data == 1 or seg.rows == 1   # q*bq is row q
+        rows = seg.x.reshape(-1, seg.bq) if in_order else None
+        if rows is not None and rows.shape[0]:
+            one = pack_ops.qsgd_pack(rows, seg.rand.view(-1, seg.bq), bits,
+                                     "max", impl="cuda")
+            ref = pack_ops.qsgd_pack(rows, seg.rand.view(-1, seg.bq), bits,
+                                     "max", impl="ref")
+            assert torch.equal(one[1], ref[1])
+            assert torch.equal(one[0].view(torch.int32),
+                               ref[0].view(torch.int32))
+    assert pack_ops.qsgd_pack.launches == n_before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_qsgd_pack_grouped_refuses_bad_segments(cuda_device):
+    """x or rand off a 16-byte boundary, sizes that disagree with the
+    geometry, a shard that is no multiple of bq, other dtypes: the launcher
+    raises before any launch."""
+    seg = _pack_segments(np.random.default_rng(0), cuda_device, 4)[0]
+    flat = torch.empty(seg.x.numel() + 1, device=cuda_device)
+    words = torch.empty(seg.rand.numel() + 1, dtype=torch.uint32,
+                        device=cuda_device)
+    bad = [(seg._replace(x=flat[1:]), "16-byte"),
+           (seg._replace(rand=words[1:]), "16-byte"),
+           (seg._replace(rows=seg.rows + 1), "entries"),
+           (seg._replace(bq=768), "multiple"),
+           (seg._replace(x=seg.x.double()), "float32"),
+           (seg._replace(rand=seg.rand.view(torch.int32)), "uint32")]
+    before = pack_ops.qsgd_pack.launches
+    for b, match in bad:
+        with pytest.raises(ValueError, match=match):
+            pack_ops.qsgd_pack_grouped([seg, b], 4, "l2", impl="cuda")
+    assert pack_ops.qsgd_pack.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(1, 4), (2, 2)])
+def test_cuda_stacked_reduce_half_one_launch_each(cuda_device, grid):
+    """The stacked reduce half of a 2-layer model (DSAR + 4-bit QSGD,
+    'max' scales) on the card makes exactly one launch each of
+    bucket_scatter_sum, qsgd_pack and qsgd_unpack (besides one bucket_topk
+    a sparse bucket, and no single-source densify), and its reduced
+    buffers and residuals equal the CPU path's bit for bit on the same
+    gradients and rounding bits."""
+    from repro_torch.comm.executor import reduce_buckets_spmd
+    from repro_torch.comm.plan import build_sync_plan
+    from repro_torch.core.compressor import SyncConfig
+    from repro_torch.core.qsgd import random_bits
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.models.specs import param_specs
+    from repro_torch.utils.tree import tree_flatten
+
+    p_pod, p_data = grid
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=1024, vocab_size=512,
+                      dtype=torch.float32, param_dtype=torch.float32,
+                      max_seq_len=64)
+    shapes = init_params(cfg, device="meta")
+    plan = build_sync_plan(shapes, param_specs(shapes, cfg), SyncConfig(
+        mode="sparcml", k_per_bucket=8, bucket_size=512,
+        algorithm="dsar_split_allgather", qsgd_bits=4, qsgd_bucket=512,
+        qsgd_scale="max", min_sparse_size=65536), 4)
+    n_sparse = plan.num_sparse_buckets
+    assert n_sparse > 1
+    rng = np.random.default_rng(11)
+    grads = [torch.from_numpy(rng.standard_normal((4,) + tuple(l.shape))
+                              .astype(np.float32))
+             for l in tree_flatten(shapes)[0]]
+    res = {nm: torch.from_numpy(rng.standard_normal(tuple(r.shape))
+                                .astype(np.float32) * 1e-3)
+           for nm, r in plan.init_residuals().items()}
+
+    def bits_on(device):
+        def rand_fn(bucket_idx, n):
+            g = torch.Generator().manual_seed(bucket_idx)
+            return random_bits(n, g, "cpu").to(device)
+        return rand_fn
+
+    want = reduce_buckets_spmd(plan, grads, res, p_data=p_data, p_pod=p_pod,
+                               rand_fn=bits_on("cpu"), telemetry=False)
+    grads = [g.to(cuda_device) for g in grads]
+    res = {nm: r.to(cuda_device) for nm, r in res.items()}
+    counters = (topk_ops.bucket_topk, scatter_ops.bucket_scatter,
+                scatter_ops.bucket_scatter_sum, pack_ops.qsgd_pack,
+                unpack_ops.qsgd_unpack_grouped)
+    before = [c.launches for c in counters]
+    got = reduce_buckets_spmd(plan, grads, res, p_data=p_data, p_pod=p_pod,
+                              rand_fn=bits_on(cuda_device), telemetry=False)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        n_sparse, 0, 1, 1, 1]
+    for part in (0, 1):
+        assert list(got[part]) == list(want[part])
+        for nm in want[part]:
+            assert torch.equal(got[part][nm].cpu(), want[part][nm]), nm

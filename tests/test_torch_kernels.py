@@ -5,7 +5,9 @@ Pallas kernel (interpret mode on the CPU, ``impl="pallas"``) and the jnp
 oracle (``impl="ref"``) on the same numpy inputs. Tolerances: bit-equal,
 except
   * bucket_scatter with duplicate indices: allclose(rtol=0, atol=1e-6)
-    — the one-hot contraction sums duplicates in another order;
+    — the one-hot contraction sums duplicates in another order (so does
+    bucket_scatter_sum, whose sources are summed in order in numpy from
+    the JAX package's densify of each);
   * qsgd_pack in 'l2' mode: the order of the σ sum may move σ by ulps,
     so σ is allclose(rtol=1e-6) and a code may differ by one level on at
     most 1e-4 of the entries (at least one entry).
@@ -30,12 +32,13 @@ from repro.kernels.bucket_topk.ops import bucket_topk as jax_topk
 from repro.kernels.qsgd_pack.ops import qsgd_pack as jax_pack
 from repro.kernels.qsgd_unpack.ops import qsgd_unpack as jax_unpack
 from repro_torch.kernels.bucket_scatter import ops as scatter_ops
+from repro_torch.kernels.bucket_scatter.ref import ScatterSumSegment
 from repro_torch.kernels.bucket_topk import ops as topk_ops
 from repro_torch.kernels.bucket_topk.cases import adversarial_rows
 from repro_torch.kernels.bucket_topk.kernel import (require_supported_b,
                                                     supported_b)
 from repro_torch.kernels.qsgd_pack import ops as pack_ops
-from repro_torch.kernels.qsgd_pack.ref import u32_to_i64
+from repro_torch.kernels.qsgd_pack.ref import PackSegment, u32_to_i64
 from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
 from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
 
@@ -292,6 +295,70 @@ def test_bucket_scatter_plain_drops_negative_indices():
     assert torch.equal(out, expect)
 
 
+def _jax_scatter_sum(lidx, val, b, impl):
+    """The JAX package's densify of each source, summed in source order in
+    numpy (float32 adds, ((d0 + d1) + d2) + ...)."""
+    g, s, nb, k = lidx.shape
+    out = np.zeros((g, nb, b), np.float32)
+    for gi in range(g):
+        acc = None
+        for si in range(s):
+            d = np.asarray(jax_scatter(jnp.asarray(lidx[gi, si]),
+                                       jnp.asarray(val[gi, si]), b,
+                                       impl=impl))
+            acc = d.copy() if acc is None else acc + d
+        out[gi] = acc
+    return out
+
+
+@pytest.mark.parametrize("g,s,nb,b,k", [(1, 4, 6, 128, 4), (2, 2, 5, 512, 8),
+                                        (3, 8, 2, 256, 40)])
+def test_bucket_scatter_sum_plain_matches_jax_distinct(g, s, nb, b, k):
+    """Distinct indices within each source (top-k's streams): bit-equal,
+    and the grouped form equals each segment's own call."""
+    rng = np.random.default_rng(g * 100 + s * 10 + k)
+    lidx = _distinct_lidx(rng, g * s * nb, b, k).reshape(g, s, nb, k)
+    val = rng.standard_normal((g, s, nb, k)).astype(np.float32)
+    out = scatter_ops.bucket_scatter_sum(torch.from_numpy(lidx),
+                                         torch.from_numpy(val), b)
+    assert out.shape == (g, nb, b)
+    for impl in JAX_IMPLS:
+        np.testing.assert_array_equal(out.numpy(),
+                                      _jax_scatter_sum(lidx, val, b, impl),
+                                      impl)
+    seg = ScatterSumSegment(torch.from_numpy(lidx), torch.from_numpy(val), b)
+    other = ScatterSumSegment(seg.lidx[:1, :1], seg.val[:1, :1], b)
+    grouped = scatter_ops.bucket_scatter_sum_grouped([other, seg])
+    assert torch.equal(grouped[1], out)
+    assert torch.equal(grouped[0], scatter_ops.bucket_scatter(
+        seg.lidx[0, 0], seg.val[0, 0], b)[None])
+
+
+@pytest.mark.parametrize("g,s,nb,b,k", [(2, 4, 6, 128, 8), (1, 3, 9, 512, 40)])
+def test_bucket_scatter_sum_plain_duplicates_and_sentinels(g, s, nb, b, k):
+    """Duplicates and sentinels: allclose to the JAX package's (its one-hot
+    contraction adds duplicates in another order), and bit-equal to the
+    single-source densify of each source summed in order."""
+    rng = np.random.default_rng(3 * g + s + k)
+    lidx = rng.integers(0, b // 16, size=(g, s, nb, k)).astype(np.int32)
+    lidx[rng.random(lidx.shape) < 0.2] = b + 5
+    lidx[0, 0, 0] = np.iinfo(np.int32).max
+    val = rng.standard_normal((g, s, nb, k)).astype(np.float32)
+    out = scatter_ops.bucket_scatter_sum(torch.from_numpy(lidx),
+                                         torch.from_numpy(val), b)
+    for impl in JAX_IMPLS:
+        np.testing.assert_allclose(out.numpy(),
+                                   _jax_scatter_sum(lidx, val, b, impl),
+                                   rtol=0, atol=1e-6, err_msg=impl)
+    want = np.zeros((g, nb, b), np.float32)
+    for gi in range(g):
+        for si in range(s):
+            want[gi] += scatter_ops.bucket_scatter(
+                torch.from_numpy(lidx[gi, si]), torch.from_numpy(val[gi, si]),
+                b).numpy()
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
 # --------------------------------------------------------------------------
 # qsgd_pack / qsgd_unpack
 # --------------------------------------------------------------------------
@@ -329,6 +396,68 @@ def test_qsgd_pack_plain_matches_jax(bits, mode):
             diff = np.abs(codes - jcodes)
             assert diff.max() <= 1, impl
             assert (diff > 0).sum() <= max(1, math.floor(1e-4 * diff.size)), impl
+
+
+@pytest.mark.parametrize("mode", ["l2", "max"])
+@pytest.mark.parametrize("p_pod,p_data", [(1, 2), (1, 4), (2, 2), (2, 4)])
+def test_qsgd_pack_grouped_plain_matches_jax(p_pod, p_data, mode):
+    """Two buckets' (p_pod, rows, p_data*shard) sums read in place against
+    the reference's transpose(0, 2, 1, 3) and qsgd_pack on the same bits
+    (``src/repro/comm/executor.py`` reduce_buckets_spmd), at the
+    tolerances of test_qsgd_pack_plain_matches_jax; a segment with p_pod =
+    p_data = 1 (the per-rank form's) packs its rows in order."""
+    bits = 4
+    rng = np.random.default_rng(10 * p_pod + p_data + len(mode))
+    segs, jax_rows = [], []
+    for rows, shard, bq in ((3, 256, 128), (2, 2048, 1024)):
+        x = rng.standard_normal((p_pod, rows, p_data * shard)).astype(
+            np.float32)
+        x[0, 0, :bq] = 0.0                        # a zero QSGD row: code s
+        n = x.size
+        rand = _u32(rng, (n,))
+        segs.append(PackSegment(torch.from_numpy(x), torch.from_numpy(rand),
+                                p_pod, p_data, rows, shard, bq))
+        jax_rows.append((x.reshape(p_pod, rows, p_data, shard)
+                         .transpose(0, 2, 1, 3).reshape(-1, bq),
+                         rand.reshape(-1, bq)))
+    flat = rng.standard_normal(3 * 256).astype(np.float32)
+    frand = _u32(rng, (flat.size,))
+    segs.append(PackSegment(torch.from_numpy(flat), torch.from_numpy(frand),
+                            1, 1, 3, 256, 256))
+    jax_rows.append((flat.reshape(-1, 256), frand.reshape(-1, 256)))
+    outs = pack_ops.qsgd_pack_grouped(segs, bits, mode)
+    assert len(outs) == len(segs)
+    for (packed, scale), (xr, rr) in zip(outs, jax_rows):
+        assert packed.shape == (xr.shape[0], xr.shape[1] * bits // 32)
+        assert scale.shape == (xr.shape[0], 1)
+        codes = _codes(u32_to_i64(packed).numpy(), bits)
+        for impl in JAX_IMPLS:
+            jp, js = jax_pack(jnp.asarray(xr), jnp.asarray(rr), bits, mode,
+                              impl=impl)
+            jcodes = _codes(np.asarray(jp), bits)
+            if mode == "max":
+                np.testing.assert_array_equal(scale.numpy(), np.asarray(js),
+                                              impl)
+                np.testing.assert_array_equal(codes, jcodes, impl)
+            else:
+                np.testing.assert_allclose(scale.numpy(), np.asarray(js),
+                                           rtol=1e-6, err_msg=impl)
+                diff = np.abs(codes - jcodes)
+                assert diff.max() <= 1, impl
+                assert (diff > 0).sum() <= max(
+                    1, math.floor(1e-4 * diff.size)), impl
+
+
+def test_qsgd_pack_grouped_refuses_bad_geometry():
+    """A shard that is no multiple of bq, or sizes that disagree with the
+    geometry, raise before any packing."""
+    x = torch.zeros(2 * 3 * 256)
+    rand = torch.zeros(x.numel(), dtype=torch.uint32)
+    good = PackSegment(x, rand, 1, 2, 3, 256, 128)
+    with pytest.raises(ValueError, match="multiple of bq"):
+        pack_ops.qsgd_pack_grouped([good, good._replace(bq=96)], 4)
+    with pytest.raises(ValueError, match="entries"):
+        pack_ops.qsgd_pack_grouped([good._replace(rows=2)], 4)
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -448,6 +577,8 @@ def _calls():
     packed = torch.zeros((4, 16), dtype=torch.uint32)
     scale = torch.ones((4, 1))
     seg = UnpackSegment(packed, scale, 1, 2, 2, 128, 128, 0.5)
+    sseg = ScatterSumSegment(lidx.view(1, 2, 2, 2), val.view(1, 2, 2, 2), 128)
+    pseg = PackSegment(x, rand, 1, 2, 2, 128, 128)
     return [
         (topk_ops.bucket_topk, lambda impl: topk_ops.bucket_topk(x, 2, impl=impl)),
         (scatter_ops.bucket_scatter,
@@ -458,10 +589,17 @@ def _calls():
          lambda impl: unpack_ops.qsgd_unpack(packed, scale, 4, impl=impl)),
         (unpack_ops.qsgd_unpack_grouped,
          lambda impl: unpack_ops.qsgd_unpack_grouped([seg], 4, impl=impl)),
+        (scatter_ops.bucket_scatter_sum,
+         lambda impl: scatter_ops.bucket_scatter_sum(*sseg, impl=impl)),
+        (scatter_ops.bucket_scatter_sum,
+         lambda impl: scatter_ops.bucket_scatter_sum_grouped([sseg],
+                                                             impl=impl)),
+        (pack_ops.qsgd_pack,
+         lambda impl: pack_ops.qsgd_pack_grouped([pseg], 4, impl=impl)),
     ]
 
 
-@pytest.mark.parametrize("which", range(5))
+@pytest.mark.parametrize("which", range(8))
 def test_cpu_tensor_takes_plain_version_without_a_launch(which):
     wrapper, call = _calls()[which]
     before = wrapper.launches
@@ -470,7 +608,7 @@ def test_cpu_tensor_takes_plain_version_without_a_launch(which):
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("which", range(5))
+@pytest.mark.parametrize("which", range(8))
 def test_cuda_impl_on_cpu_tensor_raises(which):
     wrapper, call = _calls()[which]
     before = wrapper.launches

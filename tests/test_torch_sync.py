@@ -440,3 +440,59 @@ def test_reduce_buckets_spmd_telemetry_matches_jax(name, sync_kw, grid):
         for n in new_res:
             assert torch.equal(off_res[n], new_res[n])
         res = new_res
+
+
+# --------------------------------------------------------------------------
+# the stacked executor against the per-rank one, bit for bit
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("qsgd_bits", [None, 4])
+@pytest.mark.parametrize("grid", [(1, 4), (2, 2), (1, 8), (2, 4)],
+                         ids=["R4", "R4_pods", "R8", "R8_pods"])
+def test_reduce_buckets_spmd_bit_equal_to_per_rank(grid, qsgd_bits):
+    """Both executors' reduce halves over two error-feedback steps (DSAR,
+    with and without 4-bit QSGD, raw-dense buckets too) on the same
+    gradients and rounding bits: the same reduced buffers (every held
+    rank's) and residuals, bit for bit. The stacked form's fused densify
+    sums each pod's ranks in rank order and then the pods, as the
+    per-rank form's data-axis and pod collectives do."""
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.comm.executor import reduce_buckets
+
+    p_pod, p_data = grid
+    R = p_pod * p_data
+    kw = _sync_kwargs(bucket_size=128, k_per_bucket=4, qsgd_bits=qsgd_bits,
+                      qsgd_bucket=128, min_sparse_size=2048)
+    cfg = ModelConfig(**TINY, dtype=torch.float32, param_dtype=torch.float32)
+    shapes = init_params(cfg, device="meta")
+    plan = build_sync_plan(shapes, param_specs(shapes, cfg),
+                           SyncConfig(**kw), R)
+    assert plan.num_sparse_buckets and len(plan.buckets) > \
+        plan.num_sparse_buckets
+    leaves, _ = tree_flatten(shapes)
+    coll = StackedCollectives(p_data, outer=p_pod)
+    pod_coll = StackedCollectives(p_pod, inner=p_data) if p_pod > 1 else None
+    rng = np.random.default_rng(R + 10 * p_pod + (qsgd_bits or 0))
+
+    def rand_fn(bucket_idx, n):
+        return torch.from_numpy(np.random.default_rng(bucket_idx).integers(
+            0, 2**32, size=n, dtype=np.uint64).astype(np.uint32))
+
+    res_s = res_r = plan.init_residuals()
+    for _ in range(2):
+        grads = [torch.from_numpy(rng.standard_normal(
+            (R,) + tuple(l.shape)).astype(np.float32)) for l in leaves]
+        red_s, res_s, _ = reduce_buckets_spmd(
+            plan, grads, res_s, p_data=p_data, p_pod=p_pod, rand_fn=rand_fn,
+            telemetry=False)
+        red_r, res_r, _ = reduce_buckets(
+            plan, grads, res_r, coll=coll, pod_coll=pod_coll,
+            rand_fn=rand_fn, telemetry=False)
+        assert list(red_s) == list(red_r) == [b.name for b in plan.buckets]
+        for nm, buf in red_s.items():
+            assert red_r[nm].shape == (R,) + tuple(buf.shape)
+            for r in range(R):
+                assert torch.equal(red_r[nm][r], buf), (nm, r)
+        assert list(res_s) == list(res_r)
+        for nm in res_s:
+            assert torch.equal(res_s[nm], res_r[nm]), nm
