@@ -105,7 +105,26 @@ Phases, in order; any failure exits non-zero:
  12. NCCL: a one-process NCCL group (world size 1) runs 2 synchronous and
      2 pipelined per-rank steps of the small model, bit-equal to the
      same steps over StackedCollectives(1);
- 13. the kernels line (a kernel's "launches" are the main path's, or,
+ 13. observability and the adaptive loop on the pipelined lm-100m step
+     (stacked, K = 4, depth 2): 12 steps with observability off and on
+     (trace, metrics, drift auditor, health rules, telemetry rows) from
+     one state, bit-equal losses, exactly one host wait a retired unit
+     (a counter on the driver's wait) and no synchronising call flagged
+     (CUDA sync debug mode); the exported trace (span tree valid; dispatch
+     and retire spans; the derived device phases) and metrics JSONL (each
+     of the 26 EF buckets' four histograms with one sample a step) and
+     the health summary; the calibration on the stacked ranks (alpha,
+     bandwidth, the ladder and its residuals, its time); a forced swap
+     (every EF bucket demoted to dense after step 8, installed at the
+     drain barrier of step 12) bit-equal to both plans' steps built by
+     hand and switched there, with the launches on each side (no pack or
+     unpack after it, bucket_scatter_sum still one a step), the step
+     time on each side and the new step's build time; 24 steps of the
+     default AdaptConfig on the calibrated parameters (swaps and adapt/*
+     events printed); the drift audit of the plan it ended on; and the
+     pipelined step with observability on and off in turns, 3 rounds
+     each (printed, not gated);
+ 14. the kernels line (a kernel's "launches" are the main path's, or,
      for one the main path does not run, those of the first later path
      that runs it, named in "launches_path"), the card line, and last the
      result line {"ok": true, "device": {...}}.
@@ -134,6 +153,12 @@ REPS = 5
 K_UNIT = 4           # superstep of the pipelined runs, as the example's
 PIPE_STEPS = 12      # pipelined steps after phase 3's synchronous ones
 RACE_STEPS = 8
+OBS_STEPS = 12       # phase 13: observability off / on, from one state
+SWAP_AT = 8          # phase 13: the demotion after the unit ending here,
+SWAP_STEPS = 24      # installed at the next drain barrier (step 12)
+NATURAL_STEPS = 24   # phase 13: the adaptive loop, default AdaptConfig
+COST_STEPS = 16      # phase 13: observability on / off in turns,
+COST_ROUNDS = 3      # this many rounds of each
 
 # bucket_topk's k sweep: (rows, B, k); the Fig. 3 rows, then B = 1024
 TOPK_SWEEP = tuple((262144, 512, k) for k in (1, 4, 8, 16, 32, 64, 128, 512)
@@ -1053,6 +1078,12 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 13
+    record["obs_adapt"], new_paths["obs_adapt"] = phase_obs_adapt(
+        torch, dev, wrappers, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 14
     for row in kernels:
         row["launches_new_paths"] = {
             path: counts[row["name"]] for path, counts in new_paths.items()}
@@ -1870,6 +1901,305 @@ def phase_telemetry(torch, dev, wrappers, tiny, tiny_data, params0, bits_for):
              "rows_step0": {nm: r.tolist()
                                            for nm, r in rows.items()},
              "dsar_wire_rel": wire_rel, "small_model_max_rel": small}, total)
+
+
+def phase_obs_adapt(torch, dev, wrappers, out_dir: Path):
+    """Phase 13 (see the module docstring). Returns (record, launches of
+    its lm-100m runs)."""
+    from repro_torch import obs as obs_mod
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.core.cost_model import plan_bucket_times
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import adapt as rt_adapt
+    from repro_torch.runtime import driver as rt_driver
+    from repro_torch.runtime.pipeline import attach_inflight, build_superstep
+    from repro_torch.train import run_lm
+    from repro_torch.train.train_step import build_plan, init_state
+    from repro_torch.train.trainer import Trainer
+
+    rec: dict = {}
+    total = {nm: 0 for nm in wrappers}
+
+    def count_launches():
+        for nm, w in wrappers.items():
+            total[nm] += w.launches
+            w.launches = 0
+
+    cfg, data = run_lm.lm_config(fast=False)
+    tcfg = run_lm.train_config(SWAP_STEPS)
+    model = build_model(cfg)
+
+    def trainer(ob=None):
+        t = Trainer(model, tcfg, data, dp_total=run_lm.DP, device=dev,
+                    obs=ob)
+        t.init()
+        return t
+
+    def gauge(tr, steps, **kw):
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        tr.run_pipelined(steps, superstep=K_UNIT, depth=2, **kw)
+        torch.cuda.synchronize()
+        count_launches()
+        ms, units = steady_ms(tr.log.step_times)
+        return list(tr.log.losses), ms, units
+
+    # -- observability off, then on (trace, metrics, audit, health), from
+    #    one state; the calibration first, on the on-trainer's ranks
+    off = trainer()
+    losses_off, _, _ = gauge(off, OBS_STEPS)
+    off.state = None
+    ob = obs_mod.configure(trace=True, metrics=True, audit=True,
+                           set_as_default=False)
+    on = trainer(ob)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = on._calibrated_net()
+    cal_s = time.perf_counter() - t0
+    ladder = [(s["n"], s["measured_s"], s["predicted_s"])
+              for s in ob.audit.samples if s["algorithm"] == "dense_ladder"]
+    log(f"[13] calibration on the {run_lm.DP} stacked ranks (the device's sum "
+        f"over the rank axis; no wire): alpha {net.alpha:.4e} s, "
+        f"{net.link_bytes_per_s / 1e9:.2f} GB/s, in {cal_s:.3f} s; ladder "
+        "(elements, measured ms, fitted ms, measured/fitted) " + str([
+            (n, round(m * 1e3, 4), round(p * 1e3, 4), round(m / p, 3))
+            for n, m, p in ladder]))
+    rec["calibration"] = {"alpha_s": net.alpha,
+                          "link_bytes_per_s": net.link_bytes_per_s,
+                          "seconds": cal_s, "ladder": ladder}
+    waits = {"n": 0}
+    real_wait = rt_driver._wait
+
+    def counting(done):
+        if done is not None:
+            waits["n"] += 1
+        return real_wait(done)
+
+    # the driver's own wait (an event's) is not what the sync debug mode
+    # is there to find: every other synchronising call is
+    first = real_wait.__code__.co_firstlineno
+    wait_lines = range(first, first + 8)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    rt_driver._wait = counting
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                on.run_pipelined(OBS_STEPS, superstep=K_UNIT, depth=2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        rt_driver._wait = real_wait
+    torch.cuda.synchronize()
+    count_launches()
+    losses_on = list(on.log.losses)
+    syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+             if "called a synchronizing" in str(w.message)
+             and not (w.filename == rt_driver.__file__
+                      and w.lineno in wait_lines)]
+    units = OBS_STEPS // K_UNIT
+    same = losses_on == losses_off
+    log(f"[13] pipelined lm-100m, {OBS_STEPS} steps, observability off vs "
+        f"on: losses bit-equal {same}; host waits {waits['n']} for {units} "
+        f"units; synchronising calls flagged {len(syncs)}")
+    if not same:
+        fail(f"observability changed the losses: {losses_on} vs {losses_off}")
+    if waits["n"] != units or syncs:
+        fail(f"observability added host waits: {waits['n']} waits for "
+             f"{units} units, flagged {syncs[:3]}")
+    paths = ob.export(trace_path=str(out_dir / "phase13_trace.json"),
+                      metrics_path=str(out_dir / "phase13_metrics.jsonl"))
+    events = json.load(open(paths["trace"]))["traceEvents"]
+    bad = obs_mod.validate_span_tree(events)
+    names = {e["name"] for e in events if e["ph"] == "X"}
+    derived = {e["name"] for e in events if e.get("tid") == "device-phases"}
+    ef = [b.name for b in on.plan.buckets if b.has_residual]
+    short = [f"bucket/{n}/{c}" for n in ef
+             for c in ("nnz", "wire_bytes", "mass_coverage", "ef_norm")
+             if len(getattr(ob.metrics.metrics.get(f"bucket/{n}/{c}"),
+                            "values", [])) != OBS_STEPS]
+    log(f"[13] trace {len(events)} events, span tree violations {len(bad)}, "
+        f"host spans {sorted(n for n in names if n.startswith('driver/'))}, "
+        f"derived phases {len(derived)} names; {len(ef)} EF buckets x 4 "
+        f"histograms, {len(short)} without {OBS_STEPS} samples")
+    if bad or not {"driver/dispatch", "driver/retire"} <= names \
+            or not derived or len(ef) != 26 or short:
+        fail(f"observability outputs: violations {bad[:2]}, spans {names}, "
+             f"derived {sorted(derived)}, histograms short {short[:4]}")
+    log("[13] health: " + on.last_health.summary().strip())
+    rec["obs"] = {"losses": losses_on, "bit_equal": same,
+                  "host_waits": waits["n"], "units": units,
+                  "trace_events": len(events), "derived_names": len(derived),
+                  "health": [dataclasses.asdict(e)
+                             for e in on.last_health.history],
+                  "paths": paths}
+    on.state = None
+    del on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- a forced swap at a known barrier: every EF bucket demoted to dense
+    #    after the unit ending at step SWAP_AT, installed at the next drain;
+    #    against both plans' steps built by hand and switched there
+    sob = obs_mod.configure(trace=True, metrics=True, set_as_default=False)
+    fresh = lambda p: attach_inflight(init_state(model, tcfg, p, dev), p)
+    batch = lambda step: synthetic_batch(data, step)
+    dcfg = rt_driver.DriverConfig(depth=2, steps_per_unit=K_UNIT)
+    plan = build_plan(model, tcfg, run_lm.DP)
+    rt = rt_adapt.AdaptiveRuntime(
+        model, tcfg, run_lm.DP, dev, plan=plan, net=net,
+        cfg=rt_adapt.AdaptConfig(window=10 ** 6), superstep=K_UNIT,
+        guard=True, obs=sob)
+    rt.demote_after(SWAP_AT, ef)
+    demoted = plan.replan(algorithms={b: "dense" for b in ef})
+    phase_attr = lambda dt: obs_mod.attribute_step_phases(  # noqa: E731
+        dt / K_UNIT, plan_bucket_times(rt.current_plan, None, net),
+        names=[b.name for b in rt.current_plan.buckets])
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    _, slog = rt_driver.run_pipelined(
+        rt.current_fn(), fresh(plan), start_step=0, num_steps=SWAP_STEPS,
+        batch_fn=batch, cfg=dcfg, obs=sob, phase_attr=phase_attr,
+        adapt=rt)
+    torch.cuda.synchronize()
+    count_launches()
+    swaps = list(slog.plan_swaps)
+    swap_step = SWAP_AT + K_UNIT
+    sev = json.load(open(sob.tracer.export(
+        str(out_dir / "phase13_swap_trace.json"))))["traceEvents"]
+    snames = {e["name"] for e in sev if e["ph"] == "X"}
+    by_hand, parts = [], []
+    t_build = None
+    s = fresh(plan)
+    for p, lo, hi in ((plan, 0, swap_step), (demoted, swap_step, SWAP_STEPS)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn, _ = build_superstep(model, tcfg, run_lm.DP, dev, steps=K_UNIT,
+                                guard=True, plan=p)
+        t_build = time.perf_counter() - t0 if p is demoted else t_build
+        for w in wrappers.values():
+            w.launches = 0
+        s, hlog = rt_driver.run_pipelined(fn, s, start_step=lo, num_steps=hi,
+                                          batch_fn=batch, cfg=dcfg)
+        torch.cuda.synchronize()
+        launches = {nm: w.launches for nm, w in wrappers.items()}
+        count_launches()
+        ms, units = steady_ms(hlog.step_times)
+        parts.append({"steps": [lo, hi], "ms_a_step": ms,
+                      "unit_retire_ms": units, "launches": launches})
+        by_hand += list(hlog.losses)
+    del s
+    same = by_hand == list(slog.losses)
+    swap_ms = [steady_ms(slog.step_times[:swap_step])[0],
+               steady_ms(slog.step_times[swap_step:])[0]]
+    log(f"[13] forced swap (all {len(ef)} EF buckets demoted to dense after "
+        f"step {SWAP_AT}): swaps at {[st for st, _ in swaps]}; losses "
+        f"bit-equal to both plans' steps switched by hand at step "
+        f"{swap_step}: {same}; drain spans {'driver/drain' in snames}")
+    log(f"[13] launches by hand, before / after the swap "
+        f"({swap_step} / {SWAP_STEPS - swap_step} steps): "
+        f"{parts[0]['launches']} / {parts[1]['launches']}")
+    swap_units = [round(u, 1) for u in steady_ms(slog.step_times)[1]]
+    log(f"[13] ms a step before / after the swap: by hand "
+        f"{parts[0]['ms_a_step']:.1f} / {parts[1]['ms_a_step']:.1f}, in the "
+        f"swapped run {swap_ms[0]:.1f} / {swap_ms[1]:.1f}; unit retire ms of "
+        f"the swapped run {swap_units}; building the new step "
+        f"{t_build * 1e3:.1f} ms")
+    after = parts[1]["launches"]
+    n_after = SWAP_STEPS - swap_step
+    if not same or [st for st, _ in swaps] != [swap_step] \
+            or swaps[0][1] != demoted.signature():
+        fail(f"forced swap: swaps {swaps}, losses bit-equal {same}")
+    if "driver/drain" not in snames:
+        fail("forced swap: no drain span in the trace")
+    if (after["qsgd_pack"] or after["qsgd_unpack_grouped"]
+            or after["bucket_scatter_sum"] != n_after
+            or after["bucket_topk"] != len(ef) * n_after
+            or parts[0]["launches"]["qsgd_pack"] != swap_step):
+        fail(f"forced swap launches: {parts}")
+    rec["forced_swap"] = {"swaps": swaps, "bit_equal": same, "parts": parts,
+                          "swapped_run_ms_a_step": swap_ms,
+                          "losses": list(slog.losses),
+                          "build_new_step_ms": t_build * 1e3}
+    del rt, slog
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the natural loop: the default AdaptConfig on the calibrated net
+    nob = obs_mod.configure(metrics=True, audit=True, set_as_default=False)
+    nat = Trainer(model, tcfg, data, dp_total=run_lm.DP, device=dev, obs=nob)
+    nat._net_cal = net              # the one calibration of this phase
+    nat.init()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    nlog = nat.run_pipelined(NATURAL_STEPS, superstep=K_UNIT, depth=2,
+                             adapt=True)
+    torch.cuda.synchronize()
+    count_launches()
+    adapt_events = [{k: v for k, v in e.items()
+                     if k not in ("t", "densities")}
+                    for e in nob.metrics.events
+                    if e["event"].startswith("adapt/")]
+    log(f"[13] natural loop, {NATURAL_STEPS} steps, default AdaptConfig: "
+        f"swaps {[(st, sig[:60]) for st, sig in nlog.plan_swaps]}; adapt "
+        f"events {[e['event'] for e in adapt_events]}")
+    for e in adapt_events[:8]:
+        log(f"[13]   {json.dumps(e)[:300]}")
+    if not all(math.isfinite(v) for v in nlog.losses):
+        fail(f"natural loop: losses {nlog.losses}")
+    final = nat.last_plan
+    nat.state = None
+    del nat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the drift audit of the plan the loop ended on
+    aud = obs_mod.DriftAuditor()
+    t0 = time.perf_counter()
+    obs_mod.audit_sync_plan(final, StackedCollectives(run_lm.DP, dev),
+                            net=net, auditor=aud, registry=nob.metrics,
+                            max_n=1 << 28)
+    audit_s = time.perf_counter() - t0
+    log(f"[13] drift audit of the final plan ({len(aud)} probes, "
+        f"{audit_s:.2f} s):")
+    for line in aud.summary().splitlines():
+        log(f"[13]   {line}")
+    rec["natural"] = {"losses": list(nlog.losses),
+                      "swaps": list(nlog.plan_swaps),
+                      "adapt_events": adapt_events,
+                      "final_signature": final.signature(),
+                      "audit": aud.report()}
+
+    # -- the cost of observability: on / off in turns, 3 rounds each
+    turns = []
+    for rnd in range(COST_ROUNDS):
+        for obs_on in (True, False):
+            o = (obs_mod.configure(trace=True, metrics=True, audit=True,
+                                   set_as_default=False) if obs_on else None)
+            t = trainer(o)
+            t._net_cal = net
+            _, ms, units = gauge(t, COST_STEPS)
+            turns.append({"obs": obs_on, "ms_a_step": ms,
+                          "unit_retire_ms": units})
+            t.state = None
+            del t
+    on_ms = statistics.median(r["ms_a_step"] for r in turns if r["obs"])
+    off_ms = statistics.median(r["ms_a_step"] for r in turns if not r["obs"])
+    log(f"[13] pipelined step, observability on / off in turns (telemetry "
+        f"rows included in on): "
+        f"{[(r['obs'], round(r['ms_a_step'], 2)) for r in turns]}; medians "
+        f"{on_ms:.2f} / {off_ms:.2f} ms ({on_ms / off_ms - 1:+.2%})")
+    rec["obs_cost"] = {"turns": turns, "on_ms": on_ms, "off_ms": off_ms}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, total
 
 
 def phase_nccl(torch, dev, wrappers, tiny, tiny_data, params0, bits_for):

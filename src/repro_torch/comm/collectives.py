@@ -26,8 +26,10 @@ Two implementations:
 * :class:`ProcessGroupCollectives` — one rank a process (``L = 1``) over
   ``torch.distributed``: gloo on the CPU, NCCL with one card a process.
 
-Sums over ranks run in rank order (rank 0 first) in both, so the two give
-the same bits, and so do repeated runs. The JAX package's psum-only
+Both hold their tensors on the card unless the caller passes
+``device="cpu"`` (and raise without CUDA otherwise). Sums over ranks run
+in rank order (rank 0 first) in both, so the two give the same bits, and
+so do repeated runs. The JAX package's psum-only
 emulation of these primitives (``native=False``) works around an XLA-CPU
 partitioner fault that PyTorch does not have and is not ported.
 """
@@ -37,6 +39,8 @@ from typing import Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.device import resolve_device
 
 
 def ordered_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -101,10 +105,10 @@ class StackedCollectives(CollectiveContext):
     algorithms are functional, and PyTorch refuses an in-place write into
     a tensor whose elements share memory."""
 
-    def __init__(self, p: int, device="cpu", *, outer: int = 1,
+    def __init__(self, p: int, device="cuda", *, outer: int = 1,
                  inner: int = 1):
         self.p, self.outer, self.inner = p, outer, inner
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.local_ranks = outer * p * inner
         self._perms: dict = {}     # source map -> its index tensor, made once
 
@@ -185,9 +189,9 @@ class ProcessGroupCollectives(CollectiveContext):
 
     local_ranks = 1
 
-    def __init__(self, group=None, device="cpu"):
+    def __init__(self, group=None, device="cuda"):
         self.group = group
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.p = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
 

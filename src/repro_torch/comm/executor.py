@@ -27,16 +27,20 @@ and each form runs only its own reduction (Alg. 2 line 3):
   SSAR algorithms reduce exactly, so in this form they fold into the same
   sum.
 
-Raw-dense buckets (below ``min_sparse_size``) carry no residual and are a
-plain sum. DSAR + QSGD buckets quantize every range owner's shard of the
-sum (qsgd_pack: one grouped launch a step in the stacked form, which
-reads the sums where they lie; one a bucket in the per-rank form); their
-dequantization waits for the end of the loop, where ONE grouped
-qsgd_unpack launch a step writes every such bucket's buffer, in both
-forms. The stacked form's unpack also sums the pods and
-applies the mean; the per-rank form's reads the codes as its allgather
-received them and runs the pod phase and the mean after it, in the
-reference's order.
+Raw-dense buckets (below ``min_sparse_size``) carry no residual and are
+a plain sum. A bucket that carries a residual
+(``BucketSpec.has_residual``) and whose algorithm a replan set to
+``dense`` still compresses and feeds back: its TopK stream is densified
+and summed over the ranks with no QSGD (the stacked form keeps it in the
+grouped ``bucket_scatter_sum`` launch, the per-rank form sums the
+densified stream). DSAR + QSGD buckets quantize every range owner's
+shard of the sum (qsgd_pack: one grouped launch a step in the stacked
+form, which reads the sums where they lie; one a bucket in the per-rank
+form); their dequantization waits for the end of the loop, where ONE
+grouped qsgd_unpack launch a step writes every such bucket's buffer, in
+both forms. The stacked form's unpack also sums the pods and applies the
+mean; the per-rank form's reads the codes as its allgather received them
+and runs the pod phase and the mean after it, in the reference's order.
 
 Telemetry (``telemetry=True``, the reference's default) adds, for every
 EF bucket, a row of 4 f32 on the device: [post-reduction nnz, the wire
@@ -97,7 +101,7 @@ def _buckets(plan: SyncPlan, leaves: Sequence[torch.Tensor], residuals: dict):
         buf = pack_group(group, leaves, cfg.bucket_size, batch_dims=1)
         for b in group.buckets:
             seg = buf[:, :, b.col_start:b.col_start + b.cols]
-            if not b.sparse:
+            if not b.has_residual:
                 yield bucket_idx, group, b, seg, None
             else:
                 res = residuals[b.name]                      # (L, rows, cols)
@@ -419,7 +423,11 @@ def reduce_buckets(
             reduced[b.name] = once_if_shared(lambda o: o * scale, out)
             continue
         fold = None
-        if b.algorithm == "dsar_split_allgather":           # Alg. 2 line 3
+        if b.algorithm == "dense":
+            # a dense end-representation of the compressed stream (paper
+            # §5.3.3): the densified TopK summed over the axis, no QSGD
+            out = coll.psum(ef.u.densify(impl=cfg.impl))
+        elif b.algorithm == "dsar_split_allgather":         # Alg. 2 line 3
             rand = None
             if qsgd is not None:
                 if rand_fn is None:

@@ -19,6 +19,15 @@ Error-feedback residual state is keyed by bucket: a bucket is the unit
 of compression, so it is the unit of feedback. So are the non-blocking
 runtime's in-flight reduced buffers (``inflight_shapes``).
 
+Plans are versioned and re-derivable: ``SyncPlan.replan`` produces a
+successor with the same geometry (groups, buckets, leaf slots, residual
+and in-flight layout) and re-selected bucket algorithms, from measured
+densities and network parameters the caller passes (the adaptive loop,
+``runtime/adapt.py``), or from an explicit algorithm map (a checkpoint's).
+Whether a bucket carries EF state is pinned at build time
+(``BucketSpec.ef``), so a bucket a replan demotes to ``dense`` keeps its
+residual and every checkpoint's layout.
+
 The plan also accounts for its wire: ``wire_bytes`` charges every bucket
 through ``cost_model.bucket_wire_bytes``, the same entry the executors'
 per-bucket telemetry charges. ``build_per_leaf_plan`` is the legacy
@@ -26,11 +35,12 @@ routing (one bucket per qualifying leaf) behind ``core/compressor.py``'s
 per-leaf wrappers.
 
 The geometry is the JAX package's ``repro.comm.plan`` field for field;
-the tests hold the two plans equal. Re-planning (``replan``) and the
-scattered output mode are not ported (ROADMAP Queue 1 items 9 and 10).
+the tests hold the two plans, and their replans, equal. The scattered
+output mode is not ported (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -38,9 +48,14 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.comm.buckets import canonical_shape, model_axis
-from repro_torch.core.cost_model import AUTO_NOT_CALIBRATED, bucket_wire_bytes
+from repro_torch.core.cost_model import (AUTO_NOT_CALIBRATED,
+                                         bucket_wire_bytes,
+                                         select_bucket_algorithm)
 from repro_torch.utils.tree import tree_flatten
 
+SPARSE_ALGORITHMS = ("ssar_recursive_double", "ssar_split_allgather",
+                     "dsar_split_allgather", "ssar_balanced_split",
+                     "ssar_rearranged_rs")
 # The batched (rows > 1) pipeline keeps the model-sharded row axis as a
 # pure batch dim; only DSAR (and dense) are implemented batched.
 BATCHED_ALGORITHMS = ("dsar_split_allgather", "dense")
@@ -67,14 +82,26 @@ class BucketSpec:
     cols: int
     rows: int
     algorithm: str                # resolved: a sparse algorithm | 'dense'
+    # Whether the bucket carries error-feedback state, pinned at build
+    # time (None = follow ``sparse``): a replan that demotes the bucket's
+    # wire representation to 'dense' keeps its residual, so the state
+    # layout and every checkpoint stay the same under every replan.
+    ef: Optional[bool] = None
     # Route the cross-pod phase as a sparse (idx, val) stream exchange
-    # instead of the dense psum (flat buckets only). Set by re-planning
-    # (ROADMAP Queue 1 item 9); wire path only, the sum is exact.
+    # instead of the dense psum (flat buckets only). Set by re-planning;
+    # wire path only, the sum is exact.
     pod_sparse: bool = False
 
     @property
     def sparse(self) -> bool:
         return self.algorithm != "dense"
+
+    @property
+    def has_residual(self) -> bool:
+        """Carries EF state: compress, then reduce, whatever the current
+        wire representation ('dense' here is the compressed stream's dense
+        end-representation, paper §5.3.3, not an uncompressed sum)."""
+        return self.sparse if self.ef is None else self.ef
 
     @property
     def n(self) -> int:
@@ -95,12 +122,16 @@ class GroupSpec:
 
 @dataclass(frozen=True)
 class SyncPlan:
-    """The full fusion plan for one (param tree, SyncConfig, dp) triple."""
+    """The full fusion plan for one (param tree, SyncConfig, dp) triple.
+    Versioned: ``replan`` produces a successor with the same geometry and
+    re-selected bucket algorithms, the unit the adaptive runtime swaps at
+    drain barriers."""
 
     cfg: Any                      # SyncConfig
     dp_total: int
     num_leaves: int
     groups: tuple[GroupSpec, ...]
+    version: int = 0              # bumped by every replan()
 
     @property
     def buckets(self) -> tuple[BucketSpec, ...]:
@@ -157,16 +188,89 @@ class SyncPlan:
         return group.rows * (b.cols // self.cfg.bucket_size) * \
             self.cfg.k_per_bucket
 
+    def replan(self, densities: Optional[dict] = None, net=None, *,
+               algorithms: Optional[dict] = None,
+               pod_sparse: Optional[dict] = None,
+               allow: Optional[tuple] = None,
+               output_mode: Optional[str] = None) -> "SyncPlan":
+        """A successor plan with re-selected bucket algorithms.
+
+        Either re-run the cost model with MEASURED post-reduction nnz per
+        bucket (``densities``: name -> nnz, from the telemetry window) on
+        the network parameters ``net`` (required: the port carries no
+        default), or apply explicit ``algorithms`` overrides (a
+        checkpoint's; then ``net`` is not read). ``allow`` narrows the
+        candidate set further. Structural invariants:
+
+        * buckets without EF state (raw-dense at build) stay raw-dense:
+          they have no compression stats and no residual to carry;
+        * EF-bearing buckets keep their residual whatever the new wire
+          representation (``ef`` pinned), so the state layout and the
+          checkpoints are the same under every replan;
+        * batched (rows > 1) buckets stay within BATCHED_ALGORITHMS.
+
+        ``output_mode``: "replicated" (or None) keeps the plan's mode; the
+        scattered mode is not ported (ROADMAP Queue 1 item 10)."""
+        if output_mode not in (None, "replicated"):
+            if output_mode == "scattered":
+                raise NotImplementedError(
+                    "output_mode='scattered' is not ported (ROADMAP Queue 1 "
+                    "item 10)")
+            raise ValueError(f"unknown output_mode {output_mode!r}")
+        if algorithms is None and net is None:
+            raise ValueError(
+                "replan by the cost model needs network parameters: pass "
+                "net (utils/calibrate.py fits them), or explicit algorithms")
+        cfg = self.cfg
+        vb = cfg.qsgd_bits if cfg.qsgd_bits is not None else 32
+        new_groups = []
+        for g in self.groups:
+            new_buckets = []
+            for b in g.buckets:
+                if not b.has_residual:
+                    new_buckets.append(b)        # permanently raw-dense
+                    continue
+                allowed = (SPARSE_ALGORITHMS + ("dense",) if g.rows == 1
+                           else BATCHED_ALGORITHMS)
+                if allow is not None:
+                    narrowed = tuple(a for a in allowed if a in allow)
+                    allowed = narrowed or allowed
+                if algorithms is not None:
+                    algo = algorithms.get(b.name, b.algorithm)
+                else:
+                    nnz = None if densities is None else densities.get(b.name)
+                    algo = select_bucket_algorithm(
+                        self.dp_total, self.bucket_k(g, b), b.n, net,
+                        value_bits=vb, allow=allowed, reduced_nnz=nnz)
+                if algo not in allowed:
+                    algo = "dsar_split_allgather"
+                ps = b.pod_sparse if pod_sparse is None else \
+                    bool(pod_sparse.get(b.name, b.pod_sparse))
+                new_buckets.append(BucketSpec(
+                    b.name, b.col_start, b.cols, b.rows, algo,
+                    ef=b.has_residual, pod_sparse=ps and g.rows == 1))
+            new_groups.append(GroupSpec(g.gid, g.rows, g.model_sharded,
+                                        g.cols, g.slots, tuple(new_buckets)))
+        return dataclasses.replace(self, groups=tuple(new_groups),
+                                   version=self.version + 1)
+
+    def residual_shapes(self) -> dict[str, tuple[int, int, int]]:
+        """Bucket name -> (dp_total, rows, cols) of its EF residual, for
+        every bucket that carries one (``has_residual``): raw-dense buckets
+        carry none, a replan-demoted bucket keeps its own."""
+        return {b.name: (self.dp_total, g.rows, b.cols)
+                for g in self.groups for b in g.buckets if b.has_residual}
+
     def init_residuals(self, device="cpu", ranks: Optional[int] = None
                        ) -> dict[str, torch.Tensor]:
         """Zero error-feedback state, keyed by bucket name: (ranks, rows,
-        cols) for every sparse bucket (raw-dense buckets carry none).
-        ``ranks``: the ranks this process holds, all ``dp_total`` by
-        default (one over ``torch.distributed``)."""
+        cols) for every bucket of ``residual_shapes``. ``ranks``: the ranks
+        this process holds, all ``dp_total`` by default (one over
+        ``torch.distributed``)."""
         ranks = self.dp_total if ranks is None else ranks
-        return {b.name: torch.zeros((ranks, g.rows, b.cols),
-                                    dtype=self.cfg.ef_dtype, device=device)
-                for g in self.groups for b in g.buckets if b.sparse}
+        return {name: torch.zeros((ranks,) + shape[1:],
+                                  dtype=self.cfg.ef_dtype, device=device)
+                for name, shape in self.residual_shapes().items()}
 
     def inflight_shapes(self) -> dict[str, tuple[int, int]]:
         """Bucket name -> shape of the REDUCED f32 buffer held between one

@@ -7,8 +7,9 @@ Lemma 5.2 speedup cap.
 The model is deliberately the paper's: T(L) = alpha + beta * L. It holds
 no network constants: every function takes ``net`` explicitly, and
 ``NetworkParams`` has no default latency or bandwidth, because the values
-belong to the interconnect the collectives run on and the port's have not
-been measured yet (ROADMAP Queue 1 item 9 fits them).
+belong to the interconnect the collectives run on: ``utils/calibrate.py``
+fits them on the context a run uses (the reference's defaults describe
+another machine).
 """
 from __future__ import annotations
 
@@ -23,9 +24,11 @@ from .sparse_stream import INDEX_BYTES, delta_threshold
 # What 'auto' selection raises with until the port's interconnect is
 # measured (the plan and make_sparse_allreduce both refuse it).
 AUTO_NOT_CALIBRATED = (
-    "algorithm='auto' selects by core/cost_model.py, whose NetworkParams "
-    "are not measured for the port's interconnect yet (ROADMAP Queue 1 "
-    "item 9): name the algorithm")
+    "algorithm='auto' selects by core/cost_model.py, and is not ported at "
+    "plan build or in make_sparse_allreduce (ROADMAP Queue 1 item 9): the "
+    "port carries no default NetworkParams. Name the algorithm; "
+    "SyncPlan.replan(densities, net) re-selects on parameters fitted by "
+    "utils/calibrate.py")
 
 
 @dataclass(frozen=True)

@@ -29,8 +29,20 @@ live. On failure the window is discarded and ``restore_fn`` supplies a
 replayable state (the data pipeline is keyed by step, so replayed batches
 are identical).
 
-Observability, adaptive re-planning, health rules, the retry supervisor
-and the chaos injector are not ported yet: passing one raises.
+Observability (``repro_torch.obs``): ``run_pipelined`` takes an ``obs``
+handle. Host spans wrap dispatch, retire, drain and checkpoint; plan
+swaps, restarts and guard trips become structured events; the retire
+intervals feed the ``driver/retire_wall_s`` histogram; and, when tracing,
+a ``phase_attr`` callback lays the cost model's compute / exposed-comm
+split into each retire interval as derived device-phase spans. A unit's
+per-bucket telemetry rows join its losses in the one non-blocking host
+copy, so with observability on the retire is still the only host wait
+(``_wait``, which tests count). ``adapt`` (``runtime/adapt.py``) is fed
+each retired unit's rows and may hand back a replanned step, installed
+at a drain barrier; ``health`` (``obs.HealthMonitor``) is evaluated at
+drain barriers and at the end. The retry supervisor and the chaos
+injector are not ported yet: passing one raises (ROADMAP Queue 1 item
+13).
 """
 from __future__ import annotations
 
@@ -38,13 +50,15 @@ import queue
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from statistics import median
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.obs import resolve as _resolve_obs
+from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.runtime.faults import (NonFiniteEscalation, PrefetchStalled,
                                         RecoveryConfig)
 
@@ -65,14 +79,32 @@ class DriverConfig:
     prefetch_timeout_s: float = 60.0
 
 
-@dataclass
 class DriverLog:
-    """Run log shared by ``Trainer.run`` and the driver."""
+    """Run log shared by ``Trainer.run`` and the driver, with
+    registry-backed storage: the public fields are plain lists that are
+    views of ``Series`` metrics in a ``MetricsRegistry``, so a run with
+    metrics on exports losses, step times, straggler and plan-swap events
+    through the JSONL sink with no second bookkeeping path. With no
+    registry the log owns a private (disabled) one."""
 
-    losses: list = field(default_factory=list)
-    step_times: list = field(default_factory=list)        # seconds
-    straggler_events: list = field(default_factory=list)  # (step, dt, median)
-    restarts: int = 0
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self.registry = registry if registry is not None \
+            else MetricsRegistry(enabled=False)
+        self.losses = self.registry.series("train/loss").data
+        self.step_times = self.registry.series("train/step_time_s").data
+        # (step, dt, rolling median) triples
+        self.straggler_events = \
+            self.registry.series("driver/straggler_events").data
+        # (step, plan signature) pairs
+        self.plan_swaps = self.registry.series("driver/plan_swaps").data
+
+    @property
+    def restarts(self) -> int:
+        return self.registry.counter("driver/restarts").value
+
+    @restarts.setter
+    def restarts(self, v: int) -> None:
+        self.registry.counter("driver/restarts").value = int(v)
 
 
 def record_step(log: DriverLog, step: int, dt: float, loss: float,
@@ -80,13 +112,19 @@ def record_step(log: DriverLog, step: int, dt: float, loss: float,
     """Append one step's loss and wall time and run the straggler
     watchdog: a step slower than ``straggler_factor`` times the rolling
     median of the last ``STRAGGLER_WINDOW`` step times records a
-    ``(step, dt, median)`` event. The one logging policy of both loops."""
+    ``(step, dt, median)`` event and bumps the ``driver/stragglers``
+    counter; the median is exported as the ``driver/straggler_median_s``
+    gauge. The one logging policy of both loops."""
     log.losses.append(loss)
     log.step_times.append(dt)
     if len(log.step_times) >= STRAGGLER_WARMUP:
         med = median(log.step_times[-STRAGGLER_WINDOW:])
+        log.registry.gauge("driver/straggler_median_s").set(med)
         if dt > straggler_factor * med:
             log.straggler_events.append((step, dt, med))
+            log.registry.counter("driver/stragglers").inc()
+            log.registry.event("driver/straggler", step=step, dt_s=dt,
+                               median_s=med, factor=straggler_factor)
 
 
 class _Prefetcher:
@@ -168,32 +206,70 @@ class _Prefetcher:
             self._thread = None
 
 
-def _readback(metrics) -> tuple[torch.Tensor, Optional[torch.cuda.Event]]:
-    """Start the one host copy of a unit: its losses and, for a guarded
-    step, its nonfinite flags, stacked (1 or 2, k). On CUDA the copy goes
-    to pinned memory without blocking and the returned event marks its
-    end; on the CPU the values are there already."""
-    rows = [metrics["loss"].reshape(-1)]
+def _wait(done: Optional[torch.cuda.Event]) -> None:
+    """The driver's one host wait: the end of the retiring unit's
+    readback copy (nothing to wait for on the CPU)."""
+    if done is not None:
+        done.synchronize()
+
+
+def _readback(metrics, step_fn, stream: Optional[torch.cuda.Stream]):
+    """Start the one host copy of a unit: its losses, for a guarded step
+    its nonfinite flags, and its per-bucket telemetry rows, stacked into
+    one (R, k) f32 tensor (loss, [nonfinite], then 4 rows a bucket).
+    Returns (values, telemetry bucket names, event). On CUDA the stack
+    and the copy to pinned memory run on the driver's readback
+    ``stream``, after the main stream's work so far and, when telemetry
+    rows ride in the copy, after the step's last reduce on its side
+    stream (``step_fn.drain()`` issued on that stream, since the rows are
+    that reduce's results), without blocking; the returned event marks
+    the copy's end.
+    On the CPU the values are there already."""
+    loss = metrics["loss"]
+    k = loss.numel()
+    rows = [loss.reshape(1, k)]
     if "nonfinite" in metrics:
-        rows.append(metrics["nonfinite"].reshape(-1))
-    vals = torch.stack(rows).to(torch.float32)
-    if not vals.is_cuda:
-        return vals, None
-    host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
-    host.copy_(vals, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
+        rows.append(metrics["nonfinite"].reshape(1, k))
+    telem = metrics.get("telemetry") or {}
+    names = list(telem)
+    rows += [telem[n].reshape(k, -1).t() for n in names]
+    if not loss.is_cuda:
+        return torch.cat([r.to(torch.float32) for r in rows]), names, None
+    stream.wait_stream(torch.cuda.current_stream(loss.device))
+    for r in rows:
+        r.record_stream(stream)
+    with torch.cuda.stream(stream):
+        if names:
+            step_fn.drain()
+        vals = torch.cat([r.to(torch.float32) for r in rows])
+        host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+        host.copy_(vals, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    return host, names, done
+
+
+def _host_metrics(vals: np.ndarray, names: list, guarded: bool) -> dict:
+    """A retired unit's metrics from its read-back values: "loss" (k,),
+    "nonfinite" (k,) for a guarded step, and "telemetry" {bucket -> (k,
+    4)} when the step emits rows."""
+    out = {"loss": vals[0]}
+    off = 1
+    if guarded:
+        out["nonfinite"] = vals[1]
+        off = 2
+    if names:
+        out["telemetry"] = {n: vals[off + 4 * i:off + 4 * i + 4].T
+                            for i, n in enumerate(names)}
+    return out
 
 
 def _refuse_unported(**options) -> None:
-    items = {"adapt": 9, "obs": 13, "phase_attr": 13, "health": 13,
-             "recovery": 13, "injector": 13}
     for name, value in options.items():
         if value is not None:
             raise NotImplementedError(
                 f"run_pipelined({name}=...) is not ported (ROADMAP Queue 1 "
-                f"item {items[name]})")
+                "item 13)")
 
 
 def run_pipelined(
@@ -212,7 +288,7 @@ def run_pipelined(
     restore_fn: Optional[Callable[[], Any]] = None,
     adapt=None,
     obs=None,
-    phase_attr=None,
+    phase_attr: Optional[Callable[[float], list]] = None,
     health=None,
     recovery=None,
     injector=None,
@@ -227,69 +303,157 @@ def run_pipelined(
     thread, so it must be thread-compatible (the synthetic pipeline is).
     rand_fn_for_step: step -> QSGD rand_fn, or None for the step's own
     seeded bits.
-    A guarded step's nonfinite flags are read at retire;
+    adapt: an ``runtime.adapt.AdaptiveRuntime`` (duck-typed: ``observe``
+    + ``maybe_swap``, optionally ``advise``). Retired units feed it their
+    metrics (host arrays); when it accepts a replan the window is DRAINED
+    and the step swapped at that barrier; the state rides across
+    unchanged (replans are layout-invariant), and the swap is recorded in
+    ``log.plan_swaps`` and as a ``driver/plan_swap`` event.
+    obs: a ``repro_torch.obs.Observability`` handle (None = the session
+    default, OFF unless configured). Host spans and structured events
+    only: the retire stays the only host wait either way.
+    phase_attr: ``dt_unit_s -> [phase dict]`` (``obs.attribute_step_
+    phases``); when tracing, each retire interval is tiled with the
+    derived compute / exposed-comm device spans.
+    health: an ``obs.HealthMonitor``, evaluated at drain barriers and at
+    the end; its verdicts land as ``health/*`` events, and critical ones
+    go to ``adapt.advise``. The flight recorder (``obs.recorder``) notes
+    every retired unit and dumps on a watchdog fire and on any exception.
+    A guarded step's nonfinite flags are read at retire: each trip is a
+    critical ``health/nonfinite`` event, and
     ``RecoveryConfig().max_consecutive_nonfinite`` consecutive trips
     raise :class:`NonFiniteEscalation` into the restore path.
     Returns (final state, log)."""
-    _refuse_unported(adapt=adapt, obs=obs, phase_attr=phase_attr,
-                     health=health, recovery=recovery, injector=injector)
+    _refuse_unported(recovery=recovery, injector=injector)
     if cfg.depth < 1 or cfg.prefetch < 1 or cfg.steps_per_unit < 1:
         raise ValueError(f"DriverConfig fields must be >= 1: {cfg}")
+    obs = _resolve_obs(obs)
+    rec = getattr(obs, "recorder", None)
+    reg = obs.metrics if obs.metrics_on else None
     if log is None:
-        log = DriverLog()
+        log = DriverLog(registry=reg)
     max_trips = RecoveryConfig().max_consecutive_nonfinite
     k_unit = cfg.steps_per_unit
     prefetcher = _Prefetcher(batch_fn, cfg.prefetch, k_unit)
     prefetcher.start(start_step, num_steps)
-    window: deque = deque()  # (first_step, n_steps, host values, event)
+    # (first_step, n_steps, host values, telemetry names, guarded, event)
+    window: deque = deque()
+    readback_stream: Optional[torch.cuda.Stream] = None
     step = start_step
     last_retire_t = time.perf_counter()
     consec_nonfinite = 0
 
     def retire_one():
         nonlocal last_retire_t, consec_nonfinite
-        s0, k, vals, done = window.popleft()
-        if done is not None:
-            done.synchronize()                   # the ONLY sync point
+        s0, k, vals, names, guarded, done = window.popleft()
+        with obs.span("driver/retire", step=s0, k=k):
+            _wait(done)                          # the ONLY host wait
         now = time.perf_counter()
-        dt = (now - last_retire_t) / k
+        dt_unit = now - last_retire_t
+        dt = dt_unit / k
+        prev_t = last_retire_t
         last_retire_t = now
-        vals = vals.numpy()
+        metrics = _host_metrics(vals.numpy(), names, guarded)
+        losses = metrics["loss"]
+        n_stragglers = len(log.straggler_events)
         for i in range(k):
-            record_step(log, s0 + i, dt, float(vals[0, i]), straggler_factor)
-        if vals.shape[0] > 1:
-            # guarded step: each trip was a state no-op on the device; N
-            # consecutive trips escalate to a rewind
+            record_step(log, s0 + i, dt, float(losses[i]), straggler_factor)
+        if guarded:
+            # each trip was a state no-op on the device; N consecutive
+            # trips escalate to a rewind
             for i in range(k):
-                if vals[1, i] > 0.5:
+                if metrics["nonfinite"][i] > 0.5:
                     consec_nonfinite += 1
+                    if reg is not None:
+                        reg.counter("guard/nonfinite_trips").inc()
+                    obs.event("health/nonfinite", severity="critical",
+                              subject="grads", step=s0 + i,
+                              consecutive=consec_nonfinite,
+                              message="non-finite grads: apply skipped, "
+                                      "EF/opt state preserved")
+                    if rec is not None:
+                        rec.note("guard/nonfinite", step=s0 + i,
+                                 consecutive=consec_nonfinite)
                     if consec_nonfinite >= max_trips:
                         raise NonFiniteEscalation(
                             f"{consec_nonfinite} consecutive non-finite "
                             f"steps ending at step {s0 + i}")
                 else:
                     consec_nonfinite = 0
+        if reg is not None:
+            reg.histogram("driver/retire_wall_s").observe(dt_unit)
+        if rec is not None:
+            rec.note("driver/retire", step=s0, k=k, dt_unit_s=dt_unit,
+                     loss=float(losses[-1]))
+            if len(log.straggler_events) > n_stragglers:
+                rec._safe_dump("watchdog")
+        if obs.trace_on and phase_attr is not None:
+            # the derived device phases laid into the measured interval
+            # [previous retire, this retire] on their own trace track
+            for ph in phase_attr(dt_unit):
+                obs.tracer.complete(
+                    ph["name"], ph["cat"],
+                    ts_us=obs.tracer.to_us(prev_t + ph["offset_s"]),
+                    dur_us=ph["dur_s"] * 1e6, tid="device-phases",
+                    **ph.get("args", {}))
+        if adapt is not None:
+            adapt.observe(s0, k, metrics)
+
+    def health_check():
+        """Drain-barrier health evaluation (host reads of the registry);
+        critical findings go to the adaptive controller as its advisory."""
+        if health is None:
+            return
+        events = health.evaluate()
+        if events and adapt is not None and hasattr(adapt, "advise"):
+            adapt.advise(events)
 
     def drain():
-        while window:
-            retire_one()
+        if window:
+            with obs.span("driver/drain", inflight=len(window)):
+                while window:
+                    retire_one()
         step_fn.drain()
+        health_check()
+
+    def check_swap():
+        """Install an accepted replan: drain every in-flight unit, then
+        swap the step. Called wherever retires may have fed the
+        controller, so the plan a checkpoint records is one installed."""
+        nonlocal step_fn
+        if adapt is None:
+            return
+        swap = adapt.maybe_swap()
+        if swap is None:
+            return
+        drain()
+        step_fn, new_plan = swap
+        log.plan_swaps.append((step, new_plan.signature()))
+        obs.event("driver/plan_swap", step=step,
+                  signature=new_plan.signature(),
+                  version=getattr(new_plan, "version", None))
 
     def dispatch(state, step):
+        nonlocal readback_stream
         k = min(k_unit, num_steps - step)
-        take = lambda s: prefetcher.take(s, cfg.prefetch_timeout_s)
-        rand = (lambda s: None) if rand_fn_for_step is None \
-            else rand_fn_for_step
-        if k_unit == 1:
-            new_state, metrics = step_fn(state, take(step), rand(step))
-        else:
-            host = [take(step + i) for i in range(k)]
-            batches = {key: np.stack([h[key] for h in host])
-                       for key in host[0]}
-            rand_fns = (None if rand_fn_for_step is None
-                        else [rand(step + i) for i in range(k)])
-            new_state, metrics = step_fn(state, batches, rand_fns)
-        window.append((step, k, *_readback(metrics)))
+        with obs.span("driver/dispatch", step=step, k=k):
+            take = lambda s: prefetcher.take(s, cfg.prefetch_timeout_s)
+            rand = (lambda s: None) if rand_fn_for_step is None \
+                else rand_fn_for_step
+            if k_unit == 1:
+                new_state, metrics = step_fn(state, take(step), rand(step))
+            else:
+                host = [take(step + i) for i in range(k)]
+                batches = {key: np.stack([h[key] for h in host])
+                           for key in host[0]}
+                rand_fns = (None if rand_fn_for_step is None
+                            else [rand(step + i) for i in range(k)])
+                new_state, metrics = step_fn(state, batches, rand_fns)
+            if metrics["loss"].is_cuda and readback_stream is None:
+                readback_stream = torch.cuda.Stream(metrics["loss"].device)
+            vals, names, done = _readback(metrics, step_fn, readback_stream)
+            window.append((step, k, vals, names, "nonfinite" in metrics,
+                           done))
         return new_state, step + k
 
     try:
@@ -297,28 +461,44 @@ def run_pipelined(
             try:
                 if step >= num_steps:
                     retire_one()
+                    check_swap()
                     continue
                 prev = step
                 state, step = dispatch(state, step)
                 while len(window) >= cfg.depth:  # at most `depth` in flight
                     retire_one()
+                check_swap()
                 if (ckpt_every and ckpt_fn is not None and step < num_steps
                         and step // ckpt_every > prev // ckpt_every):
                     # a unit crossed a checkpoint boundary: drain so the
-                    # save reads a fully retired state
+                    # save reads a fully retired state (and install a
+                    # replan the drain accepted before the save records
+                    # the active plan)
                     drain()
-                    ckpt_fn(state)
-            except Exception:
+                    check_swap()
+                    with obs.span("driver/checkpoint", step=step):
+                        ckpt_fn(state)
+            except Exception as e:
+                if rec is not None:
+                    # the ring still holds the pre-failure steps
+                    if isinstance(e, PrefetchStalled) and e.cause is not None:
+                        rec.note("driver/prefetch_error",
+                                 error=type(e.cause).__name__,
+                                 message=str(e.cause))
+                    rec._safe_dump(f"exception:{type(e).__name__}")
                 if restore_fn is None:
                     raise
                 window.clear()
                 consec_nonfinite = 0
                 log.restarts += 1
+                obs.event("driver/restart", step=step,
+                          error=type(e).__name__)
                 state = restore_fn()
                 step = int(state.step)
                 prefetcher.start(step, num_steps)
                 last_retire_t = time.perf_counter()
         step_fn.drain()
+        health_check()                  # end-of-run verdicts
     finally:
         prefetcher.stop()
     return state, log

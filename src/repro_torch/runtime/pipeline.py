@@ -56,7 +56,13 @@ its moments decay once).
 ``telemetry=True`` (the reference's default) returns the reduce half's
 per-bucket rows as ``metrics["telemetry"]``: {EF bucket -> (4,) f32
 [nnz, wire bytes, mass coverage, EF norm]}, stacked to (K, 4) by the
-superstep; they stay on the device.
+superstep (on the side stream, after the last reduce that wrote them);
+they stay on the device, and the driver reads them back with the losses.
+
+``plan=`` takes a replanned ``SyncPlan`` (``SyncPlan.replan`` of the base
+plan, the adaptive runtime's swaps): the same residual and in-flight
+layout, other bucket algorithms; a plan that changes the layout is
+refused when the step is built.
 
 ``build_superstep`` chains K steps with no host sync in between and
 stacks their metrics: the counterpart of the reference's ``lax.scan``.
@@ -114,13 +120,9 @@ def attach_inflight(state: TrainState, plan) -> TrainState:
     return state._replace(inflight=zeros)
 
 
-def _refuse_unported(plan, inject) -> None:
+def _refuse_unported(inject) -> None:
     """Options of the reference's builders that the port does not have
     yet raise, naming the ROADMAP item that brings them."""
-    if plan is not None:
-        raise NotImplementedError(
-            "a replanned SyncPlan needs SyncPlan.replan and the cost model "
-            "(ROADMAP Queue 1 item 9)")
     if inject:
         raise NotImplementedError(
             "fault injection is not ported (ROADMAP Queue 1 item 13)")
@@ -138,7 +140,7 @@ class PipelinedStep:
                  device, staleness: int, guard: bool,
                  lowering: Optional[str] = None,
                  coll: Optional[CollectiveContext] = None,
-                 telemetry: bool = True):
+                 telemetry: bool = True, plan=None):
         if tcfg.sync.mode != "sparcml":
             raise ValueError(
                 "the pipelined runtime overlaps the planned sparse sync and "
@@ -155,7 +157,18 @@ class PipelinedStep:
         self.telemetry = telemetry
         check_bucket_size(tcfg.sync.bucket_size, self.device, tcfg.sync.impl)
         self.coll = ts.manual_context(lowering, coll, dp_total, self.device)
-        self.plan = ts.build_plan(model, tcfg, dp_total)
+        built = ts.build_plan(model, tcfg, dp_total)
+        if plan is None:
+            plan = built
+        elif (plan.residual_shapes() != built.residual_shapes()
+              or plan.inflight_shapes() != built.inflight_shapes()):
+            # full name -> shape maps: a plan of another configuration can
+            # reuse the g<i>b<j> names with other shapes
+            raise ValueError(
+                "the plan changes the residual or in-flight layout: a "
+                "replanned plan must come from SyncPlan.replan() of this "
+                "configuration's base plan")
+        self.plan = plan
         self._sched = make_schedule(tcfg.schedule)
         self._side = (torch.cuda.Stream(self.device)
                       if staleness and self.device.type == "cuda" else None)
@@ -165,6 +178,24 @@ class PipelinedStep:
         if self._reduce_done is not None:
             torch.cuda.current_stream(self.device).wait_event(
                 self._reduce_done)
+
+    def stack_telemetry(self, rows: list) -> dict:
+        """K steps' telemetry rows stacked to (K, 4) a bucket. With a side
+        stream the stack runs there, after the last reduce that wrote
+        rows, and ``drain()`` then covers it: the main stream has not
+        waited for that reduce (the next step's apply does)."""
+        side = self._side
+        if side is None:
+            return _stack(rows)
+        with torch.cuda.stream(side):
+            out = _stack(rows)
+            done = torch.cuda.Event()
+            done.record(side)
+        main = torch.cuda.current_stream(self.device)
+        for t in out.values():
+            t.record_stream(main)
+        self._reduce_done = done
+        return out
 
     def _reduce_all(self, state, leaves, rand_fn):
         """(reduced {name -> (rows, cols)}, new residuals, telemetry
@@ -283,7 +314,12 @@ class Superstep:
             state, m = self.step(state, {k: v[i] for k, v in batches.items()},
                                  None if rand_fns is None else rand_fns[i])
             ms.append(m)
-        return state, {k: _stack([m[k] for m in ms]) for k in ms[0]}
+        out = {k: _stack([m[k] for m in ms]) for k in ms[0]
+               if k != "telemetry"}
+        if "telemetry" in ms[0]:
+            out["telemetry"] = self.step.stack_telemetry(
+                [m["telemetry"] for m in ms])
+        return state, out
 
 
 def _stack(values):
@@ -305,10 +341,13 @@ def build_pipelined_step(model: Model, tcfg: TrainConfig, dp_total: int = 4,
     non-finite gradient makes the step a no-op on params, optimizer
     state, residuals and in-flight buffers (the step counter still
     advances) and ``metrics["nonfinite"]`` reads 1.0. ``coll``: the
-    manual lowering's context (``StackedCollectives(dp_total)`` if None)."""
-    _refuse_unported(plan, inject)
+    manual lowering's context (``StackedCollectives(dp_total)`` if None).
+    ``plan``: a replanned ``SyncPlan`` (``SyncPlan.replan`` of this
+    configuration's base plan) instead of the base plan; one that changes
+    the residual or in-flight layout is refused."""
+    _refuse_unported(inject)
     step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard,
-                         lowering, coll, telemetry)
+                         lowering, coll, telemetry, plan)
     return step, step.plan
 
 
@@ -319,8 +358,9 @@ def build_superstep(model: Model, tcfg: TrainConfig, dp_total: int = 4,
                     inject: bool = False,
                     coll: Optional[CollectiveContext] = None):
     """K-step superstep over the pipelined step. Returns (superstep,
-    plan); see :class:`Superstep`."""
-    _refuse_unported(plan, inject)
+    plan); see :class:`Superstep`. ``plan`` as in
+    :func:`build_pipelined_step`."""
+    _refuse_unported(inject)
     step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard,
-                         lowering, coll, telemetry)
+                         lowering, coll, telemetry, plan)
     return Superstep(step, steps), step.plan

@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.train.run_lm --steps 40 --pipeline
     PYTHONPATH=src python -m repro_torch.train.run_lm --steps 20 --lowering manual
     PYTHONPATH=src python -m repro_torch.train.run_lm --steps 40 --pipeline --lowering manual
+    PYTHONPATH=src python -m repro_torch.train.run_lm --steps 40 --pipeline \
+        --adapt --trace t.json --metrics-out m.jsonl --blackbox bb.json
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.train.run_lm \
         --steps 20 --lowering manual
 
@@ -29,6 +31,16 @@ the card, each process on ``cuda:LOCAL_RANK``; gloo with ``--device
 cpu``), the data-parallel width is the world size, and only
 ``--lowering manual`` runs; such a run takes no checkpoints. ZeRO-1 is
 not ported: the optimizer state stays replicated.
+
+Observability, as the example has it: ``--adapt`` (with ``--pipeline``)
+re-selects bucket algorithms from measured densities on network
+parameters calibrated on the run's own context; ``--trace`` exports a
+Chrome-trace JSON (host spans and the derived device phases);
+``--metrics-out`` writes the metrics JSONL and runs a drift audit of the
+final plan; ``--blackbox`` attaches the flight recorder. At the end the
+run prints its plan swaps, the drift audit, the health summary, the
+metrics summary and the paths it wrote. The example's ``--chaos`` and
+``--zero`` wait for ROADMAP Queue 1 items 13 and 10.
 """
 from __future__ import annotations
 
@@ -39,7 +51,9 @@ import statistics
 import torch
 import torch.distributed as dist
 
-from repro_torch.comm.collectives import ProcessGroupCollectives
+from repro_torch import obs as obs_mod
+from repro_torch.comm.collectives import (ProcessGroupCollectives,
+                                          StackedCollectives)
 
 from repro_torch.core.compressor import SyncConfig
 from repro_torch.data.pipeline import DataConfig
@@ -49,6 +63,7 @@ from repro_torch.optim.optimizers import OptimizerConfig
 from repro_torch.optim.schedule import ScheduleConfig
 from repro_torch.train.state import TrainConfig
 from repro_torch.train.trainer import Trainer
+from repro_torch.utils.calibrate import DegenerateFit
 
 DP = 4
 CKPT_EVERY = 25
@@ -95,6 +110,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "wire protocols")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="the card (default) or the CPU's plain versions")
+    ap.add_argument("--adapt", action="store_true",
+                    help="closed-loop re-planning: measured per-bucket "
+                         "densities + calibrated alpha-beta model re-select "
+                         "collective algorithms at drain barriers (with "
+                         "--pipeline)")
+    ap.add_argument("--trace", type=str, default=None, metavar="PATH",
+                    help="export a Chrome-trace JSON of the run (host spans "
+                         "+ derived device compute/comm phases)")
+    ap.add_argument("--metrics-out", type=str, default=None, metavar="PATH",
+                    help="write the metrics/event JSONL (per-bucket "
+                         "nnz/wire histograms, plan swaps, step times) and "
+                         "run a cost-model drift audit at the end")
+    ap.add_argument("--blackbox", type=str, default=None, metavar="PATH",
+                    help="attach the flight recorder: a bounded ring of "
+                         "driver retires dumped to this path on exception, "
+                         "watchdog fire, or SIGTERM/SIGINT")
     return ap
 
 
@@ -129,6 +160,13 @@ def main(argv=None):
 
 def _train(args, device, coll):
     say = print if coll is None or coll.rank == 0 else (lambda *a: None)
+    obs = obs_mod.configure(trace=bool(args.trace),
+                            metrics=bool(args.metrics_out) or bool(args.trace),
+                            audit=bool(args.metrics_out),
+                            recorder=args.blackbox or False,
+                            set_as_default=False)
+    if obs.recorder is not None:
+        obs.recorder.install_signal_handlers()
     cfg, data = lm_config(args.fast)
     steps = min(args.steps, 60) if args.fast else args.steps
     model = build_model(cfg)
@@ -137,7 +175,7 @@ def _train(args, device, coll):
                       dp_total=coll.p if coll is not None else DP,
                       device=device, ckpt_dir=args.ckpt_dir,
                       ckpt_every=CKPT_EVERY, lowering=args.lowering,
-                      coll=coll)
+                      coll=coll, obs=obs)
     if trainer.plan is not None:
         say(trainer.plan.describe())
     start = trainer.init_or_resume()
@@ -152,7 +190,8 @@ def _train(args, device, coll):
         # warm-up included, so the printed win is conservative
         sync_times = trainer.log.step_times[1:n_sync]
         log = trainer.run_pipelined(steps, staleness=1,
-                                    superstep=args.superstep, depth=2)
+                                    superstep=args.superstep, depth=2,
+                                    adapt=args.adapt)
         pipe_times = log.step_times[n_sync:]
         if sync_times and pipe_times:
             sync_avg = sum(sync_times) / len(sync_times)
@@ -161,13 +200,51 @@ def _train(args, device, coll):
                 f"pipelined {pipe_avg*1e3:.0f} ms/step "
                 f"({sync_avg/pipe_avg:.2f}x, staleness=1, "
                 f"superstep={args.superstep}, depth=2)")
+        if args.adapt:
+            say(f"adaptive re-planning: {len(log.plan_swaps)} plan "
+                f"swap(s)" + "".join(f"\n  step {s}: {sig.split(',')[0]}..."
+                                     for s, sig in log.plan_swaps))
     else:
         log = trainer.run(steps)
     say(f"done: step {steps}, loss {log.losses[0]:.3f} -> "
         f"{log.losses[-1]:.3f}, median step "
         f"{statistics.median(log.step_times) * 1e3:.1f} ms, "
         f"restarts={log.restarts}, stragglers={len(log.straggler_events)}")
+    if obs.enabled:
+        _report(args, trainer, obs, say)
     return log
+
+
+def _report(args, trainer, obs, say) -> None:
+    """The example's end of run: the drift audit of the plan the run ended
+    on, the health verdicts, the metrics summary, the exported paths.
+    The audit predicts on the calibrated network; where the ladder's fit
+    degenerates (host timing noise) it is skipped, and says so, while the
+    rest of the report and the exports go on."""
+    plan = trainer.last_plan
+    if obs.audit is not None and plan is not None:
+        coll = (trainer.coll if trainer.coll is not None
+                else StackedCollectives(trainer.dp_total, trainer.device))
+        try:
+            net = trainer._calibrated_net()
+        except DegenerateFit as e:
+            say(f"drift audit skipped: {e}")
+            obs.metrics.event("audit/skipped", reason=str(e))
+        else:
+            obs_mod.audit_sync_plan(plan, coll, net=net, auditor=obs.audit,
+                                    registry=obs.metrics)
+            say(obs.audit.summary())
+    if obs.metrics_on:
+        mon = trainer.last_health or obs_mod.HealthMonitor(
+            obs.metrics, audit=obs.audit)
+        mon.evaluate()
+        say("health:", mon.summary())
+    written = obs.export(trace_path=args.trace,
+                         metrics_path=args.metrics_out)
+    if obs.metrics_on:
+        say(obs.metrics.summary())
+    for p in written.values():
+        say(f"obs: wrote {p}")
 
 
 if __name__ == "__main__":

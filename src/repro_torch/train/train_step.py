@@ -240,11 +240,18 @@ def guard_select(fin, new_tree, old_tree):
 
 
 def step_rand_fn(seed: int, step: int, device) -> RandFn:
-    """Default QSGD bits of one step: a generator (Philox on CUDA) seeded
-    from (seed, step), so a replayed step draws the same bits."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed((seed * 1_000_003 + step) % (2**63))
-    return lambda bucket_idx, n: random_bits(n, gen, device)
+    """Default QSGD bits of one step: bucket ``bucket_idx``'s come from a
+    generator (Philox on CUDA) seeded from (seed, step, bucket_idx), so a
+    replayed step draws the same bits, and a bucket a replan demotes to
+    dense (which draws none) does not shift the bits of later buckets."""
+    base = (seed * 1_000_003 + step) * 1_000_033
+
+    def rand_fn(bucket_idx: int, n: int) -> torch.Tensor:
+        gen = torch.Generator(device=device)
+        gen.manual_seed((base + bucket_idx) % (2**63))
+        return random_bits(n, gen, device)
+
+    return rand_fn
 
 
 LOWERINGS = ("spmd", "manual")

@@ -16,8 +16,16 @@ passes CRC verification. Their checkpoints are interchangeable, and
 interchangeable with the JAX package's: the pipelined loop strips the
 in-flight buffers before saving and attaches zeros after every restore.
 Both run either lowering, over stacked ranks or one rank a process.
-Observability, adaptive re-planning and fault injection are not ported
-yet.
+
+``obs`` (``repro_torch.obs``) backs the log with its metrics registry.
+``run_pipelined`` builds the per-bucket telemetry into its step when
+metrics are on, and records the rows (``TelemetryObserver``) or, with
+``adapt``, feeds them to the adaptive controller (``AdaptiveRuntime``),
+whose accepted replans swap the step at drain barriers; checkpoints then
+carry the active plan, and a resume rebuilds it (a checkpoint of the JAX
+package's included). The network parameters the controller costs plans
+with are fitted once a Trainer (``utils/calibrate.py``) on its own
+context. The fault injector and the retry supervisor are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 
 from repro_torch.data.pipeline import DataConfig, synthetic_batch
 from repro_torch.device import resolve_device
+from repro_torch.obs import resolve as _resolve_obs
 from repro_torch.runtime.driver import DriverLog, record_step
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.state import TrainConfig, TrainState
@@ -45,13 +54,15 @@ class Trainer:
     process over ``torch.distributed`` (each process its own Trainer);
     without it the ranks are stacked on one device. A process-group run
     takes no checkpoints: each process holds one rank's residuals, and
-    the checkpoint format holds every rank's."""
+    the checkpoint format holds every rank's. ``obs``: a
+    ``repro_torch.obs.Observability`` handle (None = the session default,
+    off unless configured)."""
 
     def __init__(self, model, tcfg: TrainConfig, data_cfg: DataConfig, *,
                  dp_total: int = 4, device="cuda",
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  straggler_factor: float = 3.0, lowering: str = "spmd",
-                 coll=None):
+                 coll=None, obs=None):
         if coll is not None and ckpt_dir:
             raise NotImplementedError(
                 "checkpoints of a run with one rank a process: each process "
@@ -64,13 +75,23 @@ class Trainer:
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
         self.straggler_factor = straggler_factor
-        self.log = TrainerLog()
+        self.obs = _resolve_obs(obs)
+        self.log = TrainerLog(
+            registry=self.obs.metrics if self.obs.metrics_on else None)
         self.lowering = lowering
         self.coll = coll
         self.step_fn, self.plan = build_train_step(model, tcfg, dp_total,
                                                    self.device, lowering,
                                                    coll)
         self.state: Optional[TrainState] = None
+        # the AdaptiveRuntime of the last run_pipelined(adapt=...) call
+        self.last_adapt_runtime = None
+        # the plan the last run_pipelined ended on (what obs.audit_sync_plan
+        # probes after a run)
+        self.last_plan = None
+        # the HealthMonitor of the last run_pipelined with metrics on
+        self.last_health = None
+        self._net_cal = None        # NetworkParams, fitted once (calibrate)
 
     # -- lifecycle ---------------------------------------------------------
     def init(self, params=None) -> int:
@@ -101,12 +122,19 @@ class Trainer:
 
     def _verified_step(self) -> int:
         """The newest checkpoint that passes CRC verification; falls back
-        past corrupt newer ones, raises when none verifies."""
+        past corrupt newer ones (a ``recovery/ckpt_fallback`` event),
+        raises when none verifies."""
+        newest = ckpt.latest_step(self.ckpt_dir)
         step = ckpt.latest_valid_step(self.ckpt_dir)
         if step is None:
             raise ckpt.CheckpointCorrupt(
                 f"no checkpoint under {self.ckpt_dir} passes CRC "
                 "verification (retention window exhausted)")
+        if step != newest:
+            self.obs.event("recovery/ckpt_fallback", step=step,
+                           corrupt_step=newest)
+            if self.obs.metrics_on:
+                self.obs.metrics.counter("recovery/ckpt_fallbacks").inc()
         return step
 
     def _save(self, state: TrainState) -> None:
@@ -168,39 +196,129 @@ class Trainer:
         non-finite gradients skip the apply with residuals and optimizer
         state kept, and three trips in a row rewind to the last
         checkpoint. Checkpoints store the synchronous state (in-flight
-        buffers stripped). The step is built with telemetry off, as the
-        reference's is when no metrics registry is on (ROADMAP Queue 1
-        item 13). Adaptive re-planning, fault injection and the retry
-        supervisor raise until ported (items 9 and 13)."""
+        buffers stripped).
+
+        ``adapt`` (False | True | ``runtime.adapt.AdaptConfig``) turns on
+        closed-loop re-planning: per-bucket measured densities feed the
+        cost model on the calibrated network parameters, and accepted
+        replans swap the step at drain barriers. Checkpoints then carry
+        the active plan's signature and algorithm map, so a restart
+        resumes the adapted plan. Without ``adapt`` the step emits its
+        telemetry rows only when the metrics registry is on, and they are
+        recorded. With tracing on and network parameters known (fitted
+        for ``adapt``, or set in ``_net_cal``), each retire interval is
+        tiled with the cost model's derived compute / exposed-comm phases
+        of the active plan; the port has no default network to lay them
+        on otherwise. Fault injection and the retry supervisor raise
+        until ported (ROADMAP Queue 1 item 13)."""
+        from repro_torch.runtime import adapt as rt_adapt
         from repro_torch.runtime import driver as rt_driver
         from repro_torch.runtime import pipeline as rt_pipeline
+        from repro_torch.train import train_step as ts
 
-        if adapt or injector is not None or recovery is not None:
+        if injector is not None or recovery is not None:
             raise NotImplementedError(
-                "adaptive re-planning (ROADMAP Queue 1 item 9), fault "
-                "injection and the retry supervisor (item 13) are not "
-                "ported")
+                "fault injection and the retry supervisor are not ported "
+                "(ROADMAP Queue 1 item 13)")
         if self.state is None:
             self.init_or_resume()
         kw = dict(staleness=staleness, guard=guard, lowering=self.lowering,
-                  coll=self.coll, telemetry=False)
-        if superstep > 1:
-            fn, plan = rt_pipeline.build_superstep(
+                  coll=self.coll)
+        runtime = None
+        if adapt:
+            if staleness < 1:
+                raise ValueError("adaptive re-planning rides the pipelined "
+                                 "runtime: needs staleness >= 1")
+            acfg = (adapt if isinstance(adapt, rt_adapt.AdaptConfig)
+                    else rt_adapt.AdaptConfig())
+            if not acfg.calibrate:
+                raise ValueError(
+                    "AdaptConfig(calibrate=False) needs network parameters "
+                    "(alpha, link_bytes_per_s) and the port carries no "
+                    "default NetworkParams: calibrate, or build "
+                    "AdaptiveRuntime(net=...) directly")
+            plan0 = ts.build_plan(self.model, self.tcfg, self.dp_total)
+            if self.ckpt_dir and ckpt.latest_step(self.ckpt_dir) is not None:
+                meta = ckpt.load_meta(self.ckpt_dir, self._verified_step())
+                if meta.get("plan_algorithms"):
+                    plan0 = plan0.replan(
+                        algorithms=meta["plan_algorithms"],
+                        pod_sparse=meta.get("plan_pod_sparse"))
+            runtime = rt_adapt.AdaptiveRuntime(
                 self.model, self.tcfg, self.dp_total, self.device,
-                steps=superstep, **kw)
+                plan=plan0, net=self._calibrated_net(), cfg=acfg,
+                superstep=superstep, obs=self.obs, **kw)
+            self.last_adapt_runtime = runtime
+            fn, plan = runtime.current_fn(), runtime.current_plan
         else:
-            fn, plan = rt_pipeline.build_pipelined_step(
-                self.model, self.tcfg, self.dp_total, self.device, **kw)
+            # no controller to consume the rows: emit them only when a
+            # registry records them
+            telemetry = self.obs.metrics_on
+            if superstep > 1:
+                fn, plan = rt_pipeline.build_superstep(
+                    self.model, self.tcfg, self.dp_total, self.device,
+                    steps=superstep, telemetry=telemetry, **kw)
+            else:
+                fn, plan = rt_pipeline.build_pipelined_step(
+                    self.model, self.tcfg, self.dp_total, self.device,
+                    telemetry=telemetry, **kw)
+            if telemetry:
+                runtime = rt_adapt.TelemetryObserver(self.obs)
         state = self.state
         if staleness:
             state = rt_pipeline.attach_inflight(state, plan)
         elif state.inflight is not None:
             state = state._replace(inflight=None)
 
+        def ckpt_fn(s):
+            extra = None
+            active = getattr(runtime, "current_plan", None)
+            if active is not None:
+                extra = {"plan_signature": active.signature(),
+                         "plan_version": active.version,
+                         "plan_algorithms": active.algorithms(),
+                         "plan_pod_sparse": active.pod_sparse_flags()}
+            ckpt.save(self.ckpt_dir, s._replace(inflight=None),
+                      dp_total=self.dp_total, extra_meta=extra,
+                      opt_layout=ckpt.opt_layout_of(self.tcfg))
+
         def restore_fn():
             restored = self._restore()
             return (rt_pipeline.attach_inflight(restored, plan) if staleness
                     else restored)
+
+        phase_attr = None
+        if self.obs.trace_on and self._net_cal is not None:
+            # the cost model's compute / exposed-comm split of the ACTIVE
+            # plan laid into each retire interval (host arithmetic only),
+            # on the network already known (fitted for adapt, or set): a
+            # traced run calibrates nothing itself
+            from repro_torch.core.cost_model import plan_bucket_times
+            from repro_torch.obs import attribute_step_phases
+
+            attr_net = self._net_cal
+
+            def phase_attr(dt_unit: float) -> list:
+                active = getattr(runtime, "current_plan", None) or plan
+                tb = plan_bucket_times(active, None, attr_net)
+                names = [b.name for b in active.buckets]
+                k = max(1, superstep)
+                per = attribute_step_phases(dt_unit / k, tb, names=names,
+                                            staleness=staleness)
+                out = []
+                for i in range(k):
+                    base = i * dt_unit / k
+                    out.extend({**ph, "offset_s": base + ph["offset_s"]}
+                               for ph in per)
+                return out
+
+        health = None
+        if self.obs.metrics_on:
+            from repro_torch.obs.health import HealthMonitor
+
+            health = HealthMonitor(self.obs.metrics,
+                                   audit=getattr(self.obs, "audit", None))
+            self.last_health = health
 
         state, _ = rt_driver.run_pipelined(
             fn, state, start_step=state.step, num_steps=num_steps,
@@ -210,9 +328,29 @@ class Trainer:
                                        steps_per_unit=superstep),
             log=self.log, straggler_factor=self.straggler_factor,
             ckpt_every=self.ckpt_every if self.ckpt_dir else None,
-            ckpt_fn=self._save if self.ckpt_dir else None,
-            restore_fn=restore_fn if self.ckpt_dir else None)
+            ckpt_fn=ckpt_fn if self.ckpt_dir else None,
+            restore_fn=restore_fn if self.ckpt_dir else None,
+            adapt=runtime, obs=self.obs, phase_attr=phase_attr,
+            health=health)
         self.state = state
+        self.last_plan = getattr(runtime, "current_plan", None) or plan
         if self.ckpt_dir:
-            self._save(self.state)
+            ckpt_fn(self.state)
         return self.log
+
+    def _calibrated_net(self):
+        """The network parameters of this Trainer's context, fitted once
+        (``utils/calibrate.py``): over the process group for a run with
+        one rank a process, else over the stacked ranks on the Trainer's
+        device (the device's sum over the rank axis: no wire). The
+        observability handle's auditor, when attached, receives the
+        post-fit ladder residuals."""
+        if self._net_cal is None:
+            from repro_torch.comm.collectives import StackedCollectives
+            from repro_torch.utils.calibrate import calibrate
+
+            coll = (self.coll if self.coll is not None
+                    else StackedCollectives(self.dp_total, self.device))
+            self._net_cal = calibrate(
+                coll, auditor=getattr(self.obs, "audit", None))
+        return self._net_cal

@@ -80,8 +80,8 @@ def test_make_sparse_allreduce_matches_jax(mesh8, algo, pattern):
     xs = _pattern(pattern, k)
     jf = jar.make_sparse_allreduce(mesh8, "data", N, k, B, algorithm=algo)
     want = np.asarray(jf(jnp.asarray(xs).reshape(-1), None))
-    f = ar.make_sparse_allreduce(StackedCollectives(8), N, k, B,
-                                 algorithm=algo)
+    f = ar.make_sparse_allreduce(StackedCollectives(8, device="cpu"), N, k,
+                                 B, algorithm=algo)
     got = f(torch.from_numpy(xs)).numpy()
     assert got.shape == (8, N)
     for r in range(8):
@@ -93,7 +93,7 @@ def test_make_sparse_allreduce_matches_jax(mesh8, algo, pattern):
 
 
 def test_auto_and_bad_shapes_refused():
-    coll = StackedCollectives(8)
+    coll = StackedCollectives(8, device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         ar.make_sparse_allreduce(coll, N, 4, B, algorithm="auto")
     f = ar.make_sparse_allreduce(coll, N, 4, B)
@@ -135,8 +135,8 @@ def test_clamped_algorithms_binding_caps(name, scatter):
     if scatter:
         want_out = np.stack([want_out[r].reshape(8, -1)[r] for r in range(8)])
     u, _ = compress(torch.from_numpy(xs), CLAMP_K, B)
-    out, fold = getattr(ar, name)(u, coll=StackedCollectives(8),
-                                  scatter=scatter)
+    coll = StackedCollectives(8, device="cpu")
+    out, fold = getattr(ar, name)(u, coll=coll, scatter=scatter)
     np.testing.assert_allclose(out.numpy(), want_out, **TOL)
     np.testing.assert_allclose(fold.numpy(), want_fold, **TOL)
     assert np.abs(want_fold).max() > 0, "caps never bound; vacuous"
@@ -158,8 +158,8 @@ def test_dsar_qsgd4_same_bits(mesh8, mode):
                                    qsgd=JaxQSGDConfig(4, 1024, mode))
     want = np.asarray(jf(jnp.asarray(xs).reshape(-1),
                          jnp.asarray(rand).reshape(-1)))
-    f = ar.make_sparse_allreduce(StackedCollectives(8), N, k, B,
-                                 algorithm="dsar_split_allgather",
+    f = ar.make_sparse_allreduce(StackedCollectives(8, device="cpu"), N, k,
+                                 B, algorithm="dsar_split_allgather",
                                  qsgd=QSGDConfig(4, 1024, mode))
     got = f(torch.from_numpy(xs), _u32(rand)).numpy()
     assert (got == got[:1]).all()
@@ -186,7 +186,7 @@ def test_recursive_double_switches_to_dense_past_delta():
     n, k = 1 << 15, 64
     xs = np.random.default_rng(1).standard_normal((8, n)).astype(np.float32)
     u, _ = compress(torch.from_numpy(xs), k, B)
-    coll = StackedCollectives(8)
+    coll = StackedCollectives(8, device="cpu")
     out = ar.ssar_recursive_double_inside(u.to_stream(), coll=coll, n=n)
     assert out.stream is None and out.dense is not None
     small = ar.ssar_recursive_double_inside(
@@ -206,8 +206,8 @@ def test_recursive_double_dense_tail_matches_jax(mesh8):
     jf = jar.make_sparse_allreduce(mesh8, "data", n, k, B,
                                    algorithm="ssar_recursive_double")
     want = np.asarray(jf(jnp.asarray(xs).reshape(-1), None))
-    f = ar.make_sparse_allreduce(StackedCollectives(8), n, k, B,
-                                 algorithm="ssar_recursive_double")
+    f = ar.make_sparse_allreduce(StackedCollectives(8, device="cpu"), n, k,
+                                 B, algorithm="ssar_recursive_double")
     got = f(torch.from_numpy(xs)).numpy()
     for r in range(8):
         np.testing.assert_allclose(got[r], want, **TOL)
@@ -291,8 +291,9 @@ def test_execute_plan_matches_jax_manual(name, algo, bits, grid):
                            in_specs=(lspec, rspecs, P(dp), P()),
                            out_specs=([P() for _ in leaves], rspecs),
                            check_vma=False))
-    coll = StackedCollectives(p_data, outer=p_pod)
-    pod_coll = StackedCollectives(p_pod, inner=p_data) if p_pod > 1 else None
+    coll = StackedCollectives(p_data, outer=p_pod, device="cpu")
+    pod_coll = (StackedCollectives(p_pod, inner=p_data, device="cpu")
+                if p_pod > 1 else None)
     res = plan.init_residuals()
     rng = np.random.default_rng(len(name))
     for step in range(2):
@@ -322,17 +323,17 @@ def test_reduce_buckets_refuses_telemetry_and_wrong_grids():
     _, plan, leaves = _plans("dsar_split_allgather", None, 4)
     grads = [torch.zeros((4,) + tuple(l.shape)) for l in leaves]
     res = plan.init_residuals()
-    _, _, tel = executor.reduce_buckets(plan, grads, res,
-                                        coll=StackedCollectives(4))
+    coll = StackedCollectives(4, device="cpu")
+    _, _, tel = executor.reduce_buckets(plan, grads, res, coll=coll)
     assert set(tel) == {b.name for b in plan.buckets if b.sparse}
     assert all(row.shape == (4, 4) for row in tel.values())
-    _, _, none = executor.reduce_buckets(plan, grads, res,
-                                         coll=StackedCollectives(4),
+    _, _, none = executor.reduce_buckets(plan, grads, res, coll=coll,
                                          telemetry=False)
     assert none == {}
     with pytest.raises(ValueError, match="ranks"):
-        executor.reduce_buckets(plan, grads, res,
-                                coll=StackedCollectives(2, outer=2))
+        executor.reduce_buckets(
+            plan, grads, res,
+            coll=StackedCollectives(2, outer=2, device="cpu"))
 
 
 def _grid(p_pod, p_data):
@@ -340,10 +341,11 @@ def _grid(p_pod, p_data):
     if p_pod > 1:
         return (make_mesh((p_pod, p_data), ("pod", "data")), ("pod", "data"),
                 dict(pod_axis="pod", p_pod=p_pod),
-                StackedCollectives(p_data, outer=p_pod),
-                StackedCollectives(p_pod, inner=p_data), p_pod * p_data)
+                StackedCollectives(p_data, outer=p_pod, device="cpu"),
+                StackedCollectives(p_pod, inner=p_data, device="cpu"),
+                p_pod * p_data)
     return (make_mesh((p_data,), ("data",)), "data", {},
-            StackedCollectives(p_data), None, p_data)
+            StackedCollectives(p_data, device="cpu"), None, p_data)
 
 
 def _reference_rand_fn(skey, p_pod, p_data):

@@ -108,7 +108,7 @@ def _worker(rank, port, out_dir):
                             world_size=WORLD, rank=rank)
     try:
         torch.set_num_threads(1)
-        res = run_cases(ProcessGroupCollectives(), [rank])
+        res = run_cases(ProcessGroupCollectives(device="cpu"), [rank])
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -141,7 +141,8 @@ def results():
                         f"{len(alive)} killed at the time limit")
         per_rank = [torch.load(os.path.join(d, f"rank{r}.pt"))
                     for r in range(WORLD)]
-    stacked = run_cases(StackedCollectives(WORLD), list(range(WORLD)))
+    stacked = run_cases(StackedCollectives(WORLD, device="cpu"),
+                        list(range(WORLD)))
     return per_rank, stacked
 
 

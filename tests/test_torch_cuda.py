@@ -635,3 +635,197 @@ def test_cuda_stacked_reduce_half_one_launch_each(cuda_device, grid):
         assert list(got[part]) == list(want[part])
         for nm in want[part]:
             assert torch.equal(got[part][nm].cpu(), want[part][nm]), nm
+
+
+def _small_lm(device):
+    """A 2-layer model with sparse buckets at the main path's sync
+    settings (DSAR, 4-bit QSGD, k = 8 of 512), its config and data."""
+    from repro_torch.core.compressor import SyncConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.schedule import ScheduleConfig
+    from repro_torch.train.state import TrainConfig
+
+    model = build_model(ModelConfig(
+        name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
+        num_kv_heads=2, d_ff=1024, vocab_size=512, dtype=torch.float32,
+        param_dtype=torch.float32, max_seq_len=64))
+    tcfg = TrainConfig(
+        sync=SyncConfig(mode="sparcml", k_per_bucket=8, bucket_size=512,
+                        algorithm="dsar_split_allgather", qsgd_bits=4,
+                        min_sparse_size=65536),
+        schedule=ScheduleConfig(kind="wsd", peak_lr=3e-3, warmup_steps=2,
+                                total_steps=16),
+        microbatches=2)
+    return model, tcfg, DataConfig(global_batch=8, seq_len=32,
+                                   vocab_size=512)
+
+
+@pytest.mark.cuda
+def test_cuda_obs_on_off_bit_equal_one_wait_a_unit(cuda_device,
+                                                    monkeypatch):
+    """Observability on (trace, metrics, telemetry rows, health, derived
+    phases) against off on the card: the same losses bit for bit, one
+    host wait a retired unit, a valid span tree, and every EF bucket's
+    four histograms with one sample a step."""
+    from repro_torch import obs
+    from repro_torch.core.cost_model import NetworkParams
+    from repro_torch.runtime import driver as rt_driver
+    from repro_torch.train.trainer import Trainer
+
+    model, tcfg, data = _small_lm(cuda_device)
+    real = rt_driver._wait
+    waits = []
+    monkeypatch.setattr(rt_driver, "_wait",
+                        lambda done: (waits.append(done is not None),
+                                      real(done)))
+    runs = {}
+    for on in (False, True):
+        ob = (obs.configure(trace=True, metrics=True, set_as_default=False)
+              if on else None)
+        t = Trainer(model, tcfg, data, dp_total=4, device=cuda_device,
+                    obs=ob)
+        t._net_cal = NetworkParams(alpha=1e-5, link_bytes_per_s=1e10)
+        t.init()
+        waits.clear()
+        runs[on] = list(t.run_pipelined(8, superstep=2).losses)
+        assert waits == [True] * 4
+    assert runs[True] == runs[False]
+    assert obs.validate_span_tree(ob.tracer.events) == []
+    ef = [b.name for b in t.plan.buckets if b.has_residual]
+    assert ef
+    for n in ef:
+        for col in ("nnz", "wire_bytes", "mass_coverage", "ef_norm"):
+            vals = ob.metrics.histogram(f"bucket/{n}/{col}").values
+            assert len(vals) == 8 and np.isfinite(vals).all()
+
+
+@pytest.mark.cuda
+def test_cuda_forced_swap_equals_switching_by_hand(cuda_device):
+    """Every EF bucket demoted to dense after step 2, installed at the
+    drain barrier of step 4: bit-equal to both plans' steps switched there
+    by hand, and after the swap no pack or unpack launches while the fused
+    densify + sum stays one a step."""
+    from repro_torch.core.cost_model import NetworkParams
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.runtime import adapt as rt_adapt
+    from repro_torch.runtime import driver as rt_driver
+    from repro_torch.runtime.pipeline import attach_inflight, build_superstep
+    from repro_torch.train.train_step import build_plan, init_state
+
+    model, tcfg, data = _small_lm(cuda_device)
+    plan = build_plan(model, tcfg, 4)
+    ef = [b.name for b in plan.buckets if b.has_residual]
+    demoted = plan.replan(algorithms={n: "dense" for n in ef})
+    fresh = lambda: attach_inflight(init_state(model, tcfg, plan,
+                                               cuda_device), plan)
+    batch = lambda i: synthetic_batch(data, i)
+    dcfg = rt_driver.DriverConfig(steps_per_unit=2)
+    rt = rt_adapt.AdaptiveRuntime(
+        model, tcfg, 4, cuda_device, plan=plan,
+        net=NetworkParams(alpha=1e-5, link_bytes_per_s=1e10),
+        cfg=rt_adapt.AdaptConfig(window=1000), superstep=2, guard=True)
+    rt.demote_after(2, ef)
+    _, log = rt_driver.run_pipelined(rt.current_fn(), fresh(), start_step=0,
+                                     num_steps=8, batch_fn=batch, cfg=dcfg,
+                                     adapt=rt)
+    assert log.plan_swaps == [(4, demoted.signature())]
+    s, losses = fresh(), []
+    for p, lo, hi in ((plan, 0, 4), (demoted, 4, 8)):
+        fn, _ = build_superstep(model, tcfg, 4, cuda_device, steps=2,
+                                guard=True, plan=p)
+        for w in (pack_ops.qsgd_pack, unpack_ops.qsgd_unpack_grouped,
+                  scatter_ops.bucket_scatter_sum):
+            w.launches = 0
+        s, hlog = rt_driver.run_pipelined(fn, s, start_step=lo,
+                                          num_steps=hi, batch_fn=batch,
+                                          cfg=dcfg)
+        torch.cuda.synchronize()
+        losses += hlog.losses
+    assert losses == list(log.losses)
+    assert pack_ops.qsgd_pack.launches == 0
+    assert unpack_ops.qsgd_unpack_grouped.launches == 0
+    assert scatter_ops.bucket_scatter_sum.launches == 4
+
+
+@pytest.mark.cuda
+def test_cuda_readback_drains_only_for_telemetry(cuda_device):
+    """The retire's one copy waits for the step's side-stream reduce only
+    when telemetry rows (that reduce's results) ride in it."""
+    from repro_torch.runtime import driver as rt_driver
+
+    drains = []
+
+    class Step:
+        def drain(self):
+            drains.append(1)
+
+    side = torch.cuda.Stream(cuda_device)
+    loss = torch.arange(2.0, device=cuda_device)
+    vals, names, done = rt_driver._readback({"loss": loss}, Step(), side)
+    done.synchronize()
+    assert names == [] and drains == [] and vals.shape == (1, 2)
+    rows = torch.ones(2, 4, device=cuda_device)
+    vals, names, done = rt_driver._readback(
+        {"loss": loss, "telemetry": {"b": rows}}, Step(), side)
+    done.synchronize()
+    assert names == ["b"] and drains == [1] and vals.shape == (5, 2)
+    assert vals[1:].eq(1).all() and vals[0].tolist() == [0.0, 1.0]
+
+
+@pytest.mark.cuda
+def test_cuda_audit_probe_kernel_refusal_raises(cuda_device, monkeypatch):
+    """A probe whose kernel refuses its inputs on the card (bucket_topk
+    handed float64) raises out of the drift audit; no probe-failed event
+    stands in for it."""
+    from repro_torch import obs
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.core import allreduce
+    from repro_torch.core.cost_model import NetworkParams
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.train.train_step import build_plan
+
+    real = allreduce.make_sparse_allreduce
+
+    def as_f64(*a, **k):
+        fn = real(*a, **k)
+        return lambda x, rand: fn(x.double(), rand)
+
+    monkeypatch.setattr(allreduce, "make_sparse_allreduce", as_f64)
+    model, tcfg, _ = _small_lm(cuda_device)
+    plan = build_plan(model, tcfg, 4)
+    reg = MetricsRegistry()
+    with pytest.raises(ValueError, match="float32"):
+        obs.audit_sync_plan(plan, StackedCollectives(4, cuda_device),
+                            net=NetworkParams(alpha=1e-5,
+                                              link_bytes_per_s=1e10),
+                            reps=1, registry=reg)
+    assert not reg.events_named("audit/bucket_probe_failed")
+
+
+@pytest.mark.cuda
+def test_cuda_calibrate_and_audit_on_the_stacked_ranks(cuda_device):
+    """The ladder on the card (CUDA events) is finite and the card's sizes
+    fit the alpha-beta form; the drift audit probes every signature of a
+    plan on the card."""
+    from repro_torch import obs
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.train.train_step import build_plan
+    from repro_torch.utils import calibrate
+
+    coll = StackedCollectives(4, cuda_device)
+    meas = calibrate.measure_allreduce_times(coll, sizes=(1 << 16, 1 << 20),
+                                             repeats=3)
+    assert all(np.isfinite(t) and t > 0 for _, t in meas)
+    aud = obs.DriftAuditor()
+    net = calibrate.calibrate(coll, auditor=aud)
+    assert net.alpha > 0 and net.link_bytes_per_s > 0
+    assert len(aud) == len(calibrate.CARD_SIZES)
+    model, tcfg, _ = _small_lm(cuda_device)
+    plan = build_plan(model, tcfg, 4)
+    probes = obs.DriftAuditor()
+    obs.audit_sync_plan(plan, coll, net=net, auditor=probes, reps=2)
+    assert len(probes) >= 1
+    assert all(np.isfinite(s["measured_s"]) and s["measured_s"] > 0
+               for s in probes.samples)

@@ -154,7 +154,7 @@ def _worker(rank, ports, out_dir):
                             init_method=f"tcp://127.0.0.1:{ports[0]}",
                             world_size=WORLD, rank=rank)
     try:
-        res = run_cases(ProcessGroupCollectives())
+        res = run_cases(ProcessGroupCollectives(device="cpu"))
     finally:
         dist.destroy_process_group()
     os.environ.update(WORLD_SIZE=str(WORLD), RANK=str(rank),
@@ -195,7 +195,7 @@ def results():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        stacked = run_cases(StackedCollectives(WORLD))
+        stacked = run_cases(StackedCollectives(WORLD, device="cpu"))
         from repro_torch.train import run_lm
         trainer = Trainer(_model(), run_lm.train_config(RUN_LM_STEPS), DATA,
                           dp_total=WORLD, device="cpu", lowering="manual")

@@ -37,3 +37,7 @@ def test_the_walk_sees_the_port():
     assert {"sparse_stream.py", "density.py", "cost_model.py",
             "collectives.py", "allreduce.py", "sparse_datasets.py",
             "run_classify.py"} <= names
+    # observability and the adaptive re-planning loop
+    assert {"metrics.py", "trace.py", "recorder.py", "health.py",
+            "audit.py", "report.py", "adapt.py", "calibrate.py"} <= names
+    assert (ROOT / "src" / "repro_torch" / "obs" / "__init__.py") in FILES

@@ -461,16 +461,9 @@ def _unported_calls(model):
     return {
         "lowering=emulated": lambda: rt_pipeline.build_superstep(
             model, tcfg, P_DATA, "cpu", lowering="emulated"),
-        "plan=replanned": lambda: build(model, tcfg, P_DATA, "cpu",
-                                        plan=plan),
         "inject": lambda: build(model, tcfg, P_DATA, "cpu", inject=True),
-        "driver adapt": lambda: drive(adapt=object()),
-        "driver obs": lambda: drive(obs=object()),
-        "driver phase_attr": lambda: drive(phase_attr=lambda dt: []),
-        "driver health": lambda: drive(health=object()),
         "driver recovery": lambda: drive(recovery=object()),
         "driver injector": lambda: drive(injector=object()),
-        "trainer adapt": lambda: trainer().run_pipelined(2, adapt=True),
         "trainer injector": lambda: trainer().run_pipelined(
             2, injector=object()),
         "trainer recovery": lambda: trainer().run_pipelined(
@@ -482,11 +475,9 @@ def _unported_calls(model):
     }
 
 
-UNPORTED = ["lowering=emulated", "plan=replanned", "inject", "driver adapt",
-            "driver obs", "driver phase_attr", "driver health",
-            "driver recovery",
-            "driver injector", "trainer adapt", "trainer injector",
-            "trainer recovery", "restore remesh", "convert_opt_layout"]
+UNPORTED = ["lowering=emulated", "inject", "driver recovery",
+            "driver injector", "trainer injector", "trainer recovery",
+            "restore remesh", "convert_opt_layout"]
 
 
 @pytest.mark.parametrize("name", UNPORTED)
@@ -562,14 +553,16 @@ def _example_flags():
 
 
 def test_run_lm_flags_match_the_example():
-    """--pipeline, --superstep and --ckpt-dir as the example has them;
+    """--pipeline, --superstep, --ckpt-dir and the observability flags
+    (--adapt, --trace, --metrics-out, --blackbox) as the example has them;
     the checkpoint directory has no default (the example's lies outside
     the checkout)."""
     example = _example_flags()
     actions = {a.option_strings[0]: a for a in run_lm.build_parser()._actions
                if a.option_strings}
     for flag in ("--steps", "--fast", "--pipeline", "--superstep",
-                 "--ckpt-dir"):
+                 "--ckpt-dir", "--adapt", "--trace", "--metrics-out",
+                 "--blackbox"):
         want, got = example[flag], actions[flag]
         if want.get("action") == "store_true":
             assert got.const is True and got.default is False

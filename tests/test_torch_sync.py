@@ -470,8 +470,9 @@ def test_reduce_buckets_spmd_bit_equal_to_per_rank(grid, qsgd_bits):
     assert plan.num_sparse_buckets and len(plan.buckets) > \
         plan.num_sparse_buckets
     leaves, _ = tree_flatten(shapes)
-    coll = StackedCollectives(p_data, outer=p_pod)
-    pod_coll = StackedCollectives(p_pod, inner=p_data) if p_pod > 1 else None
+    coll = StackedCollectives(p_data, outer=p_pod, device="cpu")
+    pod_coll = (StackedCollectives(p_pod, inner=p_data, device="cpu")
+                if p_pod > 1 else None)
     rng = np.random.default_rng(R + 10 * p_pod + (qsgd_bits or 0))
 
     def rand_fn(bucket_idx, n):
