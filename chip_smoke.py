@@ -124,7 +124,35 @@ Phases, in order; any failure exits non-zero:
      events printed); the drift audit of the plan it ended on; and the
      pipelined step with observability on and off in turns, 3 rounds
      each (printed, not gated);
- 14. the kernels line (a kernel's "launches" are the main path's, or,
+ 14. the ZeRO layouts at lm-100m (full width and depth, R = 4, DSAR +
+     QSGD-4; phases 3-13 already run ZeRO-1, the default): 6 synchronous
+     steps with zero1=True and zero1=False, bit-equal (losses, params,
+     residuals), timed in turns, each with its peak memory; the scattered
+     output mode, 6 synchronous and 12 pipelined steps (K = 4, depth 2),
+     against the replicated ZeRO-1 run within the reference's tolerances
+     (losses rtol 1e-5, params rtol 1e-3 atol 1e-4; bit-equality
+     printed), with 26 / 1 / 1 / 1 launches a step; the scattered reduce
+     half's grouped unpack segments (the chunk layout) held bit for bit
+     against qsgd_unpack_grouped_ref and timed beside its bound; a
+     checkpoint of each layout at step 2 (its size and save time) resumed
+     under the other layout (the Trainer's CRC checks and the conversion
+     timed) and continued 2 steps bit-equal to the uninterrupted run
+     (checkpoints in a temporary directory the phase removes);
+ 15. faults at lm-100m (full width and depth, ZeRO-1): one NaN step
+     through the kernels on both lowerings leaves params, moments,
+     residuals and in-flight buffers bit-equal, with no host
+     synchronisation inside it (CUDA sync debug mode); the driver's
+     recovery matrix (guarded, injectable step at staleness 0, 6 steps,
+     one checkpoint before the fault, two where a corrupted save needs an
+     older one): nonfinite with repeat = max_consecutive_nonfinite
+     (escalation, rewind), a collective raise, a corrupted save then a
+     collective raise (falls back to the older checkpoint), each ending
+     bit-equal to the clean run; a straggler and a stall (wall time
+     only); every run's events name exactly its planned faults, restarts
+     and restores; the pipelined step with an idle injector and with none
+     in turns; SIGTERM in a child process, which must die by the signal
+     with its blackbox written;
+ 16. the kernels line (a kernel's "launches" are the main path's, or,
      for one the main path does not run, those of the first later path
      that runs it, named in "launches_path"), the card line, and last the
      result line {"ok": true, "device": {...}}.
@@ -317,8 +345,7 @@ def main() -> None:
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.model import build_model
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.comm.executor import (apply_buckets_spmd,
-                                           reduce_buckets_spmd)
+    from repro_torch.comm.executor import reduce_buckets_spmd
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.runtime.driver import DriverConfig, run_pipelined
     from repro_torch.runtime.pipeline import attach_inflight, build_superstep
@@ -779,9 +806,8 @@ def main() -> None:
     reduce_ms = time_ms(torch, reduce, reps=3)
     reduced, new_res, _ = reduce()
     lr0 = torch.tensor(1e-4)
-    update_ms = time_ms(torch, lambda: ts.update(
-        st, apply_buckets_spmd(trainer.plan, reduced, leaves_r), lr0, tcfg3),
-        reps=3)
+    update_ms = time_ms(torch, lambda: ts.optimizer_half(
+        st, reduced, leaves_r, lr0, tcfg3, trainer.plan, None), reps=3)
     fin = ts.all_finite_leaves(leaves_r)
     guard_main_ms = time_ms(torch, lambda: (
         ts.all_finite_leaves(leaves_r),
@@ -1084,6 +1110,33 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 14
+    t_phase = time.perf_counter()
+    record["zero"], new_paths["zero"] = phase_zero(torch, dev, wrappers,
+                                                   out_dir, bw)
+    record["zero"]["seconds"] = time.perf_counter() - t_phase
+    for row in kernels:
+        if row["name"] == "qsgd_unpack":
+            row["chunk_layout"] = record["zero"]["chunk_unpack"]
+            row["checked_by"] += (
+                "; phase 14: the grouped launch bit-equal to "
+                "qsgd_unpack_grouped_ref on one step's segments of the "
+                "scattered stacked reduce half at lm-100m (chunk layout: "
+                f"p_pod 1, p_data 1, rows = {run_lm.DP} x r, shard = "
+                f"cols/{run_lm.DP}, mean 1/{run_lm.DP})")
+    log(f"[14] phase took {record['zero']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 15
+    t_phase = time.perf_counter()
+    record["faults"], new_paths["chaos"] = phase_faults(torch, dev, wrappers,
+                                                        out_dir)
+    record["faults"]["seconds"] = time.perf_counter() - t_phase
+    log(f"[15] phase took {record['faults']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 16
     for row in kernels:
         row["launches_new_paths"] = {
             path: counts[row["name"]] for path, counts in new_paths.items()}
@@ -2399,6 +2452,623 @@ def stream_shares(torch, fn, scratch: Path):
                 if side else None),
             "streams": len(by_stream), "kernels_whole_window": n_kernels,
             "runtime_calls_ms": top_calls}
+
+
+# ---------------------------------------------------------------- 14, 15
+
+def _clone_state(state):
+    """A device copy of a state's params, moments and residuals (the
+    tensors a bit-equality check compares)."""
+    from repro_torch.utils.tree import tree_leaves
+
+    return [t.clone() for f in ("params", "opt", "residuals")
+            for t in tree_leaves(getattr(state, f))]
+
+
+def _same(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _max_rel(a: list, b: list) -> float:
+    """Largest |a - b| / max |b| over the tensors (0 when bit-equal)."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        if x.dtype.is_floating_point:
+            scale = float(y.abs().max()) or 1.0
+            worst = max(worst, float((x - y).abs().max()) / scale)
+    return worst
+
+
+def _params_close(a, b, rtol, atol) -> bool:
+    """torch.allclose over two states' params."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    return all(torch.allclose(x, y, rtol=rtol, atol=atol) for x, y in
+               zip(tree_leaves(a.params), tree_leaves(b.params)))
+
+
+def check_chunk_unpack(torch, reduce_half, bits, bw):
+    """Phase 14: one call of the stacked scattered reduce half at lm-100m
+    with the segments it hands its grouped qsgd_unpack captured (the
+    chunk layout: p_pod = p_data = 1, the ranks' rows stacked); the CUDA
+    launch held bit for bit against qsgd_unpack_grouped_ref on them and
+    timed beside it and its bound (codes and scales read once, the f32
+    chunks written once)."""
+    from repro_torch.comm import executor
+    from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
+
+    captured = []
+    grouped = executor.qsgd_unpack_grouped
+
+    def capture(segments, *args, **kw):
+        captured.append(list(segments))
+        return grouped(segments, *args, **kw)
+
+    executor.qsgd_unpack_grouped = capture
+    try:
+        reduce_half()
+        torch.cuda.synchronize()
+    finally:
+        executor.qsgd_unpack_grouped = grouped
+    if len(captured) != 1:
+        fail(f"scattered reduce half made {len(captured)} grouped unpack "
+             "calls, expected 1")
+    segs = captured[0]
+    if not segs or not all(sg.p_pod == 1 and sg.p_data == 1
+                           and not sg.row_major for sg in segs):
+        fail("scattered reduce half: the grouped unpack's segments are not "
+             "the chunk layout")
+    got = unpack_ops.qsgd_unpack_grouped(segs, bits, impl="cuda")
+    want = unpack_ops.qsgd_unpack_grouped(segs, bits, impl="ref")
+    n_diff = sum(int((g_ != w_).sum()) for g_, w_ in zip(got, want))
+    entries = sum(g_.numel() for g_ in got)
+    nq = sum(sg.scale.numel() for sg in segs)
+    bound = (entries * bits / 8 + 4 * nq + 4 * entries) / bw * 1e3
+    run = lambda impl: unpack_ops.qsgd_unpack_grouped(segs, bits, impl=impl)
+    ms = time_ms(torch, lambda: run("cuda"))
+    plain = time_ms(torch, lambda: run("ref"), reps=3)
+    dev_ms = graph_ms(torch, lambda: run("cuda"))
+    log(f"[14] chunk-layout grouped qsgd_unpack on the scattered half's "
+        f"{len(segs)} segments ({entries} entries): {n_diff} entries differ "
+        f"from qsgd_unpack_grouped_ref; {ms:.3f} ms (device {dev_ms:.3f}), "
+        f"plain {plain:.2f} ms, bound {bound:.3f} ms")
+    if n_diff:
+        fail("chunk-layout grouped qsgd_unpack differs from its plain version")
+    return {"segments": len(segs), "entries": entries, "entries_differ": 0,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+            "bound_ms": bound}
+
+
+def phase_zero(torch, dev, wrappers, out_dir: Path, bw):
+    """Phase 14 (see the module docstring). Returns (record, launches of
+    the scattered runs)."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import run_lm
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+
+    cfg, data = run_lm.lm_config(fast=False)
+    model = build_model(cfg)
+    tcfgs = {"full": dataclasses.replace(run_lm.train_config(STEPS),
+                                         zero1=False),
+             "zero1": run_lm.train_config(STEPS),
+             "scattered": run_lm.train_config(STEPS, zero=True)}
+    rec, at4, peaks = {}, {}, {}
+
+    def trainer(kind, **kw):
+        t = Trainer(model, tcfgs[kind], data, dp_total=run_lm.DP, device=dev,
+                    **kw)
+        t.init()
+        return t
+
+    def in_turns(a, b, names, rounds=3):
+        """Two trainers' synchronous steps in turns (a, b, b, a), from
+        their states (not advanced), each after one warm-up call."""
+        batch = synthetic_batch(data, STEPS)
+
+        def one(t):
+            t0 = time.perf_counter()
+            _, m = t.step_fn(t.state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        one(a), one(b)
+        times = {n: [] for n in names}
+        for _ in range(rounds):
+            for n, t in ((names[0], a), (names[1], b), (names[1], b),
+                         (names[0], a)):
+                times[n].append(one(t))
+        return {n: {"ms": v, "median_ms": statistics.median(v)}
+                for n, v in times.items()}
+
+    counts = {}
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp = Path(tmp)
+        for kind in ("zero1", "full", "scattered"):
+            t = trainer(kind)
+            for w in wrappers.values():
+                w.launches = 0
+            if kind != "full":
+                t.run(2)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt.save(str(tmp / kind), t.state, dp_total=run_lm.DP,
+                          opt_layout=ckpt.opt_layout_of(t.tcfg))
+                save_s = time.perf_counter() - t0
+                size = sum(f.stat().st_size for f in (tmp / kind).rglob("*")
+                           if f.is_file())
+                rec[f"{kind}_checkpoint"] = {"gb": size / 1e9,
+                                             "save_s": save_s}
+                log(f"[14] {kind} checkpoint at step 2: {size / 1e9:.2f} GB, "
+                    f"saved in {save_s:.2f} s")
+            t.run(4)
+            if kind != "full":
+                at4[kind] = _clone_state(t.state)
+            # the run's own peak, whatever else is live: its state's
+            # bytes plus what its last steps allocate above the memory in
+            # use when they start
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
+            t.run(STEPS)
+            torch.cuda.synchronize()
+            state_gb = sum(x.numel() * x.element_size()
+                           for x in _leaves(t.state, ("params", "opt",
+                                                      "residuals"))) / 1e9
+            peaks[kind] = state_gb + (torch.cuda.max_memory_allocated()
+                                      - live) / 1e9
+            counts[kind] = {nm: w.launches for nm, w in wrappers.items()}
+            rec[kind] = {"losses": list(t.log.losses),
+                         "median_step_ms": statistics.median(
+                             t.log.step_times[1:]) * 1e3,
+                         "state_gb": state_gb, "peak_memory_gb": peaks[kind],
+                         "launches": counts[kind]}
+            log(f"[14] {kind}: losses {[round(v, 5) for v in t.log.losses]}; "
+                f"median step {rec[kind]['median_step_ms']:.1f} ms; state "
+                f"{state_gb:.2f} GB, peak {peaks[kind]:.2f} GB (the state and "
+                f"steps 5-6's transient); launches {counts[kind]}")
+            if kind == "zero1":
+                z = t
+            elif kind == "full":
+                same_l = z.log.losses == t.log.losses
+                same_s = _same(_leaves(z.state, ("params", "residuals")),
+                               _leaves(t.state, ("params", "residuals")))
+                rec["zero1_vs_full"] = {"losses_equal": same_l,
+                                        "params_residuals_equal": same_s}
+                rec["zero1_vs_full_turns"] = in_turns(z, t, ("zero1", "full"))
+                log(f"[14] zero1 vs full, {STEPS} steps: losses bit-equal "
+                    f"{same_l}, params and residuals bit-equal {same_s}; in "
+                    f"turns (ms) {rec['zero1_vs_full_turns']}")
+                if not (same_l and same_s):
+                    fail("ZeRO-1 differs from the full update at lm-100m")
+                del t
+            else:
+                s_ = t
+        # scattered against replicated (zero1), synchronous
+        same_s = (s_.log.losses == z.log.losses and
+                  _same(_leaves(s_.state, ("params", "residuals")),
+                        _leaves(z.state, ("params", "residuals"))))
+        rel = max(abs(a - c) / abs(c) for a, c in zip(s_.log.losses,
+                                                      z.log.losses))
+        close = rel <= 1e-5 and _params_close(s_.state, z.state, 1e-3, 1e-4)
+        rec["scattered_vs_replicated_sync"] = {
+            "max_rel_loss": rel, "within_tolerance": close,
+            "bit_equal": same_s,
+            "max_param_diff_over_magnitude": _max_rel(
+                _leaves(s_.state, ("params",)), _leaves(z.state, ("params",)))}
+        rec["scattered_vs_zero1_turns"] = in_turns(z, s_, ("zero1",
+                                                           "scattered"))
+        log(f"[14] scattered vs replicated (ZeRO-1), {STEPS} synchronous "
+            f"steps: max rel loss diff {rel:.2e} (rtol 1e-5), params within "
+            f"rtol 1e-3 atol 1e-4 {close}, bit-equal {same_s}; in turns (ms) "
+            f"{rec['scattered_vs_zero1_turns']}")
+        if not close:
+            fail("scattered differs from replicated beyond the reference's "
+                 "tolerances")
+        want = {"bucket_topk": s_.plan.num_sparse_buckets * STEPS,
+                "bucket_scatter": 0,
+                "bucket_scatter_sum": STEPS, "qsgd_pack": STEPS,
+                "qsgd_unpack": 0, "qsgd_unpack_grouped": STEPS}
+        if counts["scattered"] != want:
+            fail(f"scattered launches {counts['scattered']}, expected {want}")
+        # the chunk-layout unpack on the path's segments
+        st = s_.state
+        _, leaves = ts.rank_grads(model, st.params, ts.batch_to_device(
+            synthetic_batch(data, 0), dev), run_lm.DP, s_.tcfg.microbatches)
+        from repro_torch.comm.executor import reduce_buckets_spmd
+
+        rand0 = ts.step_rand_fn(s_.tcfg.seed, 0, dev)
+        rec["chunk_unpack"] = check_chunk_unpack(
+            torch, lambda: reduce_buckets_spmd(
+                s_.plan, leaves, st.residuals, p_data=run_lm.DP,
+                rand_fn=rand0, telemetry=False),
+            s_.plan.cfg.qsgd_bits, bw)
+        del leaves, st
+        # a checkpoint of one layout resumed under the other
+        for src, dst in (("zero1", "scattered"), ("scattered", "zero1")):
+            t0 = time.perf_counter()
+            r = Trainer(model, tcfgs[dst], data, dp_total=run_lm.DP,
+                        device=dev, ckpt_dir=str(tmp / src))
+            start = r.init_or_resume()
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            r.run(4)
+            same = start == 2 and _same(_clone_state(r.state), at4[dst])
+            rec[f"{src}_ckpt_under_{dst}"] = {"resume_s": resume_s,
+                                              "bit_equal": same}
+            log(f"[14] the {src} checkpoint resumed under {dst} (converted, "
+                f"{resume_s:.2f} s with the CRC check) and 2 more steps: "
+                f"bit-equal to the uninterrupted {dst} run {same}")
+            if not same:
+                fail(f"a {src} checkpoint resumed under {dst} does not continue "
+                     "bit-equal")
+            del r
+            gc.collect()
+    at4.clear()
+    gc.collect()
+    # pipelined (K = 4, depth 2), from the synchronous runs' step 6, one
+    # run alone on the card at a time: the ZeRO-1 run's end state waits on
+    # the host while the scattered run goes; each starts from an emptied
+    # allocator cache, its peak is its state plus its transient, and its
+    # allocator retries (a cudaMalloc that had to free the cache first)
+    # are counted
+    retries, pipe_peaks, ends = {}, {}, {}
+    for name, t in (("zero1", z), ("scattered", s_)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        for w in wrappers.values():
+            w.launches = 0
+        t.run_pipelined(STEPS + PIPE_STEPS, staleness=1, superstep=K_UNIT,
+                        depth=2)
+        torch.cuda.synchronize()
+        retries[name] = torch.cuda.memory_stats().get(
+            "num_alloc_retries", 0) - r0
+        pipe_peaks[name] = (sum(x.numel() * x.element_size() for x in _leaves(
+            t.state, ("params", "opt", "residuals", "inflight")))
+            + torch.cuda.max_memory_allocated() - live) / 1e9
+        ends[name] = [x.cpu() for x in _leaves(t.state, ("params",
+                                                         "residuals"))]
+        t.state = None
+    pipe_launches = {nm: w.launches for nm, w in wrappers.items()}
+    zl, sl = z.log.losses[STEPS:], s_.log.losses[STEPS:]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(sl, zl))
+    n_params = len(_leaves_of_params(model))
+    close = rel <= 1e-5 and all(
+        torch.allclose(x, y, rtol=1e-3, atol=1e-4) for x, y in
+        zip(ends["scattered"][:n_params], ends["zero1"][:n_params]))
+    same_p = sl == zl and _same(ends["scattered"], ends["zero1"])
+    s_ms, s_units = steady_ms(s_.log.step_times[STEPS:])
+    z_ms, z_units = steady_ms(z.log.step_times[STEPS:])
+    rec["pipelined"] = {"zero1_losses": zl, "scattered_losses": sl,
+                        "max_rel_loss": rel, "within_tolerance": close,
+                        "bit_equal": same_p, "zero1_ms_a_step": z_ms,
+                        "scattered_ms_a_step": s_ms,
+                        "zero1_unit_retire_ms": z_units,
+                        "scattered_unit_retire_ms": s_units,
+                        "peak_memory_gb": pipe_peaks,
+                        "alloc_retries": retries,
+                        "scattered_launches": pipe_launches}
+    log(f"[14] pipelined (K = {K_UNIT}, depth 2), {PIPE_STEPS} steps: "
+        f"scattered vs replicated max rel loss diff {rel:.2e}, params within "
+        f"tolerance {close}, bit-equal {same_p}; ms a step {s_ms:.1f} / "
+        f"{z_ms:.1f} (unit retire ms {[round(u, 1) for u in s_units]} / "
+        f"{[round(u, 1) for u in z_units]}); peak "
+        f"{ {n: round(v, 2) for n, v in pipe_peaks.items()} } GB; allocator "
+        f"retries {retries}; scattered launches {pipe_launches}")
+    if not close:
+        fail("pipelined scattered differs from replicated beyond the "
+             "reference's tolerances")
+    want = {nm: c // STEPS * PIPE_STEPS for nm, c in want.items()}
+    if pipe_launches != want:
+        fail(f"pipelined scattered launches {pipe_launches}, expected {want}")
+    launches = {nm: counts["scattered"][nm] + pipe_launches[nm]
+                for nm in wrappers}
+    return rec, launches
+
+
+def _leaves(state, fields):
+    from repro_torch.utils.tree import tree_leaves
+
+    return [t for f in fields for t in tree_leaves(getattr(state, f))
+            if t is not None]
+
+
+def _leaves_of_params(model):
+    from repro_torch.models.model import init_params
+    from repro_torch.utils.tree import tree_leaves
+
+    return tree_leaves(init_params(model.cfg, device="meta"))
+
+
+SIGTERM_SCRIPT = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch import obs as obs_mod
+from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.models.model import build_model
+from repro_torch.obs.recorder import FlightRecorder
+from repro_torch.runtime.driver import DriverConfig, run_pipelined
+from repro_torch.runtime.faults import FaultInjector, FaultPlan
+from repro_torch.runtime.pipeline import build_pipelined_step
+from repro_torch.train import run_lm
+from repro_torch.train import train_step as ts
+from repro_torch.utils.tree import tree_leaves
+
+cfg, data = run_lm.lm_config(fast=False)
+model = build_model(cfg)
+tcfg = run_lm.train_config(8)
+step, plan = build_pipelined_step(model, tcfg, run_lm.DP, "cuda",
+                                  staleness=0, guard=True, inject=True,
+                                  telemetry=False)
+state = ts.init_state(model, tcfg, plan, "cuda")
+obs = obs_mod.configure(metrics=True, set_as_default=False)
+obs.recorder = FlightRecorder(sys.argv[2], obs=obs)
+obs.recorder.install_signal_handlers(("SIGTERM",))
+inj = FaultInjector(FaultPlan.single("sigterm", 2)).bind(
+    n_leaves=len(tree_leaves(state.params)))
+run_pipelined(step, state, start_step=0, num_steps=4,
+              batch_fn=lambda s: synthetic_batch(data, s),
+              cfg=DriverConfig(depth=1, prefetch=1), obs=obs, injector=inj)
+print("the run outlived its SIGTERM")
+"""
+
+
+def phase_faults(torch, dev, wrappers, out_dir: Path):
+    """Phase 15 (see the module docstring). Returns (record, launches of
+    the injected runs)."""
+    import numpy as np
+
+    from repro_torch import obs as obs_mod
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.driver import DriverConfig, run_pipelined
+    from repro_torch.runtime.faults import (FAULT_KEY, FaultInjector,
+                                            FaultPlan, FaultSpec,
+                                            RecoveryConfig)
+    from repro_torch.runtime.pipeline import (attach_inflight,
+                                              build_pipelined_step)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import run_lm
+    from repro_torch.train import train_step as ts
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg, data = run_lm.lm_config(fast=False)
+    model = build_model(cfg)
+    tcfg = run_lm.train_config(100)
+    rec: dict = {}
+    total = {nm: 0 for nm in wrappers}
+
+    def count():
+        for nm, w in wrappers.items():
+            total[nm] += w.launches
+            w.launches = 0
+
+    def batch(i, flag=None, n=None):
+        b = synthetic_batch(data, i)
+        if flag is not None:
+            b[FAULT_KEY] = np.full(n, flag, np.float32)
+        return b
+
+    # -- a single trip through the kernels on both lowerings
+    for lowering in ("spmd", "manual"):
+        step, plan = build_pipelined_step(model, tcfg, run_lm.DP, dev,
+                                          guard=True, inject=True,
+                                          lowering=lowering)
+        state = attach_inflight(ts.init_state(model, tcfg, plan, dev), plan)
+        n = len(tree_leaves(state.params))
+        for i in range(2):
+            state, _ = step(state, batch(i, 0.0, n))
+        step.drain()
+        before = _clone_state(state) + [t.clone() for t in
+                                        tree_leaves(state.inflight)]
+        count()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                after, m = step(state, batch(2, 1.0, n))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message) for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        step.drain()
+        torch.cuda.synchronize()
+        trip = {nm: w.launches for nm, w in wrappers.items()}
+        same = (float(m["nonfinite"]) == 1.0 and after.step == state.step + 1
+                and _same(_clone_state(after) + list(tree_leaves(
+                    after.inflight)), before))
+        rec[f"trip_{lowering}"] = {"bit_equal": same, "launches": trip,
+                                   "syncs_in_step": syncs[:10]}
+        log(f"[15] one NaN step ({lowering}): params, moments, residuals and "
+            f"in-flight buffers bit-equal to before {same}; its launches "
+            f"{trip}; host syncs inside the step {len(syncs)}")
+        if not same or not trip["bucket_topk"] or not trip["qsgd_pack"]:
+            fail(f"the guard trip ({lowering}) moved the state or ran no "
+                 "kernels")
+        if syncs:
+            fail(f"the injected step synchronised the host: {syncs[:3]}")
+        count()
+        del step, state, after, before
+        gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the driver's recovery matrix (staleness 0: a rewind loses nothing)
+    n_steps = 6
+    step, plan = build_pipelined_step(model, tcfg, run_lm.DP, dev,
+                                      staleness=0, guard=True, inject=True,
+                                      telemetry=False)
+    n_leaves = len(tree_leaves(ts.init_state(model, tcfg, plan,
+                                             dev).params))
+
+    def drive(specs, ckpt_dir=None, recovery=None, every=None):
+        obs = obs_mod.configure(metrics=True, set_as_default=False)
+        inj = FaultInjector(FaultPlan(specs=tuple(specs))).bind(
+            n_leaves=n_leaves)
+        ckpt_fn = restore_fn = None
+        io = {"save_s": [], "verify_s": [], "restore_s": [],
+              "restored_steps": []}
+        if ckpt_dir is not None:
+            def ckpt_fn(s):
+                t0 = time.perf_counter()
+                ckpt.save(ckpt_dir, s, dp_total=run_lm.DP,
+                          opt_layout=ckpt.opt_layout_of(tcfg))
+                io["save_s"].append(time.perf_counter() - t0)
+                inj.corrupt_checkpoint(ckpt_dir, int(s.step))
+
+            def restore_fn():
+                t0 = time.perf_counter()
+                at = ckpt.latest_valid_step(ckpt_dir)   # the CRC checks
+                verify_s = time.perf_counter() - t0
+                out = ckpt.restore(ckpt_dir, ts.init_state(model, tcfg, plan,
+                                                           dev),
+                                   dp_total=run_lm.DP, step=at)
+                torch.cuda.synchronize()
+                io["restore_s"].append(time.perf_counter() - t0)
+                io["verify_s"].append(verify_s)
+                io["restored_steps"].append(at)
+                return out
+
+        t0 = time.perf_counter()
+        state, dlog = run_pipelined(
+            step, ts.init_state(model, tcfg, plan, dev), start_step=0,
+            num_steps=n_steps, batch_fn=lambda s: synthetic_batch(data, s),
+            cfg=DriverConfig(depth=1, prefetch=1), ckpt_every=every,
+            ckpt_fn=ckpt_fn, restore_fn=restore_fn, obs=obs,
+            recovery=recovery, injector=inj)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        count()
+        reg = obs.metrics
+        events = {
+            "injected": [[e["fault"], e["step"]]
+                         for e in reg.events_named("faults/injected")],
+            "restarts": [e["error"] for e in reg.events_named(
+                "driver/restart")],
+            "retries": [e["cls"] for e in reg.events_named("recovery/retry")],
+            "restored_from": io["restored_steps"]}
+        return state, dlog, events, wall, io
+
+    clean, clean_log, _, clean_wall, _ = drive([])
+    clean_state = _clone_state(clean)
+    del clean
+    fast = RecoveryConfig(max_consecutive_nonfinite=2, backoff_base_s=0.01,
+                          backoff_max_s=0.1)
+    # each case's faults, its checkpoint interval (one save before the
+    # fault, two where a corrupted save needs an older one to fall back
+    # to) and what the run's events must name: the injections, the
+    # restarts' exceptions, the supervisor's classes and the checkpoint
+    # each restore read
+    cases = {
+        "nonfinite_escalation": (
+            [FaultSpec(kind="nonfinite", step=3,
+                       repeat=fast.max_consecutive_nonfinite)], 3,
+            {"injected": [["nonfinite", 3], ["nonfinite", 4]],
+             "restarts": ["NonFiniteEscalation"], "retries": ["nonfinite"],
+             "restored_from": [3]}),
+        "collective": (
+            [FaultSpec(kind="collective", step=4)], 3,
+            {"injected": [["collective", 4]],
+             "restarts": ["FaultInjectionError"], "retries": ["collective"],
+             "restored_from": [3]}),
+        "ckpt_corrupt_then_collective": (
+            [FaultSpec(kind="ckpt_corrupt", step=4),
+             FaultSpec(kind="collective", step=5)], 2,
+            {"injected": [["ckpt_corrupt", 4], ["collective", 5]],
+             "restarts": ["FaultInjectionError"], "retries": ["collective"],
+             "restored_from": [2]}),
+        "straggler_and_stall": (
+            [FaultSpec(kind="straggler", step=2, duration_s=0.5),
+             FaultSpec(kind="stall", step=3, duration_s=0.5)], None,
+            {"injected": [["straggler", 2], ["stall", 3]],
+             "restarts": [], "retries": [], "restored_from": []}),
+    }
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        for name, (specs, every, want) in cases.items():
+            d = None if every is None else str(Path(tmp) / name)
+            state, dlog, events, wall, io = drive(specs, d, fast, every)
+            same = (state.step == n_steps and
+                    _same(_clone_state(state), clean_state))
+            # the steps replayed from the last restore (all of them when
+            # none ran) retire the clean run's losses
+            r = io["restored_steps"][-1] if io["restored_steps"] else 0
+            tail = dlog.losses[-(n_steps - r):] == clean_log.losses[r:]
+            # the stall fires on the prefetch thread, ahead of the retires
+            named = ({**events, "injected": sorted(events["injected"])}
+                     == {**want, "injected": sorted(want["injected"])})
+            rec[name] = {"bit_equal": same, "tail_losses_equal": tail,
+                         "events": events, "events_as_planned": named,
+                         "restarts": dlog.restarts, "wall_s": wall,
+                         "step_times_s": list(dlog.step_times), **io}
+            log(f"[15] {name}: {dlog.restarts} restart(s), final state "
+                f"bit-equal to the clean run {same}, replayed losses equal "
+                f"{tail}; events {events} (as planned {named}); {wall:.1f} s "
+                f"(clean {clean_wall:.1f} s); saves "
+                f"{[round(v, 2) for v in io['save_s']]} s, restores "
+                f"{[round(v, 2) for v in io['restore_s']]} s (of which the "
+                f"CRC checks {[round(v, 2) for v in io['verify_s']]} s)")
+            if not (same and tail and named):
+                fail(f"fault case {name} did not recover as planned")
+            del state
+            gc.collect()
+    # -- an idle injector against none: the pipelined step in turns
+    steps = {}
+    for inject in (False, True):
+        steps[inject], plan = build_pipelined_step(
+            model, tcfg, run_lm.DP, dev, guard=True, inject=inject)
+    st = attach_inflight(ts.init_state(model, tcfg, plan, dev), plan)
+    n = len(tree_leaves(st.params))
+
+    def one(inject):
+        b = batch(0, 0.0, n) if inject else batch(0)
+        t0 = time.perf_counter()
+        out, m = steps[inject](st, b)
+        steps[inject].drain()
+        float(m["loss"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    one(False), one(True)
+    turns = {"none": [], "idle": []}
+    for _ in range(3):
+        for inject in (False, True, True, False):
+            turns["idle" if inject else "none"].append(one(inject))
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    rec["idle_injector_turns"] = {"ms": turns, "median_ms": med}
+    log(f"[15] the pipelined step with an idle injector against none, in "
+        f"turns (ms): {turns}; medians {med['idle']:.1f} / {med['none']:.1f} "
+        f"({med['idle'] / med['none'] - 1:+.2%})")
+    count()
+    del st, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- SIGTERM in a child process: its blackbox is written, it dies
+    bb = out_dir / "sigterm_blackbox.json"
+    bb.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SIGTERM_SCRIPT, str(SRC),
+                           str(bb)], capture_output=True, text=True,
+                          timeout=300)
+    reason = json.loads(bb.read_text())["reason"] if bb.exists() else None
+    rec["sigterm"] = {"returncode": proc.returncode, "blackbox_reason": reason,
+                      "seconds": time.perf_counter() - t0}
+    log(f"[15] SIGTERM at step 2 of a child lm-100m run: exit code "
+        f"{proc.returncode}, blackbox reason {reason!r}, "
+        f"{rec['sigterm']['seconds']:.1f} s")
+    if proc.returncode != -15 or reason != "signal:SIGTERM":
+        fail(f"the SIGTERM child: exit {proc.returncode}, blackbox {reason!r}"
+             f"; stderr {proc.stderr[-2000:]}")
+    bb.unlink(missing_ok=True)
+    return rec, total
 
 
 def _to(tree, device):

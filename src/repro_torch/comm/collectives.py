@@ -7,6 +7,9 @@ primitives follow ``jax.lax`` inside ``shard_map`` over that axis:
 
 * ``axis_rank()``      — (L,) int64, each held rank's index on the axis;
 * ``psum(x)``          — every rank gets the sum over the axis;
+* ``psum_scatter(x, axis)`` — tiled reduce-scatter: ``axis`` splits
+  into p chunks and rank j gets chunk j of the sum
+  (``jax.lax.psum_scatter(..., tiled=True)``);
 * ``all_gather(x, axis)`` — tiled: the p ranks' tensors concatenated
   along ``axis`` (an axis of the per-rank shape, the ``L`` axis not
   counted), every rank gets the result;
@@ -79,6 +82,9 @@ class CollectiveContext:
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def psum_scatter(self, x: torch.Tensor, *, axis: int) -> torch.Tensor:
+        raise NotImplementedError
+
     def all_gather(self, x: torch.Tensor, *, axis: int) -> torch.Tensor:
         raise NotImplementedError
 
@@ -133,6 +139,19 @@ class StackedCollectives(CollectiveContext):
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return self._broadcast(ordered_sum(self._grid(x), 1))
+
+    def psum_scatter(self, x: torch.Tensor, *, axis: int) -> torch.Tensor:
+        total = ordered_sum(self._grid(x), 1)    # (o, i, *s)
+        a = axis + 2
+        n = total.shape[a]
+        if n % self.p:
+            raise ValueError(f"psum_scatter: axis {axis} of {n} does not "
+                             f"split into {self.p}")
+        s = total.reshape(total.shape[:a] + (self.p, n // self.p)
+                          + total.shape[a + 1:])
+        # chunk j of the sum goes to rank j: the chunk axis becomes the
+        # rank axis of the (o, p, i) grid
+        return self._flat(s.movedim(a, 1).contiguous())
 
     def all_gather(self, x: torch.Tensor, *, axis: int) -> torch.Tensor:
         g = self._grid(x)                        # (o, p, i, *s)
@@ -228,6 +247,23 @@ class ProcessGroupCollectives(CollectiveContext):
         recv = torch.empty_like(front)
         dist.all_to_all_single(recv, front, group=self.group)
         return recv.movedim(0, axis)[None]
+
+    def psum_scatter(self, x: torch.Tensor, *, axis: int) -> torch.Tensor:
+        """The reduce-scatter half of :meth:`psum`: ``all_to_all_single``
+        hands each owner every rank's copy of its chunk and the owner sums
+        them in rank order. The bytes of a reduce-scatter, and the bits of
+        :class:`StackedCollectives`, where ``reduce_scatter_tensor`` would
+        sum in an order of the library's choosing (and gloo has none)."""
+        y = self._one(x)
+        n = y.shape[axis]
+        if n % self.p:
+            raise ValueError(f"psum_scatter: axis {axis} of {n} does not "
+                             f"split into {self.p}")
+        chunks = y.reshape(y.shape[:axis] + (self.p, n // self.p)
+                           + y.shape[axis + 1:]).movedim(axis, 0).contiguous()
+        recv = torch.empty_like(chunks)
+        dist.all_to_all_single(recv, chunks, group=self.group)
+        return ordered_sum(recv, 0)[None]
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         y = self._one(x)

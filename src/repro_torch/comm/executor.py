@@ -50,6 +50,20 @@ per-rank form sums the mass terms over the ranks with one extra psum a
 bucket, as the reference does. No telemetry op runs when it is off, and
 none reads the device from the host.
 
+A scattered plan (``plan.scattered``, single pod) stops every bucket at
+the owner shard: each reduced value is the (ranks, rows, cols/p) chunk
+stack of ``plan.scattered_shapes`` instead of the replicated (rows, cols)
+buffer. The per-rank form skips the gather phase (DSAR's allgather, the
+portfolio algorithms' final gather; a QSGD shard still makes its round
+trip, its unpack in the grouped launch), runs raw-dense and dense-EF
+buckets as a column reduce-scatter (``psum_scatter``), and slices its own
+columns off the classics' replicated results; each rank keeps only its
+own chunk. The stacked form reshapes its sums into chunks: a view, and
+for quantized buckets the grouped unpack writes the chunk layout itself
+(one launch, no transpose after it). Residuals and clamp folds are full
+width in both modes, so error feedback is the same.
+:func:`unchunk_buckets_spmd` turns a chunk stack back into the buffer.
+
 The QSGD rounding bits of bucket ``i`` come from ``rand_fn(i, n)``, which
 returns n uint32 words laid out (p_pod, p_data, rows * shard) as the
 reference's ``_qsgd_rand_all`` (the per-rank form: each held rank's own,
@@ -136,21 +150,26 @@ def _local_mass(ef: _EF, lead: Optional[int] = None) -> torch.Tensor:
 
 def _bucket_telemetry(out: torch.Tensor, plan: SyncPlan, group, b,
                       p_data: int, p_pod: int, mass: torch.Tensor,
-                      per_rank: bool = False) -> torch.Tensor:
+                      per_rank: bool = False,
+                      coll: Optional[CollectiveContext] = None
+                      ) -> torch.Tensor:
     """The (4,) f32 row of one EF bucket (see the module), or (L, 4) for
     the per-rank form's (L, rows, cols) ``out``, from the reduced sum
-    ``out`` and the globally summed ``mass``. An all-zero accumulator
-    counts as full coverage."""
+    ``out`` and the globally summed ``mass``. A scattered per-rank
+    ``out`` is each rank's own chunk: its nnz is summed over ``coll``'s
+    disjoint chunks. An all-zero accumulator counts as full coverage."""
     cfg = plan.cfg
     if per_rank:
         nnz = once_if_shared(lambda o: torch.count_nonzero(o, dim=(1, 2)),
                              out).to(torch.float32)
+        if plan.scattered:
+            nnz = coll.psum(nnz)
     else:
         nnz = torch.count_nonzero(out).to(torch.float32)
     k = plan.bucket_k(group, b)
     vb = cfg.qsgd_bits if cfg.qsgd_bits is not None else 32
     wire = bucket_wire_bytes(b.algorithm, p_data, k, b.n, nnz=nnz,
-                             value_bits=vb)
+                             value_bits=vb, scattered=plan.scattered)
     if p_pod > 1:
         sparse_pod = b.pod_sparse and group.rows == 1
         wire = wire + pod_wire_bytes(p_pod, b.n, min(b.n, p_data * k),
@@ -178,7 +197,8 @@ def reduce_buckets_spmd(
 
     leaves_r: per-rank grads stacked as (R, *leaf_shape), R = p_pod*p_data.
     residuals: bucket-keyed (R, rows, cols) error-feedback tensors.
-    Returns (reduced {bucket name -> (rows, cols) f32 buffer}, new
+    Returns (reduced {bucket name -> (rows, cols) f32 buffer, or a
+    scattered plan's (p_data, rows, cols/p_data) owner chunks}, new
     bucket-keyed residuals, telemetry {EF bucket name -> (4,) f32}; the
     last is empty when ``telemetry`` is off). The mass sums need no
     collective here: the (R, ...) stacks hold every rank. A quantized
@@ -200,8 +220,13 @@ def reduce_buckets_spmd(
     if leaves_r and leaves_r[0].shape[0] != replicas:
         raise ValueError(f"leaves carry {leaves_r[0].shape[0]} ranks, the "
                          f"plan is for {replicas}")
+    scattered = plan.scattered
+    if scattered and p_pod > 1:
+        raise ValueError("the scattered output mode is single-pod only "
+                         "(p_pod == 1)")
     scale = 1.0 / replicas if cfg.mean else 1.0
     qsgd = cfg.qsgd()
+    own = _chunked if scattered else (lambda out, p: out)
 
     reduced: dict = {}
     new_residuals: dict = {}
@@ -211,7 +236,8 @@ def reduce_buckets_spmd(
     for bucket_idx, group, b, seg, ef in _buckets(plan, leaves_r, residuals):
         if ef is None:           # over each pod's ranks, then the pods
             by_pod = seg.reshape((p_pod, p_data) + tuple(seg.shape[1:]))
-            reduced[b.name] = ordered_sum(ordered_sum(by_pod, 1), 0) * scale
+            reduced[b.name] = own(
+                ordered_sum(ordered_sum(by_pod, 1), 0) * scale, p_data)
             continue
         _store_residual(new_residuals, residuals, b, ef)
         if telemetry:
@@ -241,7 +267,7 @@ def reduce_buckets_spmd(
         dpod = dsum.view(p_pod, group.rows, b.cols)
         if rand is None:
             out = ordered_sum(dpod, 0)
-            reduced[b.name] = out * scale
+            reduced[b.name] = own(out * scale, p_data)
             if telemetry:
                 telem[b.name] = _bucket_telemetry(out, plan, group, b, p_data,
                                                   p_pod, mass[b.name])
@@ -253,17 +279,44 @@ def reduce_buckets_spmd(
     if pack_segs:
         codes = qsgd_pack_grouped(pack_segs, qsgd.bits, qsgd.scale_mode,
                                   impl=cfg.impl)
-        useg = [UnpackSegment(packed, sc, *ps[2:7], scale)
-                for ps, (packed, sc) in zip(pack_segs, codes)]
+        if scattered:
+            # the codes lie (rank, row, j): as p_data = 1 with p_data * rows
+            # rows, the unpack writes the (p_data, rows, shard) chunks
+            useg = [UnpackSegment(packed, sc, 1, 1, ps.p_data * ps.rows,
+                                  ps.shard, ps.bq, scale)
+                    for ps, (packed, sc) in zip(pack_segs, codes)]
+        else:
+            useg = [UnpackSegment(packed, sc, *ps[2:7], scale)
+                    for ps, (packed, sc) in zip(pack_segs, codes)]
         del pack_segs, codes
         outs = qsgd_unpack_grouped(useg, qsgd.bits, impl=cfg.impl)
         for (group, b), out in zip(quantized.values(), outs):
+            if scattered:
+                out = out.view(p_data, group.rows, b.cols // p_data)
             reduced[b.name] = out
             if telemetry:
                 telem[b.name] = _bucket_telemetry(out, plan, group, b, p_data,
                                                   p_pod, mass[b.name])
     return (_plan_order(plan, reduced), new_residuals,
             _plan_order(plan, telem))
+
+
+def _chunked(out: torch.Tensor, p: int) -> torch.Tensor:
+    """(rows, cols) sum -> its (p, rows, cols/p) owner chunks: a view."""
+    rows, cols = out.shape
+    return out.view(rows, p, cols // p).permute(1, 0, 2)
+
+
+def unchunk_buckets_spmd(plan: SyncPlan, reduced: dict) -> dict:
+    """Scattered (p, rows, w) owner-chunk stacks -> the replicated (rows,
+    cols) buffers (other keys pass through): the inverse of the stacked
+    form's chunking, a view where the chunks are one, else a copy."""
+    out = dict(reduced)
+    for b in plan.buckets:
+        ch = reduced[b.name]
+        p, rows, w = ch.shape
+        out[b.name] = ch.permute(1, 0, 2).reshape(rows, p * w)
+    return out
 
 
 def apply_buckets(plan: SyncPlan, reduced: dict,
@@ -277,7 +330,9 @@ def apply_buckets(plan: SyncPlan, reduced: dict,
             if tuple(reduced[b.name].shape) != (group.rows, b.cols):
                 raise ValueError(
                     f"apply_buckets expects replicated (rows, cols) buffers; "
-                    f"got {tuple(reduced[b.name].shape)} for {b.name}")
+                    f"got {tuple(reduced[b.name].shape)} for {b.name} "
+                    "(scattered chunks feed the shard update, or "
+                    "unchunk_buckets_spmd)")
     new_leaves: list = [None] * plan.num_leaves
     for group in plan.groups:
         parts = [reduced[b.name] for b in group.buckets]
@@ -313,7 +368,7 @@ def execute_plan_spmd(
 
 
 # --------------------------------------------------------------------------
-# Per-rank form (the reference's manual lowering, replicated output mode)
+# Per-rank form (the reference's manual lowering)
 # --------------------------------------------------------------------------
 
 def _pod_sparse_exchange(out: torch.Tensor, pod_coll: CollectiveContext,
@@ -335,25 +390,39 @@ def _pod_sparse_exchange(out: torch.Tensor, pod_coll: CollectiveContext,
     return dense[:, None]
 
 
+def _own_cols(dense: torch.Tensor, coll: CollectiveContext) -> torch.Tensor:
+    """Each held rank's own (L, n/p) range of a replicated (L, n) result."""
+    lead, n = dense.shape
+    w = n // coll.p
+    rank = coll.axis_rank().view(lead, 1, 1).expand(lead, 1, w)
+    return torch.gather(dense.view(lead, coll.p, w), 1, rank)[:, 0]
+
+
 def _reduce_flat_sparse(u_flat: UniformStream, algorithm: str, *,
-                        coll: CollectiveContext, impl: str = "auto"):
+                        coll: CollectiveContext, impl: str = "auto",
+                        scatter: bool = False):
     """SSAR variants for flat (rows == 1) buckets; returns (dense (L, n),
     fold). ``fold`` is the capacity-clamped pre-scale mass of the
     portfolio algorithms, which the caller adds into the bucket's
     error-feedback residual (the global-residual rule), and None for the
-    unclamped classics."""
+    unclamped classics. ``scatter`` returns each rank's own (L, n/p)
+    shard instead: the portfolio algorithms stop there (their final
+    gather never runs); the classics have no reduce-scatter form, so they
+    reduce replicated and slice (no wire saving)."""
     n = u_flat.n
     if algorithm == "ssar_recursive_double":
         out = ar.ssar_recursive_double_inside(u_flat.to_stream(), coll=coll,
-                                              n=n)
-        return out.to_dense(n), None
+                                              n=n).to_dense(n)
+        return (_own_cols(out, coll) if scatter else out), None
     if algorithm == "ssar_split_allgather":
-        stream = ar.ssar_split_allgather_inside(u_flat, coll=coll)
-        return ss.densify(stream, n), None
+        out = ss.densify(ar.ssar_split_allgather_inside(u_flat, coll=coll), n)
+        return (_own_cols(out, coll) if scatter else out), None
     if algorithm == "ssar_balanced_split":
-        return ar.ssar_balanced_split_inside(u_flat, coll=coll, impl=impl)
+        return ar.ssar_balanced_split_inside(u_flat, coll=coll, impl=impl,
+                                             scatter=scatter)
     if algorithm == "ssar_rearranged_rs":
-        return ar.ssar_rearranged_rs_inside(u_flat, coll=coll)
+        return ar.ssar_rearranged_rs_inside(u_flat, coll=coll,
+                                            scatter=scatter)
     raise ValueError(f"not a flat sparse algorithm: {algorithm!r}")
 
 
@@ -379,8 +448,9 @@ def reduce_buckets(
     rank's own bits for its shard (the reference's ``_qsgd_rand``).
     Returns (reduced {name -> (L, rows, cols) f32, every rank's
     replicated sum, broadcast (stride 0) where the stacked ranks share
-    one}, new residuals, telemetry {EF bucket name -> (L, 4) f32, the same
-    row on every rank}; empty when ``telemetry`` is off)."""
+    one; a scattered plan's (L, rows, cols/p) own chunks}, new residuals,
+    telemetry {EF bucket name -> (L, 4) f32, the same row on every rank};
+    empty when ``telemetry`` is off)."""
     cfg = plan.cfg
     p_data = coll.p
     p_pod = pod_coll.p if pod_coll is not None else 1
@@ -391,6 +461,10 @@ def reduce_buckets(
     if p_data * p_pod != plan.dp_total:
         raise ValueError(f"the plan is for {plan.dp_total} ranks, the "
                          f"contexts span {p_data} x {p_pod}")
+    scattered = plan.scattered
+    if scattered and pod_coll is not None:
+        raise ValueError("the scattered output mode is single-pod only: the "
+                         "owner shard of the cross-pod sum is local to no pod")
     scale = 1.0 / plan.dp_total if cfg.mean else 1.0
     qsgd = cfg.qsgd()
 
@@ -413,11 +487,15 @@ def reduce_buckets(
         if telemetry:
             telem[b.name] = _bucket_telemetry(out, plan, group, b, p_data,
                                               p_pod, mass[b.name],
-                                              per_rank=True)
+                                              per_rank=True, coll=coll)
+
+    def dense_sum(x):
+        """Over the data axis: every rank the sum, or its own columns."""
+        return coll.psum_scatter(x, axis=1) if scattered else coll.psum(x)
 
     for bucket_idx, group, b, seg, ef in _buckets(plan, leaves, residuals):
         if ef is None:
-            out = coll.psum(seg)
+            out = dense_sum(seg)
             if pod_coll is not None:
                 out = pod_coll.psum(out)
             reduced[b.name] = once_if_shared(lambda o: o * scale, out)
@@ -426,7 +504,7 @@ def reduce_buckets(
         if b.algorithm == "dense":
             # a dense end-representation of the compressed stream (paper
             # §5.3.3): the densified TopK summed over the axis, no QSGD
-            out = coll.psum(ef.u.densify(impl=cfg.impl))
+            out = dense_sum(ef.u.densify(impl=cfg.impl))
         elif b.algorithm == "dsar_split_allgather":         # Alg. 2 line 3
             rand = None
             if qsgd is not None:
@@ -436,14 +514,15 @@ def reduce_buckets(
                 rand = rand_fn(bucket_idx,
                                lead * group.rows * b.cols // p_data)
             out = ar.dsar_split_allgather_batched_inside(
-                ef.u, coll=coll, qsgd=qsgd, rand=rand, impl=cfg.impl)
+                ef.u, coll=coll, qsgd=qsgd, rand=rand, impl=cfg.impl,
+                scatter=scattered)
         else:
             # SSAR keeps a sparse end-representation; flat rows only.
             assert group.rows == 1, (b.name, b.algorithm)
             flat = UniformStream(ef.u.lidx[:, 0], ef.u.val[:, 0],
                                  cfg.bucket_size)
             out, fold = _reduce_flat_sparse(flat, b.algorithm, coll=coll,
-                                            impl=cfg.impl)
+                                            impl=cfg.impl, scatter=scattered)
             out = out[:, None, :]
         if fold is not None:
             # Global-residual rule: mass clamped off the wire re-enters

@@ -34,9 +34,18 @@ per-bucket telemetry charges. ``build_per_leaf_plan`` is the legacy
 routing (one bucket per qualifying leaf) behind ``core/compressor.py``'s
 per-leaf wrappers.
 
+The ZeRO-sharded exchange (``output_mode="scattered"``) stops every
+bucket's reduction at the owner shard: rank r keeps columns [r*w,
+(r+1)*w) of each bucket, w = cols / dp_total (``owned_cols``), as a
+(ranks, rows, w) chunk (``scattered_shapes``: the reduced and in-flight
+buffers and the sharded optimizer moments). The gather phase drops out of
+``wire_bytes``; the dense parameter allgather that replaces it is
+``param_allgather_bytes``. A scattered plan's signature carries an
+``out=scattered|`` prefix, and ``replan`` keeps the mode: a mode change
+alters the state layout, so it raises.
+
 The geometry is the JAX package's ``repro.comm.plan`` field for field;
-the tests hold the two plans, and their replans, equal. The scattered
-output mode is not ported (ROADMAP Queue 1 item 10).
+the tests hold the two plans, and their replans, equal.
 """
 from __future__ import annotations
 
@@ -132,6 +141,21 @@ class SyncPlan:
     num_leaves: int
     groups: tuple[GroupSpec, ...]
     version: int = 0              # bumped by every replan()
+    # 'replicated': every rank holds the full reduction; 'scattered': the
+    # exchange stops at the owner shard (single pod only).
+    output_mode: str = "replicated"
+
+    @property
+    def scattered(self) -> bool:
+        return self.output_mode == "scattered"
+
+    def owned_cols(self, b: BucketSpec) -> int:
+        """Column width of one rank's owned range of a bucket: whole,
+        since the column quantum is bucket_size x dp_total."""
+        if b.cols % self.dp_total:
+            raise ValueError(f"{b.name}: {b.cols} columns do not split over "
+                             f"{self.dp_total} ranks")
+        return b.cols // self.dp_total
 
     @property
     def buckets(self) -> tuple[BucketSpec, ...]:
@@ -157,31 +181,40 @@ class SyncPlan:
 
     def signature(self) -> str:
         """Per-bucket algorithm (with a ``+ps`` marker for a sparse pod
-        phase) in geometry order: the reference's key of a replicated
-        plan."""
-        return ",".join(
+        phase) in geometry order, prefixed ``out=scattered|`` for a
+        scattered plan (the mode changes the step's state layout): the
+        reference's key."""
+        algos = ",".join(
             f"{b.name}={b.algorithm}{'+ps' if b.pod_sparse else ''}"
             for b in self.buckets)
+        return f"out=scattered|{algos}" if self.scattered else algos
 
     def wire_bytes(self, p: Optional[int] = None, *,
                    aggregate: bool = False) -> float:
         """Gradient-exchange bytes on the wire a rank a step under this
         plan (``aggregate=True``: times ``p``, the whole data axis). Each
         bucket is charged by ``cost_model.bucket_wire_bytes``, the entry
-        the executors' telemetry charges, at its worst-case nnz."""
+        the executors' telemetry charges, at its worst-case nnz. The
+        scattered mode charges each algorithm without its gather phase."""
         p = p or self.dp_total
         vb = self.cfg.qsgd_bits if self.cfg.qsgd_bits is not None else 32
         total = sum(bucket_wire_bytes(b.algorithm, p, self.bucket_k(g, b),
-                                      b.n, value_bits=vb)
+                                      b.n, value_bits=vb,
+                                      scattered=self.scattered)
                     for g in self.groups for b in g.buckets)
         return total * (p if aggregate else 1)
 
     def param_allgather_bytes(self, p: Optional[int] = None, *,
                               aggregate: bool = False) -> float:
-        """Bytes of the dense parameter allgather that the scattered
-        output mode pays: 0 in the replicated mode, the only one ported
-        (parameters never leave the rank)."""
-        return 0.0
+        """Bytes a rank a step of the dense parameter allgather that the
+        scattered mode pays instead of the gradient-side gather: every
+        bucket ships its (p-1)/p foreign f32 columns. 0 in the replicated
+        mode (parameters never leave the rank)."""
+        if not self.scattered:
+            return 0.0
+        p = p or self.dp_total
+        total = sum((p - 1) / p * b.n * 4 for b in self.buckets)
+        return total * (p if aggregate else 1)
 
     def bucket_k(self, group: GroupSpec, b: BucketSpec) -> int:
         """TOTAL selected items of one bucket per rank per step."""
@@ -209,14 +242,16 @@ class SyncPlan:
           checkpoints are the same under every replan;
         * batched (rows > 1) buckets stay within BATCHED_ALGORITHMS.
 
-        ``output_mode``: "replicated" (or None) keeps the plan's mode; the
-        scattered mode is not ported (ROADMAP Queue 1 item 10)."""
-        if output_mode not in (None, "replicated"):
-            if output_mode == "scattered":
-                raise NotImplementedError(
-                    "output_mode='scattered' is not ported (ROADMAP Queue 1 "
-                    "item 10)")
+        ``output_mode``: None or the plan's own mode, which the successor
+        inherits. Another mode raises: it changes the reduced, in-flight
+        and optimizer state layout, which no plan swap migrates (build
+        the other mode's plan from its config instead)."""
+        if output_mode not in (None, "replicated", "scattered"):
             raise ValueError(f"unknown output_mode {output_mode!r}")
+        if output_mode not in (None, self.output_mode):
+            raise ValueError(
+                f"replan keeps the output_mode ({self.output_mode!r}): "
+                f"{output_mode!r} changes the state layout")
         if algorithms is None and net is None:
             raise ValueError(
                 "replan by the cost model needs network parameters: pass "
@@ -272,21 +307,40 @@ class SyncPlan:
                                   dtype=self.cfg.ef_dtype, device=device)
                 for name, shape in self.residual_shapes().items()}
 
-    def inflight_shapes(self) -> dict[str, tuple[int, int]]:
+    def scattered_shapes(self) -> dict[str, tuple[int, int, int]]:
+        """Bucket name -> (dp_total, rows, cols/dp_total), the owner-chunk
+        layout: chunk r is rank r's owned column range. The layout of the
+        scattered reduced and in-flight buffers and of the sharded
+        optimizer moments built on them (every bucket, raw-dense ones
+        too: they own their parameters' update)."""
+        return {b.name: (self.dp_total, g.rows, self.owned_cols(b))
+                for g in self.groups for b in g.buckets}
+
+    def inflight_shapes(self) -> dict[str, tuple]:
         """Bucket name -> shape of the REDUCED f32 buffer held between one
         step's reduce and the next step's apply (non-blocking runtime).
         Every bucket has one, dense buckets too; only sparse buckets carry
-        residuals. Replicated output mode: the full (rows, cols) buffer."""
+        residuals. Replicated output mode: the full (rows, cols) buffer;
+        scattered: the (dp_total, rows, cols/dp_total) owner chunks."""
+        if self.scattered:
+            return self.scattered_shapes()
         return {b.name: (g.rows, b.cols)
                 for g in self.groups for b in g.buckets}
 
-    def init_inflight(self, device="cpu") -> dict[str, torch.Tensor]:
+    def init_inflight(self, device="cpu", ranks: Optional[int] = None
+                      ) -> dict[str, torch.Tensor]:
+        """Zero in-flight buffers; a scattered plan's chunks for the
+        ``ranks`` this process holds (all ``dp_total`` by default)."""
+        shapes = self.inflight_shapes()
+        if self.scattered and ranks is not None:
+            shapes = {k: (ranks,) + s[1:] for k, s in shapes.items()}
         return {k: torch.zeros(s, dtype=torch.float32, device=device)
-                for k, s in self.inflight_shapes().items()}
+                for k, s in shapes.items()}
 
     def describe(self) -> str:
         lines = [f"SyncPlan: {self.num_leaves} leaves -> "
-                 f"{self.num_buckets} buckets ({self.num_sparse_buckets} sparse)"]
+                 f"{self.num_buckets} buckets ({self.num_sparse_buckets} sparse)"
+                 + (" [scattered]" if self.scattered else "")]
         for g in self.groups:
             lines.append(f"  group {g.gid}: rows={g.rows} cols={g.cols} "
                          f"leaves={len(g.slots)} "
@@ -372,7 +426,11 @@ def build_sync_plan(param_shapes, param_specs, cfg, dp_total: int) -> SyncPlan:
             model_axis(spec) is not None for _, _, spec, _, _ in entries)
         groups.append(GroupSpec(gid, rows, model_sharded, group_cols,
                                 tuple(slots), tuple(buckets)))
-    return SyncPlan(cfg, dp_total, len(leaves), tuple(groups))
+    mode = getattr(cfg, "output_mode", "replicated")
+    if mode not in ("replicated", "scattered"):
+        raise ValueError(f"unknown output_mode {mode!r}")
+    return SyncPlan(cfg, dp_total, len(leaves), tuple(groups),
+                    output_mode=mode)
 
 
 # --------------------------------------------------------------------------

@@ -426,6 +426,7 @@ def dsar_split_allgather_batched_inside(
     qsgd: QSGDConfig | None = None,
     rand: torch.Tensor | None = None,
     impl: str = "auto",
+    scatter: bool = False,
 ):
     """DSAR over the data axis with a batched row dim. Returns the (L, r,
     m*B) f32 sum, or, QSGD-quantized, the received codes as a
@@ -437,7 +438,13 @@ def dsar_split_allgather_batched_inside(
       densify my bucket range and sum the p sources (bucket_scatter_sum);
       gather: a single all_gather of [packed-as-f32 | scale] when
              QSGD-quantized (qsgd_pack), of the f32 shard otherwise.
-    rand: each held rank's bits for its shard, (L, >= r*m*B/p) u32."""
+    rand: each held rank's bits for its shard, (L, >= r*m*B/p) u32.
+
+    ``scatter`` stops at the owner shard: the gather never runs, and the
+    result is my (L, r, m*B/p) columns. QSGD-quantized, my shard still
+    makes the round trip (pack with my bits, then the deferred unpack of
+    my own codes), so it is bit-equal to the replicated result's own
+    columns."""
     p = coll.p
     lead, r, m, k = u.lidx.shape
     b = u.bucket_size
@@ -456,7 +463,8 @@ def dsar_split_allgather_batched_inside(
     shard = bucket_scatter_sum(lidx, val, b, impl=impl).reshape(
         lead, r, shard_cols)
     if qsgd is None:
-        return coll.all_gather(shard.to(torch.float32), axis=1)
+        shard = shard.to(torch.float32)
+        return shard if scatter else coll.all_gather(shard, axis=1)
     if rand is None:
         raise ValueError("QSGD second phase needs stochastic-rounding bits")
     bq = qsgd.bucket_size
@@ -465,6 +473,11 @@ def dsar_split_allgather_batched_inside(
         shard.reshape(-1, bq),
         rand.reshape(lead, -1)[:, :r * nbq * bq].reshape(-1, bq).contiguous(),
         qsgd.bits, qsgd.scale_mode, impl=impl)
+    if scatter:
+        # my codes, row-major (held, r, shard): unpacked in place
+        seg = UnpackSegment(packed, scale, 1, 1, lead * r, shard_cols, bq,
+                            1.0, row_major=True)
+        return PendingUnpack(seg, (lead, r, shard_cols), lead)
     w = packed.shape[-1]
     # ONE gather: [packed u32 bitcast to f32 | scale f32] along the rows'
     # columns

@@ -50,6 +50,11 @@ class SyncConfig:
     impl: str = "auto"
     ef_dtype: Any = torch.float32
     fusion_bucket_bytes: int = 4 << 20  # fused-plan bucket size
+    # ZeRO-sharded exchange: 'replicated' re-densifies the full reduction
+    # on every rank; 'scattered' stops at the owner shard (rank r keeps
+    # bucket columns [r*w, (r+1)*w), w = cols/dp) and the optimizer update
+    # runs there, followed by a dense param allgather (needs zero1).
+    output_mode: str = "replicated"  # 'replicated' | 'scattered'
 
     @property
     def density(self) -> float:

@@ -31,8 +31,11 @@ version restore under any other (the active plan's algorithm map rides
 the checkpoint's meta, so a restart resumes the adapted plan).
 
 The network parameters are the caller's: the port carries no default
-(``utils/calibrate.py`` fits them). The scattered output mode, and so
-``recommend_output_mode``, wait for ROADMAP Queue 1 item 10.
+(``utils/calibrate.py`` fits them). The output mode (replicated or
+scattered) changes the state layout, so a run pins it: replans inherit
+it, ``AdaptiveRuntime.maybe_swap`` refuses a plan of another mode, and
+``AdaptiveController.recommend_output_mode`` is the advisory decision a
+restart acts on.
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.cost_model import (NetworkParams, algorithm_output_cap,
-                                         bucket_time, pod_wire_bytes)
+                                         bucket_time, plan_bucket_times,
+                                         pod_wire_bytes, t_param_allgather)
 from repro_torch.core.sparse_stream import delta_threshold
 from repro_torch.obs import resolve as _resolve_obs
 from repro_torch.obs.metrics import record_bucket_telemetry
@@ -318,13 +322,38 @@ class AdaptiveController:
                        densities=densities)
         return accepted
 
-    def recommend_output_mode(self, densities=None, overlap_s: float = 0.0):
-        """The replicated <-> scattered advisory decision needs the
-        scattered output mode, which is not ported (ROADMAP Queue 1 item
-        10)."""
-        raise NotImplementedError(
-            "recommend_output_mode needs the scattered output mode "
-            "(ROADMAP Queue 1 item 10)")
+    def recommend_output_mode(self, densities: dict | None = None,
+                              overlap_s: float = 0.0) -> str:
+        """Advisory replicated <-> scattered decision. The output mode
+        changes the optimizer-state layout, so the runtime pins it for a
+        run: this is a restart-barrier decision, never a ``maybe_swap``
+        candidate. Sticky with the per-bucket switches' hysteresis: the
+        other mode must beat the current one by the ``hysteresis``
+        fraction of modeled comm time a step. Scattered is charged its
+        per-bucket scatter costs plus the dense param allgather's exposed
+        tail after ``overlap_s`` seconds of independent next-step compute
+        (it is overlappable, so it weighs at its uncovered remainder)."""
+        p = self.plan.dp_total
+        cur = self.plan.output_mode
+        t_mode = {}
+        for mode in ("replicated", "scattered"):
+            trial = (self.plan if mode == cur
+                     else dataclasses.replace(self.plan, output_mode=mode))
+            t = sum(plan_bucket_times(trial, p, self.net,
+                                      densities=densities))
+            if mode == "scattered":
+                t_ag = sum(t_param_allgather(p, b.n, self.net)
+                           for b in trial.buckets)
+                t += max(0.0, t_ag - max(0.0, float(overlap_s)))
+            t_mode[mode] = t
+        other = "scattered" if cur == "replicated" else "replicated"
+        switch = t_mode[other] <= (1.0 - self.cfg.hysteresis) * t_mode[cur]
+        rec = other if switch else cur
+        self.obs.event("adapt/mode_recommend", current=cur, recommended=rec,
+                       t_replicated_s=t_mode["replicated"],
+                       t_scattered_s=t_mode["scattered"],
+                       overlap_s=overlap_s, hysteresis=self.cfg.hysteresis)
+        return rec
 
     def force(self, plan) -> None:
         """Install an externally-forced plan NOW, bypassing hysteresis
@@ -357,15 +386,21 @@ class AdaptiveRuntime:
                  net: NetworkParams, cfg: AdaptConfig = AdaptConfig(),
                  staleness: int = 1, superstep: int = 1, obs=None,
                  guard: bool = False, lowering: Optional[str] = None,
-                 coll=None):
+                 coll=None, inject: bool = False):
         self.model, self.tcfg = model, tcfg
         self.dp_total, self.device = dp_total, device
         self.staleness, self.superstep = staleness, superstep
-        self.guard, self.lowering, self.coll = guard, lowering, coll
+        # every rebuilt step keeps the guard and the chaos harness's
+        # injection of the step it replaces
+        self.guard, self.inject = guard, inject
+        self.lowering, self.coll = lowering, coll
         self.obs = _resolve_obs(obs)
         # the pipelined step has no pod axis: its ranks are one data axis
         self.controller = AdaptiveController(plan, net, cfg, p_pod=1,
                                              obs=self.obs)
+        # the output mode is pinned for the runtime's life: it changes the
+        # state layout, which a drain-barrier swap cannot migrate
+        self._output_mode = plan.output_mode
         self._cache: dict = {}
         self._swap_to = None
         self._demote_at = None
@@ -375,7 +410,8 @@ class AdaptiveRuntime:
         from repro_torch.runtime import pipeline as rt_pipeline
 
         kw = dict(staleness=self.staleness, guard=self.guard,
-                  lowering=self.lowering, plan=plan, coll=self.coll)
+                  lowering=self.lowering, plan=plan, coll=self.coll,
+                  inject=self.inject)
         if self.superstep > 1:
             fn, _ = rt_pipeline.build_superstep(
                 self.model, self.tcfg, self.dp_total, self.device,
@@ -460,6 +496,11 @@ class AdaptiveRuntime:
         if self._swap_to is None:
             return None
         plan, self._swap_to = self._swap_to, None
+        if plan.output_mode != self._output_mode:
+            raise RuntimeError(
+                f"a replan changed the output_mode ({self._output_mode!r} -> "
+                f"{plan.output_mode!r}); the mode is pinned for a run: use "
+                "AdaptiveController.recommend_output_mode and restart")
         return self.step_fn_for(plan), plan
 
 

@@ -40,9 +40,19 @@ copy, so with observability on the retire is still the only host wait
 (``_wait``, which tests count). ``adapt`` (``runtime/adapt.py``) is fed
 each retired unit's rows and may hand back a replanned step, installed
 at a drain barrier; ``health`` (``obs.HealthMonitor``) is evaluated at
-drain barriers and at the end. The retry supervisor and the chaos
-injector are not ported yet: passing one raises (ROADMAP Queue 1 item
-13).
+drain barriers and at the end.
+
+Faults (``runtime/faults.py``): ``recovery`` turns the bare
+restore-on-failure into the bounded policy of the retry supervisor
+(classify the exception, charge its class's budget, wait out a jittered
+backoff, then restore; a spent budget is a clean abort after the
+blackbox dump), and ``injector`` runs a chaos plan against the run: its
+stall and fault-vector hooks wrap ``batch_fn`` on the prefetch thread,
+its collective / SIGTERM hook fires before each dispatch, its straggler
+hook inside each retire interval, and every restore first refunds the
+fault vectors made for steps never dispatched. Before any restore the
+step is drained, so no kernel still reads buffers the restored state
+will reuse.
 """
 from __future__ import annotations
 
@@ -60,7 +70,7 @@ import torch
 from repro_torch.obs import resolve as _resolve_obs
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.runtime.faults import (NonFiniteEscalation, PrefetchStalled,
-                                        RecoveryConfig)
+                                        RecoveryConfig, RetrySupervisor)
 
 # Rolling window (in steps) of the step-time statistic the straggler
 # watchdog compares against.
@@ -264,14 +274,6 @@ def _host_metrics(vals: np.ndarray, names: list, guarded: bool) -> dict:
     return out
 
 
-def _refuse_unported(**options) -> None:
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"run_pipelined({name}=...) is not ported (ROADMAP Queue 1 "
-                "item 13)")
-
-
 def run_pipelined(
     step_fn: Callable,
     state,
@@ -320,11 +322,17 @@ def run_pipelined(
     go to ``adapt.advise``. The flight recorder (``obs.recorder``) notes
     every retired unit and dumps on a watchdog fire and on any exception.
     A guarded step's nonfinite flags are read at retire: each trip is a
-    critical ``health/nonfinite`` event, and
-    ``RecoveryConfig().max_consecutive_nonfinite`` consecutive trips
-    raise :class:`NonFiniteEscalation` into the restore path.
+    critical ``health/nonfinite`` event, and the recovery config's
+    ``max_consecutive_nonfinite`` consecutive trips raise
+    :class:`NonFiniteEscalation` into the restore path.
+    recovery: a ``runtime.faults.RecoveryConfig`` (or a prebuilt
+    ``RetrySupervisor``): each failure is classified, charged against its
+    class's budget and delayed by the jittered backoff before the
+    restore; a spent budget raises ``RetryBudgetExhausted`` after the
+    blackbox dump. None keeps the unbounded restore.
+    injector: a ``runtime.faults.FaultInjector``; the step must then be
+    built with ``inject=True`` (see the module).
     Returns (final state, log)."""
-    _refuse_unported(recovery=recovery, injector=injector)
     if cfg.depth < 1 or cfg.prefetch < 1 or cfg.steps_per_unit < 1:
         raise ValueError(f"DriverConfig fields must be >= 1: {cfg}")
     obs = _resolve_obs(obs)
@@ -332,7 +340,15 @@ def run_pipelined(
     reg = obs.metrics if obs.metrics_on else None
     if log is None:
         log = DriverLog(registry=reg)
-    max_trips = RecoveryConfig().max_consecutive_nonfinite
+    supervisor = None
+    if recovery is not None:
+        supervisor = (recovery if isinstance(recovery, RetrySupervisor)
+                      else RetrySupervisor(recovery, registry=reg))
+    rcfg = supervisor.cfg if supervisor is not None else RecoveryConfig()
+    max_trips = rcfg.max_consecutive_nonfinite
+    if injector is not None:
+        injector.bind(registry=reg)
+        batch_fn = injector.wrap_batch_fn(batch_fn)
     k_unit = cfg.steps_per_unit
     prefetcher = _Prefetcher(batch_fn, cfg.prefetch, k_unit)
     prefetcher.start(start_step, num_steps)
@@ -348,6 +364,12 @@ def run_pipelined(
         s0, k, vals, names, guarded, done = window.popleft()
         with obs.span("driver/retire", step=s0, k=k):
             _wait(done)                          # the ONLY host wait
+            if injector is not None:
+                # the straggler hook: its delay lands inside this retire
+                # interval, so the watchdog sees a slow step
+                med0 = (median(log.step_times[-STRAGGLER_WINDOW:])
+                        if len(log.step_times) >= STRAGGLER_WARMUP else 0.0)
+                injector.after_retire(s0, k, med0)
         now = time.perf_counter()
         dt_unit = now - last_retire_t
         dt = dt_unit / k
@@ -436,6 +458,10 @@ def run_pipelined(
     def dispatch(state, step):
         nonlocal readback_stream
         k = min(k_unit, num_steps - step)
+        if injector is not None:
+            # collective raise / SIGTERM: before the step is called, so no
+            # state is half-consumed and a restore replays the unit
+            injector.before_dispatch(step, k)
         with obs.span("driver/dispatch", step=step, k=k):
             take = lambda s: prefetcher.take(s, cfg.prefetch_timeout_s)
             rand = (lambda s: None) if rand_fn_for_step is None \
@@ -488,11 +514,24 @@ def run_pipelined(
                     rec._safe_dump(f"exception:{type(e).__name__}")
                 if restore_fn is None:
                     raise
+                if supervisor is not None:
+                    # classify, charge the class's budget (a spent one
+                    # raises RetryBudgetExhausted: the clean abort, after
+                    # the blackbox above), wait out the backoff
+                    time.sleep(supervisor.on_failure(e, step))
                 window.clear()
+                # no kernel of the failed window may still read buffers
+                # the restored state reuses
+                step_fn.drain()
                 consec_nonfinite = 0
                 log.restarts += 1
                 obs.event("driver/restart", step=step,
                           error=type(e).__name__)
+                if injector is not None:
+                    # fault vectors made for never-dispatched steps died
+                    # with the prefetch queue: refund them, so the replay
+                    # injects them for real (``step`` is the frontier)
+                    injector.refund_undispatched(step)
                 state = restore_fn()
                 step = int(state.step)
                 prefetcher.start(step, num_steps)

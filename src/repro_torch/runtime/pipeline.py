@@ -64,6 +64,19 @@ plan, the adaptive runtime's swaps): the same residual and in-flight
 layout, other bucket algorithms; a plan that changes the layout is
 refused when the step is built.
 
+The optimizer half runs in the config's layout (``train_step.
+optimizer_half``): full, ZeRO-1 chunks, or the scattered mode, whose
+in-flight buffers are the reduce's owner chunks ((ranks, rows, cols/dp)
+a bucket) and whose apply is the shard update itself: on the per-rank
+path its dense param allgather (one a bucket, ``plan.num_buckets`` a
+step) runs at apply time, beside the next reduce.
+
+``inject=True`` builds the chaos harness's step: the batch carries the
+injector's (n_leaves,) fault vector under ``runtime.faults.FAULT_KEY``,
+and the raw grads pass through ``train_step.inject_nonfinite_leaves``
+(a select) before the guard and the reduce half; the vector rides the
+batch's copy to the device, so the step still never waits on the card.
+
 ``build_superstep`` chains K steps with no host sync in between and
 stacks their metrics: the counterpart of the reference's ``lax.scan``.
 """
@@ -74,12 +87,12 @@ from typing import Optional
 import torch
 
 from repro_torch.comm.collectives import CollectiveContext
-from repro_torch.comm.executor import (RandFn, apply_buckets_spmd,
-                                       reduce_buckets, reduce_buckets_spmd)
+from repro_torch.comm.executor import RandFn
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bucket_topk.ops import check_bucket_size
 from repro_torch.models.model import Model
 from repro_torch.optim.schedule import make_schedule
+from repro_torch.runtime.faults import FAULT_KEY
 from repro_torch.train import train_step as ts
 from repro_torch.train.state import TrainConfig, TrainState
 from repro_torch.utils.tree import tree_leaves
@@ -107,25 +120,19 @@ def resolve_lowering(lowering: Optional[str] = None) -> str:
     return lowering
 
 
-def attach_inflight(state: TrainState, plan) -> TrainState:
+def attach_inflight(state: TrainState, plan,
+                    ranks: Optional[int] = None) -> TrainState:
     """Zero in-flight buffers onto a synchronous-shaped TrainState (a
-    resume from a checkpoint, or a hand-off from ``Trainer.run``). The
-    validity flag starts at 0, so the first pipelined step applies at
-    lr 0, whatever the step."""
+    resume from a checkpoint, or a hand-off from ``Trainer.run``); a
+    scattered plan's chunks for the ``ranks`` the process holds (all by
+    default). The validity flag starts at 0, so the first pipelined step
+    applies at lr 0, whatever the step."""
     if state.inflight is not None:
         return state
     dev = tree_leaves(state.params)[0].device
-    zeros = plan.init_inflight(dev)
+    zeros = plan.init_inflight(dev, ranks)
     zeros[VALID_KEY] = torch.zeros((), dtype=torch.float32, device=dev)
     return state._replace(inflight=zeros)
-
-
-def _refuse_unported(inject) -> None:
-    """Options of the reference's builders that the port does not have
-    yet raise, naming the ROADMAP item that brings them."""
-    if inject:
-        raise NotImplementedError(
-            "fault injection is not ported (ROADMAP Queue 1 item 13)")
 
 
 class PipelinedStep:
@@ -140,7 +147,7 @@ class PipelinedStep:
                  device, staleness: int, guard: bool,
                  lowering: Optional[str] = None,
                  coll: Optional[CollectiveContext] = None,
-                 telemetry: bool = True, plan=None):
+                 telemetry: bool = True, plan=None, inject: bool = False):
         if tcfg.sync.mode != "sparcml":
             raise ValueError(
                 "the pipelined runtime overlaps the planned sparse sync and "
@@ -154,6 +161,7 @@ class PipelinedStep:
         self.device = resolve_device(device)
         self.staleness = staleness
         self.guard = guard
+        self.inject = inject
         self.telemetry = telemetry
         check_bucket_size(tcfg.sync.bucket_size, self.device, tcfg.sync.impl)
         self.coll = ts.manual_context(lowering, coll, dp_total, self.device)
@@ -198,19 +206,10 @@ class PipelinedStep:
         return out
 
     def _reduce_all(self, state, leaves, rand_fn):
-        """(reduced {name -> (rows, cols)}, new residuals, telemetry
-        {name -> (4,)}) of the chosen executor."""
-        if self.coll is None:
-            return reduce_buckets_spmd(
-                self.plan, leaves, state.residuals, p_data=self.dp_total,
-                rand_fn=rand_fn, telemetry=self.telemetry)
-        reduced, new_res, telem = reduce_buckets(
-            self.plan, leaves, state.residuals, coll=self.coll,
-            rand_fn=ts.rank_rand_fn(rand_fn, self.coll),
-            telemetry=self.telemetry)
-        # every held rank holds the same replicated buffers and rows
-        return ({n: v[0] for n, v in reduced.items()}, new_res,
-                {n: v[0] for n, v in telem.items()})
+        """(reduced, new residuals, telemetry {name -> (4,)}) of the chosen
+        executor, reduced as ``train_step.optimizer_half`` takes it."""
+        return ts.reduce_half(self.plan, leaves, state.residuals, self.coll,
+                              rand_fn, self.telemetry)
 
     def _reduce_body(self, state, leaves, fin, rand_fn):
         new_inflight, new_res, telem = self._reduce_all(state, leaves,
@@ -254,20 +253,29 @@ class PipelinedStep:
         if self.staleness and state.inflight is None:
             raise ValueError("a staleness-1 step needs in-flight buffers: "
                              "attach_inflight(state, plan) first")
+        batch = dict(batch)
+        fault_vec = batch.pop(FAULT_KEY, None)
+        if self.inject:
+            if fault_vec is None:
+                raise ValueError(f"a step built with inject=True takes the "
+                                 f"fault vector as batch[{FAULT_KEY!r}]")
+            fault_vec = ts.batch_to_device({FAULT_KEY: fault_vec},
+                                           dev)[FAULT_KEY]
         batch = ts.batch_to_device(ts.local_batch(batch, coll), dev)
         held = coll.local_ranks if coll is not None else self.dp_total
         loss, leaves = ts.rank_grads(self.model, state.params, batch, held,
                                      tcfg.microbatches)
         loss = ts.global_loss(loss, coll)
+        if self.inject:
+            leaves = ts.inject_nonfinite_leaves(leaves, fault_vec)
         fin = ts.ranks_all_finite(leaves, coll) if self.guard else None
         if rand_fn is None:
             rand_fn = ts.step_rand_fn(tcfg.seed, state.step, dev)
         lr = self._sched(state.step)
         if self.staleness == 0:
-            # execute_plan(_spmd): the synchronous step's ops, in its order
+            # the synchronous step's ops, in its order
             reduced, new_res, telem = self._reduce_all(state, leaves,
                                                        rand_fn)
-            applied = apply_buckets_spmd(self.plan, reduced, leaves)
             new_res = ts.guard_select(fin, new_res, state.residuals)
             new_inflight, lr_eff = None, lr
         else:
@@ -276,9 +284,11 @@ class PipelinedStep:
                                                         rand_fn)
             if prev is not None:
                 torch.cuda.current_stream(dev).wait_event(prev)
-            applied = apply_buckets_spmd(self.plan, state.inflight, leaves)
+            reduced = state.inflight
             lr_eff = lr * state.inflight[VALID_KEY]
-        new_p, new_opt, gnorm = ts.update(state, applied, lr_eff, tcfg)
+        new_p, new_opt, gnorm = ts.optimizer_half(state, reduced, leaves,
+                                                  lr_eff, tcfg, self.plan,
+                                                  coll)
         new_p = ts.guard_select(fin, new_p, state.params)
         new_opt = ts.guard_select(fin, new_opt, state.opt)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr_eff}
@@ -344,10 +354,11 @@ def build_pipelined_step(model: Model, tcfg: TrainConfig, dp_total: int = 4,
     manual lowering's context (``StackedCollectives(dp_total)`` if None).
     ``plan``: a replanned ``SyncPlan`` (``SyncPlan.replan`` of this
     configuration's base plan) instead of the base plan; one that changes
-    the residual or in-flight layout is refused."""
-    _refuse_unported(inject)
+    the residual or in-flight layout is refused. ``inject=True`` takes
+    the chaos harness's fault vector from ``batch[FAULT_KEY]`` (see the
+    module)."""
     step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard,
-                         lowering, coll, telemetry, plan)
+                         lowering, coll, telemetry, plan, inject)
     return step, step.plan
 
 
@@ -358,9 +369,8 @@ def build_superstep(model: Model, tcfg: TrainConfig, dp_total: int = 4,
                     inject: bool = False,
                     coll: Optional[CollectiveContext] = None):
     """K-step superstep over the pipelined step. Returns (superstep,
-    plan); see :class:`Superstep`. ``plan`` as in
+    plan); see :class:`Superstep`. ``plan`` and ``inject`` as in
     :func:`build_pipelined_step`."""
-    _refuse_unported(inject)
     step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard,
-                         lowering, coll, telemetry, plan)
+                         lowering, coll, telemetry, plan, inject)
     return Superstep(step, steps), step.plan

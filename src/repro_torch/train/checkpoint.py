@@ -20,10 +20,18 @@ other's checkpoints):  <dir>/step_<N>/
   raises :class:`CheckpointCorrupt` on a mismatch, and
   ``latest_valid_step`` walks newest to oldest to the first checkpoint
   that verifies: keep-N retention doubles as the fallback window.
-
-The optimizer state is always in the "full" layout (param-shaped
-moments): ZeRO-1 and the scattered mode are not ported, so neither are
-``remesh`` and ``convert_opt_layout`` (ROADMAP Queue 1 items 6 and 10).
+* Optimizer layouts (``OPT_LAYOUTS``, stamped as ``meta["opt_layout"]``):
+  "full" (param-shaped moments), "zero1_leaf" (per-leaf canonical
+  (dp, rows, cols/dp) chunks) and "zero_scattered" (per-bucket owned
+  (dp, rows, cols/dp) chunks). The two ZeRO layouts partition the same
+  canonical coordinates and the optimizer is elementwise, so
+  ``convert_opt_layout`` maps one into the other through the full group
+  buffer, value for value; full <-> ZeRO is refused (the reference's
+  rule).
+* Elastic restarts (``restore(remesh=True)``): leaves that depend on the
+  replica count are re-partitioned (ZeRO chunks) or reset (EF residuals,
+  a lossy accumulator) when a checkpoint written at another dp_total is
+  restored.
 """
 from __future__ import annotations
 
@@ -43,11 +51,16 @@ OPT_LAYOUTS = ("full", "zero1_leaf", "zero_scattered")
 
 
 class CheckpointCorrupt(RuntimeError):
-    """A checkpoint failed CRC verification (or could not be read)."""
+    """A checkpoint failed CRC verification (or could not be read). The
+    retry supervisor classifies it by its class NAME ("ckpt_corrupt",
+    ``runtime/faults.py``): keep the name if renaming."""
 
 
 def _crc32(arr: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
+    """The reference's digest (the CRC32 of the array's C-order bytes),
+    read through a view: no copy of a multi-GB leaf."""
+    flat = np.ascontiguousarray(arr).reshape(-1)
+    return zlib.crc32(memoryview(flat).cast("B")) & 0xFFFFFFFF
 
 
 def _fsync_path(path: str) -> None:
@@ -195,13 +208,10 @@ def restore(directory: str, like: TrainState, *, dp_total: int,
     """Restore into the structure, dtypes and devices of ``like``.
 
     verify=True recomputes the CRC32s before any value is consumed and
-    raises :class:`CheckpointCorrupt` on a mismatch. ``remesh`` (an
-    elastic restart onto another replica count) waits for the ZeRO
-    layouts (ROADMAP Queue 1 item 10)."""
-    if remesh:
-        raise NotImplementedError(
-            "remesh re-chunks ZeRO-1 state, which is not ported (ROADMAP "
-            "Queue 1 items 6 and 10)")
+    raises :class:`CheckpointCorrupt` on a mismatch. ``remesh=True``
+    restores a checkpoint written at another dp_total: a leaf whose
+    shape depends on the replica count is re-chunked (ZeRO chunks) or
+    reset to zeros (EF residuals), see :func:`_rechunk`."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -229,10 +239,15 @@ def restore(directory: str, like: TrainState, *, dp_total: int,
                 out.append(int(arr))
                 continue
             if arr.shape != tuple(ll.shape):
-                raise ValueError(
-                    f"shape mismatch at {path}: ckpt {arr.shape} vs "
-                    f"{tuple(ll.shape)} (written at dp_total "
-                    f"{meta['dp_total']}, restored at {dp_total})")
+                if remesh and meta["dp_total"] != dp_total:
+                    arr = _rechunk(arr, tuple(ll.shape), meta["dp_total"],
+                                   dp_total)
+                else:
+                    raise ValueError(
+                        f"shape mismatch at {path}: ckpt {arr.shape} vs "
+                        f"{tuple(ll.shape)} (written at dp_total "
+                        f"{meta['dp_total']}, restored at {dp_total}; "
+                        "remesh=True for an elastic restart)")
             out.append(torch.from_numpy(np.array(arr)).to(device=ll.device,
                                                           dtype=ll.dtype))
     return _unflatten(like, out)
@@ -251,18 +266,105 @@ def _unflatten(like: TrainState, leaves: list) -> TrainState:
                         for name in TrainState._fields])
 
 
+# --------------------------------------------------------------------------
+# Optimizer-layout interop
+# --------------------------------------------------------------------------
+
 def opt_layout_of(tcfg) -> str:
-    """The optimizer-state layout a TrainConfig trains under: always
-    "full" in the port (no ZeRO-1, no scattered mode yet)."""
+    """The optimizer-state layout a TrainConfig trains under:
+    "zero_scattered" for the scattered output mode, "zero1_leaf" for
+    ZeRO-1, else "full" (dense mode has no plan to chunk against)."""
+    if tcfg.sync.mode == "sparcml":
+        if tcfg.sync.output_mode == "scattered":
+            return "zero_scattered"
+        if tcfg.zero1:
+            return "zero1_leaf"
     return "full"
+
+
+def _chunk(seg: torch.Tensor, p: int) -> torch.Tensor:
+    """(rows, cols) -> its (p, rows, cols/p) column chunks, contiguous."""
+    rows, cols = seg.shape
+    return seg.reshape(rows, p, cols // p).permute(1, 0, 2).contiguous()
+
+
+def _unchunk(ch: torch.Tensor) -> torch.Tensor:
+    p, rows, w = ch.shape
+    return ch.permute(1, 0, 2).reshape(rows, p * w)
+
+
+def _moment_scattered_to_leaf(moment: dict, plan, params) -> dict:
+    """{bucket: (dp, rows, w)} -> the params-structured tree of per-leaf
+    (dp, rows, cols_leaf/dp) chunks, through the full group buffer."""
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+    p = plan.dp_total
+    chunks: list = [None] * plan.num_leaves
+    for g in plan.groups:
+        first = moment[g.buckets[0].name]
+        buf = first.new_zeros((g.rows, g.cols))
+        for b in g.buckets:
+            buf[:, b.col_start:b.col_start + b.cols] = _unchunk(moment[b.name])
+        for slot in g.slots:
+            chunks[slot.leaf_id] = _chunk(
+                buf[:, slot.offset:slot.offset + slot.cols], p)
+    return tree_unflatten(tree_flatten(params)[1], chunks)
+
+
+def _moment_leaf_to_scattered(moment, plan) -> dict:
+    """The params-structured tree of per-leaf chunks -> {bucket: (dp, rows,
+    w)} owned chunks. Padding and gap columns are zero (they carry no
+    parameter, and their moments start, and in the leaf layout stay,
+    zero)."""
+    from repro_torch.utils.tree import tree_leaves
+
+    p = plan.dp_total
+    leaves = tree_leaves(moment)                    # leaf-id order
+    out: dict = {}
+    for g in plan.groups:
+        buf = leaves[g.slots[0].leaf_id].new_zeros((g.rows, g.cols))
+        for slot in g.slots:
+            buf[:, slot.offset:slot.offset + slot.cols] = \
+                _unchunk(leaves[slot.leaf_id])
+        for b in g.buckets:
+            out[b.name] = _chunk(buf[:, b.col_start:b.col_start + b.cols], p)
+    return out
 
 
 def convert_opt_layout(state: TrainState, plan, source: str,
                        target: str) -> TrainState:
-    """Identity between equal layouts; the ZeRO layouts' conversions wait
-    for their slices (ROADMAP Queue 1 item 10)."""
+    """``state.opt`` from one ZeRO layout to the other, value for value
+    (see the module). ``plan`` is the SyncPlan both layouts chunk against
+    (the ranks all held: the chunks' leading axis is dp_total); the
+    moments stay on their device. full <-> ZeRO raises: the full layout
+    has no canonical chunking to map through."""
     if source == target:
         return state
-    raise NotImplementedError(
-        f"converting the optimizer state {source!r} -> {target!r} needs the "
-        "ZeRO layouts (ROADMAP Queue 1 item 10)")
+    if {source, target} != {"zero1_leaf", "zero_scattered"}:
+        raise ValueError(
+            f"cannot convert opt layout {source!r} -> {target!r}; only "
+            "zero1_leaf <-> zero_scattered interop is supported")
+    if target == "zero_scattered":
+        conv = lambda m: _moment_leaf_to_scattered(m, plan)
+    else:
+        conv = lambda m: _moment_scattered_to_leaf(m, plan, state.params)
+    opt = dict(state.opt)
+    opt["mu"] = conv(state.opt["mu"])
+    if "nu" in state.opt:
+        opt["nu"] = conv(state.opt["nu"])
+    return state._replace(opt=opt)
+
+
+def _rechunk(arr: np.ndarray, want: tuple, old_dp: int,
+             new_dp: int) -> np.ndarray:
+    """A replica-dependent leaf re-partitioned over another dp size (the
+    reference's rule): ZeRO chunks (old_dp, rows, w_old) are gathered
+    along their columns and re-split; an EF residual (old_dp, rows, cols)
+    is a lossy accumulator and restarts at zero."""
+    if arr.ndim == 3 and arr.shape[0] == old_dp and want[0] == new_dp:
+        if (arr.shape[1] == want[1]
+                and arr.shape[2] * old_dp == want[2] * new_dp):
+            full = np.concatenate([arr[i] for i in range(old_dp)], axis=1)
+            return np.stack(np.split(full, new_dp, axis=1))
+        return np.zeros(want, arr.dtype)
+    raise ValueError(f"cannot rechunk {arr.shape} -> {want}")

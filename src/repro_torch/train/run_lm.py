@@ -9,6 +9,8 @@
         --adapt --trace t.json --metrics-out m.jsonl --blackbox bb.json
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.train.run_lm \
         --steps 20 --lowering manual
+    PYTHONPATH=src python -m repro_torch.train.run_lm --steps 40 --zero
+    PYTHONPATH=src python -m repro_torch.train.run_lm --steps 30 --chaos 0
 
 The PyTorch counterpart of ``examples/train_lm_topk.py``: lm-100m (12
 layers, d=768, GQA 12/4 heads, SwiGLU 2048, vocab 32768, f32) at global
@@ -29,8 +31,22 @@ the stacked sum, in both loops. Under ``torchrun`` (``WORLD_SIZE`` > 1)
 every process holds one rank of a ``torch.distributed`` group (NCCL on
 the card, each process on ``cuda:LOCAL_RANK``; gloo with ``--device
 cpu``), the data-parallel width is the world size, and only
-``--lowering manual`` runs; such a run takes no checkpoints. ZeRO-1 is
-not ported: the optimizer state stays replicated.
+``--lowering manual`` runs; such a run takes no checkpoints. The
+optimizer moments are ZeRO-1 chunks, as the example's (``zero1=True``):
+over torch.distributed each process holds its 1/p of them.
+
+``--zero`` is the example's ZeRO-sharded state: the scattered output
+mode, where the gradient exchange stops at the owner shard, the update
+runs on the shard and the parameters come back by one allgather a
+bucket (its per-device state breakdown waits for ROADMAP Queue 1 item
+14). ``--chaos SEED`` is the example's recovery smoke: a seed-derived
+``FaultPlan.chaos`` of recoverable faults (grad NaN/Inf, straggler, data
+stall, collective raise, a corrupted checkpoint and the restore that
+must fall back) against the pipelined runtime (implied) under the retry
+supervisor, with checkpoints every 10 steps (in ``--ckpt-dir``, or a
+temporary directory removed at the end); the run must complete, prints
+its closing "chaos recovery: survived ..." line, and exits non-zero when
+the plan injected nothing.
 
 Observability, as the example has it: ``--adapt`` (with ``--pipeline``)
 re-selects bucket algorithms from measured densities on network
@@ -39,14 +55,15 @@ Chrome-trace JSON (host spans and the derived device phases);
 ``--metrics-out`` writes the metrics JSONL and runs a drift audit of the
 final plan; ``--blackbox`` attaches the flight recorder. At the end the
 run prints its plan swaps, the drift audit, the health summary, the
-metrics summary and the paths it wrote. The example's ``--chaos`` and
-``--zero`` wait for ROADMAP Queue 1 items 13 and 10.
+metrics summary and the paths it wrote.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import statistics
+import tempfile
 
 import torch
 import torch.distributed as dist
@@ -61,6 +78,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizers import OptimizerConfig
 from repro_torch.optim.schedule import ScheduleConfig
+from repro_torch.runtime.faults import FaultInjector, FaultPlan, RecoveryConfig
 from repro_torch.train.state import TrainConfig
 from repro_torch.train.trainer import Trainer
 from repro_torch.utils.calibrate import DegenerateFit
@@ -83,15 +101,20 @@ def lm_config(fast: bool) -> tuple[ModelConfig, DataConfig]:
     return cfg, DataConfig(global_batch=32, seq_len=512, vocab_size=32768)
 
 
-def train_config(steps: int, mode: str = "sparcml") -> TrainConfig:
+def train_config(steps: int, mode: str = "sparcml",
+                 zero: bool = False) -> TrainConfig:
+    """The example's config; ``zero`` its --zero (the scattered output
+    mode). ZeRO-1 is on, as the example's."""
     return TrainConfig(
         sync=SyncConfig(mode=mode, k_per_bucket=8, bucket_size=512,
                         algorithm="dsar_split_allgather", qsgd_bits=4,
-                        min_sparse_size=65536),
+                        min_sparse_size=65536,
+                        output_mode="scattered" if zero else "replicated"),
         optimizer=OptimizerConfig(kind="adamw"),
         schedule=ScheduleConfig(kind="wsd", peak_lr=6e-4, warmup_steps=20,
                                 total_steps=steps),
         microbatches=2,
+        zero1=True,
     )
 
 
@@ -126,6 +149,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="attach the flight recorder: a bounded ring of "
                          "driver retires dumped to this path on exception, "
                          "watchdog fire, or SIGTERM/SIGINT")
+    ap.add_argument("--zero", action="store_true",
+                    help="ZeRO-sharded training state: the gradient exchange "
+                         "stops at the owner shard (scattered output mode, "
+                         "no allgather) and the optimizer moments live on the "
+                         "owned chunks; checkpoints interoperate with "
+                         "replicated runs")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="chaos-injection smoke: run a seed-derived FaultPlan "
+                         "of recoverable faults (grad NaN/Inf, straggler, "
+                         "data stall, collective raise, checkpoint "
+                         "corruption) against the pipelined runtime; the run "
+                         "must complete via the guarded step + retry/backoff "
+                         "recovery (implies --pipeline)")
     return ap
 
 
@@ -159,9 +195,27 @@ def main(argv=None):
 
 
 def _train(args, device, coll):
+    chaos = args.chaos is not None
+    if chaos:
+        if coll is not None:
+            raise SystemExit("--chaos rewinds to checkpoints, which a run "
+                             "with one rank a process does not take")
+        args.pipeline = True    # the guard and the hooks live in the driver
+    ckpt_dir, tmp_ckpt = args.ckpt_dir, None
+    if chaos and not ckpt_dir:
+        tmp_ckpt = ckpt_dir = tempfile.mkdtemp(prefix="run_lm_chaos_")
+    try:
+        return _run(args, device, coll, chaos, ckpt_dir)
+    finally:
+        if tmp_ckpt is not None:
+            shutil.rmtree(tmp_ckpt, ignore_errors=True)
+
+
+def _run(args, device, coll, chaos, ckpt_dir):
     say = print if coll is None or coll.rank == 0 else (lambda *a: None)
     obs = obs_mod.configure(trace=bool(args.trace),
-                            metrics=bool(args.metrics_out) or bool(args.trace),
+                            metrics=bool(args.metrics_out) or bool(args.trace)
+                            or chaos,
                             audit=bool(args.metrics_out),
                             recorder=args.blackbox or False,
                             set_as_default=False)
@@ -171,18 +225,29 @@ def _train(args, device, coll):
     steps = min(args.steps, 60) if args.fast else args.steps
     model = build_model(cfg)
     say(f"model: {cfg.name}, {cfg.param_count() / 1e6:.1f}M params")
-    trainer = Trainer(model, train_config(steps), data,
+    # a shorter checkpoint cadence under chaos: the corrupt-then-restore
+    # pair needs steps > 2 * ckpt_every
+    ckpt_every = 10 if chaos else CKPT_EVERY
+    trainer = Trainer(model, train_config(steps, zero=args.zero), data,
                       dp_total=coll.p if coll is not None else DP,
-                      device=device, ckpt_dir=args.ckpt_dir,
-                      ckpt_every=CKPT_EVERY, lowering=args.lowering,
+                      device=device, ckpt_dir=ckpt_dir,
+                      ckpt_every=ckpt_every, lowering=args.lowering,
                       coll=coll, obs=obs)
     if trainer.plan is not None:
         say(trainer.plan.describe())
     start = trainer.init_or_resume()
     say(f"starting at step {start} (resume={'yes' if start else 'no'})")
+    injector = recovery = None
+    if chaos:
+        plan = FaultPlan.chaos(args.chaos, steps, ckpt_every=ckpt_every)
+        injector = FaultInjector(plan)
+        recovery = RecoveryConfig(backoff_base_s=0.01, backoff_max_s=0.1)
+        say(f"chaos plan (seed {args.chaos}): "
+            + ", ".join(f"{s.kind}@{s.step}" for s in plan.specs))
     if args.pipeline:
         # short synchronous probe first, so the overlap win is measurable
-        probe_to = min(start + 8, steps)
+        # (not under chaos: the probe loop has no recovery hooks)
+        probe_to = start if chaos else min(start + 8, steps)
         if probe_to > start:
             trainer.run(probe_to)
         n_sync = len(trainer.log.step_times)
@@ -191,7 +256,8 @@ def _train(args, device, coll):
         sync_times = trainer.log.step_times[1:n_sync]
         log = trainer.run_pipelined(steps, staleness=1,
                                     superstep=args.superstep, depth=2,
-                                    adapt=args.adapt)
+                                    adapt=args.adapt, injector=injector,
+                                    recovery=recovery)
         pipe_times = log.step_times[n_sync:]
         if sync_times and pipe_times:
             sync_avg = sum(sync_times) / len(sync_times)
@@ -210,6 +276,18 @@ def _train(args, device, coll):
         f"{log.losses[-1]:.3f}, median step "
         f"{statistics.median(log.step_times) * 1e3:.1f} ms, "
         f"restarts={log.restarts}, stragglers={len(log.straggler_events)}")
+    if chaos:
+        counters = {n: c.value for n, c in sorted(obs.metrics.metrics.items())
+                    if getattr(c, "kind", None) == "counter"
+                    and n.startswith(("faults/", "recovery/", "guard/"))}
+        say("chaos recovery: survived "
+            f"{injector.fired_total} injected fault(s), "
+            f"restarts={log.restarts}; "
+            + " ".join(f"{n}={v}" for n, v in counters.items()))
+        if injector.fired_total == 0:
+            raise SystemExit("chaos: the plan injected nothing (seed and "
+                             "step range do not meet): the smoke proved "
+                             "nothing")
     if obs.enabled:
         _report(args, trainer, obs, say)
     return log

@@ -11,15 +11,21 @@ from repro_torch.optim.schedule import ScheduleConfig
 
 class TrainState(NamedTuple):
     params: Any          # dict tree of tensors (JAX package layout)
-    opt: Any             # {"mu", ["nu"], "count"}
+    opt: Any             # {"mu", ["nu"], "count"}: param-shaped moments
+                         # ("full"), per-leaf (ranks, rows, cols/dp)
+                         # canonical chunks ("zero1_leaf"), or per-bucket
+                         # (ranks, rows, cols/dp) owned chunks
+                         # ("zero_scattered"); see checkpoint.opt_layout_of
     residuals: Any       # EF state: bucket-keyed {name: (dp, rows, cols)}
                          # from the SyncPlan (sparcml) or None
     step: int
     inflight: Any = None # non-blocking runtime: bucket-keyed {name: (rows,
                          # cols)} REDUCED buffers of the previous step plus
                          # the validity flag, applied this step
-                         # (staleness 1); None when synchronous. Stripped
-                         # before checkpointing.
+                         # (staleness 1): the scattered output mode holds
+                         # (ranks, rows, cols/dp) owner chunks instead;
+                         # None when synchronous. Stripped before
+                         # checkpointing.
 
 
 @dataclass(frozen=True)
@@ -28,4 +34,6 @@ class TrainConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
     microbatches: int = 1            # gradient-accumulation steps
+    zero1: bool = True               # shard the optimizer moments over the
+                                     # data-parallel ranks (sparcml mode)
     seed: int = 0

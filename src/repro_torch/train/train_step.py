@@ -21,9 +21,31 @@ of two lowerings:
   seed, so the run gives the stacked run's bits.
 
 Then the synced gradients are clipped and the optimizer updates the
-single params copy.
+single params copy, its moments in one of three layouts
+(``checkpoint.opt_layout_of``):
+
+* "full": param-shaped moments (dense mode, or ``zero1=False``);
+* "zero1_leaf" (ZeRO-1, the default in sparcml mode): each leaf's moments
+  as (ranks, rows, cols/dp) chunks of its canonical layout; rank r updates
+  its column range of the parameter, and one ``all_gather`` a leaf
+  rebuilds it on the per-rank path. The stacked ranks update every chunk
+  at once on views of the leaves (a chunk of an unpadded canonical leaf
+  is a view of its memory), with AdamW's ops in ``adamw``'s order, so the
+  values are those of the full layout bit for bit where the second clip
+  of ``opt_update`` changes nothing (the reference clips once here too);
+* "zero_scattered" (``output_mode="scattered"``, needs ``zero1``): the
+  reduce stops at each rank's owned chunk of every bucket, the moments
+  are (ranks, rows, cols/dp) chunks a bucket, and the update runs on the
+  chunk. Per rank the grad norm comes from the chunks (one psum of
+  per-shard sums) and one param ``all_gather`` a bucket rebuilds the
+  parameters; the stacked ranks rebuild the synced leaves, clip them as
+  the replicated step does, and update in the reference's delta form.
 
 dense mode: gradients of the global batch, clipped, optimizer update.
+
+The chaos harness's injection (``inject_nonfinite_leaves``) is a select on
+the raw grads before the reduce half: an all-zero fault vector gives the
+uninjected bits.
 
 The model's backward is PyTorch autograd over plain tensor code, as the
 JAX package leaves it to XLA.
@@ -35,26 +57,46 @@ from typing import Optional
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch.comm.buckets import (from_canonical, pack_group,
+                                      to_canonical, unpack_group)
 from repro_torch.comm.collectives import (CollectiveContext,
                                           StackedCollectives)
-from repro_torch.comm.executor import RandFn, execute_plan, execute_plan_spmd
+from repro_torch.comm.executor import (RandFn, apply_buckets_spmd,
+                                       reduce_buckets, reduce_buckets_spmd,
+                                       unchunk_buckets_spmd)
 from repro_torch.comm.plan import SyncPlan, build_sync_plan
 from repro_torch.core.qsgd import random_bits
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bucket_topk.ops import check_bucket_size
 from repro_torch.models.model import Model, init_params
 from repro_torch.models.specs import param_specs
-from repro_torch.optim.optimizers import (clip_by_global_norm, init_opt_state,
+from repro_torch.optim.optimizers import (_bias_corrections,
+                                          clip_by_global_norm, init_opt_state,
                                           opt_update)
 from repro_torch.optim.schedule import make_schedule
+from repro_torch.train.checkpoint import opt_layout_of
 from repro_torch.train.state import TrainConfig, TrainState
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+
+
+def check_layout(tcfg: TrainConfig) -> None:
+    """The reference's rules: the scattered output mode needs the sparcml
+    plan and is the sharded-optimizer layout, so it needs zero1."""
+    if tcfg.sync.output_mode == "scattered":
+        if tcfg.sync.mode != "sparcml":
+            raise ValueError("output_mode='scattered' requires "
+                             "sync.mode='sparcml' (dense mode has no plan to "
+                             "scatter)")
+        if not tcfg.zero1:
+            raise ValueError("output_mode='scattered' is the sharded-"
+                             "optimizer layout: it requires zero1=True")
 
 
 def build_plan(model: Model, tcfg: TrainConfig, dp_total: int
                ) -> Optional[SyncPlan]:
     """The sync plan of a sparcml config (None in dense mode), built from
     shapes only."""
+    check_layout(tcfg)
     if tcfg.sync.mode != "sparcml":
         return None
     pshapes = init_params(model.cfg, device="meta")
@@ -62,19 +104,79 @@ def build_plan(model: Model, tcfg: TrainConfig, dp_total: int
                            tcfg.sync, dp_total)
 
 
+def _slots(plan: SyncPlan) -> list:
+    """The plan's leaf slots, indexed by leaf id."""
+    out = [None] * plan.num_leaves
+    for g in plan.groups:
+        for slot in g.slots:
+            out[slot.leaf_id] = slot
+    return out
+
+
+def opt_shapes(tcfg: TrainConfig, plan: SyncPlan, paths,
+               layout: str) -> dict:
+    """A ZeRO layout's moment shapes, {"mu": ..., ["nu": ...]}: the param
+    tree (``paths``, as ``tree_flatten`` gives them) of per-leaf (dp,
+    rows, cols/dp) canonical chunks ("zero1_leaf", the reference's
+    ``zero1_state_shapes``), or bucket name -> (dp, rows, cols/dp) owned
+    chunks ("zero_scattered", its ``zero_scattered_state_shapes``)."""
+    p = plan.dp_total
+    if layout == "zero1_leaf":
+        slots = _slots(plan)
+        for s in slots:
+            if s.cols % p:
+                raise ValueError(f"leaf {s.leaf_id}: {s.cols} canonical "
+                                 f"columns do not split over {p} ranks")
+        moments = lambda: tree_unflatten(paths, [(p, s.rows, s.cols // p)
+                                                 for s in slots])
+    elif layout == "zero_scattered":
+        moments = lambda: dict(plan.scattered_shapes())
+    else:
+        raise ValueError(f"unknown opt layout {layout!r}")
+    out = {"mu": moments()}
+    if tcfg.optimizer.kind == "adamw":
+        out["nu"] = moments()
+    return out
+
+
+def init_opt(params, tcfg: TrainConfig, plan: Optional[SyncPlan], device,
+             ranks: Optional[int] = None, layout: Optional[str] = None
+             ) -> dict:
+    """Zero optimizer state in ``layout`` (the config's by default); the
+    ZeRO chunks for the ``ranks`` the process holds (all by default)."""
+    layout = layout or opt_layout_of(tcfg)
+    if layout == "full":
+        return init_opt_state(params, tcfg.optimizer)
+    shapes = opt_shapes(tcfg, plan, tree_flatten(params)[1], layout)
+    dtype = tcfg.optimizer.state_dtype
+
+    def zeros(shape):
+        if ranks is not None:
+            shape = (ranks,) + tuple(shape[1:])
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    out = {k: (tree_map(zeros, v) if layout == "zero1_leaf"
+               else {n: zeros(sh) for n, sh in v.items()})
+           for k, v in shapes.items()}
+    out["count"] = torch.zeros((), dtype=torch.int32, device=device)
+    return out
+
+
 def init_state(model: Model, tcfg: TrainConfig, plan: Optional[SyncPlan],
                device="cuda", params=None,
                coll: Optional[CollectiveContext] = None) -> TrainState:
     """Fresh state: params from a generator seeded with ``tcfg.seed`` (or
-    the given ``params``), zero optimizer moments and EF residuals for the
-    ranks the process holds (all of them unless ``coll`` says otherwise)."""
+    the given ``params``), zero optimizer moments in the config's layout
+    and zero EF residuals, for the ranks the process holds (all of them
+    unless ``coll`` says otherwise)."""
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
         params = model.init(gen, dev)
     ranks = coll.local_ranks if coll is not None else None
     res = plan.init_residuals(dev, ranks) if plan is not None else None
-    return TrainState(params, init_opt_state(params, tcfg.optimizer), res, 0)
+    return TrainState(params, init_opt(params, tcfg, plan, dev, ranks), res,
+                      0)
 
 
 def _accumulated_grads(model: Model, params, batch, n_micro: int):
@@ -134,13 +236,256 @@ def rank_grads(model: Model, params, batch, dp_total: int, n_micro: int):
 
 def update(state: TrainState, synced: list, lr, tcfg: TrainConfig):
     """Clip the synced grads (flat, tree_flatten order) and run the
-    optimizer at ``lr``: (new params, new opt, grad norm)."""
+    optimizer at ``lr`` on param-shaped moments: (new params, new opt,
+    grad norm)."""
     _, paths = tree_flatten(state.params)
     grads, gnorm = clip_by_global_norm(tree_unflatten(paths, synced),
                                        tcfg.optimizer.grad_clip)
     new_p, new_opt = opt_update(state.params, grads, state.opt, lr,
                                 tcfg.optimizer)
     return new_p, new_opt, gnorm
+
+
+# --------------------------------------------------------------------------
+# ZeRO updates: the optimizer on canonical column chunks
+# --------------------------------------------------------------------------
+
+def _moment_step(ocfg, p, g, m, v, c1, c2, lr):
+    """One chunk's AdamW / SGD+momentum step in ``adamw`` /
+    ``sgd_momentum``'s op order (no fused op in one layout and not the
+    other): (new moments m, v, the f32 update direction without lr, the
+    f32 param after the step). ``p`` None skips the param (the delta form
+    of the scattered update applies it per leaf)."""
+    gf = g.to(torch.float32)
+    if ocfg.kind == "adamw":
+        b1, b2 = ocfg.beta1, ocfg.beta2
+        m2 = b1 * m.to(torch.float32) + (1 - b1) * gf
+        v2 = b2 * v.to(torch.float32) + (1 - b2) * gf * gf
+        delta = (m2 / c1) / (torch.sqrt(v2 / c2) + ocfg.eps)
+    elif ocfg.kind == "sgdm":
+        m2, v2 = ocfg.momentum * m.to(torch.float32) + gf, None
+        delta = m2
+    else:
+        raise ValueError(ocfg.kind)
+    if p is None:
+        return m2, v2, delta, None
+    pf = p.to(torch.float32)
+    step = delta
+    if ocfg.kind == "adamw":
+        step = step + ocfg.weight_decay * pf
+    return m2, v2, delta, pf - lr * step
+
+
+def _chunks(x: torch.Tensor, spec, bucket_size: int, p: int) -> torch.Tensor:
+    """A leaf's canonical (rows, cols) layout as its (p, rows, cols/p)
+    column chunks: a view of the leaf's memory where the canonical layout
+    is one (no padding), else of a copy."""
+    c = to_canonical(x, spec, bucket_size)
+    rows, cols = c.shape
+    return c.view(rows, p, cols // p).permute(1, 0, 2)
+
+
+def _held(chunks: torch.Tensor, coll: Optional[CollectiveContext]):
+    """The chunks of the ranks this process holds: all of them (stacked),
+    or its own (one rank a process)."""
+    if not _one_rank_a_process(coll):
+        return chunks
+    return chunks[coll.rank:coll.rank + 1]
+
+
+def _like(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` in ``old``'s dtype and memory layout: the forward then runs
+    the same kernels whatever layout the update ran in."""
+    new = new.to(old.dtype)
+    if new.stride() != old.stride():
+        new = torch.empty_like(old).copy_(new)
+    return new
+
+
+def _new_opt(opt, mu, nu, count):
+    out = {"mu": mu, "count": count}
+    if "nu" in opt:
+        out["nu"] = nu
+    return out
+
+
+def zero1_update(state: TrainState, synced: list, lr, tcfg: TrainConfig,
+                 plan: SyncPlan, coll: Optional[CollectiveContext] = None):
+    """ZeRO-1: clip the synced grads (flat, tree_flatten order) as the
+    replicated step does, then update each leaf's column chunks from its
+    moment chunks (the reference's ``_zero1_update_spmd`` over the stacked
+    ranks; with ``coll`` its per-rank ``_zero1_update``: each held rank
+    updates its chunk and one ``all_gather`` a leaf rebuilds the param).
+    Returns (new params, new opt, grad norm)."""
+    ocfg = tcfg.optimizer
+    leaves_p, paths = tree_flatten(state.params)
+    grads, gnorm = clip_by_global_norm(tree_unflatten(paths, synced),
+                                       ocfg.grad_clip)
+    leaves_g = tree_flatten(grads)[0]
+    leaves_m = tree_flatten(state.opt["mu"])[0]
+    leaves_v = (tree_flatten(state.opt["nu"])[0] if "nu" in state.opt
+                else [None] * len(leaves_p))
+    count = state.opt["count"] + 1
+    c1, c2 = _bias_corrections(count, ocfg)
+    p, bsz = plan.dp_total, tcfg.sync.bucket_size
+    new_p, new_m, new_v = [], [], []
+    for slot, pl, gl, m, v in zip(_slots(plan), leaves_p, leaves_g,
+                                  leaves_m, leaves_v):
+        my_p = _chunks(pl, slot.spec, bsz, p)
+        my_g = _chunks(gl, slot.spec, bsz, p)
+        if coll is not None:
+            my_p, my_g = _held(my_p, coll), _held(my_g, coll)
+        m2, v2, _, upd = _moment_step(ocfg, my_p, my_g, m, v, c1, c2, lr)
+        new_m.append(m2.to(m.dtype))
+        new_v.append(None if v2 is None else v2.to(v.dtype))
+        if coll is not None:
+            full = coll.all_gather(upd, axis=1)[0]       # (rows, cols)
+        else:
+            full = upd.permute(1, 0, 2).reshape(slot.rows, slot.cols)
+        new_p.append(_like(from_canonical(full, pl.shape, slot.spec), pl))
+    return (tree_unflatten(paths, new_p),
+            _new_opt(state.opt, tree_unflatten(paths, new_m),
+                     tree_unflatten(paths, new_v), count), gnorm)
+
+
+def zero_scattered_update_spmd(state: TrainState, chunks: dict, leaves_r,
+                               lr, tcfg: TrainConfig, plan: SyncPlan):
+    """The scattered update over the stacked ranks (the reference's
+    ``_zero_scattered_update_spmd``): the owner chunks become the synced
+    leaves again, clipped as the replicated step clips them (so the
+    factor, and every value, is the replicated one), the moments update
+    on each bucket's (p, rows, w) chunks, and only the update direction
+    goes back through the bucket layout: the parameter step p - lr *
+    (delta + wd * p) runs per leaf in ``adamw``'s ops. ``leaves_r`` are
+    the rank-stacked grads (shape references). Returns (new params, new
+    opt, grad norm)."""
+    ocfg = tcfg.optimizer
+    p, bsz = plan.dp_total, tcfg.sync.bucket_size
+    leaves_p, paths = tree_flatten(state.params)
+    applied = apply_buckets_spmd(plan, unchunk_buckets_spmd(plan, chunks),
+                                 leaves_r)
+    grads, gnorm = clip_by_global_norm(tree_unflatten(paths, applied),
+                                       ocfg.grad_clip)
+    leaves_g = tree_flatten(grads)[0]
+    count = state.opt["count"] + 1
+    c1, c2 = _bias_corrections(count, ocfg)
+    new_leaves: list = [None] * plan.num_leaves
+    new_m, new_v = {}, {}
+    for group in plan.groups:
+        gbuf = pack_group(group, leaves_g, bsz)
+        dparts = []
+        for b in group.buckets:
+            w = plan.owned_cols(b)
+            g = gbuf[:, b.col_start:b.col_start + b.cols].view(
+                group.rows, p, w).permute(1, 0, 2)
+            m, v = state.opt["mu"][b.name], state.opt.get("nu", {}).get(b.name)
+            m2, v2, delta, _ = _moment_step(ocfg, None, g, m, v, c1, c2, lr)
+            new_m[b.name] = m2.to(m.dtype)
+            if v2 is not None:
+                new_v[b.name] = v2.to(v.dtype)
+            dparts.append(delta.permute(1, 0, 2).reshape(group.rows, b.cols))
+        dbuf = dparts[0] if len(dparts) == 1 else torch.cat(dparts, dim=1)
+        for slot in group.slots:
+            pl = leaves_p[slot.leaf_id]
+            delta = from_canonical(dbuf[:, slot.offset:slot.offset + slot.cols],
+                                   slot.shape, slot.spec)
+            pf = pl.to(torch.float32)
+            step = delta
+            if ocfg.kind == "adamw":
+                step = step + ocfg.weight_decay * pf
+            new_leaves[slot.leaf_id] = (pf - lr * step).to(pl.dtype)
+    return (tree_unflatten(paths, new_leaves),
+            _new_opt(state.opt, new_m, new_v, count), gnorm)
+
+
+def zero_scattered_update(state: TrainState, chunks: dict, lr,
+                          tcfg: TrainConfig, plan: SyncPlan,
+                          coll: CollectiveContext):
+    """The scattered update per rank (the reference's
+    ``_zero_scattered_update``): the owner grad chunks come straight off
+    the reduce (no grad-side gather ever ran), each held rank updates its
+    param and moment chunks, and ONE dense param ``all_gather`` a bucket
+    rebuilds the parameters. The grad norm is exact from the chunks (the
+    owned ranges are disjoint and cover the buffers; padding adds zero):
+    one psum of the per-shard sums of squares, a different summation
+    order from the replicated step's (allclose, not bitwise). Returns
+    (new params, new opt, grad norm)."""
+    ocfg = tcfg.optimizer
+    p, bsz = plan.dp_total, tcfg.sync.bucket_size
+    lead = coll.local_ranks
+    total = None
+    for b in plan.buckets:
+        sq = chunks[b.name].to(torch.float32).square().reshape(lead, -1).sum(1)
+        total = sq if total is None else total + sq
+    gnorm = torch.sqrt(coll.psum(total))                     # (L,)
+    factor = (torch.clamp(ocfg.grad_clip / (gnorm + 1e-9), max=1.0)
+              if ocfg.grad_clip else torch.ones_like(gnorm))
+    count = state.opt["count"] + 1
+    c1, c2 = _bias_corrections(count, ocfg)
+    leaves_p, paths = tree_flatten(state.params)
+    new_leaves: list = [None] * plan.num_leaves
+    new_m, new_v = {}, {}
+    for group in plan.groups:
+        pbuf = pack_group(group, leaves_p, bsz)                # (rows, cols)
+        parts = []
+        for b in group.buckets:
+            w = plan.owned_cols(b)
+            my_p = _held(pbuf[:, b.col_start:b.col_start + b.cols].view(
+                group.rows, p, w).permute(1, 0, 2), coll)
+            g = chunks[b.name].to(torch.float32) * factor[:, None, None]
+            m, v = state.opt["mu"][b.name], state.opt.get("nu", {}).get(b.name)
+            m2, v2, _, upd = _moment_step(ocfg, my_p, g, m, v, c1, c2, lr)
+            new_m[b.name] = m2.to(m.dtype)
+            if v2 is not None:
+                new_v[b.name] = v2.to(v.dtype)
+            parts.append(coll.all_gather(upd, axis=1)[0])   # (rows, b.cols)
+        out_buf = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        for leaf_id, arr in unpack_group(group, out_buf, leaves_p):
+            new_leaves[leaf_id] = _like(arr, leaves_p[leaf_id])
+    return (tree_unflatten(paths, new_leaves),
+            _new_opt(state.opt, new_m, new_v, count), gnorm[0])
+
+
+# --------------------------------------------------------------------------
+# The two halves of a sparcml step, in every layout
+# --------------------------------------------------------------------------
+
+def reduce_half(plan: SyncPlan, leaves, residuals: dict,
+                coll: Optional[CollectiveContext], rand_fn: RandFn,
+                telemetry: bool = False):
+    """The executor of the lowering: (reduced, new residuals, telemetry
+    rows {name -> (4,)}). ``reduced`` is what :func:`optimizer_half`
+    takes: one rank's replicated (rows, cols) buffers (every held rank
+    holds the same), or a scattered plan's owner chunks of the held ranks
+    ((p, rows, w) stacked, (1, rows, w) one rank a process)."""
+    if coll is None:
+        return reduce_buckets_spmd(plan, leaves, residuals,
+                                   p_data=plan.dp_total, rand_fn=rand_fn,
+                                   telemetry=telemetry)
+    reduced, new_res, telem = reduce_buckets(
+        plan, leaves, residuals, coll=coll,
+        rand_fn=rank_rand_fn(rand_fn, coll), telemetry=telemetry)
+    if not plan.scattered:
+        reduced = {n: v[0] for n, v in reduced.items()}
+    return reduced, new_res, {n: v[0] for n, v in telem.items()}
+
+
+def optimizer_half(state: TrainState, reduced: dict, leaves, lr,
+                   tcfg: TrainConfig, plan: SyncPlan,
+                   coll: Optional[CollectiveContext]):
+    """Apply ``reduced`` (as :func:`reduce_half` returns it) to the
+    state's layout: clip and optimizer update. ``leaves`` are the step's
+    rank-stacked grads (shape references). Returns (new params, new opt,
+    grad norm)."""
+    if plan.scattered:
+        if coll is None:
+            return zero_scattered_update_spmd(state, reduced, leaves, lr,
+                                              tcfg, plan)
+        return zero_scattered_update(state, reduced, lr, tcfg, plan, coll)
+    synced = apply_buckets_spmd(plan, reduced, leaves)
+    if opt_layout_of(tcfg) == "zero1_leaf":
+        return zero1_update(state, synced, lr, tcfg, plan, coll)
+    return update(state, synced, lr, tcfg)
 
 
 # --------------------------------------------------------------------------
@@ -215,6 +560,22 @@ def rank_rand_fn(rand_fn: RandFn, coll: Optional[CollectiveContext]
 # ``all_finite_leaves`` / ``guard_select``). Both are tensor ops on the
 # device: the verdict is never read on the host inside a step.
 # --------------------------------------------------------------------------
+
+def inject_nonfinite_leaves(leaves, fault_vec: torch.Tensor) -> list:
+    """The chaos harness's injection: grad leaf i becomes NaN (flag 1) or
+    Inf (flag 2) where the (n_leaves,) f32 ``fault_vec`` says so. A pure
+    select (``torch.where``), never arithmetic (``g + flag * nan`` is NaN
+    at flag 0 too), so an all-zero vector gives every leaf's bits back;
+    the flags stay on the device (no host read)."""
+    inf = torch.full((), float("inf"), device=fault_vec.device)
+    nan = torch.full((), float("nan"), device=fault_vec.device)
+    out = []
+    for i, g in enumerate(leaves):
+        flag = fault_vec[i]
+        bad = torch.where(flag > 1.5, inf, nan).to(g.dtype)
+        out.append(torch.where(flag > 0.5, bad, g))
+    return out
+
 
 def all_finite_leaves(leaves) -> torch.Tensor:
     """f32 scalar: 1.0 iff every element of every leaf is finite. Checked
@@ -297,16 +658,11 @@ def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
         loss = global_loss(loss, coll)
         if rand_fn is None:
             rand_fn = step_rand_fn(tcfg.seed, state.step, dev)
-        if coll is not None:
-            synced, new_res = execute_plan(plan, leaves, state.residuals,
-                                           coll=coll,
-                                           rand_fn=rank_rand_fn(rand_fn, coll))
-        else:
-            synced, new_res = execute_plan_spmd(
-                plan, leaves, state.residuals, p_data=dp_total,
-                rand_fn=rand_fn)
+        reduced, new_res, _ = reduce_half(plan, leaves, state.residuals,
+                                          coll, rand_fn)
         lr = sched(state.step)
-        new_p, new_opt, gnorm = update(state, synced, lr, tcfg)
+        new_p, new_opt, gnorm = optimizer_half(state, reduced, leaves, lr,
+                                               tcfg, plan, coll)
         return (TrainState(new_p, new_opt, new_res, state.step + 1),
                 {"loss": loss, "grad_norm": gnorm, "lr": lr})
 

@@ -25,7 +25,15 @@ whose accepted replans swap the step at drain barriers; checkpoints then
 carry the active plan, and a resume rebuilds it (a checkpoint of the JAX
 package's included). The network parameters the controller costs plans
 with are fitted once a Trainer (``utils/calibrate.py``) on its own
-context. The fault injector and the retry supervisor are not ported yet.
+context.
+
+A resume converts the optimizer state when the checkpoint was written
+under the other ZeRO layout (zero1_leaf <-> zero_scattered, value for
+value), and ``resume_elastic`` restores onto another replica count.
+``run_pipelined(injector=..., recovery=...)`` runs a chaos plan under the
+retry supervisor (``runtime/faults.py``): the guarded, injectable step,
+checkpoint corruption after each save, and restores that fall back to
+the newest checkpoint that verifies.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from repro_torch.runtime.driver import DriverLog, record_step
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.state import TrainConfig, TrainState
 from repro_torch.train.train_step import build_train_step, init_state
+from repro_torch.utils.tree import tree_leaves
 
 TrainerLog = DriverLog
 
@@ -110,15 +119,48 @@ class Trainer:
         return self.state.step
 
     def _restore(self) -> TrainState:
+        """The newest verified checkpoint in this config's optimizer
+        layout: one written under the other ZeRO layout is restored into
+        a template of its own layout and converted (the reference's
+        ``_restore_any_layout``)."""
+        from repro_torch.train import train_step as ts
+
         step = self._verified_step()
-        layout = ckpt.load_meta(self.ckpt_dir, step).get(
-            "opt_layout", ckpt.opt_layout_of(self.tcfg))
-        if layout != ckpt.opt_layout_of(self.tcfg):
-            raise NotImplementedError(
-                f"checkpoint opt layout {layout!r}: resuming a ZeRO layout "
-                "needs ROADMAP Queue 1 item 10")
-        return ckpt.restore(self.ckpt_dir, self.state._replace(inflight=None),
-                            dp_total=self.dp_total, step=step, verify=True)
+        mine = ckpt.opt_layout_of(self.tcfg)
+        theirs = ckpt.load_meta(self.ckpt_dir, step).get("opt_layout", mine)
+        like = self.state._replace(inflight=None)
+        if theirs == mine:
+            return ckpt.restore(self.ckpt_dir, like, dp_total=self.dp_total,
+                                step=step, verify=True)
+        if {theirs, mine} != {"zero1_leaf", "zero_scattered"}:
+            raise ValueError(
+                f"checkpoint opt layout {theirs!r} is not resumable under "
+                f"{mine!r} (only zero1_leaf <-> zero_scattered)")
+        other = ts.init_opt(like.params, self.tcfg, self.plan, self.device,
+                            layout=theirs)
+        restored = ckpt.restore(self.ckpt_dir, like._replace(opt=other),
+                                dp_total=self.dp_total, step=step,
+                                verify=True)
+        return ckpt.convert_opt_layout(restored, self.plan, source=theirs,
+                                       target=mine)
+
+    def resume_elastic(self, dp_total: int) -> int:
+        """An elastic restart onto ``dp_total`` replicas: the steps are
+        rebuilt for the new count and the newest checkpoint restored with
+        ``remesh`` (ZeRO chunks re-split, EF residuals reset). Returns the
+        step to start from."""
+        if self.coll is not None:
+            raise ValueError("resume_elastic re-stacks the ranks of one "
+                             "process: not for a run with one rank a process")
+        self.dp_total = dp_total
+        self.step_fn, self.plan = build_train_step(
+            self.model, self.tcfg, dp_total, self.device, self.lowering)
+        self.init()
+        if self.ckpt_dir and ckpt.latest_step(self.ckpt_dir) is not None:
+            self.state = ckpt.restore(
+                self.ckpt_dir, self.state, dp_total=dp_total,
+                step=self._verified_step(), remesh=True, verify=True)
+        return self.state.step
 
     def _verified_step(self) -> int:
         """The newest checkpoint that passes CRC verification; falls back
@@ -209,21 +251,27 @@ class Trainer:
         for ``adapt``, or set in ``_net_cal``), each retire interval is
         tiled with the cost model's derived compute / exposed-comm phases
         of the active plan; the port has no default network to lay them
-        on otherwise. Fault injection and the retry supervisor raise
-        until ported (ROADMAP Queue 1 item 13)."""
+        on otherwise.
+
+        ``recovery`` (a ``runtime.faults.RecoveryConfig``) bounds the
+        driver's restores with per-fault-class retry budgets and jittered
+        backoff; ``injector`` (a ``runtime.faults.FaultInjector``) runs
+        its chaos plan against this run: the step is built to take its
+        grad-leaf NaN/Inf vector, and each save may be corrupted after it
+        lands (the CRC fallback restores the newest valid one)."""
         from repro_torch.runtime import adapt as rt_adapt
         from repro_torch.runtime import driver as rt_driver
         from repro_torch.runtime import pipeline as rt_pipeline
         from repro_torch.train import train_step as ts
 
-        if injector is not None or recovery is not None:
-            raise NotImplementedError(
-                "fault injection and the retry supervisor are not ported "
-                "(ROADMAP Queue 1 item 13)")
         if self.state is None:
             self.init_or_resume()
+        inject = injector is not None
+        if inject:
+            # the fault vector is indexed by grad leaf, the params' order
+            injector.bind(n_leaves=len(tree_leaves(self.state.params)))
         kw = dict(staleness=staleness, guard=guard, lowering=self.lowering,
-                  coll=self.coll)
+                  coll=self.coll, inject=inject)
         runtime = None
         if adapt:
             if staleness < 1:
@@ -264,9 +312,10 @@ class Trainer:
                     telemetry=telemetry, **kw)
             if telemetry:
                 runtime = rt_adapt.TelemetryObserver(self.obs)
+        ranks = self.coll.local_ranks if self.coll is not None else None
         state = self.state
         if staleness:
-            state = rt_pipeline.attach_inflight(state, plan)
+            state = rt_pipeline.attach_inflight(state, plan, ranks)
         elif state.inflight is not None:
             state = state._replace(inflight=None)
 
@@ -281,11 +330,15 @@ class Trainer:
             ckpt.save(self.ckpt_dir, s._replace(inflight=None),
                       dp_total=self.dp_total, extra_meta=extra,
                       opt_layout=ckpt.opt_layout_of(self.tcfg))
+            if inject:
+                # a scheduled ckpt_corrupt flips bytes in the save that
+                # just landed; the CRC fallback of the restore survives it
+                injector.corrupt_checkpoint(self.ckpt_dir, int(s.step))
 
         def restore_fn():
             restored = self._restore()
-            return (rt_pipeline.attach_inflight(restored, plan) if staleness
-                    else restored)
+            return (rt_pipeline.attach_inflight(restored, plan, ranks)
+                    if staleness else restored)
 
         phase_attr = None
         if self.obs.trace_on and self._net_cal is not None:
@@ -331,7 +384,7 @@ class Trainer:
             ckpt_fn=ckpt_fn if self.ckpt_dir else None,
             restore_fn=restore_fn if self.ckpt_dir else None,
             adapt=runtime, obs=self.obs, phase_attr=phase_attr,
-            health=health)
+            health=health, recovery=recovery, injector=injector)
         self.state = state
         self.last_plan = getattr(runtime, "current_plan", None) or plan
         if self.ckpt_dir:

@@ -178,7 +178,10 @@ def test_replan_keeps_the_layout_and_refuses_what_is_not_ported():
     again = demoted.replan(algorithms={b.name: "dsar_split_allgather"
                                        for b in plan.buckets})
     assert again.signature() == plan.signature() and again.version == 2
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a replan keeps the output mode: another one changes the state layout
+    assert plan.replan(algorithms={}, output_mode="replicated").output_mode \
+        == "replicated"
+    with pytest.raises(ValueError, match="keeps the output_mode"):
         plan.replan(algorithms={}, output_mode="scattered")
     with pytest.raises(ValueError, match="net"):
         plan.replan({b.name: 1.0 for b in plan.buckets})
@@ -461,7 +464,8 @@ def _tcfgs(qsgd_bits):
         sync=JaxSyncConfig(**kw, impl="ref"), optimizer=JaxOptimizerConfig(),
         schedule=JaxScheduleConfig(**SCHED), microbatches=2, zero1=False)
     tcfg = TrainConfig(sync=SyncConfig(**kw), optimizer=OptimizerConfig(),
-                       schedule=ScheduleConfig(**SCHED), microbatches=2)
+                       schedule=ScheduleConfig(**SCHED), microbatches=2,
+                       zero1=False)
     return jtcfg, tcfg
 
 

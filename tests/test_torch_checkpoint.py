@@ -51,10 +51,11 @@ SYNC = dict(k_per_bucket=4, bucket_size=128, algorithm="dsar_split_allgather",
 MODES = ["sparcml", "dense"]
 
 
-def _port_tcfg(mode):
+def _port_tcfg(mode, zero1=False):
     return TrainConfig(sync=SyncConfig(mode=mode, **SYNC),
                        optimizer=OptimizerConfig(),
-                       schedule=ScheduleConfig(**SCHED), microbatches=2)
+                       schedule=ScheduleConfig(**SCHED), microbatches=2,
+                       zero1=zero1)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -249,9 +250,44 @@ def test_run_restores_after_a_failure(model, tmp_path):
 
 
 def test_resume_refuses_a_zero_layout(model, tmp_path):
+    """A full-layout run (zero1=False) does not resume a ZeRO checkpoint:
+    only zero1_leaf <-> zero_scattered convert (the reference's rule)."""
     tr = _trainer(model, str(tmp_path))
     tr.init()
     ckpt.save(str(tmp_path), tr.state, dp_total=P_DATA,
               opt_layout="zero1_leaf")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="not resumable"):
         _trainer(model, str(tmp_path)).init_or_resume()
+
+
+def test_jax_default_zero1_checkpoint_resumes_in_the_port(model, tmp_path):
+    """The reference's default config trains under ZeRO-1 (as its example
+    does), so its checkpoints are "zero1_leaf": the port's default config
+    (zero1 too) resumes one bit for bit, trains on from it, and its own
+    checkpoint restores in the reference."""
+    from repro.train.trainer import Trainer as JaxTrainer
+
+    d = str(tmp_path)
+    jtcfg = JaxTrainConfig(
+        sync=JaxSyncConfig(mode="sparcml", **SYNC, impl="ref"),
+        optimizer=JaxOptimizerConfig(), schedule=JaxScheduleConfig(**SCHED),
+        microbatches=2)
+    assert jtcfg.zero1 and TrainConfig().zero1
+    jtr = JaxTrainer(
+        jax_build_model(JaxModelConfig(**TINY, dtype=jnp.float32,
+                                       param_dtype=jnp.float32)),
+        jtcfg, compat.make_mesh((P_DATA, 1), ("data", "model")),
+        JaxDataConfig(**DATA), ckpt_dir=d, ckpt_every=100)
+    jtr.run(3)
+    assert jax_ckpt.load_meta(d)["opt_layout"] == "zero1_leaf"
+    tr = Trainer(model, _port_tcfg("sparcml", zero1=True), DataConfig(**DATA),
+                 dp_total=P_DATA, device="cpu", ckpt_dir=d, ckpt_every=100)
+    assert tr.init_or_resume() == 3
+    _assert_bit_equal(_port_leaves(tr.state), _jax_leaves(jtr.state))
+    log = tr.run_pipelined(5, superstep=2)
+    assert tr.state.step == 5 and np.isfinite(log.losses).all()
+    assert ckpt.load_meta(d)["opt_layout"] == "zero1_leaf"
+    back = jax_ckpt.restore(d, jtr.state, dp_total=P_DATA, verify=True)
+    assert int(back.step) == 5
+    _assert_bit_equal(_port_leaves(tr.state._replace(inflight=None)),
+                      _jax_leaves(back))

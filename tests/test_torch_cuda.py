@@ -829,3 +829,165 @@ def test_cuda_calibrate_and_audit_on_the_stacked_ranks(cuda_device):
     assert len(probes) >= 1
     assert all(np.isfinite(s["measured_s"]) and s["measured_s"] > 0
                for s in probes.samples)
+
+
+# --------------------------------------------------------------------------
+# the ZeRO layouts and the chaos harness on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_cuda_qsgd_unpack_chunk_layout_matches_plain(cuda_device, bits):
+    """The scattered stacked executor's segment (p_pod = p_data = 1, the
+    ranks' rows stacked): the launch writes the (p, rows, w) chunks in
+    place, bit-equal to the plain version, and each chunk is its rank's
+    columns of the replicated layout's buffer."""
+    rng = np.random.default_rng(bits)
+    p, rows, bq, nbq = 4, 3, 128, 2
+    shard = nbq * bq
+    nq = p * rows * nbq
+    packed = torch.from_numpy(_u32(rng, (nq, bq * bits // 32))).to(
+        cuda_device)
+    scale = torch.from_numpy(np.abs(rng.standard_normal((nq, 1))).astype(
+        np.float32)).to(cuda_device)
+    chunk = UnpackSegment(packed, scale, 1, 1, p * rows, shard, bq, 0.25)
+    before = unpack_ops.qsgd_unpack_grouped.launches
+    (got,) = unpack_ops.qsgd_unpack_grouped([chunk], bits, impl="cuda")
+    assert unpack_ops.qsgd_unpack_grouped.launches == before + 1
+    (want,) = unpack_ops.qsgd_unpack_grouped([chunk], bits, impl="ref")
+    assert got.shape == (p * rows, shard) and torch.equal(got, want)
+    (full,) = unpack_ops.qsgd_unpack_grouped(
+        [UnpackSegment(packed, scale, 1, p, rows, shard, bq, 0.25)], bits,
+        impl="cuda")
+    chunks = got.view(p, rows, shard)
+    for r in range(p):
+        assert torch.equal(chunks[r], full[:, r * shard:(r + 1) * shard])
+
+
+def _nan_equal(a, b):
+    """Equal bits, except that any NaN equals any NaN (a computed NaN's
+    payload is the arithmetic's own)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(128, 4), (512, 8), (1024, 16), (8192, 64)])
+def test_cuda_kernels_on_nonfinite_rows(cuda_device, b, k):
+    """Rows with NaN and Inf, as an injected fault hands the reduce half:
+    bucket_topk is bit-equal to its plain version (a NaN's key lies above
+    Inf's); bucket_scatter_sum of its streams equals the plain sum (NaN
+    for NaN); qsgd_pack raises no error, its codes stay within bits, and
+    it equals the plain version where that is defined ('l2' with finite
+    scales, or NaN ones, whose rows code as zero in both)."""
+    from repro_torch.kernels.bucket_topk.cases import nonfinite_rows
+
+    x = torch.cat(list(nonfinite_rows(16, b, seed=k).values())).to(
+        cuda_device)
+    got = topk_ops.bucket_topk(x, k, impl="cuda")
+    want = topk_ops.bucket_topk(x, k, impl="ref")
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    val, lidx = got[0], got[1]
+    assert int(lidx.min()) >= 0 and int(lidx.max()) < b
+    s = 4
+    seg = ScatterSumSegment(lidx.view(1, s, -1, k), val.view(1, s, -1, k), b)
+    assert _nan_equal(scatter_ops.bucket_scatter_sum(*seg, impl="cuda"),
+                      scatter_ops.bucket_scatter_sum(*seg, impl="ref"))
+    torch.cuda.synchronize()
+    bits = 4
+    bq = min(b, 1024)
+    finite = torch.from_numpy(_x_with_ties(b, 8, bq)).to(cuda_device)
+    rows = torch.cat([x.reshape(-1, bq), finite]).contiguous()
+    rand = torch.from_numpy(_u32(np.random.default_rng(b), tuple(
+        rows.shape))).to(cuda_device)
+    for mode in ("l2", "max"):
+        p, sc = pack_ops.qsgd_pack(rows, rand, bits, mode, impl="cuda")
+        torch.cuda.synchronize()
+        codes = (u32_to_i64(p)[..., None] >> (torch.arange(
+            32 // bits, device=cuda_device) * bits)) & (2**bits - 1)
+        assert int(codes.max()) <= 2 * (2 ** (bits - 1) - 1)
+        pr, scr = pack_ops.qsgd_pack(rows, rand, bits, mode, impl="ref")
+        if mode == "max":      # bit-equal on finite rows (the plain
+            defined = torch.isfinite(rows).all(1)     # version's amax is
+        else:                  # NaN on a NaN row, the kernel's fmaxf not)
+            # a NaN sum of squares: every code the zero level, in both
+            defined = torch.isnan(scr[:, 0])
+            assert torch.isnan(sc[defined]).all()
+        assert bool(defined.any())
+        assert torch.equal(sc[defined].view(torch.int32),
+                           scr[defined].view(torch.int32)) or mode == "l2"
+        assert torch.equal(p.view(torch.int32)[defined],
+                           pr.view(torch.int32)[defined])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["replicated", "scattered"])
+def test_cuda_injected_step_has_no_host_sync(cuda_device, mode):
+    """The chaos harness's step (a fault vector on the batch, the guarded
+    ZeRO step, staleness 1 on the side stream): no host synchronisation
+    inside a step (CUDA sync debug mode), an idle vector bit-exact with no
+    injector, a NaN vector a no-op on the state."""
+    import warnings
+
+    from repro_torch.core.compressor import SyncConfig
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.schedule import ScheduleConfig
+    from repro_torch.runtime.faults import FAULT_KEY
+    from repro_torch.runtime.pipeline import (attach_inflight,
+                                              build_pipelined_step)
+    from repro_torch.train.state import TrainConfig
+    from repro_torch.train.train_step import init_state
+    from repro_torch.utils.tree import tree_leaves
+
+    model = build_model(ModelConfig(
+        name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
+        num_kv_heads=2, d_ff=1024, vocab_size=512, dtype=torch.float32,
+        param_dtype=torch.float32, max_seq_len=64))
+    tcfg = TrainConfig(
+        sync=SyncConfig(mode="sparcml", k_per_bucket=8, bucket_size=512,
+                        algorithm="dsar_split_allgather", qsgd_bits=4,
+                        min_sparse_size=65536, output_mode=mode),
+        schedule=ScheduleConfig(kind="wsd", peak_lr=3e-3, warmup_steps=2,
+                                total_steps=10),
+        microbatches=2)
+    data = DataConfig(global_batch=8, seq_len=32, vocab_size=512)
+    runs = {}
+    for inject in (False, True):
+        step, plan = build_pipelined_step(model, tcfg, 4, cuda_device,
+                                          guard=True, inject=inject)
+        state = attach_inflight(init_state(model, tcfg, plan, cuda_device),
+                                plan)
+        n = len(tree_leaves(state.params))
+        syncs = []
+        for i in range(4):
+            batch = synthetic_batch(data, i)
+            if inject:
+                batch[FAULT_KEY] = np.zeros(n, np.float32)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    state, m = step(state, batch)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs += [str(w.message) for w in caught
+                      if "called a synchronizing" in str(w.message)]
+        assert not syncs, syncs[:3]
+        step.drain()
+        runs[inject] = (state, step, n)
+    (a, _, _), (b, step, n) = runs[False], runs[True]
+    for f in ("params", "opt", "residuals", "inflight"):
+        for x, y in zip(tree_leaves(getattr(a, f)), tree_leaves(getattr(b, f))):
+            assert torch.equal(x, y)
+    batch = {**synthetic_batch(data, 4), FAULT_KEY: np.ones(n, np.float32)}
+    after, m = step(b, batch)
+    step.drain()
+    assert float(m["nonfinite"]) == 1.0
+    for f in ("params", "opt", "residuals", "inflight"):
+        for x, y in zip(tree_leaves(getattr(after, f)),
+                        tree_leaves(getattr(b, f))):
+            assert torch.equal(x, y)

@@ -61,8 +61,13 @@ def _model():
 
 
 def _state_tensors(state, metrics_rows):
-    return ([*tree_leaves(state.params), *tree_leaves(state.opt)],
-            [*tree_leaves(state.residuals)]
+    """(replicated tensors, tensors that may hold a leading rank axis,
+    metrics): the optimizer moments are ZeRO-1 chunks (zero1 is the
+    default), of which one rank a process holds its own."""
+    moments = [x for k in sorted(state.opt) if k != "count"
+               for x in tree_leaves(state.opt[k])]
+    return ([*tree_leaves(state.params), state.opt["count"]],
+            [*moments, *tree_leaves(state.residuals)]
             + ([] if state.inflight is None else tree_leaves(state.inflight)),
             metrics_rows)
 
@@ -221,7 +226,7 @@ def test_process_group_step_bit_equal_to_stacked(results, case):
         for got, want in zip(got_held, held):
             if got.shape == want.shape:          # in-flight: replicated
                 assert torch.equal(got, want), (case, r)
-            else:                                # residuals: rank r's slice
+            else:                        # moments, residuals: rank r's slice
                 assert got.shape[0] == 1 and want.shape[0] == WORLD
                 assert torch.equal(got[0], want[r]), (case, r)
         for got, want in zip(got_metrics, metrics):

@@ -104,7 +104,8 @@ def test_three_step_losses_match_reference(mode, qsgd_bits, rtol,
                                     param_dtype=torch.float32))
     tcfg = TrainConfig(sync=SyncConfig(**_sync_kwargs(mode, qsgd_bits)),
                        optimizer=OptimizerConfig(),
-                       schedule=ScheduleConfig(**SCHED), microbatches=2)
+                       schedule=ScheduleConfig(**SCHED), microbatches=2,
+                       zero1=False)
     trainer = Trainer(model, tcfg, DataConfig(**DATA), dp_total=P_DATA,
                       device="cpu")
     if mode == "sparcml":
@@ -255,7 +256,8 @@ def test_manual_lowering_matches_spmd_and_reference(qsgd_bits, rtol,
     params0, ref_losses = _reference_losses("sparcml", qsgd_bits, monkeypatch)
     tcfg = TrainConfig(sync=SyncConfig(**_sync_kwargs("sparcml", qsgd_bits)),
                        optimizer=OptimizerConfig(),
-                       schedule=ScheduleConfig(**SCHED), microbatches=2)
+                       schedule=ScheduleConfig(**SCHED), microbatches=2,
+                       zero1=False)
     runs = {}
     for lowering in ("spmd", "manual"):
         model = build_model(ModelConfig(**TINY, dtype=torch.float32,
