@@ -152,7 +152,42 @@ Phases, in order; any failure exits non-zero:
      and restores; the pipelined step with an idle injector and with none
      in turns; SIGTERM in a child process, which must die by the signal
      with its blackbox written;
- 16. the kernels line (a kernel's "launches" are the main path's, or,
+ 16. serving lm-100m (12 layers, d = 768, random weights from seed 0)
+     through the port's entry points, with every kernel's launch count
+     reset before and read after (no TPU kernel lies on this path):
+     ServeEngine.generate of 8 prompts of 128 tokens, 64 new tokens, cache
+     1024, twice (the rerun bit-equal; tok/s of each), the prefill timed
+     with CUDA events and 63 decode steps one at a time; a step with its
+     read-back either way (the greedy tokens taken on the device, or the
+     logits copied to the host and np.argmax there, as the reference
+     does), 20 steps each in turns (2 rounds) and 40 of each profiled;
+     the kernels
+     a decode step (10 profiled steps); then
+     ContinuousServeEngine.run over 8 slots, cache 1024, of 32 requests
+     (Poisson arrivals at 0.5 a decode step, seed 0; prompts of 16-512
+     and 32-128 new tokens from numpy.random.default_rng(0)), twice (the
+     first run's admissions are first calls at each prompt length, the
+     second's the steady state; traced spans give the admission and
+     decode-step times): tok/s, the median decode step, TTFT, TPOT and
+     e2e p50/p99 in decode steps and in ms, peak memory (all, and above
+     what the earlier phases still hold); the second run goes under
+     CUDA sync debug mode, which must flag exactly one host
+     synchronisation a decode step (and one an admission); each request
+     against its own B = 1 generate, token for token, where a differing
+     token fails unless the B = 1 run's top-2 logit gap there is below
+     1e-4 (printed either way); the card's idle share over the last 20
+     of 40 profiled decode steps; a chaos run (three collective raises
+     before decode ticks, FaultPlan.chaos seed 0) with the unfaulted
+     outputs and the three planned recovery/serve_retry events; a
+     queue_limit 2 run that serves or sheds each request exactly once,
+     the served ones unchanged; lm-100m at 2 layers on the card against
+     the CPU on the same weights (teacher-forced logits within rtol
+     1e-5 and a floor of 1e-5 of the largest, greedy tokens by the margin
+     rule); the activation exchange at p = 2 and 4, T = 8, d = 768 (the
+     row-stream path bit-equal to dense, stacked and per rank; a row
+     stream's round trip bit for bit and its clamp over capacity; the
+     serve-plan audit on a calibrated network);
+ 17. the kernels line (a kernel's "launches" are the main path's, or,
      for one the main path does not run, those of the first later path
      that runs it, named in "launches_path"), the card line, and last the
      result line {"ok": true, "device": {...}}.
@@ -1137,6 +1172,15 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 16
+    t_phase = time.perf_counter()
+    record["serve"], new_paths["serve"] = phase_serve(torch, dev, wrappers,
+                                                      out_dir)
+    record["serve"]["seconds"] = time.perf_counter() - t_phase
+    log(f"[16] phase took {record['serve']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 17
     for row in kernels:
         row["launches_new_paths"] = {
             path: counts[row["name"]] for path, counts in new_paths.items()}
@@ -3069,6 +3113,463 @@ def phase_faults(torch, dev, wrappers, out_dir: Path):
              f"; stderr {proc.stderr[-2000:]}")
     bb.unlink(missing_ok=True)
     return rec, total
+
+
+# ---------------------------------------------------------------- 16
+
+SERVE_SLOTS = 8        # phase 16: decode slots (static batch and continuous)
+SERVE_CACHE = 1024     # cache length
+SERVE_REQUESTS = 32    # the continuous trace's requests
+MARGIN = 1e-4          # a greedy token may differ only below this top-2 gap
+
+
+def _serve_trace(vocab: int):
+    """Phase 16's requests: Poisson arrivals at 0.5 a decode step (seed
+    0), prompts of 16-512 tokens and 32-128 new tokens, drawn by
+    numpy.random.default_rng(0)."""
+    import numpy as np
+
+    from repro_torch.serve import Request, poisson_trace
+
+    rng = np.random.default_rng(0)
+    arrivals = poisson_trace(SERVE_REQUESTS, rate=0.5, seed=0)
+    lens = rng.integers(16, 513, SERVE_REQUESTS)
+    news = rng.integers(32, 129, SERVE_REQUESTS)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(lens[i])),
+                    max_new_tokens=int(news[i]), arrival=float(arrivals[i]))
+            for i in range(SERVE_REQUESTS)]
+
+
+def _greedy_margins(torch, engine, prompts, n: int):
+    """ServeEngine.generate's loop, keeping each step's top-2 logit gap:
+    (tokens (B, n), margins (B, n)) of a reference run."""
+    import numpy as np
+
+    from repro_torch.serve.engine import greedy
+
+    toks = torch.from_numpy(np.asarray(prompts, np.int32)).to(engine.device)
+    logits, state = engine.prefill_fn(engine.params, {"tokens": toks})
+    out, margins = [], []
+    for i in range(n):
+        top = torch.topk(logits, 2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        cur = greedy(logits)[:, None]
+        out.append(cur)
+        if i + 1 < n:
+            logits, state = engine.decode_fn(engine.params, state, cur)
+    return (torch.cat(out, 1).cpu().numpy(),
+            torch.stack(margins, 1).cpu().numpy())
+
+
+def _first_mismatch(got, want, margins) -> dict | None:
+    """Where two greedy runs part (None if they do not): the index, both
+    tokens, and the reference run's top-2 gap there. Tokens after it
+    continue another context and are not compared."""
+    import numpy as np
+
+    diff = np.nonzero(np.asarray(got) != np.asarray(want))[0]
+    if not diff.size:
+        return None
+    i = int(diff[0])
+    return {"index": i, "got": int(got[i]), "want": int(want[i]),
+            "margin": float(margins[i])}
+
+
+def _margin_rule(where: str, mismatches: list) -> None:
+    for m in mismatches:
+        log(f"[16] {where}: token {m['index']} of {m.get('rid', '-')} "
+            f"differs ({m['got']} vs {m['want']}) at a reference top-2 gap "
+            f"of {m['margin']:.3e}")
+    wide = [m for m in mismatches if not m["margin"] < MARGIN]
+    if wide:
+        fail(f"{where}: {len(wide)} greedy token(s) differ at a clear "
+             f"margin (>= {MARGIN}): {wide[:3]}")
+
+
+def _spans(obs, name: str) -> list:
+    return [e for e in obs.tracer.events if e.get("name") == name]
+
+
+def phase_serve(torch, dev, wrappers, out_dir: Path):
+    """Phase 16 (see the module docstring). Returns (record, launches of
+    the serving runs)."""
+    import numpy as np
+
+    from repro_torch import obs as obs_mod
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.comm.executor import (exchange_activation,
+                                           exchange_activation_spmd)
+    from repro_torch.comm.plan import build_serve_plan
+    from repro_torch.core import sparse_stream as ss
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan
+    from repro_torch.serve import (ContinuousServeEngine, ServeConfig,
+                                   ServeEngine, run_serve, sparse_decode)
+    from repro_torch.serve.engine import greedy
+    from repro_torch.train import run_lm
+    from repro_torch.utils.calibrate import calibrate
+
+    rec: dict = {}
+    for w in wrappers.values():
+        w.launches = 0
+    base_gb = torch.cuda.memory_allocated() / 1e9   # what earlier phases hold
+    cfg, _ = run_lm.lm_config(fast=False)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    vocab = cfg.vocab_size
+
+    # -- static: ServeEngine.generate, 8 prompts of 128, 64 new tokens
+    eng = ServeEngine(model, params, cache_len=SERVE_CACHE, device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, vocab, (SERVE_SLOTS, 128)).astype(np.int32)
+    walls, outs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(eng.generate(prompts, max_new_tokens=64))
+        walls.append(time.perf_counter() - t0)
+    toks = torch.from_numpy(prompts).to(dev)
+    prefill_ms = time_ms(torch, lambda: eng.prefill_fn(params,
+                                                       {"tokens": toks}))
+    logits, st = eng.prefill_fn(params, {"tokens": toks})
+    cur = greedy(logits)[:, None]
+    step_ms = []
+    for _ in range(63):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, st = eng.decode_fn(params, st, cur)
+        cur = greedy(logits)[:, None]
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    del st, logits
+
+    # -- a step's read-back either way: the B greedy tokens taken on the
+    #    device (the engines') or the (B, V) logits copied to the host and
+    #    np.argmax there (the reference's), 20 steps in turns, and each
+    #    way's idle share over the last 20 of 40 profiled steps
+    def steps_with(way: str, n: int) -> float:
+        logits, st = eng.prefill_fn(params, {"tokens": toks})
+        cur = greedy(logits)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            logits, st = eng.decode_fn(params, st, cur)
+            if way == "device":
+                cur = greedy(logits)
+                cur.cpu()
+                cur = cur[:, None]
+            else:
+                host = np.argmax(logits.cpu().numpy(), axis=-1)
+                cur = torch.from_numpy(host.astype(np.int32)[:, None]).to(dev)
+        return (time.perf_counter() - t0) / n * 1e3
+
+    logits, st = eng.prefill_fn(params, {"tokens": toks})
+    cur = greedy(logits)[:, None]
+
+    def ten_steps():
+        nonlocal st, cur
+        for _ in range(10):
+            logits, st = eng.decode_fn(params, st, cur)
+            cur = greedy(logits)[:, None]
+
+    ten = stream_shares(torch, ten_steps, out_dir)
+    kernels_a_step = ten["kernels_whole_window"] / 10 if ten else None
+    del st, logits
+    ways = {"device": [], "host": []}
+    for _ in range(2):
+        for way in ("device", "host", "host", "device"):
+            ways[way].append(steps_with(way, 20))
+    readback = {w: {"step_ms": v, "median_ms": statistics.median(v),
+                    "profile": stream_shares(torch, lambda w=w:
+                                             steps_with(w, 40), out_dir)}
+                for w, v in ways.items()}
+    log("[16] a decode step with its read-back, in turns (host clock, ms): "
+        + "; ".join(f"{w}: median {r['median_ms']:.3f} {r['step_ms']}, idle "
+                    f"share {r['profile'] and r['profile']['idle_share']}"
+                    for w, r in readback.items()))
+    log(f"[16] kernels a decode step (10 profiled steps of 8 slots): "
+        f"{kernels_a_step}")
+    static = {"bit_equal_rerun": bool(np.array_equal(*outs)),
+              "kernels_a_decode_step": kernels_a_step,
+              "readback_ways": readback,
+              "wall_s": walls, "prefill_ms": prefill_ms,
+              "decode_step_ms_median": statistics.median(step_ms),
+              "decode_step_ms": step_ms,
+              "tok_per_s": outs[1].size / walls[1],
+              "tok_per_s_first_call": outs[0].size / walls[0]}
+    rec["static"] = static
+    log(f"[16] static lm-100m, {SERVE_SLOTS} x 128-token prompts, 64 new "
+        f"tokens, cache {SERVE_CACHE}: {walls[0]:.3f} s first call, "
+        f"{walls[1]:.3f} s rerun ({static['tok_per_s']:.0f} tok/s), rerun "
+        f"bit-equal {static['bit_equal_rerun']}; prefill {prefill_ms:.3f} "
+        f"ms; decode step median {static['decode_step_ms_median']:.3f} ms "
+        f"(CUDA events, 63 steps)")
+    if not static["bit_equal_rerun"]:
+        fail("the static engine's rerun differs")
+
+    # -- continuous: 32 requests over 8 slots; first calls, then the
+    #    steady state, whose host waits are counted: CUDA sync debug mode
+    #    flags each, and the engine's read-backs are counted beside
+    reqs = _serve_trace(vocab)
+    runs, obss = [], []
+    ceng = ContinuousServeEngine(model, params, cache_len=SERVE_CACHE,
+                                 batch_size=SERVE_SLOTS, device=dev)
+    ceng.obs = obs_mod.configure(trace=True, metrics=True,
+                                 set_as_default=False)
+    runs.append(ceng.run(reqs))
+    obss.append(ceng.obs)
+    ceng.obs = obs_mod.configure(trace=True, metrics=True,
+                                 set_as_default=False)
+    counted = []
+    real_readback = sparse_decode._readback
+    sparse_decode._readback = lambda t: (counted.append(t.shape[0])
+                                         or real_readback(t))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                runs.append(ceng.run(reqs))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        sparse_decode._readback = real_readback
+    obss.append(ceng.obs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = runs[1]
+    outputs = res.outputs
+    steps = [e["dur"] / 1e3 for e in _spans(obss[1], "serve/decode_step")]
+    admit = {}
+    for i, o in enumerate(obss):
+        for e in _spans(o, "serve/admit"):
+            admit.setdefault(e["args"]["prompt_len"], [None, None])[i] = \
+                e["dur"] / 1e3
+    per_step_ms = res.wall_s / res.decode_steps * 1e3
+    lat = {k: {q: v[q] for q in ("p50", "p99")}
+           for k, v in res.latency.items()}
+    lat_ms = {k: {q: v * per_step_ms for q, v in d.items()}
+              for k, d in lat.items()}
+    admit_rows = sorted((n, f, s) for n, (f, s) in admit.items())
+    cont = {"requests": SERVE_REQUESTS, "decode_steps": res.decode_steps,
+            "tokens": res.tokens, "wall_s": [r.wall_s for r in runs],
+            "tok_per_s": res.tok_per_s,
+            "tok_per_s_first_run": runs[0].tok_per_s,
+            "decode_step_ms_median": statistics.median(steps),
+            "decode_step_ms_p90": float(np.percentile(steps, 90)),
+            "wall_ms_per_decode_step": per_step_ms,
+            "latency_steps": lat, "latency_ms": lat_ms,
+            "admit_ms_by_prompt_len": admit_rows,
+            "admit_ms_first_median": statistics.median(
+                f for _, f, _ in admit_rows),
+            "admit_ms_steady_median": statistics.median(
+                s for _, _, s in admit_rows),
+            "peak_memory_gb": peak_gb,
+            "peak_memory_serving_gb": peak_gb - base_gb,
+            "rerun_equal": all(np.array_equal(outputs[r], runs[0].outputs[r])
+                               for r in outputs),
+            "occupancy_mean": float(np.mean([r["active"]
+                                             for r in res.step_log]))}
+    rec["continuous"] = cont
+    log(f"[16] continuous lm-100m, {SERVE_REQUESTS} requests (Poisson 0.5 a "
+        f"step, prompts 16-512, 32-128 new), {SERVE_SLOTS} slots, cache "
+        f"{SERVE_CACHE}: {res.tokens} tokens in {res.decode_steps} decode "
+        f"steps, {res.wall_s:.3f} s ({res.tok_per_s:.0f} tok/s; first run "
+        f"{runs[0].wall_s:.3f} s); decode step median "
+        f"{cont['decode_step_ms_median']:.3f} ms (p90 "
+        f"{cont['decode_step_ms_p90']:.3f}); mean occupancy "
+        f"{cont['occupancy_mean']:.2f}; peak memory {peak_gb:.2f} GB, of "
+        f"which serving's own (above the {base_gb:.2f} GB the earlier phases "
+        f"hold) {peak_gb - base_gb:.2f} GB")
+    log(f"[16] latency p50/p99 in decode steps {lat}; in ms (x "
+        f"{per_step_ms:.3f} ms a step) {lat_ms}")
+    log(f"[16] admission ms (prefill B = 1 + splice + first token), first "
+        f"call / steady, median {cont['admit_ms_first_median']:.3f} / "
+        f"{cont['admit_ms_steady_median']:.3f}; by prompt length "
+        f"{[(n, round(f, 3), round(s, 3)) for n, f, s in admit_rows]}")
+    if not cont["rerun_equal"] or set(outputs) != set(range(SERVE_REQUESTS)):
+        fail("the continuous engine's rerun differs or lost requests")
+
+    # -- one host wait a decode step (and one an admission)
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    per_step = (syncs - SERVE_REQUESTS) / res.decode_steps
+    cont["host_syncs"] = {"flagged": syncs, "readbacks": len(counted),
+                          "decode_steps": res.decode_steps,
+                          "admissions": SERVE_REQUESTS,
+                          "per_decode_step": per_step}
+    log(f"[16] host synchronisations flagged (CUDA sync debug mode): {syncs} "
+        f"over {res.decode_steps} decode steps and {SERVE_REQUESTS} "
+        f"admissions: {per_step:.3f} a decode step; engine read-backs "
+        f"{len(counted)}")
+    if syncs != len(counted) or per_step != 1.0:
+        fail(f"host syncs: {syncs} flagged, {len(counted)} read-backs, "
+             f"{per_step} a decode step (expected exactly 1)")
+
+    # -- each request against its own B = 1 generate (the margin rule)
+    one = ServeEngine(model, params, cache_len=SERVE_CACHE, device=dev)
+    t0 = time.perf_counter()
+    bad = []
+    for r in reqs:
+        want = one.generate(r.prompt[None], r.max_new_tokens)[0]
+        if len(outputs[r.rid]) != len(want):
+            fail(f"request {r.rid}: {len(outputs[r.rid])} tokens, its "
+                 f"generate {len(want)}")
+        if np.array_equal(outputs[r.rid], want):
+            continue
+        _, margins = _greedy_margins(torch, one, r.prompt[None],
+                                     r.max_new_tokens)
+        m = _first_mismatch(outputs[r.rid], want, margins[0])
+        bad.append({"rid": r.rid, **m})
+    cont["per_request"] = {"mismatches": bad,
+                           "seconds": time.perf_counter() - t0}
+    log(f"[16] continuous vs each request's B = 1 generate: "
+        f"{SERVE_REQUESTS - len(bad)} of {SERVE_REQUESTS} equal token for "
+        f"token ({cont['per_request']['seconds']:.1f} s)")
+    _margin_rule("continuous vs B = 1 generate", bad)
+    del one
+
+    # -- the card's idle share over the last 20 of 40 decode steps
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(1)
+    full = [Request(rid=i, prompt=rng.integers(0, vocab, 128),
+                    max_new_tokens=41) for i in range(SERVE_SLOTS)]
+    ceng.obs = obs_mod.OFF
+    shares = stream_shares(torch, lambda: ceng.run(full), out_dir)
+    if shares is None:
+        fail("the profiled decode steps ran no kernel on the card")
+    cont["profile"] = shares
+    log(f"[16] profiler, {SERVE_SLOTS} requests of 41 tokens admitted at "
+        f"once, second half of the window (the last 20 decode steps): idle "
+        f"share {shares['idle_share']:.3f}; {shares}")
+
+    # -- faults: collective raises before decode ticks, retried
+    plan = FaultPlan.chaos(0, res.decode_steps,
+                           classes=("collective",) * 3)
+    inj = FaultInjector(plan)
+    fobs = obs_mod.configure(metrics=True, set_as_default=False)
+    feng = ContinuousServeEngine(model, params, cache_len=SERVE_CACHE,
+                                 batch_size=SERVE_SLOTS, device=dev,
+                                 obs=fobs, injector=inj)
+    fres = feng.run(reqs)
+    retries = fobs.metrics.events_named("recovery/serve_retry")
+    chaos_same = set(fres.outputs) == set(outputs) and all(
+        np.array_equal(fres.outputs[r], outputs[r]) for r in outputs)
+    rec["chaos"] = {"plan": [(s.kind, s.step) for s in plan.specs],
+                    "fired": inj.fired_total, "retry_events": len(retries),
+                    "outputs_equal": chaos_same, "wall_s": fres.wall_s}
+    log(f"[16] chaos plan {rec['chaos']['plan']}: fired {inj.fired_total}, "
+        f"recovery/serve_retry events {len(retries)}, outputs equal to the "
+        f"unfaulted run {chaos_same} ({fres.wall_s:.3f} s)")
+    if not chaos_same or inj.fired_total != 3 or len(retries) != 3:
+        fail("the chaos run's outputs or its retry events are not the plan's")
+    del feng
+
+    # -- shedding: a bounded queue accounts for every request exactly once
+    seng = ContinuousServeEngine(model, params, cache_len=SERVE_CACHE,
+                                 batch_size=SERVE_SLOTS, device=dev,
+                                 serve_cfg=ServeConfig(queue_limit=2))
+    sres = seng.run(reqs)
+    once = (set(sres.outputs) | set(sres.shed) == set(range(SERVE_REQUESTS))
+            and not set(sres.outputs) & set(sres.shed))
+    served_same = all(np.array_equal(sres.outputs[r], outputs[r])
+                      for r in sres.outputs)
+    rec["shed"] = {"shed": len(sres.shed), "served": len(sres.outputs),
+                   "exactly_once": once, "served_equal": served_same,
+                   "health": [e.rule for e in sres.health]}
+    log(f"[16] queue_limit 2: {len(sres.outputs)} served, {len(sres.shed)} "
+        f"shed ({sorted(set(sres.shed.values()))}), each exactly once "
+        f"{once}; served outputs equal to the unloaded run's {served_same}")
+    if not once or not sres.shed or not served_same:
+        fail("the shedding run lost, doubled or changed a request")
+    del seng, ceng
+
+    # -- card against CPU: lm-100m at 2 layers, the same params
+    small, cpu_params = run_serve.build(True, device="cpu")
+    card_params = _to(cpu_params, dev)
+    toks = np.random.default_rng(2).integers(0, vocab, (2, 80)).astype(
+        np.int32)
+    sides = {"cpu": (torch.device("cpu"), cpu_params),
+             "card": (dev, card_params)}
+    logits = {}
+    for where, (d, p) in sides.items():
+        t = torch.from_numpy(toks).to(d)
+        lg, st = small.prefill(p, {"tokens": t[:, :64]}, 128)
+        seq = [lg.cpu()]
+        for i in range(64, 80):
+            lg, st = small.decode_step(p, st, t[:, i:i + 1])
+            seq.append(lg.cpu())
+        logits[where] = torch.stack(seq).numpy()
+    want = logits["cpu"]
+    err = float(np.abs(logits["card"] - want).max())
+    close = bool(np.allclose(logits["card"], want, rtol=1e-5,
+                             atol=1e-5 * float(np.abs(want).max())))
+    greedy_runs = {}
+    for where, (d, p) in sides.items():
+        e = ServeEngine(small, p, cache_len=128, device=d)
+        greedy_runs[where] = _greedy_margins(torch, e, toks[:, :64], 32)
+    (card_toks, _), (cpu_toks, cpu_margins) = (greedy_runs["card"],
+                                               greedy_runs["cpu"])
+    bad = [{"rid": b, **m} for b in range(2)
+           if (m := _first_mismatch(card_toks[b], cpu_toks[b],
+                                    cpu_margins[b])) is not None]
+    rec["card_vs_cpu"] = {"max_abs_err": err, "allclose": close,
+                          "greedy_mismatches": bad}
+    log(f"[16] lm-100m at 2 layers, card vs CPU: teacher-forced logits "
+        f"(prefill 64, 16 decode steps) max abs err {err:.3e}, allclose "
+        f"(rtol 1e-5, floor 1e-5 of the largest) {close}; greedy 32 tokens "
+        f"x 2: {2 - len(bad)} of 2 equal")
+    if not close:
+        fail("card and CPU decode logits disagree")
+    _margin_rule("card vs CPU greedy", bad)
+    del card_params, small, sides
+
+    # -- the activation exchange and its row streams
+    ex = {}
+    for p in (2, 4):
+        rng = np.random.default_rng(p)
+        parts = np.zeros((p, 8, 768), np.float32)
+        for s_ in range(p):
+            for r in rng.choice(8, 3, replace=False):
+                parts[s_, r] = rng.standard_normal(768)
+        x = torch.from_numpy(parts).to(dev)
+        dense = exchange_activation_spmd(x, "dense")
+        sparse = exchange_activation_spmd(x, "stream_gather@4")
+        coll = StackedCollectives(p, device=dev)
+        per_rank = exchange_activation(x, "stream_gather@4", coll=coll)
+        st = ss.from_row_mask(x[0], (x[0] != 0).any(-1), 4)
+        over = ss.from_row_mask(x[0] + 1.0, torch.ones(
+            8, dtype=torch.bool, device=dev), 4)
+        back = ss.densify_rows(over, 8)
+        net = calibrate(coll)
+        aud = obs_mod.audit_serve_plan(
+            build_serve_plan(p, 8, 768).replan(algorithms={
+                "act0": "stream_gather@4"}), net=net, device=dev)
+        ex[p] = {"sparse_equals_dense": torch.equal(dense, sparse),
+                 "per_rank_equals": all(torch.equal(per_rank[r], dense)
+                                        for r in range(p)),
+                 "roundtrip": torch.equal(ss.densify_rows(st, 8), x[0]),
+                 "clamp": (int(over.nnz) == 4 and torch.equal(
+                     back[:4], x[0, :4] + 1.0) and not back[4:].any()),
+                 "audit": aud.samples}
+        log(f"[16] exchange p = {p}, T = 8, d = 768, 3 rows a shard under "
+            f"capacity 4: " + ", ".join(f"{k} {v}" for k, v in ex[p].items()
+                                        if k != "audit")
+            + f"; audit (measured / predicted s) "
+            f"{[(a['measured_s'], a['predicted_s']) for a in aud.samples]}")
+        if not all(v for k, v in ex[p].items() if k != "audit"):
+            fail(f"the activation exchange at p = {p}: {ex[p]}")
+    rec["exchange"] = {str(k): {kk: vv for kk, vv in v.items()}
+                       for k, v in ex.items()}
+    launches = {nm: w.launches for nm, w in wrappers.items()}
+    log(f"[16] kernel launches while serving: {launches} (no TPU kernel "
+        f"lies on the serving path)")
+    del params, model
+    return rec, launches
 
 
 def _to(tree, device):

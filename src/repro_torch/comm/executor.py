@@ -70,6 +70,11 @@ reference's ``_qsgd_rand_all`` (the per-rank form: each held rank's own,
 see :func:`reduce_buckets`). The train step draws them from a seeded
 ``torch.Generator`` (Philox on a CUDA device); tests pass the reference's
 own bits instead. ``bucket_idx`` counts every bucket, dense ones too.
+
+The serve side's executor is here too: :func:`exchange_activation` (per
+rank, over a collectives context) and :func:`exchange_activation_spmd`
+(stacked) sum a decode step's row-sparse (T, d) partials, dense or as row
+streams of the ServePlan's capacity.
 """
 from __future__ import annotations
 
@@ -83,7 +88,8 @@ from repro_torch.comm.collectives import (CollectiveContext, once_if_shared,
 from repro_torch.comm.plan import SyncPlan
 from repro_torch.core import allreduce as ar
 from repro_torch.core import sparse_stream as ss
-from repro_torch.core.cost_model import bucket_wire_bytes, pod_wire_bytes
+from repro_torch.core.cost_model import (bucket_wire_bytes, parse_stream_cap,
+                                         pod_wire_bytes)
 from repro_torch.core.topk import UniformStream, compress2d
 from repro_torch.kernels.bucket_scatter.ops import bucket_scatter_sum_grouped
 from repro_torch.kernels.bucket_scatter.ref import ScatterSumSegment
@@ -568,3 +574,63 @@ def execute_plan(
         rand_fn=rand_fn, telemetry=False)
     first = {name: v[0] for name, v in reduced.items()}
     return apply_buckets(plan, first, [l[0] for l in leaves]), new_residuals
+
+
+# --------------------------------------------------------------------------
+# Serve-time activation exchange (DESIGN.md §8)
+# --------------------------------------------------------------------------
+#
+# The decode-time MoE combine is an allreduce of a (T, d) buffer over the
+# expert/model axis whose per-shard partial is ROW-sparse: token row t is
+# nonzero only when token t is active AND routed one of its experts to
+# this shard. The ServePlan (comm/plan.py) picks the wire representation
+# per decode step; these two functions are its executor.
+#
+# Exactness contract: the stream path computes THE SAME SUM as the dense
+# path, bit for bit, as long as every shard's nonzero row count stays
+# under the stream capacity, because its summands are the partials
+# themselves and both sum them in rank order.
+
+
+def _row_stream_roundtrip(partial: torch.Tensor, cap: int) -> torch.Tensor:
+    """(*lead, T, d) partials -> row streams at capacity ``cap`` -> dense
+    again: the identity, bit for bit, while each has at most cap nonzero
+    rows, so a capacity overflow shows as a parity break, not silence."""
+    mask = torch.any(partial != 0, dim=-1)
+    return ss.densify_rows(ss.from_row_mask(partial, mask, cap),
+                           partial.shape[-2])
+
+
+def exchange_activation(partial: torch.Tensor, algorithm: str, *,
+                        coll: CollectiveContext) -> torch.Tensor:
+    """Each held rank's (T, d) combine partial, (L, T, d) -> the sum over
+    the ranks of ``coll``'s axis, (L, T, d).
+
+    'dense': ``coll.psum``. 'stream_gather@C': the planned (idx, val)
+    row-stream exchange: every rank all-gathers the others' streams of
+    capacity C, densifies each and sums them in rank order, as ``psum``
+    sums the partials. The JAX package's psum-only emulation of this
+    exchange (``native=False``) is not ported, as for every collective."""
+    if algorithm == "dense":
+        return coll.psum(partial)
+    cap = parse_stream_cap(algorithm)
+    t = partial.shape[-2]
+    stream = ss.from_row_mask(partial, torch.any(partial != 0, dim=-1), cap)
+    idx_all = coll.all_gather(stream.idx[:, None], axis=0)   # (L, p, cap)
+    val_all = coll.all_gather(stream.val[:, None], axis=0)   # (L, p, cap, d)
+    dense_all = ss.densify_rows(
+        ss.RowStream(idx_all, val_all, stream.nnz), t)       # (L, p, T, d)
+    return once_if_shared(lambda x: ordered_sum(x, 1), dense_all)
+
+
+def exchange_activation_spmd(partials: torch.Tensor,
+                             algorithm: str) -> torch.Tensor:
+    """The stacked form of :func:`exchange_activation`: the shard axis is
+    a leading axis (p, T, d), shard s's partial its s-th slice, and the
+    sum over it (in shard order) the exchange. The stream path round-trips
+    each shard's partial through its row stream first: the same summands
+    as the dense path while under capacity, so sparse == dense exactly."""
+    if algorithm != "dense":
+        partials = _row_stream_roundtrip(partials,
+                                         parse_stream_cap(algorithm))
+    return ordered_sum(partials, 0)

@@ -44,6 +44,11 @@ buffers and the sharded optimizer moments). The gather phase drops out of
 ``out=scattered|`` prefix, and ``replan`` keeps the mode: a mode change
 alters the state layout, so it raises.
 
+The serve side has its own plan: :class:`ServePlan` (``build_serve_plan``)
+picks the wire of one decode step's activation exchange, dense or a row
+stream of a capacity, and duck-types the surface of SyncPlan the adaptive
+controller reads.
+
 The geometry is the JAX package's ``repro.comm.plan`` field for field;
 the tests hold the two plans, and their replans, equal.
 """
@@ -58,8 +63,9 @@ import torch
 
 from repro_torch.comm.buckets import canonical_shape, model_axis
 from repro_torch.core.cost_model import (AUTO_NOT_CALIBRATED,
-                                         bucket_wire_bytes,
+                                         bucket_wire_bytes, stream_wire_bytes,
                                          select_bucket_algorithm)
+from repro_torch.core.sparse_stream import round_up_pow2
 from repro_torch.utils.tree import tree_flatten
 
 SPARSE_ALGORITHMS = ("ssar_recursive_double", "ssar_split_allgather",
@@ -474,3 +480,204 @@ def build_per_leaf_plan(param_shapes, param_specs, cfg, dp_total: int
             gid, rows, rows > 1 and model_axis(spec) is not None, cols,
             (LeafSlot(i, shape, spec, rows, cols, 0),), (bucket,)))
     return SyncPlan(cfg, dp_total, len(leaves), tuple(groups))
+
+
+# --------------------------------------------------------------------------
+# Serve-time activation plan (DESIGN.md §8)
+# --------------------------------------------------------------------------
+#
+# The serving engine reuses the SyncPlan machinery for a different wire:
+# instead of gradient fusion buckets reduced over the data axes, the unit
+# is an ACTIVATION bucket — the (T, d) MoE combine buffer one decode step
+# exchanges over the expert/model axis. The plan decides the bucket's
+# wire representation per compiled decode step:
+#
+#   'dense'              the reference psum of the full (T, d) buffer;
+#   'stream_gather@C'    a row-stream all-gather at fixed row capacity C
+#                        (each rank ships its <=C active-token rows as
+#                        (row idx, d-vector) items) — exact as long as
+#                        the occupancy stays under C, which the engine's
+#                        admission guard enforces.
+#
+# ServePlan duck-types the SyncPlan surface the adaptive runtime consumes
+# (groups/buckets, algorithms, signature, replan, versioning), so the
+# SAME AdaptiveController + signature-keyed compiled-step cache drive
+# serve-side sparse<->dense dispatch swaps.
+
+SERVE_STREAM = "stream_gather"
+
+
+@dataclass(frozen=True)
+class ServeSyncConfig:
+    """Duck-typed stand-in for SyncConfig on the serve side (the adaptive
+    controller only reads ``qsgd_bits`` — activation exchange ships
+    unquantized rows)."""
+
+    qsgd_bits: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class ActivationBucketSpec:
+    """One serve-time activation bucket: a (tokens, d) exchange buffer."""
+
+    name: str
+    tokens: int                   # decode slot count T
+    d: int                        # model width (row length on the wire)
+    algorithm: str                # 'dense' | 'stream_gather@<cap_rows>'
+    # SyncPlan-bucket duck-typing for the adaptive controller: activation
+    # buckets never ride a cross-pod phase.
+    pod_sparse: bool = False
+
+    @property
+    def sparse(self) -> bool:
+        return self.algorithm != "dense"
+
+    @property
+    def cap(self) -> Optional[int]:
+        """Row capacity of the stream representation (None when dense)."""
+        if not self.sparse:
+            return None
+        return int(self.algorithm.split("@", 1)[1])
+
+    @property
+    def n(self) -> int:
+        return self.tokens * self.d
+
+    @property
+    def has_residual(self) -> bool:
+        """No EF residual: the activation exchange is exact, not lossy."""
+        return False
+
+    @property
+    def rows(self) -> int:
+        return self.tokens
+
+
+@dataclass(frozen=True)
+class ServeGroupSpec:
+    gid: int
+    buckets: tuple
+
+    @property
+    def rows(self) -> int:
+        """GroupSpec duck-typing for the adaptive controller (its
+        cross-pod rules ask for flat groups; activation buckets always
+        qualify — and carry no residual, so those rules skip them)."""
+        return 1
+
+
+@dataclass(frozen=True)
+class ServePlan:
+    """Wire plan for one decode-step configuration (T slots, width d)
+    exchanged over the expert/model axis of size ``dp_total``.
+
+    Versioned and re-derivable exactly like SyncPlan: ``replan`` with the
+    telemetry window's mean active-token count re-selects the wire
+    representation (and the stream capacity, which is PART of the
+    algorithm tag and therefore of the signature — each capacity is its
+    own compiled decode step)."""
+
+    cfg: Any                      # ServeSyncConfig (duck-typed)
+    dp_total: int                 # exchange-axis world size (p_model)
+    tokens: int
+    d: int
+    groups: tuple
+    min_cap: int = 4              # smallest stream capacity ever planned
+    headroom: float = 2.0         # cap >= headroom * measured occupancy
+    version: int = 0
+
+    @property
+    def buckets(self) -> tuple:
+        return tuple(b for g in self.groups for b in g.buckets)
+
+    def algorithms(self) -> dict[str, str]:
+        return {b.name: b.algorithm for b in self.buckets}
+
+    def pod_sparse_flags(self) -> dict[str, bool]:
+        return {b.name: False for b in self.buckets}
+
+    def signature(self) -> str:
+        return ",".join(f"{b.name}={b.algorithm}" for b in self.buckets)
+
+    def bucket_k(self, group, b) -> int:
+        """The controller's per-bucket ``k`` — for activation buckets the
+        ROW width d (``stream_gather`` costing is capacity x row)."""
+        return b.d
+
+    # -- selection ---------------------------------------------------------
+    def _select(self, nnz_rows: float, net) -> str:
+        """Wire representation at a measured occupancy: the smallest
+        power-of-2 capacity with ``headroom`` over the measurement, if
+        the stream bytes beat the dense allreduce bytes; dense otherwise.
+        The ONE byte accounting shared with the executor's telemetry
+        (cost_model.stream_wire_bytes)."""
+        cap = max(self.min_cap,
+                  round_up_pow2(int(math.ceil(nnz_rows * self.headroom))))
+        if cap >= self.tokens:
+            return "dense"
+        sparse_bytes = stream_wire_bytes(self.dp_total, cap, self.d)
+        dense_bytes = bucket_wire_bytes("dense", self.dp_total, self.d,
+                                        self.tokens * self.d)
+        return (f"{SERVE_STREAM}@{cap}" if sparse_bytes < dense_bytes
+                else "dense")
+
+    def replan(self, densities: Optional[dict] = None, net=None, *,
+               algorithms: Optional[dict] = None,
+               pod_sparse: Optional[dict] = None) -> "ServePlan":
+        """Successor plan with re-selected wire representations.
+
+        ``densities``: bucket name -> mean measured active-token count
+        (the serve telemetry window). ``algorithms`` overrides win, as in
+        SyncPlan.replan; ``pod_sparse`` is accepted for controller
+        signature-compatibility and ignored (no cross-pod phase)."""
+        new_groups = []
+        for g in self.groups:
+            new_buckets = []
+            for b in g.buckets:
+                if algorithms is not None:
+                    algo = algorithms.get(b.name, b.algorithm)
+                else:
+                    nnz = None if densities is None else densities.get(b.name)
+                    algo = b.algorithm if nnz is None else \
+                        self._select(float(nnz), net)
+                new_buckets.append(ActivationBucketSpec(
+                    b.name, b.tokens, b.d, algo))
+            new_groups.append(ServeGroupSpec(g.gid, tuple(new_buckets)))
+        return dataclasses.replace(self, groups=tuple(new_groups),
+                                   version=self.version + 1)
+
+    def switch_forced(self, name: str, old: str, new: str,
+                      nnz: Optional[float]) -> bool:
+        """Correctness rule, never vetoed by hysteresis (the serve
+        analogue of the delta switchover): once the measured occupancy
+        reaches the CURRENT stream capacity, that representation can
+        drop rows — it must move, whatever the modeled win."""
+        if not old.startswith(SERVE_STREAM) or nnz is None:
+            return False
+        return nnz >= int(old.split("@", 1)[1])
+
+    # -- analytic wire traffic (per rank per decode step) ------------------
+    def wire_bytes(self) -> float:
+        return sum(bucket_wire_bytes(b.algorithm, self.dp_total, b.d, b.n)
+                   for b in self.buckets)
+
+    def describe(self) -> str:
+        head = (f"ServePlan v{self.version}: T={self.tokens} d={self.d} "
+                f"p={self.dp_total}")
+        return "\n".join([head] + [
+            f"  {b.name}: algo={b.algorithm} wire={self.wire_bytes():.0f}B"
+            for b in self.buckets])
+
+
+def build_serve_plan(p_model: int, tokens: int, d: int, *,
+                     algorithm: str = "dense", min_cap: int = 4,
+                     headroom: float = 2.0) -> ServePlan:
+    """The serve-time activation plan: ONE bucket (the per-step MoE
+    combine buffer — every layer shares the geometry, so one wire
+    decision covers the step). Starts dense unless told otherwise: dense
+    is exact at every occupancy, and the adaptive controller demotes to
+    a stream as soon as the measured occupancy says it pays."""
+    bucket = ActivationBucketSpec("act0", tokens, d, algorithm)
+    return ServePlan(ServeSyncConfig(), p_model, tokens, d,
+                     (ServeGroupSpec(0, (bucket,)),),
+                     min_cap=min_cap, headroom=headroom)

@@ -12,6 +12,8 @@ function here reads the device from the host.
 Every function works on one stream (idx/val of shape (cap,), nnz 0-d) and
 on a batch of streams with leading axes (idx/val (*lead, cap), nnz
 (*lead,)), such as the ranks a process holds in the per-rank collectives.
+:class:`RowStream` is the row-sparse form the serve-side activation
+exchange ships: its entries are whole rows of a (T, d) buffer.
 """
 from __future__ import annotations
 
@@ -242,6 +244,68 @@ def pad_to(s: SparseStream, cap: int) -> SparseStream:
         val=torch.cat([s.val, s.val.new_zeros(lead + (extra,))], dim=-1),
         nnz=s.nnz,
     )
+
+
+class RowStream(NamedTuple):
+    """Fixed-capacity ROW-sparse matrix: up to ``cap`` (row index, row
+    vector) pairs of a (T, d) buffer, idx int32 (*lead, cap), val
+    (*lead, cap, d), nnz int32 (*lead,). The serve-side activation
+    exchange (DESIGN.md §8) ships whole token rows, because MoE combine
+    partials are row-sparse: a token row is nonzero only where the token
+    routed to a local expert. Padding rows carry ``idx == SENTINEL`` and
+    all-zero vectors."""
+
+    idx: torch.Tensor
+    val: torch.Tensor
+    nnz: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.idx.shape[-1]
+
+
+def from_row_mask(x: torch.Tensor, mask: torch.Tensor, cap: int
+                  ) -> RowStream:
+    """Compact the masked ROWS of ``x`` (*lead, T, d) into a RowStream,
+    index-ascending; ``mask`` is (*lead, T).
+
+    Rows where mask is False are dropped, and so are the rows above the
+    ``cap`` lowest masked ones (``nnz`` saturates at cap). Exactness
+    contract: when popcount(mask) <= cap AND every unmasked row of ``x``
+    is all-zero, ``densify_rows`` inverts this bit for bit (the serve
+    engine's occupancy guard enforces the capacity side)."""
+    t = x.shape[-2]
+    ar = torch.arange(t, dtype=torch.int32, device=x.device)
+    idx = torch.where(mask, ar, SENTINEL)
+    idx_s, order = torch.sort(idx, dim=-1, stable=True)
+    idx_s, order = idx_s[..., :cap], order[..., :cap]
+    rows = torch.gather(x, -2, order[..., None].expand(
+        order.shape + (x.shape[-1],)))
+    val = torch.where((idx_s != SENTINEL)[..., None], rows,
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    nnz = torch.clamp(mask.sum(-1, dtype=torch.int32), max=cap)
+    return RowStream(idx_s, val, nnz)
+
+
+def densify_rows(s: RowStream, t: int) -> torch.Tensor:
+    """Scatter the row stream back into a dense (*lead, t, d) buffer.
+    Padding rows (idx == SENTINEL) and any index outside [0, t) are
+    dropped; valid row indices are unique within a stream, so the
+    scatter-add is a set. A stream broadcast over its leading axis (as the
+    stacked collectives' all_gather returns it) is densified once."""
+    def scatter(idx, val):
+        m, d = idx.shape[-1], val.shape[-1]
+        i = idx.to(torch.int64)
+        spill = torch.arange(t, t + m, device=i.device)
+        i = torch.where((i >= 0) & (i < t), i, spill)
+        ext = torch.zeros(idx.shape[:-1] + (t + m, d), dtype=val.dtype,
+                          device=val.device)
+        ext.scatter_add_(-2, i[..., None].expand(i.shape + (d,)), val)
+        return ext[..., :t, :]
+
+    if s.idx.dim() > 1:
+        return once_if_shared(scatter, s.idx, s.val)
+    return scatter(s.idx, s.val)
 
 
 def round_up_pow2(x: int) -> int:

@@ -1,15 +1,24 @@
-"""Neural building blocks of the dense LM: RMSNorm, RoPE, GQA attention,
+"""Neural building blocks of the dense LM: RMSNorm, RoPE, GQA attention
+(training, prefill, KV-cache decode with an optional sliding-window ring),
 SwiGLU/GELU MLP.
 
 Parameters are plain dicts of tensors in the JAX package's layout
-(``repro.models.layers``): x @ W with W of shape (in, out). Attention is
-the non-chunked path of the reference (plain matmuls and an f32 softmax);
-the reference switches to its chunked flash form only from sequence 2048.
+(``repro.models.layers``): x @ W with W of shape (in, out). Training
+attention is the non-chunked path of the reference (plain matmuls and an
+f32 softmax). The prefill takes the reference's online-softmax chunked
+form (``_flash_fwd``, forward only) from sequence 2048; its recomputing
+backward, which the reference's training attention uses there, is not
+ported (ROADMAP Queue 1 item 5).
+
+Decoding writes the KV cache IN PLACE: ``attention_decode`` writes each
+row's new key and value into the cache it is given and returns that same
+cache, where the reference donates the cache and returns an updated copy.
+A caller that needs the cache from before a step clones it first.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +72,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 # -- attention -------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, W, nkv, hd): W = cache length or sliding window
+    v: torch.Tensor
+
 
 def attn_init(generator, cfg: ModelConfig, device, lead=()) -> dict:
     d = cfg.d_model
@@ -129,6 +143,134 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True
         mask = mask & (i - j < cfg.sliding_window)
     out = _sdpa(q, k, v, mask, cfg.head_dim)
     return out @ p["wo"]
+
+
+_CHUNKED_MIN = 2048   # the reference's threshold for its chunked attention
+_KEY_CHUNK = 1024
+
+
+def _flash_fwd(q, k, v, positions, causal: bool, window: int, kc: int):
+    """Online-softmax attention over key chunks of ``kc`` (the reference's
+    ``_flash_fwd``): only a (B, nh, S, kc) block of scores is live at a
+    time. q: (B, S, nh, hd); k/v: (B, T, nh, hd) (GQA heads repeated by
+    the caller); positions: (T,). Returns (B, S, nh, hd)."""
+    b, s, nh, hd = q.shape
+    t = k.shape[1]
+    kpos = positions.reshape(t // kc, kc)
+    qpos = positions[:, None]
+    scale = 1.0 / math.sqrt(hd)
+    m = torch.full((b, nh, s, 1), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    den = torch.zeros((b, nh, s, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, nh, s, hd), dtype=torch.float32, device=q.device)
+    for c in range(t // kc):
+        kc_, vc_ = k[:, c * kc:(c + 1) * kc], v[:, c * kc:(c + 1) * kc]
+        kp = kpos[c]
+        scores = torch.einsum("bsnh,bcnh->bnsc", q, kc_).to(
+            torch.float32) * scale
+        mask = (qpos >= kp[None, :]) if causal else torch.ones(
+            (s, kc), dtype=torch.bool, device=q.device)
+        if window:
+            mask = mask & (qpos - kp[None, :] < window)
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        pr = torch.exp(scores - m_new)
+        den = den * corr + pr.sum(-1, keepdim=True)
+        pv = torch.einsum("bnsc,bcnh->bnsh", pr.to(vc_.dtype), vc_).to(
+            torch.float32)
+        acc = acc * corr + pv
+        m = m_new
+    out = (acc / torch.clamp_min(den, 1e-30)).to(q.dtype)
+    return out.transpose(1, 2)
+
+
+def attention_prefill(p, cfg: ModelConfig, x, positions, cache_len: int):
+    """Forward over the prompt; returns (out, KVCache padded to cache_len).
+
+    RoPE is applied to K at write time, so decode never re-rotates the
+    cache. With a sliding window the cache is a ring of width
+    w = min(cache_len, window) holding position i at slot i % w."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, positions)
+    if s >= _CHUNKED_MIN and s % _KEY_CHUNK == 0:
+        g = cfg.num_heads // cfg.num_kv_heads
+        kr = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
+        vr = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
+        out = _flash_fwd(q, kr, vr, positions, True, cfg.sliding_window,
+                         _KEY_CHUNK)
+        out = out.reshape(b, s, -1) @ p["wo"]
+    else:
+        i = positions[..., :, None]
+        j = positions[..., None, :]
+        mask = i >= j
+        if cfg.sliding_window:
+            mask = mask & (i - j < cfg.sliding_window)
+        out = _sdpa(q, k, v, mask, cfg.head_dim) @ p["wo"]
+    w = cache_len
+    if cfg.sliding_window:
+        w = min(w, cfg.sliding_window)
+    if s >= w:                  # keep the last w entries
+        if cfg.sliding_window:  # ring layout: slot = pos % w
+            slots = (positions[..., -w:] % w).long()
+            kk = torch.zeros((b, w) + k.shape[2:], dtype=k.dtype,
+                             device=k.device)
+            vv = torch.zeros_like(kk)
+            kk[:, slots] = k[:, -w:]
+            vv[:, slots] = v[:, -w:]
+        else:
+            kk, vv = k[:, s - w:].contiguous(), v[:, s - w:].contiguous()
+    else:
+        pad = (0, 0, 0, 0, 0, w - s)
+        kk, vv = F.pad(k, pad), F.pad(v, pad)
+    return out, KVCache(kk, vv)
+
+
+def attention_decode(p, cfg: ModelConfig, x, cache: KVCache, pos):
+    """One-token decode. x: (B, 1, d); pos: the current position, a 0-d
+    int tensor (or int) for a batch-synchronous decode, or a (B,) vector
+    of PER-SLOT positions (continuous batching: each request slot is at
+    its own depth in its own cache rows).
+
+    Full attention: cache slot = pos, clamped to the last slot (the
+    reference's update clamps there too; in the per-slot form an inactive
+    slot may sit past the cache end, and its rows are overwritten at
+    admission). Sliding window: a ring, slot = pos % w. The new key and
+    value are written into ``cache`` in place; returns (out, cache)."""
+    b = x.shape[0]
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    w = cache.k.shape[1]
+    q = (x @ p["wq"]).reshape(b, 1, nh, hd)
+    k = (x @ p["wk"]).reshape(b, 1, nkv, hd)
+    v = (x @ p["wv"]).reshape(b, 1, nkv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if not torch.is_tensor(pos):
+        pos = torch.full((), pos, dtype=torch.int32, device=x.device)
+    slot_ids = torch.arange(w, device=x.device)
+    posv = pos[:, None] if pos.dim() == 1 else pos.reshape(1)
+    q = rope(q, posv, cfg.rope_theta)
+    k = rope(k, posv, cfg.rope_theta)
+    slot = pos % w if cfg.sliding_window else torch.clamp_max(pos, w - 1)
+    if pos.dim() == 1:
+        # the same math per batch row as the scalar form: rope at each
+        # row's own position, a per-row cache slot and validity mask
+        bidx = torch.arange(b, device=x.device)
+        cache.k[bidx, slot.long()] = k[:, 0]
+        cache.v[bidx, slot.long()] = v[:, 0]
+        slot, pos = slot[:, None], pos[:, None]
+    else:
+        cache.k.index_copy_(1, slot.reshape(1).long(), k)
+        cache.v.index_copy_(1, slot.reshape(1).long(), v)
+    if cfg.sliding_window:
+        age = (slot - slot_ids) % w     # steps since the slot was written
+        valid = age < torch.clamp_max(pos + 1, w)
+    else:
+        valid = slot_ids <= pos
+    mask = valid[:, None, None, :] if valid.dim() == 2 else valid
+    out = _sdpa(q, cache.k, cache.v, mask, hd) @ p["wo"]
+    return out, cache
 
 
 # -- MLP -------------------------------------------------------------------

@@ -28,6 +28,7 @@ from __future__ import annotations
 from repro_torch.obs.audit import (
     DriftAuditor,
     attribute_step_phases,
+    audit_serve_plan,
     audit_sync_plan,
     time_phases,
 )
@@ -168,6 +169,7 @@ __all__ = [
     "OFF",
     "Tracer",
     "attribute_step_phases",
+    "audit_serve_plan",
     "audit_sync_plan",
     "configure",
     "get_default",

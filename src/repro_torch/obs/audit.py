@@ -10,6 +10,10 @@ JAX package's ``repro.obs.audit``).
                           training SyncPlan with the standalone
                           ``make_sparse_allreduce`` on a collectives
                           context and joins against ``bucket_time``
+  audit_serve_plan        the same join for a ServePlan's activation
+                          exchange (``exchange_activation_spmd`` on a
+                          stacked (p, T, d) tensor vs the stream/dense
+                          cost entries)
   attribute_step_phases   lays the overlap model's compute / exposed-
                           comm split into ONE measured step interval:
                           the derived device-phase spans the tracer draws
@@ -23,8 +27,9 @@ refuses to build (an algorithm or a size it does not take: ``ValueError``,
 event, as the reference records every failure; anything that fails once
 the probe is built (a kernel that refuses its inputs, does not build or
 launch, a CUDA error) propagates, because swallowing it would hide the
-device. The serve plan's probe
-(``audit_serve_plan``) comes with serving (ROADMAP Queue 1 item 11).
+device. Both probes need the network parameters they are joined
+against (``net``): the port carries no default network, and a probe on
+an unknown one raises.
 """
 from __future__ import annotations
 
@@ -205,6 +210,40 @@ def audit_sync_plan(plan, coll, *, net, reps: int = 3,
             measured = _time_fn(fn, (x, None), reps, coll.device)
             auditor.record(b.algorithm, b.name, predicted, measured,
                            n=b.n, k=k, p=p, kind="train_bucket")
+    if registry is not None:
+        auditor.emit(registry)
+    return auditor
+
+
+def audit_serve_plan(plan, *, net, device="cuda", reps: int = 3,
+                     auditor: DriftAuditor | None = None, registry=None,
+                     seed: int = 0) -> DriftAuditor:
+    """Probe a ``ServePlan``'s activation exchange: time
+    ``exchange_activation_spmd`` on a (p, T, d) stack of normal partials
+    (p = ``plan.dp_total``, drawn from ``seed``) on ``device`` and join
+    against the stream/dense cost entries (``bucket_time`` under
+    ``net``)."""
+    from repro_torch.comm.executor import exchange_activation_spmd
+    from repro_torch.core.cost_model import bucket_time
+    from repro_torch.device import resolve_device
+
+    if net is None:
+        raise ValueError(
+            "audit_serve_plan: no network parameters; the port carries no "
+            "default network (fit one with utils.calibrate)")
+    device = resolve_device(device)
+    auditor = auditor if auditor is not None else DriftAuditor()
+    p = plan.dp_total
+    gen = np.random.default_rng(seed)
+    for b in plan.buckets:
+        predicted = bucket_time(b.algorithm, p, b.d, b.n, net)
+        x = torch.from_numpy(gen.standard_normal(
+            (p, b.tokens, b.d), dtype=np.float32)).to(device)
+        measured = _time_fn(lambda x, alg=b.algorithm:
+                            exchange_activation_spmd(x, alg), (x,), reps,
+                            device)
+        auditor.record(b.algorithm, b.name, predicted, measured,
+                       n=b.n, k=b.d, p=p, kind="serve_bucket")
     if registry is not None:
         auditor.emit(registry)
     return auditor

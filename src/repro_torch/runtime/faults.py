@@ -366,9 +366,8 @@ class FaultInjector:
     # -- serve-engine hooks -------------------------------------------------
     def serve_tick(self, tick: int) -> None:
         """Per-decode-tick hook, called BEFORE the tick dispatches (slot
-        state untouched on raise, so a pre-dispatch retry is exact); the
-        serve engine's, which the port does not have yet (ROADMAP Queue 1
-        item 11):
+        state untouched on raise, so a pre-dispatch retry is exact) by
+        ``serve.sparse_decode.ContinuousServeEngine._chaos_tick``:
 
           collective  raises FaultInjectionError (engine retries on its
                       budget)

@@ -991,3 +991,75 @@ def test_cuda_injected_step_has_no_host_sync(cuda_device, mode):
         for x, y in zip(tree_leaves(getattr(after, f)),
                         tree_leaves(getattr(b, f))):
             assert torch.equal(x, y)
+
+
+def _serve_model():
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import build_model
+
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                      dtype=torch.float32, param_dtype=torch.float32)
+    model = build_model(cfg)
+    return model, model.init(torch.Generator().manual_seed(0), device="cpu")
+
+
+def _to(tree, device):
+    return {k: (_to(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_decode_matches_cpu(cuda_device):
+    """Prefill and 6 decode steps of a small model on the card against
+    the CPU path on the same weights: logits at the model tolerance
+    (rtol 1e-5, absolute floor 1e-5 of the largest magnitude)."""
+    model, params = _serve_model()
+    on_card = _to(params, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (3, 14)).astype(np.int32))
+    runs = {}
+    for dev, p in (("cpu", params), ("cuda", on_card)):
+        lg, st = model.prefill(p, {"tokens": toks[:, :8].to(dev)}, 16)
+        out = [lg.cpu()]
+        for t in range(8, 14):
+            lg, st = model.decode_step(p, st, toks[:, t:t + 1].to(dev))
+            out.append(lg.cpu())
+        runs[dev] = torch.stack(out)
+    want = runs["cpu"].numpy()
+    np.testing.assert_allclose(runs["cuda"].numpy(), want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.cuda
+def test_cuda_kv_write_touches_only_its_slot(cuda_device):
+    """The per-slot decode writes one cache row a slot in place (at
+    min(pos, w - 1)), and an admission copies into its slot's rows only:
+    every other row of the stacked caches stays bit-equal."""
+    from repro_torch.serve import insert_slot_state
+
+    model, params = _serve_model()
+    params = _to(params, cuda_device)
+    state = model.init_decode_state(4, 16, device=cuda_device)
+    state.kv.k.normal_()
+    state.kv.v.normal_()
+    pos = torch.tensor([0, 5, 15, 40], dtype=torch.int32, device=cuda_device)
+    state = state._replace(pos=pos)
+    before = (state.kv.k.clone(), state.kv.v.clone())
+    toks = torch.tensor([[1], [2], [3], [4]], dtype=torch.int32,
+                        device=cuda_device)
+    _, st = model.decode_step(params, state, toks)
+    assert st.kv.k.data_ptr() == state.kv.k.data_ptr()
+    written = torch.zeros_like(before[0], dtype=torch.bool)
+    for b, p in enumerate(pos.tolist()):
+        written[:, b, min(p, 15)] = True
+    for new, old in zip(st.kv, before):
+        assert torch.equal(new[~written], old[~written])
+        assert not torch.equal(new[written], old[written])
+    before = (st.kv.k.clone(), st.kv.v.clone())
+    _, sub = model.prefill(params, {"tokens": toks[:3, 0][None]}, 16)
+    insert_slot_state(model.cfg, st, sub, 2)
+    assert int(st.pos[2]) == 3
+    for new, old, ins in zip(st.kv, before, sub.kv):
+        assert torch.equal(new[:, [0, 1, 3]], old[:, [0, 1, 3]])
+        assert torch.equal(new[:, 2], ins[:, 0])

@@ -41,3 +41,6 @@ def test_the_walk_sees_the_port():
     assert {"metrics.py", "trace.py", "recorder.py", "health.py",
             "audit.py", "report.py", "adapt.py", "calibrate.py"} <= names
     assert (ROOT / "src" / "repro_torch" / "obs" / "__init__.py") in FILES
+    # serving
+    assert {"engine.py", "scheduler.py", "sparse_decode.py",
+            "run_serve.py"} <= names
