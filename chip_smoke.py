@@ -187,10 +187,58 @@ Phases, in order; any failure exits non-zero:
      row-stream path bit-equal to dense, stacked and per rank; a row
      stream's round trip bit for bit and its clamp over capacity; the
      serve-plan audit on a calibrated network);
- 17. the kernels line (a kernel's "launches" are the main path's, or,
+ 17. the MoE family, moonshot-v1-16b-a3b at its published widths (d =
+     2048, 16 heads of 128, 64 experts top-6 of width 1408, a shared
+     expert of 2816, vocab 163840; random weights from a seed), with every
+     kernel's launch count reset before each run and read after:
+     17a: Trainer.run at 1 layer of 48, bf16 as published, under its
+     train_config (DSAR + 4-bit QSGD, k = 4 of 512, ZeRO-1, 4
+     microbatches), one 512-token row a rank a microbatch (C = 64), R = 2
+     stacked replicas (R = 4 does not fit the card), under expandable
+     allocator segments (without them the pool fragments and the run
+     runs out of memory), 4 steps: finite losses, one
+     bucket_topk launch a sparse bucket a step and one grouped call each
+     of the fused densify + sum, the pack and the unpack (a grouped call
+     launches one kernel for every 64, 48 and 48 of its hundreds of
+     buckets); 2 more steps
+     timed with CUDA events, the rank grads and the reduce half alone;
+     on one step's tensors, every 64th bucket_topk input and the largest,
+     and every segment of the three grouped launches, held against the
+     plain versions (bit-equal; the pack's 'l2' codes at most one level on
+     at most 1e-4 of them); the peak memory allocated and reserved against
+     the card's, the state's size and each half's peak. 17b: serving at 4
+     layers of 48 in
+     f32, the expert combine over 2 stacked shards: ServeEngine.generate
+     of 8 prompts of 128 tokens, 32 new, cache 1024, twice (bit-equal), the
+     prefill and 31 decode steps timed (CUDA events) beside the decode
+     step's bound with every weight read once (all 64 experts at C = 8,
+     the whole cache) and the bound of what the steps' data needs (the
+     distinct experts the router picked in each layer, read from a replay
+     of the same steps, and the filled cache positions), the
+     kernels of 10 profiled decode steps; ContinuousServeEngine over 8
+     slots on the first 16 of phase 16's requests, dense twice (the rerun
+     bit-equal; traced spans give the decode-step and admission times) and
+     adaptive on network parameters calibrated on the stacked shards,
+     under CUDA sync debug mode (exactly one host synchronisation a decode
+     step), its tokens equal to dense's and some of its steps on the
+     row-stream wire; the wire bytes and the swap log; a dense engine
+     pinned to the row-stream plan on the first 4 requests (never more
+     live than the stream's capacity), every step on the stream, tokens
+     equal to dense's;
+     each request against its own B = 1 generate (phase 16's margin rule);
+     the idle share over the last 20 of 40 profiled decode steps; peak
+     memory; moe_apply on 512 tokens twice, bit-equal. 17c: moonshot's
+     smoke config (f32) on the card against the CPU: forward logits and a
+     prefill + 8 decode steps (rtol 1e-5, floor 1e-5 of the largest), 3
+     SparCML steps with the same QSGD bits (the first at lr 0; losses
+     within rtol 2e-4, the final params, moments and EF residuals within
+     rtol 2e-4 and 2e-4 of each tensor's largest magnitude), and
+     moe_apply twice on the card, bit-equal;
+ 18. the kernels line (a kernel's "launches" are the main path's, or,
      for one the main path does not run, those of the first later path
-     that runs it, named in "launches_path"), the card line, and last the
-     result line {"ok": true, "device": {...}}.
+     that runs it, named in "launches_path"; "launches_moe_train" and
+     "launches_moe_serve" those of phase 17's runs), the card line, and
+     last the result line {"ok": true, "device": {...}}.
 
 It imports torch and the port (``src/repro_torch``), never JAX. A longer
 record of the run goes to chiprun_out/chip_smoke.json.
@@ -1181,6 +1229,25 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 17
+    t_phase = time.perf_counter()
+    record["moe"], moe_paths = phase_moe(torch, dev, wrappers, out_dir, bw,
+                                         f32_peak)
+    new_paths.update(moe_paths)
+    record["moe"]["seconds"] = time.perf_counter() - t_phase
+    for row in kernels:
+        grouped = "qsgd_unpack_grouped" if row["name"] == "qsgd_unpack" \
+            else row["name"]
+        row["launches_moe_train"] = moe_paths["moe_train"][grouped]
+        row["launches_moe_serve"] = moe_paths["moe_serve"][grouped]
+        if row["name"] in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
+                           "qsgd_unpack") and not row["launches_moe_train"]:
+            fail(f"17a: {row['name']} was not launched on the MoE training "
+                 "path")
+    log(f"[17] phase took {record['moe']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 18
     for row in kernels:
         row["launches_new_paths"] = {
             path: counts[row["name"]] for path, counts in new_paths.items()}
@@ -3123,10 +3190,10 @@ SERVE_REQUESTS = 32    # the continuous trace's requests
 MARGIN = 1e-4          # a greedy token may differ only below this top-2 gap
 
 
-def _serve_trace(vocab: int):
-    """Phase 16's requests: Poisson arrivals at 0.5 a decode step (seed
-    0), prompts of 16-512 tokens and 32-128 new tokens, drawn by
-    numpy.random.default_rng(0)."""
+def _serve_trace(vocab: int, n: int = SERVE_REQUESTS):
+    """Phase 16's requests (phase 17 takes the first ``n``): Poisson
+    arrivals at 0.5 a decode step (seed 0), prompts of 16-512 tokens and
+    32-128 new tokens, drawn by numpy.random.default_rng(0)."""
     import numpy as np
 
     from repro_torch.serve import Request, poisson_trace
@@ -3135,9 +3202,10 @@ def _serve_trace(vocab: int):
     arrivals = poisson_trace(SERVE_REQUESTS, rate=0.5, seed=0)
     lens = rng.integers(16, 513, SERVE_REQUESTS)
     news = rng.integers(32, 129, SERVE_REQUESTS)
-    return [Request(rid=i, prompt=rng.integers(0, vocab, int(lens[i])),
+    reqs = [Request(rid=i, prompt=rng.integers(0, vocab, int(lens[i])),
                     max_new_tokens=int(news[i]), arrival=float(arrivals[i]))
             for i in range(SERVE_REQUESTS)]
+    return reqs[:n]
 
 
 def _greedy_margins(torch, engine, prompts, n: int):
@@ -3570,6 +3638,828 @@ def phase_serve(torch, dev, wrappers, out_dir: Path):
         f"lies on the serving path)")
     del params, model
     return rec, launches
+
+
+# ---------------------------------------------------------------- 17
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_TRAIN_LAYERS = 1       # 17a: 48 -> 1 layers, every width as published
+MOE_TRAIN_STEPS = 4
+MOE_TRAIN_R = 2            # replicas (R = 4 does not fit the card: PERF.md)
+MOE_SEQ = 512              # one 512-token row a rank a microbatch
+MOE_SERVE_LAYERS = 4       # 17b: 48 -> 4 layers, f32
+MOE_SERVE_REQUESTS = 16
+MOE_P_MODEL = 2            # expert shards of the serve combine
+MOE_TOPK_SAMPLE = 64       # 17a: every 64th bucket_topk input is checked
+MOE_SMALL_STEPS = 3        # 17c: the first (lr 0) and two that update
+
+
+def _moe_serve_cfg(torch, layers: int):
+    from repro_torch import configs
+
+    return configs.get_config(MOE_ARCH, num_layers=layers,
+                              dtype=torch.float32, param_dtype=torch.float32)
+
+
+def check_step_kernels(torch, reduce_half, bits: int, mode: str,
+                       sample: int = MOE_TOPK_SAMPLE) -> dict:
+    """17a: one call of the stacked reduce half with the tensors it hands
+    each kernel captured (every ``sample``-th bucket_topk input and the
+    largest one; every segment of the three grouped launches), and each
+    CUDA kernel held against its plain version on them: bucket_topk,
+    bucket_scatter_sum and qsgd_unpack bit for bit, qsgd_pack bit for bit
+    in 'max' mode and in the path's mode at most one level on at most
+    1e-4 of the codes (phase 2's rules)."""
+    from repro_torch.comm import executor
+    from repro_torch.core import topk as topk_mod
+    from repro_torch.kernels.bucket_scatter import ops as scatter_ops
+    from repro_torch.kernels.bucket_topk import ops as topk_ops
+    from repro_torch.kernels.qsgd_pack import ops as pack_ops
+    from repro_torch.kernels.qsgd_pack.ref import u32_to_i64
+    from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
+
+    seen, tops, largest, grouped = [0], [], [None], {}
+    real = {"topk": topk_mod.bucket_topk,
+            "scatter": executor.bucket_scatter_sum_grouped,
+            "pack": executor.qsgd_pack_grouped,
+            "unpack": executor.qsgd_unpack_grouped}
+
+    def topk(x, k, impl="auto"):
+        if seen[0] % sample == 0:
+            tops.append((x, k))
+        elif largest[0] is None or x.numel() > largest[0][0].numel():
+            largest[0] = (x, k)
+        seen[0] += 1
+        return real["topk"](x, k, impl=impl)
+
+    def capture(name):
+        def fn(segments, *args, **kw):
+            grouped[name] = (list(segments), args)
+            return real[name](segments, *args, **kw)
+        return fn
+
+    topk_mod.bucket_topk = topk
+    executor.bucket_scatter_sum_grouped = capture("scatter")
+    executor.qsgd_pack_grouped = capture("pack")
+    executor.qsgd_unpack_grouped = capture("unpack")
+    try:
+        out = reduce_half()
+        torch.cuda.synchronize()
+    finally:
+        topk_mod.bucket_topk = real["topk"]
+        executor.bucket_scatter_sum_grouped = real["scatter"]
+        executor.qsgd_pack_grouped = real["pack"]
+        executor.qsgd_unpack_grouped = real["unpack"]
+    del out
+    if set(grouped) != {"scatter", "pack", "unpack"}:
+        fail(f"17a: the reduce half made grouped calls {sorted(grouped)}")
+    if largest[0] is not None and largest[0][0].numel() > max(
+            x.numel() for x, _ in tops):
+        tops.append(largest[0])
+    largest[0] = None
+    res = {"bucket_topk_calls": seen[0], "bucket_topk_checked": len(tops),
+           "bucket_topk_entries_checked": sum(x.numel() for x, _ in tops)}
+    for x, k in tops:
+        got = topk_ops.bucket_topk(x, k, impl="cuda")
+        want = topk_ops.bucket_topk(x, k, impl="ref")
+        if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
+            fail(f"17a: bucket_topk differs from its plain version on a "
+                 f"{tuple(x.shape)} input of the path")
+        del got, want
+    del tops
+    segs = grouped["scatter"][0]
+    got = scatter_ops.bucket_scatter_sum_grouped(segs, impl="cuda")
+    want = scatter_ops.bucket_scatter_sum_grouped(segs, impl="ref")
+    if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
+        fail("17a: bucket_scatter_sum (grouped) differs from its plain "
+             "version")
+    res["bucket_scatter_sum_segments"] = len(segs)
+    res["bucket_scatter_sum_entries"] = sum(g_.numel() for g_ in got)
+    del got, want, segs, grouped["scatter"]
+    psegs, pargs = grouped["pack"]
+    got = pack_ops.qsgd_pack_grouped(psegs, bits, "max", impl="cuda")
+    want = pack_ops.qsgd_pack_grouped(psegs, bits, "max", impl="ref")
+    for (p, sc), (pr, scr) in zip(got, want):
+        if not (torch.equal(sc, scr)
+                and torch.equal(p.view(torch.int32), pr.view(torch.int32))):
+            fail("17a: qsgd_pack ('max') differs from its plain version")
+    del got, want
+    shifts = torch.arange(32 // bits, device=psegs[0].rand.device) * bits
+    flips, n_codes = 0, 0
+    for (p, _), (pr, _) in zip(
+            pack_ops.qsgd_pack_grouped(psegs, bits, mode, impl="cuda"),
+            pack_ops.qsgd_pack_grouped(psegs, bits, mode, impl="ref")):
+        dc = ((u32_to_i64(p)[..., None] >> shifts)
+              - (u32_to_i64(pr)[..., None] >> shifts)) & (2**bits - 1)
+        dc = torch.minimum(dc, 2**bits - dc)
+        if int(dc.max()) > 1:
+            fail(f"17a: qsgd_pack ('{mode}') codes differ by more than one "
+                 "level")
+        flips += int((dc > 0).sum())
+        n_codes += dc.numel()
+    if flips > 1e-4 * n_codes:
+        fail(f"17a: qsgd_pack ('{mode}'): {flips} of {n_codes} codes moved")
+    res.update(qsgd_pack_segments=len(psegs), qsgd_pack_codes=n_codes,
+               qsgd_pack_codes_one_level_apart=flips)
+    del psegs, grouped["pack"]
+    usegs = grouped["unpack"][0]
+    got = unpack_ops.qsgd_unpack_grouped(usegs, bits, impl="cuda")
+    want = unpack_ops.qsgd_unpack_grouped(usegs, bits, impl="ref")
+    if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
+        fail("17a: qsgd_unpack (grouped) differs from its plain version")
+    res["qsgd_unpack_segments"] = len(usegs)
+    del got, want, usegs, grouped
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_train(torch, dev, wrappers, cfg=None, replicas=MOE_TRAIN_R,
+              seq=MOE_SEQ, steps=MOE_TRAIN_STEPS):
+    """17a (see the module docstring): (record, launches of the run)."""
+    from repro_torch import configs
+    from repro_torch.comm.executor import reduce_buckets_spmd
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import capacity
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = cfg or configs.get_config(MOE_ARCH, num_layers=MOE_TRAIN_LAYERS)
+    tcfg = configs.get_train_config(MOE_ARCH)
+    model = build_model(cfg)
+    n_params = sum(t.numel() for t in
+                   tree_leaves(model.init(device="meta")))
+    r = replicas
+    rec = {"config": cfg.name, "layers": cfg.num_layers,
+           "dtype": str(cfg.dtype), "params": n_params,
+           "microbatches": tcfg.microbatches}
+    data = DataConfig(global_batch=r * tcfg.microbatches, seq_len=seq,
+                      vocab_size=cfg.vocab_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    trainer = Trainer(model, tcfg, data, dp_total=r, device=dev)
+    trainer.init()
+    tlog = trainer.run(steps)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    # the headroom: what the card holds against the pool the run reserved
+    total_gb = torch.cuda.mem_get_info()[1] / 1e9
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    rec["memory"] = {"card_gb": total_gb, "peak_allocated_gb": peak_gb,
+                     "peak_reserved_gb": reserved_gb,
+                     "headroom_gb": total_gb - reserved_gb,
+                     "state_gb": _tensor_gb(trainer.state)}
+    plan = trainer.plan
+    nsp = plan.num_sparse_buckets
+    nq = sum(bk.sparse and bk.algorithm == "dsar_split_allgather"
+             for bk in plan.buckets) if tcfg.sync.qsgd_bits else 0
+    # a grouped call launches one kernel for every kMaxSegs segments (64
+    # in csrc/bucket_scatter.cu, 48 in qsgd_pack.cu and qsgd_unpack.cu)
+    expect = {"bucket_topk": nsp * steps, "bucket_scatter": 0,
+              "bucket_scatter_sum": -(-nsp // 64) * steps,
+              "qsgd_pack": -(-nq // 48) * steps, "qsgd_unpack": 0,
+              "qsgd_unpack_grouped": -(-nq // 48) * steps}
+    losses = list(tlog.losses)
+    host_ms = [t * 1e3 for t in tlog.step_times]
+    log(f"[17a] {cfg.name} at {cfg.num_layers} layer(s), {n_params} "
+        f"parameters, {cfg.dtype}, SparCML (DSAR + QSGD-{tcfg.sync.qsgd_bits},"
+        f" k = {tcfg.sync.k_per_bucket} of {tcfg.sync.bucket_size}, ZeRO-1, "
+        f"{tcfg.microbatches} microbatches), R = {r} stacked, global batch "
+        f"{data.global_batch} x {seq}, capacity C = "
+        f"{capacity(cfg, seq)}: losses {losses}; step times ms (host) "
+        f"{[round(t, 1) for t in host_ms]}; peak memory {peak_gb:.2f} GB "
+        f"allocated, {reserved_gb:.2f} reserved, of the card's "
+        f"{total_gb:.2f}; "
+        f"plan {plan.num_buckets} buckets ({nsp} sparse); launches "
+        f"{launches}")
+    if not all(math.isfinite(v) for v in losses) or len(losses) != steps:
+        fail(f"17a: losses {losses}")
+    for n, c in launches.items():
+        if c != expect[n]:
+            fail(f"17a: {n} launched {c} times in {steps} steps, expected "
+                 f"{expect[n]}")
+    a_step = {n: c / steps for n, c in launches.items()}
+    log(f"[17a] launches a step: {a_step} (bucket_topk: the plan's {nsp} "
+        f"sparse EF buckets; a grouped call launches a kernel for every 64 "
+        f"/ 48 / 48 of its {nsp} / {nq} / {nq} segments)")
+
+    # -- two more steps, each timed with CUDA events around the step, and
+    #    the allocator's counters over them
+    ev_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_stats()
+    for _ in range(2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        trainer.run(trainer.state.step + 1)
+        b.record()
+        b.synchronize()
+        ev_ms.append(a.elapsed_time(b))
+    alloc1 = torch.cuda.memory_stats()
+    allocator = {k: alloc1.get(k, 0) - alloc0.get(k, 0) for k in (
+        "num_alloc_retries", "num_device_alloc", "num_device_free")}
+    rec["memory"]["timed_steps_peak_allocated_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    # -- the step's halves alone: rank grads, the reduce half, each with
+    #    the peak it reaches over the state (the first call's)
+    st = trainer.state
+    batch = ts.batch_to_device(synthetic_batch(data, st.step), dev)
+    grads = lambda: ts.rank_grads(trainer.model, st.params, batch, r,
+                                  tcfg.microbatches)
+    grads_ms = time_ms(torch, grads, reps=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, leaves_r = grads()
+    torch.cuda.synchronize()
+    rec["memory"]["rank_grads_peak_allocated_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    rand0 = ts.step_rand_fn(tcfg.seed, st.step, dev)
+    reduce = lambda: reduce_buckets_spmd(plan, leaves_r, st.residuals,
+                                         p_data=r, rand_fn=rand0,
+                                         telemetry=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reduce()
+    torch.cuda.synchronize()
+    rec["memory"]["reduce_half_peak_allocated_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    reduce_ms = time_ms(torch, reduce, reps=2)
+    log(f"[17a] step ms (CUDA events, 2 steps) {[round(t, 1) for t in ev_ms]}"
+        f" (allocator over them: {allocator}); alone: rank grads (vmap over "
+        f"{r} ranks, {tcfg.microbatches} microbatches) {grads_ms:.1f} ms, "
+        f"reduce half {reduce_ms:.1f} ms; memory GB {rec['memory']}")
+    checks = check_step_kernels(torch, reduce, tcfg.sync.qsgd_bits,
+                                tcfg.sync.qsgd_scale)
+    log(f"[17a] kernels against their plain versions on one step's "
+        f"tensors: {checks}")
+    rec.update(replicas=r, global_batch=data.global_batch, seq=seq,
+               capacity=capacity(cfg, seq), losses=losses,
+               step_ms_host=host_ms, step_ms_events=ev_ms,
+               allocator=allocator,
+               rank_grads_ms=grads_ms, reduce_half_ms=reduce_ms,
+               peak_memory_gb=peak_gb, buckets=plan.num_buckets,
+               sparse_buckets=nsp, launches=launches,
+               launches_a_step=a_step, kernel_checks=checks)
+    del leaves_r, st, batch, trainer, grads, reduce
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def needed_decode_bound(torch, eng, params, toks, n_steps: int,
+                        bound: dict, cache: int, bw, f32_peak) -> dict:
+    """17b: the static decode steps' bound from what their data needs,
+    beside ``bound`` (every expert at C = B, the whole cache). The timed
+    steps are replayed from the same prefill with the router's top-k ids
+    recorded (outside any timed window); a step must read the weights of
+    the distinct experts its tokens picked in each layer, every other
+    weight, and the filled cache positions, and do the GEMMs of its B x k
+    expert rows; the bound is averaged over the steps."""
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import greedy
+
+    cfg = eng.model.cfg
+    L, d, e, ff = (cfg.num_layers, cfg.d_model, cfg.num_experts,
+                   cfg.moe_d_ff)
+    b, k = toks.shape[0], cfg.experts_per_token
+    esize = torch.finfo(cfg.dtype).bits // 8
+    expert_bytes = 3 * d * ff * esize
+    seen, real = [], moe._route
+
+    def route(p, x, k_):
+        w, eidx = real(p, x, k_)
+        seen.append(eidx)
+        return w, eidx
+
+    moe._route = route
+    try:
+        logits, st = eng.prefill_fn(params, {"tokens": toks})
+        cur = greedy(logits)[:, None]
+        del seen[:]
+        for _ in range(n_steps):
+            logits, st = eng.decode_fn(params, st, cur)
+            cur = greedy(logits)[:, None]
+    finally:
+        moe._route = real
+    if len(seen) != n_steps * L:
+        fail(f"17b: the replay routed {len(seen)} times, expected "
+             f"{n_steps * L}")
+    distinct = [int(torch.unique(x).numel()) for x in seen]
+    kv_full = (2 * L * b * cache * cfg.num_kv_heads * cfg.head_dim * esize)
+    rest_bytes = bound["bytes"] - L * e * expert_bytes - kv_full
+    prompt = toks.shape[1]
+    ms, bytes_ms, flops_ms = [], [], []
+    for i in range(n_steps):
+        n_e = sum(distinct[i * L:(i + 1) * L])
+        filled = min(prompt + i + 1, cache)
+        kv = 2 * L * b * filled * cfg.num_kv_heads * cfg.head_dim * esize
+        by = rest_bytes + n_e * expert_bytes + kv
+        fl = 2 * L * (b * k * 3 * d * ff + b * 3 * d * cfg.moe_shared_ff
+                      + b * 4 * d * cfg.num_heads * cfg.head_dim
+                      + 2 * b * filled * cfg.num_heads * cfg.head_dim) \
+            + 2 * b * d * cfg.vocab_size
+        bytes_ms.append(by / bw * 1e3)
+        flops_ms.append(fl / f32_peak * 1e3)
+        ms.append(max(bytes_ms[-1], flops_ms[-1]))
+    return {"ms": sum(ms) / n_steps, "ms_min": min(ms), "ms_max": max(ms),
+            "bytes_ms": sum(bytes_ms) / n_steps,
+            "flops_ms": sum(flops_ms) / n_steps,
+            "bound_by": ("bytes" if all(x >= y for x, y in
+                                        zip(bytes_ms, flops_ms))
+                         else "operations"),
+            "experts_a_layer": sum(distinct) / len(distinct),
+            "experts_a_layer_max": max(distinct), "steps": n_steps}
+
+
+def _tensor_gb(tree) -> float:
+    """GB of the tensors in a (nested) NamedTuple / dict / list tree."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size() / 1e9
+    if isinstance(tree, dict):
+        return sum(_tensor_gb(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_gb(v) for v in tree)
+    return 0.0
+
+
+def _first_layer(tree) -> dict:
+    """Layer 0 of a stacked (L, ...) params subtree."""
+    return {k: (_first_layer(v) if isinstance(v, dict) else v[0])
+            for k, v in tree.items()}
+
+
+def moe_serve(torch, dev, wrappers, out_dir: Path, bw, f32_peak, cfg=None,
+              n_requests=MOE_SERVE_REQUESTS, cache=SERVE_CACHE,
+              new_static=32, prompt_static=128):
+    """17b (see the module docstring): (record, launches of the serving
+    runs)."""
+    import numpy as np
+
+    from repro_torch import obs as obs_mod
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.comm.plan import SERVE_STREAM
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import (ContinuousServeEngine, ServeEngine,
+                                   sparse_decode)
+    from repro_torch.serve.engine import greedy
+    from repro_torch.utils.calibrate import calibrate
+    from repro_torch.utils.tree import tree_leaves
+
+    for w in wrappers.values():
+        w.launches = 0
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = cfg or _moe_serve_cfg(torch, MOE_SERVE_LAYERS)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    weights_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    vocab, b = cfg.vocab_size, SERVE_SLOTS
+    rec = {"config": cfg.name, "layers": cfg.num_layers,
+           "dtype": str(cfg.dtype), "weights_gb": weights_gb,
+           "p_model": MOE_P_MODEL, "init_s": init_s}
+
+    # -- the decode step's bound: every weight but the embedding table (B
+    #    rows of it) read once, the whole cache read once; its operations:
+    #    the E x C = E x B expert slots of every layer and the dense GEMMs
+    d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    emb = params["embed"]
+    w_bytes = (sum(t.numel() * t.element_size() for t in leaves)
+               - emb.numel() * emb.element_size()
+               + b * d * emb.element_size())
+    kv_bytes = (2 * cfg.num_layers * b * cache * cfg.num_kv_heads
+                * cfg.head_dim * torch.finfo(cfg.dtype).bits // 8)
+    flops = 2 * cfg.num_layers * (e * b * 3 * d * ff
+                                  + b * 3 * d * cfg.moe_shared_ff
+                                  + b * 4 * d * cfg.num_heads * cfg.head_dim
+                                  + 2 * b * cache * cfg.num_heads
+                                  * cfg.head_dim) + 2 * b * d * vocab
+    bound = {"bytes": w_bytes + kv_bytes, "flops": flops,
+             "bytes_ms": (w_bytes + kv_bytes) / bw * 1e3,
+             "flops_ms": flops / f32_peak * 1e3}
+    bound["ms"] = max(bound["bytes_ms"], bound["flops_ms"])
+    rec["decode_step_bound"] = bound
+    log(f"[17b] {cfg.name} at {cfg.num_layers} layers, f32: "
+        f"{weights_gb:.2f} GB of weights (init {init_s:.1f} s); a decode "
+        f"step of {b} slots reads {(w_bytes + kv_bytes) / 1e9:.2f} GB "
+        f"(every expert: C = {b}) and does {flops / 1e9:.1f} GFLOP: bound "
+        f"{bound['ms']:.3f} ms")
+
+    # -- static: ServeEngine.generate, 8 prompts, twice
+    eng = ServeEngine(model, params, cache_len=cache, device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, vocab, (b, prompt_static)).astype(np.int32)
+    walls, outs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(eng.generate(prompts, max_new_tokens=new_static))
+        walls.append(time.perf_counter() - t0)
+    toks = torch.from_numpy(prompts).to(dev)
+    prefill_ms = time_ms(torch, lambda: eng.prefill_fn(params,
+                                                       {"tokens": toks}),
+                         reps=3)
+    logits, st = eng.prefill_fn(params, {"tokens": toks})
+    cur = greedy(logits)[:, None]
+    step_ms = []
+    for _ in range(new_static - 1):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, st = eng.decode_fn(params, st, cur)
+        cur = greedy(logits)[:, None]
+        z.record()
+        z.synchronize()
+        step_ms.append(a.elapsed_time(z))
+
+    def ten_steps():
+        nonlocal st, cur, logits
+        for _ in range(10):
+            logits, st = eng.decode_fn(params, st, cur)
+            cur = greedy(logits)[:, None]
+
+    ten = stream_shares(torch, ten_steps, out_dir)
+    del st, logits
+    need = needed_decode_bound(torch, eng, params, toks, new_static - 1,
+                               bound, cache, bw, f32_peak)
+    rec["decode_step_bound_needed"] = need
+    static = {"bit_equal_rerun": bool(np.array_equal(*outs)),
+              "wall_s": walls, "prefill_ms": prefill_ms,
+              "decode_step_ms": step_ms,
+              "decode_step_ms_median": statistics.median(step_ms),
+              "tok_per_s": outs[1].size / walls[1],
+              "kernels_a_decode_step": (ten["kernels_whole_window"] / 10
+                                        if ten else None),
+              "profile_10_steps": ten}
+    rec["static"] = static
+    log(f"[17b] static, {b} x {prompt_static}-token prompts, {new_static} new "
+        f"tokens, cache {cache}: {walls[0]:.3f} s first call, {walls[1]:.3f} "
+        f"s rerun ({static['tok_per_s']:.0f} tok/s), rerun bit-equal "
+        f"{static['bit_equal_rerun']}; prefill {prefill_ms:.2f} ms; decode "
+        f"step median {static['decode_step_ms_median']:.3f} ms (CUDA events, "
+        f"bound {bound['ms']:.3f} with every expert, {need['ms']:.3f} with "
+        f"the experts the steps' router picked: {need['experts_a_layer']:.1f}"
+        f" a layer on average); kernels a decode step "
+        f"{static['kernels_a_decode_step']}; idle share of 10 steps "
+        f"{ten and ten['idle_share']}")
+    if not static["bit_equal_rerun"]:
+        fail("17b: the static engine's rerun differs")
+
+    # -- continuous: dense (first calls, then the steady rerun, traced),
+    #    then adaptive on a network calibrated on the stacked shards, under
+    #    CUDA sync debug mode with the engine's read-backs counted
+    reqs = _serve_trace(vocab, n_requests)
+    t0 = time.perf_counter()
+    net = calibrate(StackedCollectives(MOE_P_MODEL, device=dev))
+    cal_s = time.perf_counter() - t0
+    dense = ContinuousServeEngine(model, params, cache_len=cache,
+                                  batch_size=b, dispatch="dense",
+                                  p_model=MOE_P_MODEL, device=dev)
+    runs, obss = [], []
+    for _ in range(2):
+        dense.obs = obs_mod.configure(trace=True, metrics=True,
+                                      set_as_default=False)
+        runs.append(dense.run(reqs))
+        obss.append(dense.obs)
+    adaptive = ContinuousServeEngine(model, params, cache_len=cache,
+                                     batch_size=b, dispatch="adaptive",
+                                     net=net, p_model=MOE_P_MODEL,
+                                     device=dev)
+    counted = []
+    real_readback = sparse_decode._readback
+    sparse_decode._readback = lambda t: (counted.append(t.shape[0])
+                                         or real_readback(t))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ares = adaptive.run(reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        sparse_decode._readback = real_readback
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = runs[1]
+    outputs = res.outputs
+    steps = [e["dur"] / 1e3 for e in _spans(obss[1], "serve/decode_step")]
+    admit = {}
+    for i, o in enumerate(obss):
+        for e in _spans(o, "serve/admit"):
+            admit.setdefault(e["args"]["prompt_len"], [None, None])[i] = \
+                e["dur"] / 1e3
+    admit_rows = sorted((n, f, s_) for n, (f, s_) in admit.items())
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    per_step = (syncs - len(reqs)) / ares.decode_steps
+    cont = {"requests": len(reqs), "decode_steps": res.decode_steps,
+            "tokens": res.tokens, "wall_s": [x.wall_s for x in runs],
+            "tok_per_s": res.tok_per_s, "adaptive_tok_per_s": ares.tok_per_s,
+            "adaptive_wall_s": ares.wall_s,
+            "decode_step_ms_median": statistics.median(steps),
+            "decode_step_ms_p90": float(np.percentile(steps, 90)),
+            "admit_ms_by_prompt_len": admit_rows,
+            "admit_ms_first_median": statistics.median(
+                f for _, f, _ in admit_rows),
+            "admit_ms_steady_median": statistics.median(
+                s_ for _, _, s_ in admit_rows),
+            "latency_steps": {k: {q: v[q] for q in ("p50", "p99")}
+                              for k, v in res.latency.items()},
+            "wire_bytes_dense": res.wire_bytes,
+            "wire_bytes_adaptive": ares.wire_bytes,
+            "swap_log": ares.swap_log,
+            "network": {"alpha": net.alpha,
+                        "link_bytes_per_s": net.link_bytes_per_s,
+                        "calibration_s": cal_s},
+            "peak_memory_gb": peak_gb,
+            "peak_memory_serving_gb": peak_gb - base_gb,
+            "rerun_equal": all(np.array_equal(outputs[q], runs[0].outputs[q])
+                               for q in outputs),
+            "adaptive_equals_dense": (set(ares.outputs) == set(outputs) and all(
+                np.array_equal(ares.outputs[q], outputs[q]) for q in outputs)),
+            "host_syncs": {"flagged": syncs, "readbacks": len(counted),
+                           "decode_steps": ares.decode_steps,
+                           "admissions": len(reqs),
+                           "per_decode_step": per_step},
+            "occupancy_mean": float(np.mean([x["active"]
+                                             for x in res.step_log]))}
+    rec["continuous"] = cont
+    log(f"[17b] continuous, {len(reqs)} requests (phase 16's trace), {b} "
+        f"slots, cache {cache}: {res.tokens} tokens in {res.decode_steps} "
+        f"decode steps; dense {res.wall_s:.3f} s ({res.tok_per_s:.0f} tok/s;"
+        f" first run {runs[0].wall_s:.3f} s), adaptive {ares.wall_s:.3f} s "
+        f"({ares.tok_per_s:.0f} tok/s, under sync debug mode); decode step "
+        f"median {cont['decode_step_ms_median']:.3f} ms (p90 "
+        f"{cont['decode_step_ms_p90']:.3f}, bound {bound['ms']:.3f}); "
+        f"admission median first / steady {cont['admit_ms_first_median']:.3f}"
+        f" / {cont['admit_ms_steady_median']:.3f} ms; mean occupancy "
+        f"{cont['occupancy_mean']:.2f}; peak memory {peak_gb:.2f} GB "
+        f"(serving's own {peak_gb - base_gb:.2f})")
+    log(f"[17b] wire bytes (modeled, per rank): dense "
+        f"{res.wire_bytes:.0f}, adaptive {ares.wire_bytes:.0f}; network "
+        f"calibrated on {MOE_P_MODEL} stacked shards in {cal_s:.1f} s "
+        f"(alpha {net.alpha:.3e} s, {net.link_bytes_per_s:.3e} B/s); swaps "
+        f"{[(x['step'], x['reason'], x['signature']) for x in ares.swap_log]}")
+    log(f"[17b] host synchronisations flagged: {syncs} over "
+        f"{ares.decode_steps} decode steps and {len(reqs)} admissions: "
+        f"{per_step:.3f} a decode step; engine read-backs {len(counted)}; "
+        f"rerun bit-equal {cont['rerun_equal']}; adaptive == dense "
+        f"{cont['adaptive_equals_dense']}")
+    if not cont["rerun_equal"] or set(outputs) != set(range(len(reqs))):
+        fail("17b: the continuous engine's rerun differs or lost requests")
+    if not cont["adaptive_equals_dense"]:
+        fail("17b: the adaptive engine's tokens differ from the dense one's")
+    if syncs != len(counted) or per_step != 1.0:
+        fail(f"17b: host syncs: {syncs} flagged, {len(counted)} read-backs, "
+             f"{per_step} a decode step (expected exactly 1)")
+    stream_steps = sum(SERVE_STREAM in x["signature"]
+                       for x in ares.step_log)
+    cont["adaptive_stream_steps"] = stream_steps
+    if not stream_steps:
+        fail(f"17b: the adaptive engine never ran the row-stream wire "
+             f"(swaps {ares.swap_log})")
+
+    # -- the row-stream combine pinned: the first requests of the trace,
+    #    no more than the stream's capacity at once, so that the guard
+    #    never demotes it; every step on the stream, tokens equal dense's
+    cap = dense._plan.min_cap
+    few = reqs[:cap]
+    pinned = ContinuousServeEngine(model, params, cache_len=cache,
+                                   batch_size=b, dispatch="dense",
+                                   p_model=MOE_P_MODEL, device=dev)
+    stream = pinned._plan.replan(algorithms={
+        pinned._plan.buckets[0].name: f"{SERVE_STREAM}@{cap}"})
+    pinned._install(pinned._build(stream), stream, 0.0, "pinned")
+    dense.obs = obs_mod.OFF
+    sres, dres = pinned.run(few), dense.run(few)
+    on_stream = sum(x["signature"] == stream.signature()
+                    for x in sres.step_log)
+    pin = {"requests": len(few), "capacity": cap,
+           "decode_steps": sres.decode_steps, "stream_steps": on_stream,
+           "wire_bytes_stream": sres.wire_bytes,
+           "wire_bytes_dense": dres.wire_bytes,
+           "equals_dense": (set(sres.outputs) == set(dres.outputs) and all(
+               np.array_equal(sres.outputs[q], dres.outputs[q])
+               for q in dres.outputs))}
+    cont["pinned_stream"] = pin
+    log(f"[17b] pinned to {stream.signature()}: {len(few)} requests, "
+        f"{on_stream} of {sres.decode_steps} decode steps on the stream, "
+        f"wire bytes {sres.wire_bytes:.0f} (dense {dres.wire_bytes:.0f}), "
+        f"tokens equal dense's {pin['equals_dense']}")
+    if on_stream != sres.decode_steps or not pin["equals_dense"]:
+        fail(f"17b: the pinned row-stream run: {pin}")
+
+    # -- each request against its own B = 1 generate (the margin rule)
+    one = ServeEngine(model, params, cache_len=cache, device=dev)
+    t0 = time.perf_counter()
+    bad = []
+    for q in reqs:
+        want = one.generate(q.prompt[None], q.max_new_tokens)[0]
+        if len(outputs[q.rid]) != len(want):
+            fail(f"17b: request {q.rid}: {len(outputs[q.rid])} tokens, its "
+                 f"generate {len(want)}")
+        if np.array_equal(outputs[q.rid], want):
+            continue
+        _, margins = _greedy_margins(torch, one, q.prompt[None],
+                                     q.max_new_tokens)
+        bad.append({"rid": q.rid, **_first_mismatch(outputs[q.rid], want,
+                                                    margins[0])})
+    cont["per_request"] = {"mismatches": bad,
+                           "seconds": time.perf_counter() - t0}
+    log(f"[17b] continuous vs each request's B = 1 generate: "
+        f"{len(reqs) - len(bad)} of {len(reqs)} equal token for token "
+        f"({cont['per_request']['seconds']:.1f} s)")
+    _margin_rule("17b continuous vs B = 1 generate", bad)
+    del one
+
+    # -- the card's idle share over the last 20 of 40 decode steps
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(1)
+    full = [Request(rid=i, prompt=rng.integers(0, vocab, 128),
+                    max_new_tokens=41) for i in range(b)]
+    dense.obs = obs_mod.OFF
+    shares = stream_shares(torch, lambda: dense.run(full), out_dir)
+    if shares is None:
+        fail("17b: the profiled decode steps ran no kernel on the card")
+    cont["profile"] = shares
+    log(f"[17b] profiler, {b} requests of 41 tokens admitted at once, the "
+        f"last 20 decode steps: idle share {shares['idle_share']:.3f}; "
+        f"{shares}")
+
+    # -- moe_apply at full width twice on the card: the combine's order
+    from repro_torch.models import moe
+
+    lp = _first_layer(params["blocks"]["moe"])
+    x = torch.randn((MOE_SEQ, d), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    same = torch.equal(moe.moe_apply(lp, cfg, x), moe.moe_apply(lp, cfg, x))
+    rec["moe_apply_full_width_rerun_equal"] = same
+    log(f"[17b] moe_apply at full width ({MOE_SEQ} tokens, C = "
+        f"{moe.capacity(cfg, MOE_SEQ)}) twice on the card: bit-equal {same}")
+    if not same:
+        fail("17b: moe_apply reruns differ on the card")
+    launches = {nm: w.launches for nm, w in wrappers.items()}
+    log(f"[17b] kernel launches while serving: {launches} (no TPU kernel "
+        f"lies on the serving path)")
+    del params, model, dense, adaptive, pinned, eng, lp, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def moe_small(torch, dev) -> dict:
+    """17c (see the module docstring): moonshot's smoke config on the card
+    against the CPU."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.qsgd import random_bits
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = configs.smoke_config(MOE_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(7), device="cpu")
+    sides = {"cpu": (torch.device("cpu"), params),
+             "card": (dev, _to(params, dev))}
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                             (2, 24)).astype(np.int32)
+    out = {}
+    for where, (dv, p) in sides.items():
+        t = torch.from_numpy(toks).to(dv)
+        lg = [model.forward(p, {"tokens": t}).detach().cpu()]
+        plg, st = model.prefill(p, {"tokens": t[:, :16]}, 32)
+        seq = [plg.cpu()]
+        for i in range(16, 24):
+            plg, st = model.decode_step(p, st, t[:, i:i + 1])
+            seq.append(plg.cpu())
+        out[where] = (lg[0].numpy(), torch.stack(seq).numpy())
+    errs = {}
+    for i, name in enumerate(("forward", "prefill_decode")):
+        want, got = out["cpu"][i], out["card"][i]
+        errs[name] = float(np.abs(got - want).max())
+        if not np.allclose(got, want, rtol=1e-5,
+                           atol=1e-5 * float(np.abs(want).max())):
+            fail(f"17c: {name} logits, card against CPU: max abs err "
+                 f"{errs[name]:.3e}")
+
+    def bits_for(step, device):
+        def rand_fn(bucket_idx, n):
+            g = torch.Generator().manual_seed(step * 1000 + bucket_idx)
+            return random_bits(n, g, "cpu").to(device)
+        return rand_fn
+
+    # three steps: the schedule's lr is 0 at step 0, so steps 1 and 2
+    # update the params; the final state is held card against CPU
+    losses, states = {}, {}
+    for where, (dv, p) in sides.items():
+        tr = Trainer(model, configs.get_train_config(MOE_ARCH),
+                     DataConfig(16, 16, cfg.vocab_size), dp_total=4,
+                     device=dv)
+        if not tr.plan.num_sparse_buckets:
+            fail("17c: the smoke plan has no sparse bucket")
+        tr.init(params=tree_map(torch.clone, p))   # the steps update it
+        losses[where] = tr.run(MOE_SMALL_STEPS, rand_fn_for_step=lambda s,
+                               w=dv: bits_for(s, w)).losses
+        st = tr.state
+        states[where] = (tree_leaves(st.params)
+                         + [m for k in ("mu", "nu")
+                            for m in tree_leaves(st.opt[k])]
+                         + [st.residuals[n] for n in sorted(st.residuals)])
+        del tr
+    rel = max(abs(a - c) / abs(c) for a, c in zip(losses["card"],
+                                                  losses["cpu"]))
+    # the state: rtol 2e-4 with a floor of 2e-4 of each leaf's largest
+    # magnitude (a QSGD level moved by an L2 scale summed in another order
+    # reaches it through the update), as the CPU tests hold the reference
+    state_err = 0.0
+    for a, c in zip(states["card"], states["cpu"]):
+        a, c = a.detach().cpu().float(), c.detach().float()
+        floor = 2e-4 * float(c.abs().max())
+        err = (float(((a - c).abs() / (2e-4 * c.abs() + floor)).max())
+               if floor else (0.0 if torch.equal(a, c) else math.inf))
+        state_err = max(state_err, err)
+    if not rel <= 2e-4 or not state_err <= 1.0:
+        fail(f"17c: SparCML steps, card {losses['card']} against CPU "
+             f"{losses['cpu']}; the final state at {state_err:.3g} of its "
+             f"tolerance")
+    lp = _first_layer(sides["card"][1]["blocks"]["moe"])
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (64, cfg.d_model)).astype(np.float32)).to(dev)
+    same = torch.equal(moe.moe_apply(lp, cfg, x), moe.moe_apply(lp, cfg, x))
+    rec = {"max_abs_err": errs, "losses": losses, "losses_max_rel": rel,
+           "state_err_of_tolerance": state_err, "state_tensors":
+           len(states["cpu"]), "moe_apply_rerun_equal": same}
+    log(f"[17c] moonshot smoke config, card against CPU: logits max abs err "
+        f"{errs} (rtol 1e-5, floor 1e-5 of the largest); {MOE_SMALL_STEPS} "
+        f"SparCML steps {losses['card']} vs {losses['cpu']} (max rel "
+        f"{rel:.2e}, limit 2e-4); final params, moments and residuals "
+        f"({len(states['cpu'])} tensors) at {state_err:.3g} of their "
+        f"tolerance (rtol 2e-4, floor 2e-4 of the largest); moe_apply twice on the card bit-equal {same}")
+    if not same:
+        fail("17c: moe_apply reruns differ on the card")
+    return rec
+
+
+def phase_moe(torch, dev, wrappers, out_dir: Path, bw, f32_peak):
+    """Phase 17 (see the module docstring). Returns (record, {path:
+    launches}) for the MoE training and serving runs."""
+    rec, paths = {}, {}
+    # full-width runs near the card's capacity: expandable allocator
+    # segments, so freed blocks of many sizes do not fragment the pool
+    rec["expandable_segments"] = _expandable_segments(torch, True)
+    try:
+        t0 = time.perf_counter()
+        rec["train"], paths["moe_train"] = moe_train(torch, dev, wrappers)
+        rec["train"]["seconds"] = time.perf_counter() - t0
+        log(f"[17a] took {rec['train']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        rec["serve"], paths["moe_serve"] = moe_serve(torch, dev, wrappers,
+                                                     out_dir, bw, f32_peak)
+        rec["serve"]["seconds"] = time.perf_counter() - t0
+        log(f"[17b] took {rec['serve']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        rec["small"] = moe_small(torch, dev)
+        rec["small"]["seconds"] = time.perf_counter() - t0
+        log(f"[17c] took {rec['small']['seconds']:.1f} s")
+    finally:
+        if rec["expandable_segments"]:
+            _expandable_segments(torch, False)
+    return rec, paths
+
+
+def _expandable_segments(torch, on: bool) -> bool:
+    """Switch the caching allocator's expandable segments (new segments
+    only; the cache is emptied first). False where the build has no such
+    setting."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    setting = (getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+               or torch.cuda.memory._set_allocator_settings)
+    try:
+        setting(f"expandable_segments:{on}")
+    except (AttributeError, RuntimeError) as exc:
+        log(f"[17] expandable segments not available: {exc}")
+        return False
+    return True
 
 
 def _to(tree, device):

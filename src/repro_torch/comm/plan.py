@@ -585,6 +585,9 @@ class ServePlan:
     min_cap: int = 4              # smallest stream capacity ever planned
     headroom: float = 2.0         # cap >= headroom * measured occupancy
     version: int = 0
+    # every shard gets the whole sum (the SyncPlan's default mode; a serve
+    # plan has no other)
+    output_mode = "replicated"
 
     @property
     def buckets(self) -> tuple:

@@ -1,6 +1,6 @@
 """Unified architecture configuration covering all assigned families.
 
-The port builds and runs only the dense family so far; the other
+The port builds and runs the dense and MoE families so far; the other
 families' fields are kept so a config reads the same in both packages."""
 from __future__ import annotations
 

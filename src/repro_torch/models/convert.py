@@ -15,7 +15,11 @@ from repro_torch.models.model import DecodeState
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_jax(tree, device="cpu") -> dict:
@@ -27,14 +31,14 @@ def params_from_jax(tree, device="cpu") -> dict:
 
 def decode_state_from_jax(state, device="cpu") -> DecodeState:
     """A reference ``DecodeState`` of numpy arrays (``jax.tree.map(
-    np.asarray, state)``) -> the port's, on ``device``. Only the dense
-    family's state (``pos`` and the stacked ``kv``) is ported; a state
-    that carries the other families' caches raises."""
+    np.asarray, state)``) -> the port's, on ``device``. The dense and MoE
+    families' state (``pos`` and the stacked ``kv``) is ported; a state
+    that carries the ssm, hybrid or vlm caches raises."""
     for name in ("cross_kv", "conv", "ssm"):
         if getattr(state, name, None) is not None:
             raise NotImplementedError(
                 f"decode state field {name!r}: its family is not ported yet "
-                "(ROADMAP Queue 1 item 12)")
+                "(ROADMAP Queue 1 item 12b)")
     return DecodeState(_tensor(state.pos, device).to(torch.int32),
                        KVCache(_tensor(state.kv.k, device),
                                _tensor(state.kv.v, device)))

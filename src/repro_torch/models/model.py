@@ -13,8 +13,10 @@ state's caches are stacked over the layers, (L, B, W, nkv, hd) as in the
 reference, and ``decode_step`` writes them in place (the reference
 donates the state): the state it returns holds the same cache tensors.
 
-Only the dense family is ported so far; the others raise, naming ROADMAP
-Queue 1 item 12.
+The dense and MoE families are ported (``models/moe.py``: the MoE
+block's feed-forward is the routed experts plus the optional shared
+expert); ssm, hybrid, vlm and encoder raise, naming ROADMAP Queue 1 item
+12b.
 """
 from __future__ import annotations
 
@@ -25,15 +27,18 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import KVCache
 
+PORTED_FAMILIES = ("dense", "moe")
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            "item 12)")
+            "item 12b)")
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -41,7 +46,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random weights with the reference's shapes and scales, drawn from
     ``generator``, on the card unless ``device`` says otherwise.
     ``device="meta"`` gives shapes only."""
-    _dense_only(cfg)
+    _check_family(cfg)
     device = resolve_device(device)
     d, v, n = cfg.d_model, cfg.padded_vocab, cfg.num_layers
     g, dt = generator, cfg.param_dtype
@@ -55,8 +60,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "ln1": L.rmsnorm_init(d, dt, device, lead=(n,)),
         "attn": L.attn_init(g, cfg, device, lead=(n,)),
         "ln2": L.rmsnorm_init(d, dt, device, lead=(n,)),
-        "mlp": L.mlp_init(g, cfg, device, lead=(n,)),
     }
+    if cfg.family == "moe":
+        params["blocks"]["moe"] = moe_mod.moe_init(g, cfg, device, lead=(n,))
+    else:
+        params["blocks"]["mlp"] = L.mlp_init(g, cfg, device, lead=(n,))
     return params
 
 
@@ -70,17 +78,31 @@ def _unbind_layers(blocks: dict, n: int) -> list[dict]:
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
+def _ffn(p, cfg: ModelConfig, z, moe_serve=None):
+    """The block's feed-forward on (B, S, d): the MLP, or the MoE layer
+    over the B*S flattened tokens (the serve-time dispatch when
+    ``moe_serve``, a ``moe.ServeDispatch``, is given)."""
+    if cfg.family != "moe":
+        return L.mlp(p["mlp"], cfg, z)
+    b, s, d = z.shape
+    z2 = z.reshape(b * s, d)
+    if moe_serve is not None:
+        f = moe_mod.moe_apply_serve(p["moe"], cfg, z2, moe_serve)
+    else:
+        f = moe_mod.moe_apply(p["moe"], cfg, z2)
+    return f.reshape(b, s, d)
+
+
 def _dense_block(p, cfg: ModelConfig, x, positions, causal=True):
     h = L.attention(p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                     positions, causal=causal)
     x = x + h
-    z = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(p["mlp"], cfg, z)
+    return x + _ffn(p, cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
 
 
 def forward(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """batch: {'tokens': (B,S) int}. Returns f32 logits (B, S, V)."""
-    _dense_only(cfg)
+    _check_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()].to(cfg.dtype)
     s = x.shape[1]
@@ -124,7 +146,7 @@ def _attn_cache_width(cfg: ModelConfig, cache_len: int) -> int:
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int):
     """Run the prompt; returns (last-token logits (B, V) f32, DecodeState)."""
-    _dense_only(cfg)
+    _check_family(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     x = params["embed"][tokens.long()].to(cfg.dtype)
@@ -135,7 +157,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int):
         a, cache = L.attention_prefill(lp["attn"], cfg, hn, positions,
                                        cache_len)
         x = x + a
-        x = x + L.mlp(lp["mlp"], cfg, L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        x = x + _ffn(lp, cfg, L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
         ks.append(cache.k)
         vs.append(cache.v)
     logits = _logits(params, cfg, x[:, -1:])[:, 0]
@@ -147,7 +169,7 @@ def init_decode_state(cfg: ModelConfig, batch_size: int, cache_len: int,
                       prefix_len: int = 0, device="cuda") -> DecodeState:
     """An empty decode state (zero caches), on the card unless ``device``
     says otherwise."""
-    _dense_only(cfg)
+    _check_family(cfg)
     device = resolve_device(device)
     shape = (cfg.num_layers, batch_size, _attn_cache_width(cfg, cache_len),
              cfg.num_kv_heads, cfg.head_dim)
@@ -159,14 +181,18 @@ def init_decode_state(cfg: ModelConfig, batch_size: int, cache_len: int,
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, state: DecodeState,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, moe_serve=None):
     """One autoregressive step. tokens: (B, 1) -> (logits (B, V), state').
 
     ``state.pos`` is a 0-d position (batch-synchronous decode) or a (B,)
     per-slot position vector (continuous batching; see
     ``layers.attention_decode``). The caches of ``state`` are written in
-    place and returned in ``state'``, whose ``pos`` is ``state.pos + 1``."""
-    _dense_only(cfg)
+    place and returned in ``state'``, whose ``pos`` is ``state.pos + 1``.
+    ``moe_serve``: an optional ``moe.ServeDispatch``; when given, the MoE
+    layers take the serve-time dispatch (active-slot masking and the
+    planned combine exchange) instead of the training-style
+    ``moe_apply`` at capacity(B)."""
+    _check_family(cfg)
     x = params["embed"][tokens.long()].to(cfg.dtype)
     pos = state.pos
     layers = _unbind_layers(params["blocks"], cfg.num_layers)
@@ -174,7 +200,8 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
         hn = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         a, _ = L.attention_decode(lp["attn"], cfg, hn, KVCache(ck, cv), pos)
         x = x + a
-        x = x + L.mlp(lp["mlp"], cfg, L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        x = x + _ffn(lp, cfg, L.rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                     moe_serve)
     return _logits(params, cfg, x)[:, 0], DecodeState(pos + 1, state.kv)
 
 
@@ -200,8 +227,9 @@ class Model(nn.Module):
     def prefill(self, params, batch, cache_len: int):
         return prefill(params, self.cfg, batch, cache_len)
 
-    def decode_step(self, params, state, tokens):
-        return decode_step(params, self.cfg, state, tokens)
+    def decode_step(self, params, state, tokens, moe_serve=None):
+        return decode_step(params, self.cfg, state, tokens,
+                           moe_serve=moe_serve)
 
     def init_decode_state(self, batch_size: int, cache_len: int,
                           prefix_len: int = 0, device="cuda"):

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -380,13 +380,16 @@ class AdaptiveRuntime:
     (the driver empties its dispatch window first), so one step's work is
     in flight at a time. The arguments after ``plan`` are those of
     ``runtime.pipeline.build_pipelined_step`` / ``build_superstep``
-    (``superstep`` > 1 builds the latter)."""
+    (``superstep`` > 1 builds the latter). ``build_fn(plan)``, when given,
+    builds the step for a plan instead: the continuous serve engine
+    caches its slot decode steps by ``ServePlan`` signature this way."""
 
     def __init__(self, model, tcfg, dp_total: int, device="cuda", *, plan,
                  net: NetworkParams, cfg: AdaptConfig = AdaptConfig(),
                  staleness: int = 1, superstep: int = 1, obs=None,
                  guard: bool = False, lowering: Optional[str] = None,
-                 coll=None, inject: bool = False):
+                 coll=None, inject: bool = False,
+                 build_fn: Optional[Callable] = None):
         self.model, self.tcfg = model, tcfg
         self.dp_total, self.device = dp_total, device
         self.staleness, self.superstep = staleness, superstep
@@ -401,6 +404,7 @@ class AdaptiveRuntime:
         # the output mode is pinned for the runtime's life: it changes the
         # state layout, which a drain-barrier swap cannot migrate
         self._output_mode = plan.output_mode
+        self._build_fn = build_fn or self._build
         self._cache: dict = {}
         self._swap_to = None
         self._demote_at = None
@@ -424,7 +428,7 @@ class AdaptiveRuntime:
     def step_fn_for(self, plan):
         sig = plan.signature()
         if sig not in self._cache:
-            self._cache[sig] = self._build(plan)
+            self._cache[sig] = self._build_fn(plan)
         return self._cache[sig]
 
     @property

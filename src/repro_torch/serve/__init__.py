@@ -1,5 +1,6 @@
 """Serving (DESIGN.md §8): the static-batch engine, the continuous-
-batching scheduler and the slot decode engine, for the dense family."""
+batching scheduler and the slot decode engine, for the dense and MoE
+families."""
 from repro_torch.serve.engine import (  # noqa: F401
     ServeEngine,
     build_prefill,

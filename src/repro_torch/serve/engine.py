@@ -31,16 +31,19 @@ from repro_torch.obs import resolve as _resolve_obs
 
 
 def build_serve_step(model: Model, cache_len: int = 4096):
-    """decode_step(params, state, tokens) -> (logits, state') for states
-    of cache length ``cache_len``; a state of another cache width raises."""
+    """decode_step(params, state, tokens, moe_serve=None) -> (logits,
+    state') for states of cache length ``cache_len``; a state of another
+    cache width raises. Without ``moe_serve`` a MoE model takes the
+    training-style ``moe_apply`` at capacity(B), as the reference's
+    static engine does."""
     w = _attn_cache_width(model.cfg, cache_len)
 
-    def step(params, state, tokens):
+    def step(params, state, tokens, moe_serve=None):
         if state.kv.k.shape[2] != w:
             raise ValueError(f"decode state of cache width "
                              f"{state.kv.k.shape[2]}, the step was built "
                              f"for {w}")
-        return model.decode_step(params, state, tokens)
+        return model.decode_step(params, state, tokens, moe_serve=moe_serve)
 
     return step
 

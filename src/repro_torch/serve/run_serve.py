@@ -1,31 +1,39 @@
-"""Serve the LM with greedy decoding on one GPU.
+"""Serve an LM with greedy decoding on one GPU.
 
     PYTHONPATH=src python -m repro_torch.serve.run_serve     # static batch
     PYTHONPATH=src python -m repro_torch.serve.run_serve --continuous
     PYTHONPATH=src python -m repro_torch.serve.run_serve --fast --continuous
+    PYTHONPATH=src python -m repro_torch.serve.run_serve --model serve-demo \
+        --continuous
     PYTHONPATH=src python -m repro_torch.serve.run_serve --chaos 0 \
         --trace t.json --metrics-out m.jsonl
 
-The PyTorch counterpart of ``examples/serve_decode.py``. The example
-serves its MoE "serve-demo" model, whose family the port does not have
-yet (``--model serve-demo`` raises, naming ROADMAP Queue 1 item 12); this
-script serves lm-100m (``run_lm.lm_config``: 12 layers, d = 768, GQA 12/4
-heads, SwiGLU 2048, vocab 32768, f32, random weights from seed 0), and
-under ``--fast`` the same widths at 2 layers. The requests are the
-example's: the static run decodes ``--batch`` prompts of 16 tokens; the
-continuous run (``--continuous``) serves 2 x ``--batch`` requests with
-Poisson arrivals at 0.5 a decode step (seed 0), prompts of 4 to 19 tokens
-and ``--tokens`` / 2 to ``--tokens`` new tokens each, over ``--batch``
-slots with a cache of 128. It prints tok/s, occupancy, the latency
-percentiles (decode steps), the SLO verdicts of ``--slo-ttft`` and
-``--slo-e2e``, and the shed and retried counts. ``--chaos SEED`` (implies
-``--continuous``) injects a seed-derived plan of recoverable serve faults
-(a collective raise, a straggler, a stall) before decode ticks; the run
-must complete through the tick retries, and exits non-zero when the plan
-injected nothing. ``--trace`` exports a Chrome trace of the prefill,
-admission and decode spans, ``--metrics-out`` the metrics JSONL. The
-dense family has no activation exchange to plan, so, as in the example
-on such a model, no plan swap happens and no serve-plan audit runs.
+The PyTorch counterpart of ``examples/serve_decode.py``. ``--model
+serve-demo`` serves the example's own MoE model (4 layers, d = 256, 8/4
+heads, 4 experts top-2 of width 256, capacity factor 4, vocab 2048, f32;
+under ``--fast`` 2 layers, d = 128, experts of width 128), random weights
+from seed 0, its expert combine over ``p_model`` = 2 shards stacked on
+the device (the example's ``model`` axis). ``--model lm-100m`` (the
+default) serves ``run_lm.lm_config``'s dense LM (12 layers, d = 768, GQA
+12/4 heads, SwiGLU 2048, vocab 32768, f32; 2 layers under ``--fast``).
+The requests are the example's: the static run decodes ``--batch``
+prompts of 16 tokens; the continuous run (``--continuous``) serves 2 x
+``--batch`` requests with Poisson arrivals at 0.5 a decode step (seed 0),
+prompts of 4 to 19 tokens and ``--tokens`` / 2 to ``--tokens`` new tokens
+each, over ``--batch`` slots with a cache of 128, in adaptive dispatch:
+on the MoE model the combine's wire is planned from the step's telemetry
+on network parameters calibrated on the run's device
+(``utils/calibrate.py`` over ``StackedCollectives(p_model)``), and the
+plan swaps are printed with the modeled wire bytes. It prints tok/s,
+occupancy, the latency percentiles (decode steps), the SLO verdicts of
+``--slo-ttft`` and ``--slo-e2e``, and the shed and retried counts.
+``--chaos SEED`` (implies ``--continuous``) injects a seed-derived plan
+of recoverable serve faults (a collective raise, a straggler, a stall)
+before decode ticks; the run must complete through the tick retries, and
+exits non-zero when the plan injected nothing. ``--trace`` exports a
+Chrome trace of the prefill, admission and decode spans,
+``--metrics-out`` the metrics JSONL; the example's serve-plan drift audit
+is not run.
 """
 from __future__ import annotations
 
@@ -37,25 +45,49 @@ import numpy as np
 import torch
 
 from repro_torch import obs as obs_mod
+from repro_torch.comm.collectives import StackedCollectives
+from repro_torch.core.cost_model import NetworkParams
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build_model
 from repro_torch.serve import (ContinuousServeEngine, Request, ServeConfig,
                                ServeEngine, poisson_trace)
 from repro_torch.train import run_lm
+from repro_torch.utils.calibrate import calibrate
 
 CACHE_LEN = 128
+P_MODEL = 2         # the example's expert-parallel ``model`` axis
+
+
+def serve_demo_config(fast: bool) -> ModelConfig:
+    """The example's MoE serve-demo model (``examples/serve_decode.py``)."""
+    kw = (dict(num_layers=2, d_model=128, d_ff=256) if fast else
+          dict(num_layers=4, d_model=256, d_ff=512))
+    return ModelConfig(name="serve-demo", family="moe", num_heads=8,
+                       num_kv_heads=4, vocab_size=2048, dtype=torch.float32,
+                       param_dtype=torch.float32, max_seq_len=256,
+                       num_experts=4, experts_per_token=2,
+                       moe_d_ff=kw["d_ff"] // 2, capacity_factor=4.0, **kw)
 
 
 def build(fast: bool, model: str = "lm-100m", device="cuda"):
-    """(model, params): lm-100m, at 2 layers under ``fast``."""
-    if model != "lm-100m":
-        raise NotImplementedError(
-            f"model {model!r}: the example's serve-demo is a MoE model, and "
-            "the MoE family is not ported yet (ROADMAP Queue 1 item 12)")
-    cfg, _ = run_lm.lm_config(fast=False)
-    if fast:
-        cfg = dataclasses.replace(cfg, name="lm-100m-2l", num_layers=2)
+    """(model, params): lm-100m (2 layers under ``fast``) or the example's
+    serve-demo MoE model, random weights from seed 0."""
+    if model == "serve-demo":
+        cfg = serve_demo_config(fast)
+    elif model == "lm-100m":
+        cfg, _ = run_lm.lm_config(fast=False)
+        if fast:
+            cfg = dataclasses.replace(cfg, name="lm-100m-2l", num_layers=2)
+    else:
+        raise ValueError(f"unknown model {model!r}")
     m = build_model(cfg)
     return m, m.init(torch.Generator().manual_seed(0), device=device)
+
+
+def network(p_model: int, device) -> NetworkParams:
+    """The adaptive dispatch's network parameters, fitted on the stacked
+    expert shards on ``device`` (the port carries no default network)."""
+    return calibrate(StackedCollectives(p_model, device=device))
 
 
 def run_static(model, params, batch: int, tokens: int, obs=None,
@@ -92,9 +124,12 @@ def run_continuous(model, params, batch: int, tokens: int, obs=None,
                    slo=None, injector=None, device="cuda"):
     n_req = 2 * batch
     reqs = requests(n_req, model.cfg.vocab_size, tokens)
+    moe = model.cfg.family == "moe"
+    net = network(P_MODEL, device) if moe else None
     engine = ContinuousServeEngine(model, params, cache_len=CACHE_LEN,
                                    batch_size=batch, dispatch="adaptive",
-                                   obs=obs, serve_cfg=slo, injector=injector,
+                                   net=net, p_model=P_MODEL, obs=obs,
+                                   serve_cfg=slo, injector=injector,
                                    device=device)
     res = engine.run(reqs)
     occ = [r["active"] for r in res.step_log]
@@ -102,8 +137,12 @@ def run_continuous(model, params, batch: int, tokens: int, obs=None,
           f"{res.decode_steps} decode steps / {res.wall_s:.2f}s "
           f"({res.tok_per_s:.0f} tok/s on {engine.device}; occupancy "
           f"{min(occ)}..{max(occ)} of {batch} slots)")
-    print("dispatch wire: none (a dense model has no expert dispatch to "
-          "plan); plan swaps: []")
+    if moe:
+        print(f"dispatch wire: {res.wire_bytes / 1e3:.1f} kB modeled; plan "
+              f"swaps: {[(s['step'], s['reason'], s['signature']) for s in res.swap_log]}")
+    else:
+        print("dispatch wire: none (a dense model has no expert dispatch "
+              "to plan); plan swaps: []")
     if res.latency:
         lat = res.latency
         print("latency (decode-step units): "
@@ -141,11 +180,11 @@ def run_continuous(model, params, batch: int, tokens: int, obs=None,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--fast", action="store_true",
-                    help="lm-100m at 2 layers and fewer tokens")
+                    help="a smaller model (lm-100m at 2 layers, serve-demo "
+                         "at 2 layers and d = 128) and fewer tokens")
     ap.add_argument("--model", default="lm-100m",
                     choices=("lm-100m", "serve-demo"),
-                    help="serve-demo is the example's MoE model (raises: "
-                         "ROADMAP Queue 1 item 12)")
+                    help="lm-100m (dense) or the example's MoE serve-demo")
     ap.add_argument("--batch", type=int, default=8,
                     help="decode slots (continuous) / batch size (static)")
     ap.add_argument("--tokens", type=int, default=None,

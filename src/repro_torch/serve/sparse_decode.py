@@ -1,31 +1,42 @@
-"""Slot-based continuous-batching decode engine (the JAX package's
-``repro.serve.sparse_decode``, DESIGN.md §8), for the dense family.
+"""Slot-based decode engine with plan-driven sparse expert dispatch (the
+JAX package's ``repro.serve.sparse_decode``, DESIGN.md §8).
 
-``build_slot_decode_step`` returns ONE decode step for a cache length:
-per-slot positions (each request at its own depth in its own cache
-rows) and the live-slot mask.
+``build_slot_decode_step`` returns ONE decode step for a (cache length,
+ServePlan signature) pair: per-slot positions (each request at its own
+depth in its own cache rows), the live-slot mask, and, for the MoE
+family, the combine exchange through the comm plan
+(``exchange_activation_spmd``: the dense sum or the (idx, val) row-stream
+wire, bit-identical while under the stream's capacity).
 
 :class:`ContinuousServeEngine` is the host loop: a ContinuousScheduler
 admits ragged prompts into free slots (a B = 1 prefill at the prompt's
 own length, its caches copied into the slot's rows in place, its greedy
 token the request's first), every step decodes one token for all active
-slots, and early-EOS or maxed slots retire and free their slot. Load
+slots, and early-EOS or maxed slots retire and free their slot. On a MoE
+model in adaptive dispatch mode, the step's telemetry ([active-token
+nnz, wire bytes], the shape of the training executor's) feeds the
+``AdaptiveController``; accepted replans swap the slot step from a cache
+keyed by plan signature at step barriers, and the occupancy guard
+force-demotes a stream plan whose capacity the admitted batch just
+crossed (a correctness rule, past hysteresis and patience). Load
 shedding (``ServeConfig.queue_limit`` / ``shed_deadline``), the SLO
 health verdicts and a pre-dispatch chaos hook with bounded retries
 (``injector``) are the reference's.
+
+The engine has no mesh: the expert shards of the combine are stacked on
+the device (``p_model`` of them, 2 by default as the example's ``model``
+axis), so the exchange is the sum over that axis. The adaptive engine
+needs ``net=`` (NetworkParams): the port has no default network, and
+``utils/calibrate.py`` fits one.
 
 Each decode step reads the device once: its (B,) greedy tokens, taken on
 the device (``torch.argmax`` returns the first maximal index, as the
 reference's ``np.argmax`` over the copied logits does). The tokens stay
 on the device as the next step's input; an admission writes its first
-token there and reads it once (the scheduler needs it at once).
-
-Not ported yet (ROADMAP Queue 1 item 12, with the MoE family): the plan
-path of the slot step (``plan`` is not None: the MoE combine exchange
-through ``comm.executor.exchange_activation_spmd``), ``ServeDispatch``,
-the engine's ``AdaptiveRuntime`` and its occupancy guard. On a dense
-model the reference runs neither: there is no cross-device dispatch to
-plan, so ``dispatch="adaptive"`` serves exactly as ``"dense"``.
+token there and reads it once (the scheduler needs it at once). The
+plan path's telemetry is known on the host (the active count and the
+plan's wire bytes) and is never read back; its live mask goes up by a
+pinned, non-blocking copy.
 """
 from __future__ import annotations
 
@@ -36,9 +47,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.comm.executor import exchange_activation_spmd
+from repro_torch.comm.plan import ServePlan, build_serve_plan
+from repro_torch.core.cost_model import NetworkParams
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import PORTED_FAMILIES, Model
+from repro_torch.models.moe import ServeDispatch
 from repro_torch.obs import resolve as _resolve_obs
+from repro_torch.runtime.adapt import AdaptConfig, AdaptiveRuntime
 from repro_torch.runtime.faults import FaultInjectionError
 from repro_torch.serve.engine import build_serve_step, greedy
 from repro_torch.serve.scheduler import ContinuousScheduler, Request
@@ -48,23 +64,51 @@ from repro_torch.serve.scheduler import ContinuousScheduler, Request
 # The slot decode step
 # --------------------------------------------------------------------------
 
-def build_slot_decode_step(model: Model, plan, cache_len: int):
+def _to_device(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without a host wait (pinned, non-blocking
+    copy to the card)."""
+    t = torch.from_numpy(np.ascontiguousarray(host))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def build_slot_decode_step(model: Model, plan: Optional[ServePlan],
+                           cache_len: int):
     """fn(params, state, tokens, active) -> (logits, state', telem).
 
     ``state.pos`` is the (B,) per-slot position vector; ``active`` the
-    (B,) live-slot mask (host numpy: the dense step reads no mask, every
-    row is computed and an inactive row's output is never read). ``telem``
-    is empty: it maps the MoE plan's activation bucket to its telemetry,
-    and a ``plan`` (the MoE path) raises."""
-    if plan is not None:
-        raise NotImplementedError(
-            "the slot decode step's plan path serves the MoE family, which "
-            "is not ported yet (ROADMAP Queue 1 item 12)")
+    (B,) live-slot mask, host numpy. ``plan`` (MoE families) pins the
+    combine exchange's wire (its signature is the step cache's key);
+    ``telem`` maps the plan's activation bucket to a (2,) f32 host array
+    [active nnz, modeled wire bytes], the shape the adaptive controller
+    consumes. Without a plan (dense families) the step reads no mask
+    (every row is computed, an inactive row's output is never read) and
+    ``telem`` is empty."""
     step = build_serve_step(model, cache_len)
+    if plan is None:
+        def slot_step(params, state, tokens, active):
+            logits, state = step(params, state, tokens)
+            return logits, state, {}
+
+        return slot_step
+
+    bucket = plan.buckets[0]
+    algorithm, bname = bucket.algorithm, bucket.name
+    wire = plan.wire_bytes()
+    p_model = plan.dp_total
+
+    def exchange(parts):
+        return exchange_activation_spmd(parts, algorithm)
 
     def slot_step(params, state, tokens, active):
-        logits, state = step(params, state, tokens)
-        return logits, state, {}
+        md = ServeDispatch(active=_to_device(np.asarray(active, bool),
+                                             tokens.device),
+                           exchange=exchange, p_shards=p_model)
+        logits, state = step(params, state, tokens, moe_serve=md)
+        telem = {bname: np.array([np.count_nonzero(active), wire],
+                                 np.float32)}
+        return logits, state, telem
 
     return slot_step
 
@@ -75,10 +119,10 @@ def insert_slot_state(cfg, state, sub, slot_idx: int):
     position vector, IN PLACE (the reference returns an updated copy of
     its donated state). The slot's previous content, a retired request's,
     is fully overwritten; nothing else moves. Returns ``state``."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"continuous batching: family {cfg.family!r} is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+            "(ROADMAP Queue 1 item 12b)")
     state.kv.k[:, slot_idx] = sub.kv.k[:, 0]
     state.kv.v[:, slot_idx] = sub.kv.v[:, 0]
     state.pos[slot_idx] = sub.pos
@@ -126,24 +170,43 @@ class ContinuousServeEngine:
     """Continuous-batching greedy decoding over ``batch_size`` slots, on
     the card unless ``device`` says otherwise.
 
-    ``dispatch`` ('dense' or 'adaptive') picks the MoE combine's wire in
-    the reference; the dense family has none, so both serve the same way
-    and no controller runs. ``serve_cfg`` (a ServeConfig) declares SLO
-    targets and the load-shedding policy; ``injector`` (a FaultInjector)
-    is called once a decode tick before dispatch, its collective faults
-    retried up to ``max_tick_retries`` times."""
+    On a MoE model ``dispatch`` picks the combine's wire:
+
+    dispatch='dense'     the exact reference: every step's MoE combine is
+                         the dense sum, whatever the occupancy.
+    dispatch='adaptive'  plan-driven: starts dense (exact at any
+                         occupancy); the controller demotes to the
+                         row-stream wire as the telemetry window shows
+                         occupancy draining, and back up as it rises,
+                         swapping slot steps by plan signature. The output
+                         is bit-identical to 'dense' (the stream exchange
+                         is exact under its capacity, which the occupancy
+                         guard enforces). Needs ``net`` (NetworkParams).
+
+    ``p_model``: the expert shards the combine sums over (stacked on the
+    device); ``adapt``, ``min_cap`` and ``headroom`` tune the controller
+    and the serve plan. The dense family has no cross-shard dispatch to
+    plan, so both modes serve the same way and no controller runs.
+    ``serve_cfg`` (a ServeConfig) declares SLO targets and the
+    load-shedding policy; ``injector`` (a FaultInjector) is called once a
+    decode tick before dispatch, its collective faults retried up to
+    ``max_tick_retries`` times."""
 
     def __init__(self, model: Model, params, cache_len: int = 128,
                  batch_size: int = 8, dispatch: str = "adaptive",
-                 eos_id: Optional[int] = None, obs=None, serve_cfg=None,
-                 injector=None, max_tick_retries: int = 3, device="cuda"):
+                 eos_id: Optional[int] = None,
+                 adapt: Optional[AdaptConfig] = None,
+                 net: Optional[NetworkParams] = None, p_model: int = 2,
+                 min_cap: int = 4, headroom: float = 2.0, obs=None,
+                 serve_cfg=None, injector=None, max_tick_retries: int = 3,
+                 device="cuda"):
         if dispatch not in ("dense", "adaptive"):
             raise ValueError(f"dispatch {dispatch!r}: 'dense' or 'adaptive'")
         cfg = model.cfg
-        if cfg.family != "dense":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"continuous batching: family {cfg.family!r} is not ported "
-                "yet (ROADMAP Queue 1 item 12)")
+                "yet (ROADMAP Queue 1 item 12b)")
         self.serve_cfg = serve_cfg
         self.injector = injector
         self.max_tick_retries = int(max_tick_retries)
@@ -155,8 +218,33 @@ class ContinuousServeEngine:
         if injector is not None:
             injector.bind(
                 registry=self.obs.metrics if self.obs.metrics_on else None)
+        self.runtime = None
+        self._plan = None
         self.swap_log: list = []
-        self._fn = build_slot_decode_step(model, None, cache_len)
+        if cfg.family != "moe":
+            self._fn = self._build(None)
+            return
+        base = build_serve_plan(p_model, batch_size, cfg.d_model,
+                                algorithm="dense", min_cap=min_cap,
+                                headroom=headroom)
+        if dispatch == "dense":
+            self._plan = base
+            self._fn = self._build(base)
+            return
+        if net is None:
+            raise ValueError(
+                "dispatch='adaptive' needs net= (NetworkParams): the port "
+                "carries no default network; utils/calibrate.py fits one")
+        acfg = adapt or AdaptConfig(window=4, hysteresis=0.2, patience=1,
+                                    calibrate=False, pod_sparse=False)
+        self.runtime = AdaptiveRuntime(model, None, p_model, self.device,
+                                       plan=base, net=net, cfg=acfg,
+                                       obs=self.obs, build_fn=self._build)
+        self._plan = self.runtime.current_plan
+        self._fn = self.runtime.current_fn()
+
+    def _build(self, plan):
+        return build_slot_decode_step(self.model, plan, self.cache_len)
 
     # -- slot admission ----------------------------------------------------
     def _admit(self, state, tokens, slot_idx: int, req: Request) -> int:
@@ -170,15 +258,40 @@ class ContinuousServeEngine:
                 f"request {req.rid}: prompt {req.prompt.size} + "
                 f"{req.max_new_tokens} new tokens exceed the cache length "
                 f"{self.cache_len}")
-        prompt = torch.from_numpy(req.prompt[None])
-        if self.device.type == "cuda":   # a copy the host does not wait for
-            prompt = prompt.pin_memory().to(self.device, non_blocking=True)
+        prompt = _to_device(req.prompt[None], self.device)
         logits, sub = self.model.prefill(self.params, {"tokens": prompt},
                                          self.cache_len)
         insert_slot_state(self.model.cfg, state, sub, slot_idx)
         first = greedy(logits)
         tokens[slot_idx] = first[0]
         return int(_readback(first)[0])
+
+    # -- plan swaps --------------------------------------------------------
+    def _install(self, fn, plan, clock: float, reason: str):
+        self._fn, self._plan = fn, plan
+        self.swap_log.append({"step": clock, "reason": reason,
+                              "signature": plan.signature(),
+                              "version": plan.version})
+        self.obs.event("serve/plan_swap", step=clock, reason=reason,
+                       signature=plan.signature(), version=plan.version)
+
+    def _occupancy_guard(self, active_count: int, clock: float):
+        """Force-demote a stream plan the admitted batch just outgrew: the
+        stream would silently drop rows above its capacity. Runs BEFORE
+        dispatch (the controller's windowed view lags by design) and
+        bypasses hysteresis and patience, like the delta rule."""
+        plan = self._plan
+        if plan is None:
+            return
+        b = plan.buckets[0]
+        if b.sparse and active_count > b.cap:
+            forced = plan.replan(algorithms={b.name: "dense"})
+            if self.runtime is not None:
+                self.runtime.controller.force(forced)
+                fn = self.runtime.step_fn_for(forced)
+            else:
+                fn = self._build(forced)
+            self._install(fn, forced, clock, "occupancy-guard")
 
     # -- the serving loop --------------------------------------------------
     def run(self, requests: list[Request],
@@ -326,25 +439,41 @@ class ContinuousServeEngine:
             if n_active == 0:
                 sched.skip_to_next_arrival()
                 continue
+            self._occupancy_guard(n_active, sched.clock)
             if self.injector is not None:
                 self._chaos_tick(res.decode_steps, sched.clock, obs)
             with obs.span("serve/decode_step", step=sched.clock,
                           active=n_active):
-                logits, state, _ = self._fn(self.params, state,
-                                            tokens[:, None], active)
+                logits, state, telem = self._fn(self.params, state,
+                                                tokens[:, None], active)
                 tokens = greedy(logits)
                 host = _readback(tokens)
             for i in np.nonzero(active)[0]:
                 sched.record(int(i), int(host[i]))
                 res.tokens += 1
-            res.step_log.append({"step": sched.clock, "active": n_active,
-                                 "wire_bytes": 0.0, "signature": "-"})
+            wire = (float(telem[self._plan.buckets[0].name][1]) if telem
+                    else 0.0)
+            res.wire_bytes += wire
+            res.step_log.append({
+                "step": sched.clock, "active": n_active, "wire_bytes": wire,
+                "signature": (self._plan.signature()
+                              if self._plan is not None else "-")})
             if rec is not None:
                 rec.note("serve/step", step=sched.clock, active=n_active,
-                         wire_bytes=0.0)
+                         wire_bytes=wire)
             if obs.metrics_on:
                 m = obs.metrics
                 m.histogram("serve/occupancy").observe(n_active)
                 m.histogram("serve/queue_depth").observe(len(sched.waiting))
+                if telem:
+                    m.histogram("serve/wire_bytes").observe(wire)
+            if self.runtime is not None and telem:
+                self.runtime.observe(res.decode_steps, 1,
+                                     {"telemetry": telem})
+                sw = self.runtime.maybe_swap()
+                if sw is not None:
+                    # every step boundary of this synchronous host loop is
+                    # a drain barrier: nothing is in flight at the swap
+                    self._install(sw[0], sw[1], sched.clock, "telemetry")
             sched.advance()
             res.decode_steps += 1

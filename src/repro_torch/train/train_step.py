@@ -200,10 +200,14 @@ def _accumulated_grads(model: Model, params, batch, n_micro: int):
         if acc_g is None:
             acc_loss, acc_g = loss, [g.to(torch.float32) for g in grads]
         else:
+            # in place, in f32 (add_ promotes a bf16 g as .to(f32) would):
+            # one f32 copy of the grads lives, not two
             acc_loss = acc_loss + loss
-            acc_g = [a + g.to(torch.float32) for a, g in zip(acc_g, grads)]
+            for a, g in zip(acc_g, grads):
+                a.add_(g)
+        del grads           # free this microbatch's grads before the next
     inv = 1.0 / n_micro
-    return acc_loss * inv, [g * inv for g in acc_g]
+    return acc_loss * inv, [g.mul_(inv) for g in acc_g]
 
 
 def batch_to_device(batch, dev: torch.device) -> dict:
@@ -660,6 +664,9 @@ def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
             rand_fn = step_rand_fn(tcfg.seed, state.step, dev)
         reduced, new_res, _ = reduce_half(plan, leaves, state.residuals,
                                           coll, rand_fn)
+        # the update reads the grads' shapes and dtypes only: free them
+        leaves = [torch.empty(g.shape, dtype=g.dtype, device="meta")
+                  for g in leaves]
         lr = sched(state.step)
         new_p, new_opt, gnorm = optimizer_half(state, reduced, leaves, lr,
                                                tcfg, plan, coll)

@@ -1063,3 +1063,120 @@ def test_cuda_kv_write_touches_only_its_slot(cuda_device):
     for new, old, ins in zip(st.kv, before, sub.kv):
         assert torch.equal(new[:, [0, 1, 3]], old[:, [0, 1, 3]])
         assert torch.equal(new[:, 2], ins[:, 0])
+
+
+# --------------------------------------------------------------------------
+# the MoE family on the card
+# --------------------------------------------------------------------------
+
+def _moe_smoke():
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    model = build_model(configs.smoke_config("moonshot-v1-16b-a3b"))
+    return model, model.init(torch.Generator().manual_seed(0), device="cpu")
+
+
+@pytest.mark.cuda
+def test_cuda_moe_apply_reruns_bit_equal_and_match_cpu(cuda_device):
+    """The combine is a gather summed in ascending slot order, so two runs
+    on the card are bit-equal (an atomic scatter-add would not be); the
+    routing ids equal the CPU's, the output is within the model tolerance
+    of it."""
+    from repro_torch.models import moe
+
+    model, params = _moe_smoke()
+    lp = {k: v[0] for k, v in params["blocks"]["moe"].items()
+          if torch.is_tensor(v)}
+    lp["shared"] = {k: v[0] for k, v in
+                    params["blocks"]["moe"]["shared"].items()}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (64, model.cfg.d_model)).astype(np.float32))
+    card = _to(lp, cuda_device)
+    a = moe.moe_apply(card, model.cfg, x.to(cuda_device))
+    b = moe.moe_apply(card, model.cfg, x.to(cuda_device))
+    assert torch.equal(a, b)
+    want = moe.moe_apply(lp, model.cfg, x).numpy()
+    np.testing.assert_allclose(a.cpu().numpy(), want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+    k = model.cfg.experts_per_token
+    assert torch.equal(moe._route(card, x.to(cuda_device), k)[1].cpu(),
+                       moe._route(lp, x, k)[1])
+
+
+@pytest.mark.cuda
+def test_cuda_moe_sparcml_steps_match_cpu(cuda_device):
+    """Three SparCML steps of the moonshot smoke config (its
+    train_config), card against CPU with the same QSGD bits, through the
+    kernels on the card (the schedule's lr is 0 at step 0, so two steps
+    update the params): losses at the QSGD tolerance (rtol 2e-4), and the
+    final params, moments and EF residuals within rtol 2e-4 and 2e-4 of
+    each tensor's largest magnitude."""
+    from repro_torch import configs
+    from repro_torch.core.qsgd import random_bits
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.tree import tree_leaves
+
+    model, params = _moe_smoke()
+    tcfg = configs.get_train_config("moonshot-v1-16b-a3b")
+
+    def bits_for(step, device):
+        def rand_fn(bucket_idx, n):
+            g = torch.Generator().manual_seed(step * 1000 + bucket_idx)
+            return random_bits(n, g, "cpu").to(device)
+        return rand_fn
+
+    losses, states = {}, {}
+    for dev in ("cpu", cuda_device):
+        tr = Trainer(model, tcfg, DataConfig(16, 16, 512), dp_total=4,
+                     device=dev)
+        tr.init(params=_to(params, dev))
+        before = topk_ops.bucket_topk.launches
+        losses[str(dev)] = tr.run(3, rand_fn_for_step=lambda s, d=dev:
+                                  bits_for(s, d)).losses
+        if dev != "cpu":
+            assert topk_ops.bucket_topk.launches - before == \
+                3 * tr.plan.num_sparse_buckets
+        st = tr.state
+        states[str(dev)] = [t.detach().cpu().float().numpy() for t in (
+            tree_leaves(st.params) + tree_leaves(st.opt["mu"])
+            + tree_leaves(st.opt["nu"])
+            + [st.residuals[n] for n in sorted(st.residuals)])]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-4)
+    for a, b in zip(states["cuda"], states["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=2e-4,
+                                   atol=2e-4 * float(np.abs(b).max()))
+
+
+@pytest.mark.cuda
+def test_cuda_continuous_moe_adaptive_equals_dense(cuda_device):
+    """The continuous MoE engine on the card: adaptive dispatch (the
+    reference's network parameters) gives the dense engine's tokens, and
+    both give each request's B = 1 generate."""
+    from repro_torch.core.cost_model import NetworkParams
+    from repro_torch.serve import ContinuousServeEngine, Request, ServeEngine
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.run_serve import serve_demo_config
+
+    model = build_model(serve_demo_config(True))
+    params = model.init(torch.Generator().manual_seed(0), device=cuda_device)
+    rng = np.random.default_rng(1)
+    reqs = [Request(rid=i, prompt=rng.integers(0, 2048, n),
+                    max_new_tokens=m, arrival=a)
+            for i, (n, m, a) in enumerate(
+                [(4, 6, 0), (6, 5, 0), (3, 6, 0), (5, 4, 0), (7, 5, 0),
+                 (4, 5, 0), (5, 22, 0), (6, 20, 1)])]
+    # the JAX package's default network (alpha 1 us, 50 GB/s links), which
+    # the CPU tests pass too
+    net = NetworkParams(alpha=1e-6, link_bytes_per_s=50e9)
+    runs = {d: ContinuousServeEngine(
+        model, params, cache_len=32, batch_size=8, dispatch=d,
+        net=net if d == "adaptive" else None,
+        device=cuda_device).run(reqs) for d in ("dense", "adaptive")}
+    one = ServeEngine(model, params, cache_len=32, device=cuda_device)
+    for r in reqs:
+        want = one.generate(r.prompt[None], r.max_new_tokens)[0].tolist()
+        assert runs["dense"].outputs[r.rid].tolist() == want
+        assert runs["adaptive"].outputs[r.rid].tolist() == want
+    assert any(s["reason"] == "telemetry" for s in runs["adaptive"].swap_log)

@@ -238,6 +238,57 @@ def test_prefill_decode_match_reference_and_forward(case):
     _assert_close(st.kv.v, jst.kv.v)
 
 
+MOE = dict(family="moe", num_experts=4, experts_per_token=2, moe_d_ff=64,
+           capacity_factor=4.0)
+
+
+@pytest.mark.parametrize("shared", [0, 96], ids=["routed", "shared"])
+def test_moe_prefill_decode_match_reference_and_forward(shared):
+    """The MoE family (the reference's decode-consistency model: 4 experts
+    top-2, capacity factor 4 so neither the forward nor a step drops an
+    assignment): prefill 8 tokens, decode 4, each step's logits against
+    the reference's and the port's own forward; the final caches against
+    the reference's."""
+    jmodel, model = _models(**MOE, moe_shared_ff=shared)
+    jparams, params = _params(jmodel, seed=4)
+    toks = np.random.default_rng(4).integers(0, 256, (2, 12)).astype(np.int32)
+    full = model.forward(params, {"tokens": torch.from_numpy(toks)})
+    jlg, jst = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks[:, :8])},
+                              cache_len=16)
+    lg, st = model.prefill(params, {"tokens": torch.from_numpy(toks[:, :8])},
+                           cache_len=16)
+    _assert_close(lg, jlg)
+    errs = [float((lg - full[:, 7]).abs().max())]
+    for t in range(8, 12):
+        tok = toks[:, t:t + 1]
+        jlg, jst = jmodel.decode_step(jparams, jst, jnp.asarray(tok))
+        lg, st = model.decode_step(params, st, torch.from_numpy(tok))
+        _assert_close(lg, jlg)
+        errs.append(float((lg - full[:, t]).abs().max()))
+    assert max(errs) < 1e-4, errs
+    assert int(st.pos) == int(jst.pos) == 12
+    _assert_close(st.kv.k, jst.kv.k)
+    _assert_close(st.kv.v, jst.kv.v)
+
+
+def test_moe_decode_from_the_reference_prefill_state():
+    """decode_state_from_jax takes a MoE state (the dense family's pos and
+    kv fields), and the port decodes from it step for step with the
+    reference."""
+    jmodel, model = _models(**MOE)
+    jparams, params = _params(jmodel, seed=5)
+    toks = np.random.default_rng(5).integers(0, 256, (2, 9)).astype(np.int32)
+    _, jst = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks[:, :6])},
+                            cache_len=16)
+    st = decode_state_from_jax(jax.tree.map(np.asarray, jst))
+    np.testing.assert_array_equal(st.kv.v.numpy(), np.asarray(jst.kv.v))
+    for t in range(6, 9):
+        tok = toks[:, t:t + 1]
+        jlg, jst = jmodel.decode_step(jparams, jst, jnp.asarray(tok))
+        lg, st = model.decode_step(params, st, torch.from_numpy(tok))
+        _assert_close(lg, jlg)
+
+
 def test_decode_from_the_reference_prefill_state():
     """decode_state_from_jax: the port decodes from the reference's own
     prefill state, step for step with the reference."""
@@ -260,7 +311,7 @@ def test_decode_state_conversion_refuses_other_families():
     jst = jax_build_model(JaxModelConfig(
         **{**TINY, "family": "ssm", "ssm_state": 16, "ssm_head_dim": 16},
         dtype=jnp.float32, param_dtype=jnp.float32)).init_decode_state(2, 8)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         decode_state_from_jax(jax.tree.map(np.asarray, jst))
 
 
@@ -300,12 +351,18 @@ def test_per_slot_model_decode_matches_scalar_rows():
 
 
 def test_other_families_raise():
-    cfg = ModelConfig(**{**TINY, "family": "moe", "num_experts": 4,
-                         "experts_per_token": 2},
+    """A family the port does not have yet (ssm) raises at every entry
+    point, naming its ROADMAP item."""
+    cfg = ModelConfig(**{**TINY, "family": "ssm", "ssm_state": 16,
+                         "ssm_head_dim": 16},
                       dtype=torch.float32, param_dtype=torch.float32)
     model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        model.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        model.forward({}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)})
+    with pytest.raises(NotImplementedError, match="item 12b"):
         model.init_decode_state(2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         model.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)},
                       8)

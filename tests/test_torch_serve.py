@@ -568,16 +568,182 @@ def test_insert_slot_state_writes_only_its_slot(models):
 
 
 def test_moe_paths_raise(models):
+    """The serving entry points refuse a family the port does not have yet
+    (ssm), naming its ROADMAP item; an unknown run_serve model raises."""
     _, _, model, params = models
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_slot_decode_step(model, build_serve_plan(2, 4, 64), 16)
-    moe = build_model(ModelConfig(**{**TINY, "family": "moe"},
+    ssm = build_model(ModelConfig(**{**TINY, "family": "ssm",
+                                     "ssm_state": 16, "ssm_head_dim": 16},
                                   dtype=torch.float32,
                                   param_dtype=torch.float32))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ContinuousServeEngine(moe, params, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_serve.build(False, model="serve-demo", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        ContinuousServeEngine(ssm, params, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        insert_slot_state(ssm.cfg, None, None, 0)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        ServeEngine(ssm, params, device="cpu").generate(
+            np.zeros((1, 2), np.int32), 2)
+    with pytest.raises(ValueError, match="unknown model"):
+        run_serve.build(False, model="nope", device="cpu")
+
+
+# --------------------------------------------------------------------------
+# Serve-time MoE dispatch: the continuous engine's plan path
+# --------------------------------------------------------------------------
+
+MOE_TINY = dict(TINY, family="moe", num_experts=4, experts_per_token=2,
+                moe_d_ff=64, capacity_factor=4.0)
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    """The reference's MoE serve model (its tests/test_serve.py
+    ``_moe_cfg``): (reference model, params, port model, the same params)."""
+    jcfg = JaxModelConfig(**MOE_TINY, dtype=jnp.float32,
+                          param_dtype=jnp.float32)
+    cfg = ModelConfig(**MOE_TINY, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    return jmodel, jparams, build_model(cfg), params
+
+
+# the reference's drain-shaped workload: a burst fills the slots, the
+# short requests retire, and two long ones drain at low occupancy
+MOE_DRAIN = [(4, 6, 0), (6, 5, 0), (3, 6, 0), (5, 4, 0), (7, 5, 0),
+             (4, 5, 0), (5, 22, 0), (6, 20, 1)]
+# a late burst that outgrows the stream capacity after the drain
+MOE_BURST = [(4, 18, 0), (5, 18, 0)] + [(4, 8, 12 + i * 0.01)
+                                        for i in range(6)]
+
+
+@pytest.fixture(scope="module")
+def moe_drain(moe_models):
+    _, _, model, params = moe_models
+    reqs = _requests(np.random.default_rng(1), MOE_DRAIN)
+    return reqs, _per_request(model, params, reqs, cache_len=32)
+
+
+def test_continuous_moe_dense_matches_per_request(moe_models, moe_drain,
+                                                  mesh4x2):
+    """Dense dispatch: every request equals its own B = 1 generate, and
+    the reference engine's output on the same weights."""
+    jmodel, jparams, model, params = moe_models
+    reqs, refs = moe_drain
+    res = ContinuousServeEngine(model, params, cache_len=32, batch_size=8,
+                                dispatch="dense", device="cpu").run(reqs)
+    _assert_outputs_equal(res.outputs, refs)
+    jres = JaxContinuousServeEngine(
+        jmodel, mesh4x2, jparams, cache_len=32, batch_size=8,
+        dispatch="dense").run(_requests(np.random.default_rng(1), MOE_DRAIN,
+                                        JaxRequest))
+    _assert_outputs_equal(res.outputs, jres.outputs)
+    assert res.wire_bytes == jres.wire_bytes > 0
+    assert [r["signature"] for r in res.step_log] == \
+        [r["signature"] for r in jres.step_log]
+
+
+def test_continuous_moe_adaptive_exact_and_swaps(moe_models, moe_drain,
+                                                 mesh4x2):
+    """The adaptive engine emits exactly the dense engine's tokens, swaps
+    dense -> stream on telemetry during the drain, puts fewer modeled
+    bytes on the wire, and its swap log, step signatures and wire bytes
+    equal the reference engine's under the same NetworkParams."""
+    jmodel, jparams, model, params = moe_models
+    reqs, refs = moe_drain
+    rd = ContinuousServeEngine(model, params, cache_len=32, batch_size=8,
+                               dispatch="dense", device="cpu").run(reqs)
+    adap = ContinuousServeEngine(model, params, cache_len=32, batch_size=8,
+                                 dispatch="adaptive", net=NET, device="cpu")
+    ra = adap.run(reqs)
+    _assert_outputs_equal(ra.outputs, refs)
+    _assert_outputs_equal(ra.outputs, rd.outputs)
+    telem_swaps = [s for s in ra.swap_log if s["reason"] == "telemetry"]
+    assert telem_swaps and "stream_gather" in telem_swaps[0]["signature"]
+    assert ra.wire_bytes < rd.wire_bytes
+    sparse_steps = [r for r in ra.step_log
+                    if "stream_gather" in r["signature"]]
+    assert sparse_steps and max(r["active"] for r in sparse_steps) <= 4
+    jra = JaxContinuousServeEngine(
+        jmodel, mesh4x2, jparams, cache_len=32, batch_size=8,
+        dispatch="adaptive", net=DEFAULT_NET).run(
+            _requests(np.random.default_rng(1), MOE_DRAIN, JaxRequest))
+    assert ra.swap_log == jra.swap_log
+    assert [(r["active"], r["signature"], r["wire_bytes"])
+            for r in ra.step_log] == [(r["active"], r["signature"],
+                                       r["wire_bytes"])
+                                      for r in jra.step_log]
+    assert ra.wire_bytes == jra.wire_bytes
+    # the engine is reusable, and a rerun starts from the adapted plan
+    _assert_outputs_equal(adap.run(reqs).outputs, refs)
+
+
+def test_occupancy_guard_forces_dense(moe_models, mesh4x2):
+    """A late burst that outgrows the stream capacity force-demotes the
+    plan to dense before any token is computed under an over-capacity
+    stream; the output stays exact, and the log is the reference's."""
+    jmodel, jparams, model, params = moe_models
+    reqs = _requests(np.random.default_rng(2), MOE_BURST)
+    refs = _per_request(model, params, reqs, cache_len=32)
+    res = ContinuousServeEngine(model, params, cache_len=32, batch_size=8,
+                                dispatch="adaptive", net=NET,
+                                device="cpu").run(reqs)
+    _assert_outputs_equal(res.outputs, refs)
+    reasons = [s["reason"] for s in res.swap_log]
+    assert "telemetry" in reasons and "occupancy-guard" in reasons
+    guard = [s for s in res.swap_log if s["reason"] == "occupancy-guard"][0]
+    assert guard["signature"] == "act0=dense"
+    # no step ran a stream under more active slots than its capacity
+    for r in res.step_log:
+        if "stream_gather" in r["signature"]:
+            assert r["active"] <= int(r["signature"].split("@")[1])
+    jres = JaxContinuousServeEngine(
+        jmodel, mesh4x2, jparams, cache_len=32, batch_size=8,
+        dispatch="adaptive", net=DEFAULT_NET).run(
+            _requests(np.random.default_rng(2), MOE_BURST, JaxRequest))
+    assert res.swap_log == jres.swap_log
+    _assert_outputs_equal(res.outputs, jres.outputs)
+
+
+def test_adaptive_moe_engine_needs_a_network(moe_models):
+    _, _, model, params = moe_models
+    with pytest.raises(ValueError, match="net="):
+        ContinuousServeEngine(model, params, dispatch="adaptive",
+                              device="cpu")
+
+
+def test_moe_slot_step_telemetry_is_host_side(moe_models):
+    """The plan path's telemetry is host numpy ([active nnz, the plan's
+    wire bytes]), built without reading the device."""
+    _, _, model, params = moe_models
+    plan = build_serve_plan(2, 4, 64).replan(algorithms={
+        "act0": "stream_gather@4"})
+    step = build_slot_decode_step(model, plan, 16)
+    state = model.init_decode_state(4, 16, device="cpu")
+    state = state._replace(pos=torch.zeros(4, dtype=torch.int32))
+    active = np.array([True, False, True, False])
+    _, _, telem = step(params, state, torch.zeros((4, 1), dtype=torch.int32),
+                       active)
+    assert isinstance(telem["act0"], np.ndarray)
+    assert telem["act0"].tolist() == [2.0, plan.wire_bytes()]
+
+
+def test_run_serve_cli_serve_demo(capsys, monkeypatch):
+    """run_serve --model serve-demo --fast on the CPU, static and
+    --continuous (adaptive dispatch; the network parameters the card
+    would calibrate are the reference's)."""
+    monkeypatch.setattr(obs_mod, "_default", obs_mod.OFF)
+    monkeypatch.setattr(run_serve, "network", lambda p, device: NET)
+    run_serve.main(["--model", "serve-demo", "--fast", "--batch", "4",
+                    "--tokens", "6", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "model serve-demo: 2 layers, d=128" in out
+    assert "greedy decode is deterministic: OK" in out
+    run_serve.main(["--model", "serve-demo", "--fast", "--continuous",
+                    "--batch", "4", "--tokens", "8", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "all requests completed: OK" in out
+    assert "kB modeled; plan swaps:" in out
 
 
 def test_run_serve_cli_continuous_chaos(capsys, tmp_path, monkeypatch):

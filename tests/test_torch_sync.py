@@ -42,6 +42,15 @@ TINY = dict(name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
 LM100M = dict(name="lm-100m", family="dense", num_layers=12, d_model=768,
               num_heads=12, num_kv_heads=4, d_ff=2048, vocab_size=32768,
               max_seq_len=1024)
+# the MoE smoke configs (configs/moonshot_v1_16b_a3b.py, configs/dbrx_132b.py)
+MOONSHOT_SMOKE = dict(name="moonshot", family="moe", num_layers=4, d_model=64,
+                      num_heads=4, num_kv_heads=4, head_dim=16, d_ff=32,
+                      vocab_size=512, num_experts=8, experts_per_token=2,
+                      moe_d_ff=32, moe_shared_ff=64, max_seq_len=128)
+DBRX_SMOKE = dict(name="dbrx", family="moe", num_layers=4, d_model=64,
+                  num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
+                  vocab_size=512, num_experts=4, experts_per_token=2,
+                  moe_d_ff=128, max_seq_len=128)
 
 
 # --------------------------------------------------------------------------
@@ -148,6 +157,8 @@ def _assert_plans_equal(jplan, plan):
     (TINY, _sync_kwargs(bucket_size=128, qsgd_bits=None,
                         min_sparse_size=1024, fusion_bucket_bytes=1 << 16)),
     (LM100M, _sync_kwargs()),
+    (MOONSHOT_SMOKE, _sync_kwargs(k_per_bucket=4)),
+    (DBRX_SMOKE, _sync_kwargs(k_per_bucket=4)),
 ])
 def test_build_sync_plan_matches_jax(model_kw, sync_kw):
     jplan, plan, jshapes, shapes = _plans(model_kw, **sync_kw)
