@@ -134,15 +134,18 @@ Phases, in order; any failure exits non-zero:
      printed), with 26 / 1 / 1 / 1 launches a step; the scattered reduce
      half's grouped unpack segments (the chunk layout) held bit for bit
      against qsgd_unpack_grouped_ref and timed beside its bound; a
-     checkpoint of each layout at step 2 (its size and save time) resumed
-     under the other layout (the Trainer's CRC checks and the conversion
-     timed) and continued 2 steps bit-equal to the uninterrupted run
-     (checkpoints in a temporary directory the phase removes);
+     checkpoint of each layout at step 2 (its size and save time), at
+     lm-100m's widths and 2 of its 12 layers, resumed under the other
+     layout (the Trainer's CRC checks and the conversion timed) and
+     continued 2 steps bit-equal to the uninterrupted run (checkpoints in
+     a temporary directory the phase removes);
  15. faults at lm-100m (full width and depth, ZeRO-1): one NaN step
      through the kernels on both lowerings leaves params, moments,
      residuals and in-flight buffers bit-equal, with no host
      synchronisation inside it (CUDA sync debug mode); the driver's
-     recovery matrix (guarded, injectable step at staleness 0, 6 steps,
+     recovery matrix at lm-100m's widths and 2 of its 12 layers (its
+     checkpoints' saves and restores were most of the phase's time)
+     (guarded, injectable step at staleness 0, 6 steps,
      one checkpoint before the fault, two where a corrupted save needs an
      older one): nonfinite with repeat = max_consecutive_nonfinite
      (escalation, rewind), a collective raise, a corrupted save then a
@@ -234,11 +237,47 @@ Phases, in order; any failure exits non-zero:
      within rtol 2e-4, the final params, moments and EF residuals within
      rtol 2e-4 and 2e-4 of each tensor's largest magnitude), and
      moe_apply twice on the card, bit-equal;
- 18. the kernels line (a kernel's "launches" are the main path's, or,
+ 18. the ssm, hybrid, vlm and encoder families at their published widths
+     (random weights from a seed), every kernel's launch count reset
+     before each run and read after: 18a: mamba2-370m at full width and
+     depth (48 layers, d = 1024, 32 SSM heads of 64, state 128, chunk
+     256, vocab 50280), bf16, Trainer.run under its train_config (DSAR +
+     4-bit QSGD, k = 4 of 512, ZeRO-1, 16 microbatches, remat on), R = 4
+     stacked, one 512-token row a rank a microbatch, 6 steps: finite
+     losses, launches a step, step times, peak memory beside the state's
+     size, the rank grads and the reduce half alone, each kernel against
+     its plain version on one step's tensors (17a's rules); 18b: serving
+     it at full width and depth in bf16: ServeEngine.generate of 8 x
+     256-token prompts, 32 new, twice (bit-equal), the prefill and each
+     decode step timed beside the step's bound (the weights and 8 slots'
+     SSM states), 10 profiled steps (kernels, idle share);
+     ContinuousServeEngine over 8 slots, cache 1024, 16 requests
+     (Poisson 0.5 a step, prompts of 256 or 512 tokens, whole SSD chunks,
+     32-128 new), traced, then again under CUDA sync debug mode (exactly
+     one host synchronisation a decode step), each request against its
+     B = 1 generate (phase 16's margin rule); 18c: zamba2-2.7b at full
+     width, 12 layers of 54 (2 superblocks: the shared block's gradient
+     sums two call sites), as 18a for 3 steps at R = 4 (R = 2 if R = 4
+     peaks above 70 GB or runs out of memory, the reason recorded), then
+     18b's requests served continuously, each against its B = 1
+     generate; 18d: llama-3.2-vision-11b at full width, 5 layers of 40 (4
+     self-attention layers and one gated cross-attention layer, the gates
+     opened), bf16: static serving of 8 x 128-token prompts with 1600 x
+     1280 image embeddings, 32 new, as 18b's static run, and other image
+     embeddings must change the tokens; 18e: hubert-xlarge at full width,
+     12 layers of 48, as 18a for 3 steps on 512-frame rows; 18f: each
+     family's smoke config (f32) on the card against the CPU: logits (and
+     a prefill + 8 decode steps), 3 SparCML steps with the same QSGD bits
+     (losses within rtol 2e-4; the final params, moments and EF residuals
+     within rtol 2e-4 and 2e-4 of each tensor's largest magnitude), and
+     remat on against off through rank_grads on the card, bit-equal;
+ 19. the kernels line (a kernel's "launches" are the main path's, or,
      for one the main path does not run, those of the first later path
      that runs it, named in "launches_path"; "launches_moe_train" and
-     "launches_moe_serve" those of phase 17's runs), the card line, and
-     last the result line {"ok": true, "device": {...}}.
+     "launches_moe_serve" those of phase 17's runs, "launches_ssm_train",
+     "launches_hybrid_train", "launches_encoder_train" and
+     "launches_ssm_serve" those of phase 18's), the card line, and last
+     the result line {"ok": true, "device": {...}}.
 
 It imports torch and the port (``src/repro_torch``), never JAX. A longer
 record of the run goes to chiprun_out/chip_smoke.json.
@@ -1248,6 +1287,26 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 18
+    t_phase = time.perf_counter()
+    record["families"], fam_paths = phase_families(torch, dev, wrappers,
+                                                   out_dir, bw, f32_peak)
+    new_paths.update(fam_paths)
+    record["families"]["seconds"] = time.perf_counter() - t_phase
+    for row in kernels:
+        grouped = "qsgd_unpack_grouped" if row["name"] == "qsgd_unpack" \
+            else row["name"]
+        for path in ("ssm_train", "hybrid_train", "encoder_train",
+                     "ssm_serve"):
+            row[f"launches_{path}"] = fam_paths[path][grouped]
+        if row["name"] in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
+                           "qsgd_unpack") and not row["launches_ssm_train"]:
+            fail(f"18a: {row['name']} was not launched on the mamba2 "
+                 "training path")
+    log(f"[18] phase took {record['families']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 19
     for row in kernels:
         row["launches_new_paths"] = {
             path: counts[row["name"]] for path, counts in new_paths.items()}
@@ -1986,6 +2045,7 @@ def phase_telemetry(torch, dev, wrappers, tiny, tiny_data, params0, bits_for):
     # one step's rows
     step = sups[True][0].step
     state, m = step(fresh(), batch(0))
+    step.drain()            # the rows come from the side stream's reduce
     rows = {nm: r.cpu() for nm, r in m["telemetry"].items()}
     del state, m
     sparse = {b.name: (g, b) for g in plan.groups for b in g.buckets
@@ -2654,6 +2714,9 @@ def check_chunk_unpack(torch, reduce_half, bits, bw):
             "bound_ms": bound}
 
 
+CKPT_LAYERS = 2     # phases 14, 15: checkpointed runs at 2 of 12 layers
+
+
 def phase_zero(torch, dev, wrappers, out_dir: Path, bw):
     """Phase 14 (see the module docstring). Returns (record, launches of
     the scattered runs)."""
@@ -2706,22 +2769,7 @@ def phase_zero(torch, dev, wrappers, out_dir: Path, bw):
             t = trainer(kind)
             for w in wrappers.values():
                 w.launches = 0
-            if kind != "full":
-                t.run(2)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                ckpt.save(str(tmp / kind), t.state, dp_total=run_lm.DP,
-                          opt_layout=ckpt.opt_layout_of(t.tcfg))
-                save_s = time.perf_counter() - t0
-                size = sum(f.stat().st_size for f in (tmp / kind).rglob("*")
-                           if f.is_file())
-                rec[f"{kind}_checkpoint"] = {"gb": size / 1e9,
-                                             "save_s": save_s}
-                log(f"[14] {kind} checkpoint at step 2: {size / 1e9:.2f} GB, "
-                    f"saved in {save_s:.2f} s")
             t.run(4)
-            if kind != "full":
-                at4[kind] = _clone_state(t.state)
             # the run's own peak, whatever else is live: its state's
             # bytes plus what its last steps allocate above the memory in
             # use when they start
@@ -2802,10 +2850,34 @@ def phase_zero(torch, dev, wrappers, out_dir: Path, bw):
                 rand_fn=rand0, telemetry=False),
             s_.plan.cfg.qsgd_bits, bw)
         del leaves, st
-        # a checkpoint of one layout resumed under the other
+        # a checkpoint of one layout at step 2 resumed under the other, at
+        # lm-100m's widths and CKPT_LAYERS of its 12 layers (the saves and
+        # restores at full depth were most of the phase's time), against
+        # each layout's uninterrupted run to step 4
+        shallow = build_model(dataclasses.replace(cfg,
+                                                  num_layers=CKPT_LAYERS))
+        for kind in ("zero1", "scattered"):
+            t = Trainer(shallow, tcfgs[kind], data, dp_total=run_lm.DP,
+                        device=dev)
+            t.init()
+            t.run(2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(str(tmp / kind), t.state, dp_total=run_lm.DP,
+                      opt_layout=ckpt.opt_layout_of(t.tcfg))
+            save_s = time.perf_counter() - t0
+            size = sum(f.stat().st_size for f in (tmp / kind).rglob("*")
+                       if f.is_file())
+            rec[f"{kind}_checkpoint"] = {"gb": size / 1e9, "save_s": save_s,
+                                         "layers": CKPT_LAYERS}
+            log(f"[14] {kind} checkpoint at step 2 ({CKPT_LAYERS} layers): "
+                f"{size / 1e9:.2f} GB, saved in {save_s:.2f} s")
+            t.run(4)
+            at4[kind] = _clone_state(t.state)
+            del t
         for src, dst in (("zero1", "scattered"), ("scattered", "zero1")):
             t0 = time.perf_counter()
-            r = Trainer(model, tcfgs[dst], data, dp_total=run_lm.DP,
+            r = Trainer(shallow, tcfgs[dst], data, dp_total=run_lm.DP,
                         device=dev, ckpt_dir=str(tmp / src))
             start = r.init_or_resume()
             torch.cuda.synchronize()
@@ -2934,6 +3006,8 @@ print("the run outlived its SIGTERM")
 """
 
 
+
+
 def phase_faults(torch, dev, wrappers, out_dir: Path):
     """Phase 15 (see the module docstring). Returns (record, launches of
     the injected runs)."""
@@ -3014,11 +3088,14 @@ def phase_faults(torch, dev, wrappers, out_dir: Path):
     torch.cuda.empty_cache()
 
     # -- the driver's recovery matrix (staleness 0: a rewind loses nothing)
+    #    at lm-100m's widths and CKPT_LAYERS of its 12 layers: its
+    #    checkpoint saves and restores are most of the phase's time
     n_steps = 6
-    step, plan = build_pipelined_step(model, tcfg, run_lm.DP, dev,
+    shallow = build_model(dataclasses.replace(cfg, num_layers=CKPT_LAYERS))
+    step, plan = build_pipelined_step(shallow, tcfg, run_lm.DP, dev,
                                       staleness=0, guard=True, inject=True,
                                       telemetry=False)
-    n_leaves = len(tree_leaves(ts.init_state(model, tcfg, plan,
+    n_leaves = len(tree_leaves(ts.init_state(shallow, tcfg, plan,
                                              dev).params))
 
     def drive(specs, ckpt_dir=None, recovery=None, every=None):
@@ -3040,9 +3117,9 @@ def phase_faults(torch, dev, wrappers, out_dir: Path):
                 t0 = time.perf_counter()
                 at = ckpt.latest_valid_step(ckpt_dir)   # the CRC checks
                 verify_s = time.perf_counter() - t0
-                out = ckpt.restore(ckpt_dir, ts.init_state(model, tcfg, plan,
-                                                           dev),
-                                   dp_total=run_lm.DP, step=at)
+                out = ckpt.restore(
+                    ckpt_dir, ts.init_state(shallow, tcfg, plan, dev),
+                    dp_total=run_lm.DP, step=at)
                 torch.cuda.synchronize()
                 io["restore_s"].append(time.perf_counter() - t0)
                 io["verify_s"].append(verify_s)
@@ -3051,7 +3128,7 @@ def phase_faults(torch, dev, wrappers, out_dir: Path):
 
         t0 = time.perf_counter()
         state, dlog = run_pipelined(
-            step, ts.init_state(model, tcfg, plan, dev), start_step=0,
+            step, ts.init_state(shallow, tcfg, plan, dev), start_step=0,
             num_steps=n_steps, batch_fn=lambda s: synthetic_batch(data, s),
             cfg=DriverConfig(depth=1, prefetch=1), ckpt_every=every,
             ckpt_fn=ckpt_fn, restore_fn=restore_fn, obs=obs,
@@ -3662,8 +3739,9 @@ def _moe_serve_cfg(torch, layers: int):
 
 
 def check_step_kernels(torch, reduce_half, bits: int, mode: str,
-                       sample: int = MOE_TOPK_SAMPLE) -> dict:
-    """17a: one call of the stacked reduce half with the tensors it hands
+                       sample: int = MOE_TOPK_SAMPLE, tag: str = "17a"
+                       ) -> dict:
+    """17a (18a, 18c, 18e: ``tag``): one call of the stacked reduce half with the tensors it hands
     each kernel captured (every ``sample``-th bucket_topk input and the
     largest one; every segment of the three grouped launches), and each
     CUDA kernel held against its plain version on them: bucket_topk,
@@ -3712,7 +3790,7 @@ def check_step_kernels(torch, reduce_half, bits: int, mode: str,
         executor.qsgd_unpack_grouped = real["unpack"]
     del out
     if set(grouped) != {"scatter", "pack", "unpack"}:
-        fail(f"17a: the reduce half made grouped calls {sorted(grouped)}")
+        fail(f"{tag}: the reduce half made grouped calls {sorted(grouped)}")
     if largest[0] is not None and largest[0][0].numel() > max(
             x.numel() for x, _ in tops):
         tops.append(largest[0])
@@ -3723,7 +3801,7 @@ def check_step_kernels(torch, reduce_half, bits: int, mode: str,
         got = topk_ops.bucket_topk(x, k, impl="cuda")
         want = topk_ops.bucket_topk(x, k, impl="ref")
         if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
-            fail(f"17a: bucket_topk differs from its plain version on a "
+            fail(f"{tag}: bucket_topk differs from its plain version on a "
                  f"{tuple(x.shape)} input of the path")
         del got, want
     del tops
@@ -3731,7 +3809,7 @@ def check_step_kernels(torch, reduce_half, bits: int, mode: str,
     got = scatter_ops.bucket_scatter_sum_grouped(segs, impl="cuda")
     want = scatter_ops.bucket_scatter_sum_grouped(segs, impl="ref")
     if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
-        fail("17a: bucket_scatter_sum (grouped) differs from its plain "
+        fail(f"{tag}: bucket_scatter_sum (grouped) differs from its plain "
              "version")
     res["bucket_scatter_sum_segments"] = len(segs)
     res["bucket_scatter_sum_entries"] = sum(g_.numel() for g_ in got)
@@ -3742,7 +3820,7 @@ def check_step_kernels(torch, reduce_half, bits: int, mode: str,
     for (p, sc), (pr, scr) in zip(got, want):
         if not (torch.equal(sc, scr)
                 and torch.equal(p.view(torch.int32), pr.view(torch.int32))):
-            fail("17a: qsgd_pack ('max') differs from its plain version")
+            fail(f"{tag}: qsgd_pack ('max') differs from its plain version")
     del got, want
     shifts = torch.arange(32 // bits, device=psegs[0].rand.device) * bits
     flips, n_codes = 0, 0
@@ -3753,12 +3831,12 @@ def check_step_kernels(torch, reduce_half, bits: int, mode: str,
               - (u32_to_i64(pr)[..., None] >> shifts)) & (2**bits - 1)
         dc = torch.minimum(dc, 2**bits - dc)
         if int(dc.max()) > 1:
-            fail(f"17a: qsgd_pack ('{mode}') codes differ by more than one "
+            fail(f"{tag}: qsgd_pack ('{mode}') codes differ by more than one "
                  "level")
         flips += int((dc > 0).sum())
         n_codes += dc.numel()
     if flips > 1e-4 * n_codes:
-        fail(f"17a: qsgd_pack ('{mode}'): {flips} of {n_codes} codes moved")
+        fail(f"{tag}: qsgd_pack ('{mode}'): {flips} of {n_codes} codes moved")
     res.update(qsgd_pack_segments=len(psegs), qsgd_pack_codes=n_codes,
                qsgd_pack_codes_one_level_apart=flips)
     del psegs, grouped["pack"]
@@ -3766,7 +3844,7 @@ def check_step_kernels(torch, reduce_half, bits: int, mode: str,
     got = unpack_ops.qsgd_unpack_grouped(usegs, bits, impl="cuda")
     want = unpack_ops.qsgd_unpack_grouped(usegs, bits, impl="ref")
     if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
-        fail("17a: qsgd_unpack (grouped) differs from its plain version")
+        fail(f"{tag}: qsgd_unpack (grouped) differs from its plain version")
     res["qsgd_unpack_segments"] = len(usegs)
     del got, want, usegs, grouped
     gc.collect()
@@ -3897,7 +3975,7 @@ def moe_train(torch, dev, wrappers, cfg=None, replicas=MOE_TRAIN_R,
         f"{r} ranks, {tcfg.microbatches} microbatches) {grads_ms:.1f} ms, "
         f"reduce half {reduce_ms:.1f} ms; memory GB {rec['memory']}")
     checks = check_step_kernels(torch, reduce, tcfg.sync.qsgd_bits,
-                                tcfg.sync.qsgd_scale)
+                                tcfg.sync.qsgd_scale, tag="17a")
     log(f"[17a] kernels against their plain versions on one step's "
         f"tensors: {checks}")
     rec.update(replicas=r, global_batch=data.global_batch, seq=seq,
@@ -4443,6 +4521,650 @@ def phase_moe(torch, dev, wrappers, out_dir: Path, bw, f32_peak):
     finally:
         if rec["expandable_segments"]:
             _expandable_segments(torch, False)
+    return rec, paths
+
+
+# ---------------------------------------------------------------- 18
+
+SSM_ARCH = "mamba2-370m"
+HYBRID_ARCH = "zamba2-2.7b"
+VLM_ARCH = "llama-3.2-vision-11b"
+ENC_ARCH = "hubert-xlarge"
+FAM_R = 4                  # 18a, 18c, 18e: replicas stacked on the card
+FAM_SEQ = 512              # one 512-token (frame) row a rank a microbatch
+SSM_TRAIN_STEPS = 6        # 18a: full width and depth
+HYBRID_LAYERS = 12         # 18c: 54 -> 12 layers, 2 superblocks
+HYBRID_TRAIN_STEPS = 3
+HYBRID_PEAK_GB = 70.0      # 18c: above this peak, R = 2 (as 17a)
+VLM_LAYERS = 5             # 18d: 40 -> 5 layers, 1 superblock
+ENC_LAYERS = 12            # 18e: 48 -> 12 layers
+ENC_TRAIN_STEPS = 3
+FAM_REQUESTS = 16          # 18b, 18c: the continuous trace
+FAM_PROMPTS = (256, 512)   # multiples of ssm_chunk, as the prefill needs
+VLM_PROMPT = 128           # 18d: 8 prompts of this many tokens
+FAM_SMALL_STEPS = 3        # 18f
+FLIP_SHARE = 1e-3          # 18f: a tensor's entries a TopK flip may move
+FAM_SMOKE = {"ssm": SSM_ARCH, "hybrid": HYBRID_ARCH, "vlm": VLM_ARCH,
+             "encoder": ENC_ARCH}
+
+
+def data_config_for(cfg, global_batch: int, seq_len: int, seed: int = 1234):
+    """The DataConfig that feeds ``cfg``'s family its inputs: tokens, and
+    the stub frontends' frames (encoder) or image embeddings (vlm)."""
+    from repro_torch.data.pipeline import DataConfig
+
+    kind = {"encoder": "audio", "vlm": "vlm"}.get(cfg.family, "lm")
+    return DataConfig(global_batch, seq_len, cfg.vocab_size, seed, kind,
+                      cfg.frontend_dim, cfg.num_image_tokens, cfg.vision_dim)
+
+
+def _f32(cfg):
+    """``cfg`` in f32 (params and compute)."""
+    import torch
+
+    return dataclasses.replace(cfg, dtype=torch.float32,
+                               param_dtype=torch.float32)
+
+
+def _open_gates(params) -> None:
+    """Non-zero vlm gates (tanh(0.5) on the cross-attention, tanh(-0.7)
+    on its MLP): at their init of 0 the image would count for nothing."""
+    params["blocks"]["cross"]["xattn"]["gate"].fill_(0.5)
+    params["blocks"]["cross"]["mlp_gate"].fill_(-0.7)
+
+
+def family_train(torch, dev, wrappers, tag: str, arch: str, cfg, steps: int,
+                 replicas: int = FAM_R, seq: int | None = None):
+    """18a, 18c, 18e: Trainer.run of ``cfg`` under ``arch``'s SparCML
+    train_config, ``replicas`` stacked, one ``seq`` row a rank a
+    microbatch; launches a step, step times, peak memory beside the
+    state's size; the last step's rank grads (CUDA events) and the reduce
+    half alone on its output; each kernel against its plain version on
+    those tensors. Returns (record, launches of the run)."""
+    from repro_torch import configs
+    from repro_torch.comm.executor import reduce_buckets_spmd
+    from repro_torch.models.model import build_model
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.tree import tree_leaves
+
+    tcfg = configs.get_train_config(arch)
+    model = build_model(cfg)
+    n_params = sum(t.numel() for t in tree_leaves(model.init(device="meta")))
+    r, seq = replicas, seq or FAM_SEQ
+    data = data_config_for(cfg, r * tcfg.microbatches, seq)
+    rec = {"config": cfg.name, "layers": cfg.num_layers,
+           "dtype": str(cfg.dtype), "params": n_params, "replicas": r,
+           "microbatches": tcfg.microbatches, "remat": cfg.remat,
+           "global_batch": data.global_batch, "seq": seq}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    trainer = Trainer(model, tcfg, data, dp_total=r, device=dev)
+    trainer.init()
+    torch.cuda.synchronize()
+    state_gb = _tensor_gb(trainer.state)
+    trainer.run(steps - 1)
+    # the last step's rank grads are kept (the reduce half's input, for
+    # the kernel checks) and timed with CUDA events around the call
+    real, kept = ts.rank_grads, {}
+
+    def keep(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args, **kw)
+        b.record()
+        kept.update(leaves=out[1], events=(a, b))
+        return out
+
+    ts.rank_grads = keep
+    try:
+        tlog = trainer.run(steps)
+    finally:
+        ts.rank_grads = real
+    torch.cuda.synchronize()
+    grads_ms = kept["events"][0].elapsed_time(kept["events"][1])
+    launches = {n: w.launches for n, w in wrappers.items()}
+    total_gb = torch.cuda.mem_get_info()[1] / 1e9
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec["memory"] = {"card_gb": total_gb, "peak_allocated_gb": peak_gb,
+                     "peak_reserved_gb":
+                     torch.cuda.max_memory_reserved() / 1e9,
+                     "state_gb": state_gb,
+                     "state_bytes_a_param": state_gb * 1e9 / n_params}
+    plan = trainer.plan
+    nsp = plan.num_sparse_buckets
+    nq = sum(bk.sparse and bk.algorithm == "dsar_split_allgather"
+             for bk in plan.buckets) if tcfg.sync.qsgd_bits else 0
+    expect = {"bucket_topk": nsp * steps, "bucket_scatter": 0,
+              "bucket_scatter_sum": -(-nsp // 64) * steps,
+              "qsgd_pack": -(-nq // 48) * steps, "qsgd_unpack": 0,
+              "qsgd_unpack_grouped": -(-nq // 48) * steps}
+    losses = list(tlog.losses)
+    host_ms = [t * 1e3 for t in tlog.step_times]
+    log(f"[{tag}] {cfg.name} at {cfg.num_layers} layers, {n_params} "
+        f"parameters, {cfg.dtype}, remat {cfg.remat}, SparCML (DSAR + "
+        f"QSGD-{tcfg.sync.qsgd_bits}, k = {tcfg.sync.k_per_bucket} of "
+        f"{tcfg.sync.bucket_size}, ZeRO-1, {tcfg.microbatches} "
+        f"microbatches), R = {r} stacked, global batch "
+        f"{data.global_batch} x {seq}: losses {losses}; step times ms "
+        f"{[round(t, 1) for t in host_ms]}; peak memory {peak_gb:.2f} GB "
+        f"allocated of the card's {total_gb:.2f} (state {state_gb:.2f} GB,"
+        f" {rec['memory']['state_bytes_a_param']:.1f} B a parameter); plan "
+        f"{plan.num_buckets} buckets ({nsp} sparse); launches {launches}")
+    if not all(math.isfinite(v) for v in losses) or len(losses) != steps:
+        fail(f"{tag}: losses {losses}")
+    for n, c in launches.items():
+        if c != expect[n]:
+            fail(f"{tag}: {n} launched {c} times in {steps} steps, expected "
+                 f"{expect[n]}")
+    for n in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
+              "qsgd_unpack_grouped"):
+        if not launches[n]:
+            fail(f"{tag}: {n} was not launched on the training path")
+    # -- the reduce half alone on the last step's grads and the residuals
+    #    it left (the params and moments freed first)
+    leaves_r, residuals = kept.pop("leaves"), trainer.state.residuals
+    rand0 = ts.step_rand_fn(tcfg.seed, steps - 1, dev)
+    trainer.state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduce = lambda: reduce_buckets_spmd(plan, leaves_r, residuals,
+                                         p_data=r, rand_fn=rand0,
+                                         telemetry=False)
+    reduce_ms = time_ms(torch, reduce, reps=2)
+    checks = check_step_kernels(torch, reduce, tcfg.sync.qsgd_bits,
+                                tcfg.sync.qsgd_scale, tag=tag)
+    a_step = {n: c / steps for n, c in launches.items()}
+    log(f"[{tag}] launches a step {a_step}; steady step "
+        f"{statistics.median(host_ms[1:]):.1f} ms (host, synchronised); "
+        f"the last step's rank grads {grads_ms:.1f} ms (CUDA events); the "
+        f"reduce half alone {reduce_ms:.1f} ms; kernels against their plain "
+        f"versions on "
+        f"one step's tensors: {checks}")
+    rec.update(losses=losses, step_ms_host=host_ms,
+               step_ms_median=statistics.median(host_ms[1:]),
+               rank_grads_ms=grads_ms, reduce_half_ms=reduce_ms,
+               buckets=plan.num_buckets, sparse_buckets=nsp,
+               launches=launches, launches_a_step=a_step,
+               kernel_checks=checks)
+    del leaves_r, residuals, trainer, reduce
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def _family_trace(vocab: int, n: int = FAM_REQUESTS):
+    """18b and 18c's requests: Poisson arrivals at 0.5 a decode step (seed
+    0), prompts of 256 or 512 tokens (whole SSD chunks) and 32-128 new
+    tokens, drawn by numpy.random.default_rng(0)."""
+    import numpy as np
+
+    from repro_torch.serve import Request, poisson_trace
+
+    rng = np.random.default_rng(0)
+    arrivals = poisson_trace(n, rate=0.5, seed=0)
+    lens = rng.choice(FAM_PROMPTS, n)
+    news = rng.integers(32, 129, n)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(lens[i])),
+                    max_new_tokens=int(news[i]), arrival=float(arrivals[i]))
+            for i in range(n)]
+
+
+def family_continuous(torch, dev, tag: str, model, params, cache: int,
+                      reqs) -> dict:
+    """18b, 18c: ContinuousServeEngine over 8 slots, traced, under CUDA
+    sync debug mode with the engine's read-backs counted (exactly one host
+    synchronisation a decode step, one an admission); each request
+    against its own B = 1 generate (phase 16's margin rule)."""
+    import numpy as np
+
+    from repro_torch import obs as obs_mod
+    from repro_torch.serve import ContinuousServeEngine, ServeEngine
+    from repro_torch.serve import sparse_decode
+
+    eng = ContinuousServeEngine(model, params, cache_len=cache,
+                                batch_size=SERVE_SLOTS, device=dev)
+    eng.obs = obs = obs_mod.configure(trace=True, metrics=True,
+                                      set_as_default=False)
+    counted = []
+    real_readback = sparse_decode._readback
+    sparse_decode._readback = lambda t: (counted.append(t.shape[0])
+                                         or real_readback(t))
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = eng.run(reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        sparse_decode._readback = real_readback
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    per_step = (syncs - len(reqs)) / res.decode_steps
+    steps = [e["dur"] / 1e3 for e in _spans(obs, "serve/decode_step")]
+    admit = [e["dur"] / 1e3 for e in _spans(obs, "serve/admit")]
+    one = ServeEngine(model, params, cache_len=cache, device=dev)
+    t0 = time.perf_counter()
+    bad = []
+    for q in reqs:
+        want = one.generate(q.prompt[None], q.max_new_tokens)[0]
+        got = res.outputs[q.rid]
+        if len(got) != len(want):
+            fail(f"{tag}: request {q.rid}: {len(got)} tokens, its generate "
+                 f"{len(want)}")
+        if np.array_equal(got, want):
+            continue
+        _, margins = _greedy_margins(torch, one, q.prompt[None],
+                                     q.max_new_tokens)
+        bad.append({"rid": q.rid, **_first_mismatch(got, want, margins[0])})
+    cont = {"requests": len(reqs), "dtype": str(model.cfg.dtype),
+            "decode_steps": res.decode_steps, "tokens": res.tokens,
+            "wall_s": res.wall_s, "tok_per_s": res.tok_per_s,
+            "decode_step_ms_median": statistics.median(steps),
+            "decode_step_ms_p90": float(np.percentile(steps, 90)),
+            "admit_ms_median": statistics.median(admit),
+            "latency_steps": {k: {q: v[q] for q in ("p50", "p99")}
+                              for k, v in res.latency.items()},
+            "host_syncs": {"flagged": syncs, "readbacks": len(counted),
+                           "decode_steps": res.decode_steps,
+                           "admissions": len(reqs),
+                           "per_decode_step": per_step},
+            "per_request": {"mismatches": bad,
+                            "seconds": time.perf_counter() - t0}}
+    log(f"[{tag}] continuous, {model.cfg.dtype}, {len(reqs)} requests, "
+        f"{SERVE_SLOTS} slots, cache {cache}: {res.tokens} tokens in "
+        f"{res.decode_steps} decode steps, {res.wall_s:.3f} s "
+        f"({res.tok_per_s:.0f} tok/s, under sync debug mode); decode step "
+        f"median {cont['decode_step_ms_median']:.3f} ms (p90 "
+        f"{cont['decode_step_ms_p90']:.3f}); admission median "
+        f"{cont['admit_ms_median']:.3f} ms; host syncs {syncs} flagged over "
+        f"{res.decode_steps} steps and {len(reqs)} admissions ({per_step:.3f}"
+        f" a step), read-backs {len(counted)}; {len(reqs) - len(bad)} of "
+        f"{len(reqs)} requests equal their B = 1 generate "
+        f"({cont['per_request']['seconds']:.1f} s)")
+    if set(res.outputs) != set(range(len(reqs))):
+        fail(f"{tag}: the continuous run lost requests")
+    if syncs != len(counted) or per_step != 1.0:
+        fail(f"{tag}: host syncs: {syncs} flagged, {len(counted)} read-backs,"
+             f" {per_step} a decode step (expected exactly 1)")
+    _margin_rule(f"{tag} continuous vs B = 1 generate", bad)
+    del eng, one
+    return cont
+
+
+def family_serve_static(torch, dev, out_dir: Path, tag: str, model, params,
+                        prompts, new: int, cache: int, image=None) -> dict:
+    """ServeEngine.generate twice (the rerun bit-equal), the prefill
+    (CUDA events) and each decode step timed, the kernels and idle share
+    of 10 profiled decode steps."""
+    import numpy as np
+
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import greedy
+
+    eng = ServeEngine(model, params, cache_len=cache, device=dev)
+    walls, outs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(eng.generate(prompts, new, image_embeds=image))
+        walls.append(time.perf_counter() - t0)
+    batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+    if image is not None:
+        batch["image_embeds"] = torch.from_numpy(image).to(dev)
+    prefill_ms = time_ms(torch, lambda: eng.prefill_fn(params, batch),
+                         reps=3)
+    logits, st = eng.prefill_fn(params, batch)
+    cur = greedy(logits)[:, None]
+    step_ms = []
+    for _ in range(new - 1):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, st = eng.decode_fn(params, st, cur)
+        cur = greedy(logits)[:, None]
+        z.record()
+        z.synchronize()
+        step_ms.append(a.elapsed_time(z))
+
+    def ten_steps():
+        nonlocal st, cur, logits
+        for _ in range(10):
+            logits, st = eng.decode_fn(params, st, cur)
+            cur = greedy(logits)[:, None]
+
+    ten = stream_shares(torch, ten_steps, out_dir)
+    out = {"bit_equal_rerun": bool(np.array_equal(*outs)),
+           "finite_logits": bool(torch.isfinite(logits).all()),
+           "wall_s": walls, "prefill_ms": prefill_ms,
+           "decode_step_ms": step_ms,
+           "decode_step_ms_median": statistics.median(step_ms),
+           "tok_per_s": outs[1].size / walls[1],
+           "kernels_a_decode_step": (ten["kernels_whole_window"] / 10
+                                     if ten else None),
+           "idle_share": ten and ten["idle_share"], "profile_10_steps": ten,
+           "tokens": outs[1]}
+    log(f"[{tag}] static, {prompts.shape[0]} x {prompts.shape[1]}-token "
+        f"prompts{'' if image is None else f' with {image.shape[1]} x {image.shape[2]} image embeddings'}"
+        f", {new} new tokens, cache {cache}: {walls[0]:.3f} s first call, "
+        f"{walls[1]:.3f} s rerun ({out['tok_per_s']:.0f} tok/s), rerun "
+        f"bit-equal {out['bit_equal_rerun']}; prefill {prefill_ms:.2f} ms; "
+        f"decode step median {out['decode_step_ms_median']:.3f} ms (CUDA "
+        f"events); kernels a decode step {out['kernels_a_decode_step']}; "
+        f"idle share of 10 steps {out['idle_share']}")
+    if not out["bit_equal_rerun"] or not out["finite_logits"]:
+        fail(f"{tag}: the static engine's rerun differs or its logits are "
+             "not finite")
+    del eng, st, logits
+    return out
+
+
+def ssm_serve(torch, dev, wrappers, out_dir: Path, bw, f32_peak):
+    """18b: mamba2-370m at full width and depth, bf16, random weights."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    for w in wrappers.values():
+        w.launches = 0
+    cfg = configs.get_config(SSM_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    b = SERVE_SLOTS
+    # the decode step's bound: every weight read once (the tied embedding
+    # is the unembedding: all of it), each slot's f32 SSM state and conv
+    # window read and written once
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    st_bytes = 2 * b * cfg.num_layers * (
+        cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+        + (cfg.conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_state)
+        * torch.finfo(cfg.dtype).bits // 8)
+    flops = 2 * b * (sum(t.numel() for t in tree_leaves(params))
+                     + cfg.num_layers * 3 * cfg.ssm_heads * cfg.ssm_head_dim
+                     * cfg.ssm_state)
+    bound = {"bytes": w_bytes + st_bytes, "weights_bytes": w_bytes,
+             "state_bytes": st_bytes, "flops": flops,
+             "bytes_ms": (w_bytes + st_bytes) / bw * 1e3,
+             "flops_ms": flops / f32_peak * 1e3}
+    bound["ms"] = max(bound["bytes_ms"], bound["flops_ms"])
+    log(f"[18b] {cfg.name}, {cfg.num_layers} layers, {cfg.dtype}: "
+        f"{w_bytes / 1e9:.3f} GB of weights; a decode step of {b} slots "
+        f"reads them and reads and writes {st_bytes / 1e9:.3f} GB of SSM "
+        f"state: bound {bound['ms']:.3f} ms")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, FAM_PROMPTS[0])).astype(np.int32)
+    static = family_serve_static(torch, dev, out_dir, "18b", model, params,
+                                 prompts, 32, SERVE_CACHE)
+    # the continuous run and its B = 1 references in f32, as 17b's: the
+    # logits of a bf16 model are bf16 values, so ties are common, and the
+    # M = 8 and M = 1 bf16 GEMMs round apart often enough to flip a greedy
+    # token at a one-ulp gap
+    f32_model = build_model(_f32(cfg))
+    del static["tokens"]
+    cont = family_continuous(torch, dev, "18b", f32_model,
+                             tree_map(lambda t: t.float(), params),
+                             SERVE_CACHE, _family_trace(cfg.vocab_size))
+    launches = {n: w.launches for n, w in wrappers.items()}
+    rec = {"config": cfg.name, "layers": cfg.num_layers,
+           "weights_gb": w_bytes / 1e9, "decode_step_bound": bound,
+           "static": static, "continuous": cont, "launches": launches}
+    log(f"[18b] decode step {static['decode_step_ms_median']:.3f} ms static, "
+        f"{cont['decode_step_ms_median']:.3f} continuous, against a "
+        f"{bound['ms']:.3f} ms bound; kernel launches while serving "
+        f"{launches}")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def hybrid_phase(torch, dev, wrappers):
+    """18c: zamba2-2.7b at full width, 12 layers: SparCML training (R = 4,
+    or R = 2 when R = 4's peak passes HYBRID_PEAK_GB or runs out of
+    memory), then 18b's requests served continuously."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    cfg = configs.get_config(HYBRID_ARCH, num_layers=HYBRID_LAYERS)
+    rec, reason = {}, None
+    try:
+        rec["train"], launches = family_train(
+            torch, dev, wrappers, "18c", HYBRID_ARCH, cfg, HYBRID_TRAIN_STEPS)
+        peak = rec["train"]["memory"]["peak_allocated_gb"]
+        if peak > HYBRID_PEAK_GB:
+            reason = f"peak {peak:.2f} GB above {HYBRID_PEAK_GB}"
+    except torch.cuda.OutOfMemoryError as exc:
+        reason = str(exc)[:300]
+    if reason is not None:
+        # outside the handler, so the failed run's tensors are freed
+        rec["r2_reason"] = f"R = {FAM_R}: {reason}"
+        log(f"[18c] R = {FAM_R} does not fit ({reason}); R = 2")
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["train"], launches = family_train(
+            torch, dev, wrappers, "18c", HYBRID_ARCH, cfg, HYBRID_TRAIN_STEPS,
+            replicas=2)
+    # served in f32, as 18b's continuous run
+    model = build_model(_f32(cfg))
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    rec["serve"] = family_continuous(torch, dev, "18c", model, params,
+                                     SERVE_CACHE,
+                                     _family_trace(cfg.vocab_size))
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def vlm_serve(torch, dev, out_dir: Path):
+    """18d: llama-3.2-vision-11b at full width, 1 superblock, bf16:
+    static serving with image embeddings (gates opened); other images
+    give other tokens."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = configs.get_config(VLM_ARCH, num_layers=VLM_LAYERS)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    _open_gates(params)
+    n = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (SERVE_SLOTS, VLM_PROMPT)).astype(np.int32)
+    image = rng.standard_normal((SERVE_SLOTS, cfg.num_image_tokens,
+                                 cfg.vision_dim)).astype(np.float32)
+    log(f"[18d] {cfg.name} at {cfg.num_layers} layers ({n} parameters, "
+        f"{cfg.dtype}, gates opened)")
+    static = family_serve_static(torch, dev, out_dir, "18d", model, params,
+                                 prompts, 32, SERVE_CACHE, image=image)
+    from repro_torch.serve import ServeEngine
+
+    other = ServeEngine(model, params, cache_len=SERVE_CACHE,
+                        device=dev).generate(prompts, 32,
+                                             image_embeds=-image)
+    static["other_image_changes_tokens"] = bool(
+        not np.array_equal(other, static.pop("tokens")))
+    log(f"[18d] another image changes the tokens: "
+        f"{static['other_image_changes_tokens']}")
+    if not static["other_image_changes_tokens"]:
+        fail("18d: the image embeddings do not reach the tokens")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "layers": cfg.num_layers, "params": n,
+            "static": static}
+
+
+def family_small(torch, dev, fam: str) -> dict:
+    """18f: one family's smoke config (f32) on the card against the CPU:
+    logits (and a prefill + 8 decode steps), 3 SparCML steps with the same
+    QSGD bits (the final params, moments and EF residuals within rtol 2e-4
+    and 2e-4 of each tensor's largest magnitude), and remat on against
+    off through rank_grads on the card, bit-equal."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.qsgd import random_bits
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    arch = FAM_SMOKE[fam]
+    cfg = configs.smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(7), device="cpu")
+    if fam == "vlm":
+        _open_gates(params)
+    sides = {"cpu": (torch.device("cpu"), params),
+             "card": (dev, _to(params, dev))}
+    data = synthetic_batch(data_config_for(cfg, 2, 24, seed=4), 0)
+    out = {}
+    for where, (dv, p) in sides.items():
+        b = {k: torch.from_numpy(v).to(dv) for k, v in data.items()}
+        seq = [model.forward(p, b).detach().cpu().reshape(-1)]
+        if cfg.is_decoder:
+            pre = {k: v for k, v in b.items() if k != "labels"}
+            pre["tokens"] = b["tokens"][:, :16]
+            plg, st = model.prefill(p, pre, 32)
+            seq.append(plg.cpu().reshape(-1))
+            for i in range(16, 24):
+                plg, st = model.decode_step(p, st, b["tokens"][:, i:i + 1])
+                seq.append(plg.cpu().reshape(-1))
+        out[where] = torch.cat(seq).numpy()
+    want, got = out["cpu"], out["card"]
+    err = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=1e-5,
+                       atol=1e-5 * float(np.abs(want).max())):
+        fail(f"18f {arch}: logits, card against CPU: max abs err {err:.3e}")
+
+    def bits_for(step, device):
+        def rand_fn(bucket_idx, n):
+            g = torch.Generator().manual_seed(step * 1000 + bucket_idx)
+            return random_bits(n, g, "cpu").to(device)
+        return rand_fn
+
+    tcfg = configs.get_train_config(arch)
+    dcfg = data_config_for(cfg, 4 * tcfg.microbatches, 16)
+    losses, states = {}, {}
+    for where, (dv, p) in sides.items():
+        tr = Trainer(model, tcfg, dcfg, dp_total=4, device=dv)
+        if not tr.plan.num_sparse_buckets:
+            fail(f"18f {arch}: the smoke plan has no sparse bucket")
+        tr.init(params=tree_map(torch.clone, p))
+        losses[where] = tr.run(FAM_SMALL_STEPS, rand_fn_for_step=lambda s,
+                               w=dv: bits_for(s, w)).losses
+        st = tr.state
+        states[where] = (tree_leaves(st.params)
+                         + [m for k in ("mu", "nu")
+                            for m in tree_leaves(st.opt[k])]
+                         + [st.residuals[n] for n in sorted(st.residuals)])
+        del tr
+    rel = max(abs(a - c) / abs(c) for a, c in zip(losses["card"],
+                                                  losses["cpu"]))
+    # the final state: 17c's tolerance (rtol 2e-4, a floor of 2e-4 of the
+    # tensor's largest magnitude) on all but FLIP_SHARE of a tensor's
+    # entries (at least one): a TopK pick decided by a gap within the two
+    # sides' rounding moves whole entries between the residual and the
+    # sync. A weight changed by one ulp moves 13 of the 32768 entries of
+    # the zamba2 smoke's shared wq moments past the tolerance on the CPU
+    # alone.
+    state_err, outside, worst = 0.0, 0, None
+    for i, (a, c) in enumerate(zip(states["card"], states["cpu"])):
+        a, c = a.detach().cpu().float(), c.detach().float()
+        floor = 2e-4 * float(c.abs().max())
+        r = ((a - c).abs() / (2e-4 * c.abs() + floor) if floor
+             else (a != c).float() * math.inf)
+        n = int((r > 1).sum())
+        outside += n
+        if n > max(1, math.ceil(FLIP_SHARE * r.numel())):
+            worst = (i, n, r.numel())
+        state_err = max(state_err, float(r.max()))
+    if not rel <= 2e-4 or worst is not None:
+        fail(f"18f {arch}: SparCML steps, card {losses['card']} against CPU "
+             f"{losses['cpu']}; the final state's tensor {worst and worst[0]}"
+             f" has {worst and worst[1]} of {worst and worst[2]} entries "
+             f"outside the tolerance (largest at {state_err:.3g} of it)")
+    off = build_model(dataclasses.replace(cfg, remat=False))
+    batch = ts.batch_to_device(synthetic_batch(dcfg, 0), dev)
+    p = sides["card"][1]
+    la, ga = ts.rank_grads(model, p, batch, 4, tcfg.microbatches)
+    lb, gb = ts.rank_grads(off, p, batch, 4, tcfg.microbatches)
+    remat_equal = bool(torch.equal(la, lb)) and all(
+        torch.equal(x, y) for x, y in zip(ga, gb))
+    rec = {"logits_max_abs_err": err, "losses": losses, "losses_max_rel": rel,
+           "state_err_of_tolerance": state_err,
+           "state_entries_outside": outside,
+           "state_tensors": len(states["cpu"]),
+           "remat_bit_equal": remat_equal}
+    log(f"[18f] {arch} smoke config, card against CPU: logits max abs err "
+        f"{err:.3e}; {FAM_SMALL_STEPS} SparCML steps {losses['card']} vs "
+        f"{losses['cpu']} (max rel {rel:.2e}); final state "
+        f"({len(states['cpu'])} tensors): largest at {state_err:.3g} of its "
+        f"tolerance, {outside} entries outside it; remat on == off on the "
+        f"card: {remat_equal}")
+    if not remat_equal:
+        fail(f"18f {arch}: remat on and off differ on the card")
+    return rec
+
+
+def phase_families(torch, dev, wrappers, out_dir: Path, bw, f32_peak):
+    """Phase 18 (see the module docstring). Returns (record, {path:
+    launches})."""
+    from repro_torch import configs
+
+    rec, paths = {}, {}
+    rec["expandable_segments"] = _expandable_segments(torch, True)
+    try:
+        t0 = time.perf_counter()
+        rec["ssm_train"], paths["ssm_train"] = family_train(
+            torch, dev, wrappers, "18a", SSM_ARCH,
+            configs.get_config(SSM_ARCH), SSM_TRAIN_STEPS)
+        rec["ssm_train"]["seconds"] = time.perf_counter() - t0
+        log(f"[18a] took {rec['ssm_train']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        rec["ssm_serve"], paths["ssm_serve"] = ssm_serve(
+            torch, dev, wrappers, out_dir, bw, f32_peak)
+        rec["ssm_serve"]["seconds"] = time.perf_counter() - t0
+        log(f"[18b] took {rec['ssm_serve']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        rec["hybrid"], paths["hybrid_train"] = hybrid_phase(torch, dev,
+                                                            wrappers)
+        rec["hybrid"]["seconds"] = time.perf_counter() - t0
+        log(f"[18c] took {rec['hybrid']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        rec["vlm"] = vlm_serve(torch, dev, out_dir)
+        rec["vlm"]["seconds"] = time.perf_counter() - t0
+        log(f"[18d] took {rec['vlm']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        rec["encoder_train"], paths["encoder_train"] = family_train(
+            torch, dev, wrappers, "18e", ENC_ARCH,
+            configs.get_config(ENC_ARCH, num_layers=ENC_LAYERS),
+            ENC_TRAIN_STEPS)
+        rec["encoder_train"]["seconds"] = time.perf_counter() - t0
+        log(f"[18e] took {rec['encoder_train']['seconds']:.1f} s")
+    finally:
+        if rec["expandable_segments"]:
+            _expandable_segments(torch, False)
+    t0 = time.perf_counter()
+    rec["small"] = {fam: family_small(torch, dev, fam) for fam in FAM_SMOKE}
+    rec["small"]["seconds"] = time.perf_counter() - t0
+    log(f"[18f] took {rec['small']['seconds']:.1f} s")
     return rec, paths
 
 

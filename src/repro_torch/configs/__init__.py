@@ -2,11 +2,8 @@
 (the JAX package's ``repro.configs``).
 
 Every arch is named by its module id or its external (hyphenated) name.
-Only the MoE family's configs are ported so far (moonshot-v1-16b-a3b and
-dbrx-132b); asking for another arch raises ``NotImplementedError``,
-naming ROADMAP Queue 1 item 12b. Applicability rules as the reference's:
-decode shapes only for decoders, long_500k only for sub-quadratic
-families.
+All ten are ported. Applicability rules as the reference's: decode
+shapes only for decoders, long_500k only for sub-quadratic families.
 """
 from __future__ import annotations
 
@@ -41,7 +38,7 @@ EXTERNAL_NAMES = {
 }
 _BY_EXTERNAL = {v: k for k, v in EXTERNAL_NAMES.items()}
 # the arch modules the port has
-PORTED = ("dbrx_132b", "moonshot_v1_16b_a3b")
+PORTED = tuple(ARCH_IDS)
 
 
 @dataclass(frozen=True)
@@ -64,10 +61,6 @@ def get_module(arch: str):
     mod = _BY_EXTERNAL.get(arch, arch).replace("-", "_").replace(".", "p")
     if mod not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if mod not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r}: its config is not ported yet (ROADMAP Queue 1 "
-            "item 12b)")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

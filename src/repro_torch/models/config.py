@@ -1,7 +1,5 @@
-"""Unified architecture configuration covering all assigned families.
-
-The port builds and runs the dense and MoE families so far; the other
-families' fields are kept so a config reads the same in both packages."""
+"""Unified architecture configuration covering all assigned families
+(the JAX package's ``repro.models.config``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass

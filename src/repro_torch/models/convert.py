@@ -2,9 +2,12 @@
 
 The port keeps the reference's parameter layout and key names, so a
 params tree of numpy arrays (``jax.tree.map(np.asarray, params)``, or the
-arrays of a reference checkpoint) converts leaf for leaf. A decode state
-keeps the reference's cache layout too, (L, B, W, nkv, hd), so a
-reference ``DecodeState`` converts field for field."""
+arrays of a reference checkpoint) converts leaf for leaf, nested stacks
+(hybrid, vlm) included. A decode state keeps the reference's cache
+layouts too (``models/model.DecodeState``), so a reference
+``DecodeState`` converts field for field: ``kv`` and the vlm's
+``cross_kv`` (a (k, v) pair) to ``KVCache``s, the ssm and hybrid
+families' ``conv`` and ``ssm`` to tensors."""
 from __future__ import annotations
 
 import numpy as np
@@ -31,14 +34,14 @@ def params_from_jax(tree, device="cpu") -> dict:
 
 def decode_state_from_jax(state, device="cpu") -> DecodeState:
     """A reference ``DecodeState`` of numpy arrays (``jax.tree.map(
-    np.asarray, state)``) -> the port's, on ``device``. The dense and MoE
-    families' state (``pos`` and the stacked ``kv``) is ported; a state
-    that carries the ssm, hybrid or vlm caches raises."""
-    for name in ("cross_kv", "conv", "ssm"):
-        if getattr(state, name, None) is not None:
-            raise NotImplementedError(
-                f"decode state field {name!r}: its family is not ported yet "
-                "(ROADMAP Queue 1 item 12b)")
+    np.asarray, state)``) -> the port's, on ``device``."""
+    def pair(kv):
+        return None if kv is None else KVCache(_tensor(kv[0], device),
+                                               _tensor(kv[1], device))
+
+    def one(a):
+        return None if a is None else _tensor(a, device)
+
     return DecodeState(_tensor(state.pos, device).to(torch.int32),
-                       KVCache(_tensor(state.kv.k, device),
-                               _tensor(state.kv.v, device)))
+                       kv=pair(state.kv), cross_kv=pair(state.cross_kv),
+                       conv=one(state.conv), ssm=one(state.ssm))

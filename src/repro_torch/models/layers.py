@@ -1,6 +1,6 @@
-"""Neural building blocks of the dense LM: RMSNorm, RoPE, GQA attention
-(training, prefill, KV-cache decode with an optional sliding-window ring),
-SwiGLU/GELU MLP.
+"""Neural building blocks: RMSNorm, RoPE, GQA attention (training,
+prefill, KV-cache decode with an optional sliding-window ring), the vlm's
+gated cross-attention, SwiGLU/GELU MLP.
 
 Parameters are plain dicts of tensors in the JAX package's layout
 (``repro.models.layers``): x @ W with W of shape (in, out). Training
@@ -271,6 +271,54 @@ def attention_decode(p, cfg: ModelConfig, x, cache: KVCache, pos):
     mask = valid[:, None, None, :] if valid.dim() == 2 else valid
     out = _sdpa(q, cache.k, cache.v, mask, hd) @ p["wo"]
     return out, cache
+
+
+# -- cross-attention (vlm) ---------------------------------------------------
+
+def cross_attn_init(generator, cfg: ModelConfig, device, lead=()) -> dict:
+    d, nh, nkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lead = tuple(lead)
+    dt = cfg.param_dtype
+
+    def w(shape):
+        return _dense_init(generator, lead + shape, dt, None, device,
+                           fan_in=shape[0])
+
+    return {
+        "wq": w((d, nh * hd)),
+        "wk": w((d, nkv * hd)),
+        "wv": w((d, nkv * hd)),
+        "wo": w((nh * hd, d)),
+        "gate": torch.zeros(lead, dtype=dt, device=device),  # tanh gate, 0
+        "q_norm": rmsnorm_init(hd, dt, device, lead),
+        "k_norm": rmsnorm_init(hd, dt, device, lead),
+    }
+
+
+def cross_kv(p, cfg: ModelConfig, kv_feats):
+    """The image tokens' keys (k-normed) and values: (B, T, nkv, hd)."""
+    b, t, _ = kv_feats.shape
+    nkv, hd = cfg.num_kv_heads, cfg.head_dim
+    k = (kv_feats @ p["wk"]).reshape(b, t, nkv, hd)
+    v = (kv_feats @ p["wv"]).reshape(b, t, nkv, hd)
+    return rmsnorm(p["k_norm"], k, cfg.norm_eps), v
+
+
+def cross_attend(p, cfg: ModelConfig, x, k, v) -> torch.Tensor:
+    """x: (B, S, d) text against the image keys and values, gated."""
+    b, s, _ = x.shape
+    nh, hd = cfg.num_heads, cfg.head_dim
+    q = rmsnorm(p["q_norm"], (x @ p["wq"]).reshape(b, s, nh, hd),
+                cfg.norm_eps)
+    mask = torch.ones((s, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask, hd) @ p["wo"]
+    return torch.tanh(p["gate"].to(torch.float32)).to(x.dtype) * out
+
+
+def cross_attention(p, cfg: ModelConfig, x, kv_feats) -> torch.Tensor:
+    """x: (B, S, d) text; kv_feats: (B, T_img, d) projected vision tokens."""
+    k, v = cross_kv(p, cfg, kv_feats)
+    return cross_attend(p, cfg, x, k, v)
 
 
 # -- MLP -------------------------------------------------------------------

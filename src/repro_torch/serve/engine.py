@@ -22,6 +22,8 @@ index, as ``jnp.argmax`` does.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -32,16 +34,17 @@ from repro_torch.obs import resolve as _resolve_obs
 
 def build_serve_step(model: Model, cache_len: int = 4096):
     """decode_step(params, state, tokens, moe_serve=None) -> (logits,
-    state') for states of cache length ``cache_len``; a state of another
-    cache width raises. Without ``moe_serve`` a MoE model takes the
+    state') for states of cache length ``cache_len``; a state whose KV
+    caches (..., B, W, nkv, hd) have another width raises (the ssm family
+    has no KV cache). Without ``moe_serve`` a MoE model takes the
     training-style ``moe_apply`` at capacity(B), as the reference's
     static engine does."""
     w = _attn_cache_width(model.cfg, cache_len)
 
     def step(params, state, tokens, moe_serve=None):
-        if state.kv.k.shape[2] != w:
+        if state.kv is not None and state.kv.k.shape[-3] != w:
             raise ValueError(f"decode state of cache width "
-                             f"{state.kv.k.shape[2]}, the step was built "
+                             f"{state.kv.k.shape[-3]}, the step was built "
                              f"for {w}")
         return model.decode_step(params, state, tokens, moe_serve=moe_serve)
 
@@ -77,24 +80,29 @@ class ServeEngine:
         self.prefill_fn = build_prefill(model, cache_len)
         self.decode_fn = build_serve_step(model, cache_len)
 
-    def generate(self, prompts: np.ndarray,
-                 max_new_tokens: int = 16) -> np.ndarray:
-        """prompts: (B, S) int32 -> (B, max_new_tokens) greedy tokens."""
+    def generate(self, prompts: np.ndarray, max_new_tokens: int = 16,
+                 image_embeds: Optional[np.ndarray] = None) -> np.ndarray:
+        """prompts: (B, S) int32 -> (B, max_new_tokens) greedy tokens.
+        ``image_embeds`` (B, T_img, vision_dim): the vlm's stub vision
+        tokens."""
         rec = getattr(self.obs, "recorder", None)
         try:
             return self._generate(np.asarray(prompts, np.int32),
-                                  max_new_tokens)
+                                  max_new_tokens, image_embeds)
         except Exception as e:
             if rec is not None:
                 rec._safe_dump(f"exception:{type(e).__name__}")
             raise
 
-    def _generate(self, prompts: np.ndarray, max_new_tokens: int
-                  ) -> np.ndarray:
-        tokens = torch.from_numpy(prompts).to(self.device)
+    def _generate(self, prompts: np.ndarray, max_new_tokens: int,
+                  image_embeds) -> np.ndarray:
+        batch = {"tokens": torch.from_numpy(prompts).to(self.device)}
+        if image_embeds is not None:
+            batch["image_embeds"] = torch.as_tensor(image_embeds).to(
+                self.device)
         with self.obs.span("serve/prefill", batch=int(prompts.shape[0]),
                            prompt_len=int(prompts.shape[1])):
-            logits, state = self.prefill_fn(self.params, {"tokens": tokens})
+            logits, state = self.prefill_fn(self.params, batch)
         cur = greedy(logits)[:, None]
         toks = [cur]
         with self.obs.span("serve/decode", tokens=max_new_tokens):

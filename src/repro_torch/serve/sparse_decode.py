@@ -51,7 +51,7 @@ from repro_torch.comm.executor import exchange_activation_spmd
 from repro_torch.comm.plan import ServePlan, build_serve_plan
 from repro_torch.core.cost_model import NetworkParams
 from repro_torch.device import resolve_device
-from repro_torch.models.model import PORTED_FAMILIES, Model
+from repro_torch.models.model import Model
 from repro_torch.models.moe import ServeDispatch
 from repro_torch.obs import resolve as _resolve_obs
 from repro_torch.runtime.adapt import AdaptConfig, AdaptiveRuntime
@@ -114,17 +114,22 @@ def build_slot_decode_step(model: Model, plan: Optional[ServePlan],
 
 
 def insert_slot_state(cfg, state, sub, slot_idx: int):
-    """Copy a B = 1 prefill's caches into slot ``slot_idx`` of the batch
-    decode state, and its position into the slot's entry of the per-slot
-    position vector, IN PLACE (the reference returns an updated copy of
-    its donated state). The slot's previous content, a retired request's,
-    is fully overwritten; nothing else moves. Returns ``state``."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"continuous batching: family {cfg.family!r} is not ported yet "
-            "(ROADMAP Queue 1 item 12b)")
-    state.kv.k[:, slot_idx] = sub.kv.k[:, 0]
-    state.kv.v[:, slot_idx] = sub.kv.v[:, 0]
+    """Copy a B = 1 prefill's caches and SSM states into slot ``slot_idx``
+    of the batch decode state, and its position into the slot's entry of
+    the per-slot position vector, IN PLACE (the reference returns an
+    updated copy of its donated state). The batch axis is axis 1 of every
+    stacked cache of the families served here (the vlm's nested self-
+    attention cache would have it at 2, and the vlm is refused, as in the
+    reference). The slot's previous content, a retired request's, is fully
+    overwritten; nothing else moves. Returns ``state``."""
+    if cfg.family == "vlm":
+        raise NotImplementedError("continuous batching: vlm caches")
+    for name in ("kv", "conv", "ssm"):
+        dst, src = getattr(state, name), getattr(sub, name)
+        if dst is None:
+            continue
+        for d, s in (zip(dst, src) if name == "kv" else [(dst, src)]):
+            d[:, slot_idx] = s[:, 0]
     state.pos[slot_idx] = sub.pos
     return state
 
@@ -203,10 +208,9 @@ class ContinuousServeEngine:
         if dispatch not in ("dense", "adaptive"):
             raise ValueError(f"dispatch {dispatch!r}: 'dense' or 'adaptive'")
         cfg = model.cfg
-        if cfg.family not in PORTED_FAMILIES:
+        if cfg.family == "vlm" or not cfg.is_decoder:
             raise NotImplementedError(
-                f"continuous batching: family {cfg.family!r} is not ported "
-                "yet (ROADMAP Queue 1 item 12b)")
+                f"continuous batching: family {cfg.family!r}")
         self.serve_cfg = serve_cfg
         self.injector = injector
         self.max_tick_retries = int(max_tick_retries)

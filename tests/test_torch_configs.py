@@ -2,22 +2,34 @@
 package's ``repro.configs``.
 
 Everything here is compared exactly: names, shapes, every field of the
-ported configs (dtypes mapped jnp -> torch), the analytic parameter
-counts, the applicability table and the training configs' knobs. The
-one intended difference is ``SyncConfig.impl``: "auto" in the port, "ref"
-in the reference (see ``repro_torch/configs/_common.py``).
+ten configs (dtypes mapped jnp -> torch), the analytic parameter counts,
+the full configs' parameter trees (built on the meta device against the
+reference's ``jax.eval_shape``), the applicability table and the
+training configs' knobs. The one intended difference is
+``SyncConfig.impl``: "auto" in the port, "ref" in the reference (see
+``repro_torch/configs/_common.py``). The ports of the reference's
+``tests/test_models_smoke.py`` run every arch's smoke config: a forward
+(shapes, finite) and a backtracked descent step.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 from repro import configs as jc
+from repro.models.model import build_model as jax_build_model
 from repro_torch import configs as tc
 from repro_torch.models.model import build_model
+from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "dbrx-132b"]
+ARCHS = [jc.EXTERNAL_NAMES[a] for a in jc.ARCH_IDS]
+FAMILY_ARCHS = [a for a in ARCHS if a not in MOE_ARCHS]
+# train configs with SparCML sync (llama3-405b's and dbrx's ask for fsdp)
+SPARCML_ARCHS = [a for a in ARCHS if a not in ("llama3-405b", "dbrx-132b")]
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -35,16 +47,55 @@ def test_registry_names_and_shapes_match_reference():
     assert tc.EXTERNAL_NAMES == jc.EXTERNAL_NAMES
     assert {k: dataclasses.astuple(v) for k, v in tc.SHAPES.items()} == \
         {k: dataclasses.astuple(v) for k, v in jc.SHAPES.items()}
-    assert set(tc.PORTED) == {"dbrx_132b", "moonshot_v1_16b_a3b"}
+    assert set(tc.PORTED) == set(jc.ARCH_IDS)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2_370m", "zamba2-2.7b",
-                                  "hubert-xlarge", "llama-3.2-vision-11b"])
-def test_unported_archs_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tc.get_config(arch)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tc.smoke_config(arch)
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+@pytest.mark.parametrize("which", ["full", "smoke"])
+def test_family_configs_match_reference_field_for_field(arch, which):
+    """The other eight archs, by either name, as the MoE ones below."""
+    mod = tc.get_module(arch).__name__.rsplit(".", 1)[1]
+    assert tc.get_module(mod) is tc.get_module(arch)
+    if which == "full":
+        cfg, jcfg = tc.get_config(arch), jc.get_config(arch)
+    else:
+        cfg, jcfg = tc.smoke_config(arch), jc.smoke_config(arch)
+    assert _fields(cfg) == _fields(jcfg)
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.padded_vocab == jcfg.padded_vocab
+    assert (cfg.d_inner, cfg.ssm_heads, cfg.is_decoder, cfg.subquadratic) \
+        == (jcfg.d_inner, jcfg.ssm_heads, jcfg.is_decoder, jcfg.subquadratic)
+    assert _fields(tc.get_config(arch, num_layers=2)) == \
+        _fields(jc.get_config(arch, num_layers=2))
+
+
+def test_zamba2_long_context_window():
+    """zamba2's long-context form: a 4096-token sliding window on the
+    shared attention, as the reference's."""
+    cfg = tc.get_module("zamba2-2.7b").config(long_context=True)
+    jcfg = jc.get_module("zamba2-2.7b").config(long_context=True)
+    assert cfg.sliding_window == 4096
+    assert _fields(cfg) == _fields(jcfg)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_config_params_on_meta_match_reference(arch):
+    """Every full config's parameter tree built on the meta device (no
+    memory) has the reference's leaves: paths, shapes and dtypes, from
+    ``jax.eval_shape`` of its init; and as many entries."""
+    shapes = build_model(tc.get_config(arch)).init(device="meta")
+    want = jax.eval_shape(jax_build_model(jc.get_config(arch)).init,
+                          jax.random.PRNGKey(0))
+    jl, _ = jax.tree.flatten_with_path(want)
+    leaves, paths = tree_flatten(shapes)
+    assert [tuple(p) for p in paths] == [
+        tuple(str(getattr(k, "key", k)) for k in p) for p, _ in jl]
+    assert [tuple(t.shape) for t in leaves] == [a.shape for _, a in jl]
+    assert [DTYPES[a.dtype.type] if a.dtype.type in DTYPES else
+            torch.float32 for _, a in jl] == [t.dtype for t in leaves]
+    assert all(t.device.type == "meta" for t in leaves)
+    assert sum(t.numel() for t in leaves) == sum(
+        int(np.prod(a.shape)) for _, a in jl)
 
 
 def test_unknown_arch_raises():
@@ -115,7 +166,7 @@ def _leaves(tree):
     return [tree]
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_applicable_shapes_match_reference(arch):
     assert tc.applicable_shapes(arch) == jc.applicable_shapes(arch)
 
@@ -160,3 +211,85 @@ def test_moe_entry_points_default_to_the_card(monkeypatch):
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     assert params["blocks"]["moe"]["wi"].shape == (4, 8, 64, 32)
     assert params["blocks"]["moe"]["router"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", SPARCML_ARCHS)
+def test_sparcml_train_configs_match_reference(arch):
+    """Each SparCML arch's train_config: the reference's sync (but impl),
+    schedule, optimizer, microbatches and ZeRO-1."""
+    t, j = tc.get_train_config(arch), jc.get_train_config(arch, None)
+    sync, jsync = dataclasses.asdict(t.sync), dataclasses.asdict(j.sync)
+    assert sync.pop("impl") == "auto" and jsync.pop("impl") == "ref"
+    sync.pop("ef_dtype"), jsync.pop("ef_dtype")
+    assert sync == jsync
+    assert dataclasses.asdict(t.schedule) == dataclasses.asdict(j.schedule)
+    opt, jopt = dataclasses.asdict(t.optimizer), dataclasses.asdict(
+        j.optimizer)
+    assert DTYPES[jopt.pop("state_dtype")] == opt.pop("state_dtype")
+    assert opt == jopt
+    assert (t.microbatches, t.zero1) == (j.microbatches, j.zero1)
+    assert t.zero1 and t.sync.mode == "sparcml"
+
+
+def test_llama3_405b_train_config_raises_for_fsdp():
+    """llama3-405b's train_config asks for fsdp with dense sync and bf16
+    moments, as dbrx's does: it raises, naming the ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tc.get_train_config("llama3-405b")
+    assert jc.get_train_config("llama3-405b", None).fsdp
+
+
+def _smoke_batch(cfg, rng, b=2, s=16) -> dict:
+    """The reference smoke test's batch, drawn with numpy: random tokens
+    and labels, image embeddings (vlm) and frames (encoder)."""
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s))}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal(
+            (b, cfg.num_image_tokens, cfg.vision_dim)).astype(np.float32)
+    if cfg.family == "encoder":
+        batch["frames"] = rng.standard_normal(
+            (b, s, cfg.frontend_dim)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_forward_shapes_no_nans(arch):
+    """The reference's tests/test_models_smoke.py forward test."""
+    cfg = tc.smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    logits = model(params, _smoke_batch(cfg, np.random.default_rng(0)))
+    assert logits.shape == (2, 16, cfg.padded_vocab)
+    assert torch.isfinite(logits).all(), arch
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_one_train_step(arch):
+    """The reference's tests/test_models_smoke.py descent test: a finite
+    loss and non-zero grad norm, and a normalized SGD step that, for one
+    of the scales 0.1, 0.03, 0.01, lowers the loss."""
+    cfg = tc.smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    batch = _smoke_batch(cfg, np.random.default_rng(1))
+    leaves, paths = tree_flatten(params)
+    live = [p.clone().requires_grad_(True) for p in leaves]
+    loss = model.loss(tree_unflatten(paths, live), batch)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
+        torch.autograd.grad(loss, live, allow_unused=True), live)]
+    assert torch.isfinite(loss)
+    gnorm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+    assert np.isfinite(gnorm) and gnorm > 0
+    descended = False
+    with torch.no_grad():
+        for scale in (0.1, 0.03, 0.01):
+            step = scale / (gnorm + 1e-9)
+            new = tree_map(lambda p, g: p - step * g.to(p.dtype), params,
+                           tree_unflatten(paths, grads))
+            loss2 = model.loss(new, batch)
+            assert torch.isfinite(loss2)
+            if float(loss2) < float(loss):
+                descended = True
+                break
+    assert descended, f"{arch}: no backtracked descent step reduced loss"

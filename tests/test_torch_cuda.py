@@ -1180,3 +1180,104 @@ def test_cuda_continuous_moe_adaptive_equals_dense(cuda_device):
         assert runs["dense"].outputs[r.rid].tolist() == want
         assert runs["adaptive"].outputs[r.rid].tolist() == want
     assert any(s["reason"] == "telemetry" for s in runs["adaptive"].swap_log)
+
+
+# --------------------------------------------------------------------------
+# the ssm, hybrid, vlm and encoder families on the card
+# --------------------------------------------------------------------------
+
+FAMILY_SMOKE = {"ssm": "mamba2-370m", "hybrid": "zamba2-2.7b",
+                "vlm": "llama-3.2-vision-11b", "encoder": "hubert-xlarge"}
+
+
+def _family_smoke(fam):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    model = build_model(configs.smoke_config(FAMILY_SMOKE[fam]))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    if fam == "vlm":       # non-zero gates: the cross layers count
+        params["blocks"]["cross"]["xattn"]["gate"].fill_(0.5)
+        params["blocks"]["cross"]["mlp_gate"].fill_(-0.7)
+    off = build_model(dataclasses.replace(model.cfg, remat=False))
+    return model, off, params
+
+
+def _family_batch(cfg, rng, b, s):
+    toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal(
+            (b, cfg.num_image_tokens, cfg.vision_dim)).astype(np.float32)
+    if cfg.family == "encoder":
+        batch["frames"] = rng.standard_normal(
+            (b, s, cfg.frontend_dim)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", list(FAMILY_SMOKE))
+def test_cuda_family_logits_and_decode_match_cpu(cuda_device, fam):
+    """Each new family's smoke config on the card against the CPU on the
+    same weights: forward logits, and (decoders) a prefill of 16 tokens
+    and 8 decode steps, at the model tolerance (rtol 1e-5, floor 1e-5 of
+    the largest magnitude)."""
+    model, _, params = _family_smoke(fam)
+    batch = _family_batch(model.cfg, np.random.default_rng(0), 2, 24)
+    runs = {}
+    for dev, p in (("cpu", params), ("cuda", _to(params, cuda_device))):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        out = [model(p, b).detach().cpu().reshape(-1)]
+        if model.cfg.is_decoder:
+            pre = {k: v for k, v in b.items() if k != "labels"}
+            pre["tokens"] = b["tokens"][:, :16]
+            lg, st = model.prefill(p, pre, 32)
+            out.append(lg.cpu().reshape(-1))
+            for t in range(16, 24):
+                lg, st = model.decode_step(p, st, b["tokens"][:, t:t + 1])
+                out.append(lg.cpu().reshape(-1))
+        runs[dev] = torch.cat(out).numpy()
+    want = runs["cpu"]
+    np.testing.assert_allclose(runs["cuda"], want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam", list(FAMILY_SMOKE))
+def test_cuda_family_remat_bit_equal(cuda_device, fam):
+    """Remat on against off on the card, through rank_grads: the loss and
+    every rank's grads bit-equal."""
+    from repro_torch.train.train_step import rank_grads
+
+    on, off, params = _family_smoke(fam)
+    p = _to(params, cuda_device)
+    batch = {k: v.to(cuda_device) for k, v in _family_batch(
+        on.cfg, np.random.default_rng(1), 4, 16).items()}
+    la, ga = rank_grads(on, p, batch, 2, 2)
+    lb, gb = rank_grads(off, p, batch, 2, 2)
+    assert torch.equal(la, lb)
+    assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+
+
+@pytest.mark.cuda
+def test_cuda_continuous_ssm_matches_generate(cuda_device):
+    """The mamba2 smoke config served continuously on the card: each
+    request equals its own B = 1 generate."""
+    from repro_torch.serve import ContinuousServeEngine, Request, ServeEngine
+
+    model, _, params = _family_smoke("ssm")
+    params = _to(params, cuda_device)
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(0, 512, n), max_new_tokens=m,
+                    arrival=a)
+            for i, (n, m, a) in enumerate([(8, 6, 0), (16, 4, 0),
+                                           (8, 9, 1), (24, 5, 2),
+                                           (8, 7, 4)])]
+    res = ContinuousServeEngine(model, params, cache_len=48, batch_size=3,
+                                device=cuda_device).run(reqs)
+    one = ServeEngine(model, params, cache_len=48, device=cuda_device)
+    for r in reqs:
+        assert res.outputs[r.rid].tolist() == one.generate(
+            r.prompt[None], r.max_new_tokens)[0].tolist()

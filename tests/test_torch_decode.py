@@ -307,12 +307,52 @@ def test_decode_from_the_reference_prefill_state():
         _assert_close(lg, jlg)
 
 
-def test_decode_state_conversion_refuses_other_families():
-    jst = jax_build_model(JaxModelConfig(
-        **{**TINY, "family": "ssm", "ssm_state": 16, "ssm_head_dim": 16},
-        dtype=jnp.float32, param_dtype=jnp.float32)).init_decode_state(2, 8)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        decode_state_from_jax(jax.tree.map(np.asarray, jst))
+OTHER = {
+    "ssm": dict(family="ssm", ssm_state=16, ssm_head_dim=16, ssm_chunk=4),
+    "hybrid": dict(family="hybrid", ssm_state=16, ssm_head_dim=16,
+                   ssm_chunk=4, attn_every=2, sliding_window=5),
+    "vlm": dict(family="vlm", cross_attn_every=2, num_image_tokens=8,
+                vision_dim=48, num_layers=4),
+}
+
+
+def _pairs(a, b):
+    """The tensors of a state field (a KV pair or one tensor) side by
+    side with the reference's."""
+    return zip(a, b) if isinstance(a, tuple) else [(a, b)]
+
+
+@pytest.mark.parametrize("fam", list(OTHER))
+def test_decode_state_conversion_of_other_families(fam):
+    """decode_state_from_jax converts the ssm, hybrid and vlm states field
+    for field: the empty state (the port's own init_decode_state has the
+    same shapes and zeros) and a prefill's, bit for bit."""
+    jmodel, model = _models(**OTHER[fam])
+    jst = jmodel.init_decode_state(3, 16, prefix_len=2)
+    st = model.init_decode_state(3, 16, prefix_len=2, device="cpu")
+    conv = decode_state_from_jax(jax.tree.map(np.asarray, jst))
+    for got in (st, conv):
+        assert int(got.pos) == 2 and got.pos.dtype == torch.int32
+        for name in ("kv", "cross_kv", "conv", "ssm"):
+            a, b = getattr(got, name), getattr(jst, name)
+            assert (a is None) == (b is None), name
+            if a is not None:
+                for x, y in _pairs(a, b):
+                    assert tuple(x.shape) == y.shape and not x.any(), name
+    assert st.ssm is None or st.ssm.dtype == torch.float32
+    jparams, _ = _params(jmodel, seed=3)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": jnp.asarray(rng.integers(0, 256, (2, 8)).astype(
+        np.int32))}
+    if fam == "vlm":
+        batch["image_embeds"] = jnp.asarray(rng.standard_normal(
+            (2, 8, 48)).astype(np.float32))
+    _, jst = jmodel.prefill(jparams, batch, cache_len=16)
+    conv = decode_state_from_jax(jax.tree.map(np.asarray, jst))
+    for name in ("kv", "cross_kv", "conv", "ssm"):
+        if getattr(jst, name) is not None:
+            for x, y in _pairs(getattr(conv, name), getattr(jst, name)):
+                np.testing.assert_array_equal(x.numpy(), np.asarray(y))
 
 
 @pytest.mark.parametrize("window", [0, 6], ids=["full", "window"])
@@ -350,19 +390,26 @@ def test_per_slot_model_decode_matches_scalar_rows():
         _assert_close(st.kv.k[:, i], st1.kv.k[:, 0].numpy())
 
 
-def test_other_families_raise():
-    """A family the port does not have yet (ssm) raises at every entry
-    point, naming its ROADMAP item."""
-    cfg = ModelConfig(**{**TINY, "family": "ssm", "ssm_state": 16,
-                         "ssm_head_dim": 16},
-                      dtype=torch.float32, param_dtype=torch.float32)
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        model.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        model.forward({}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        model.init_decode_state(2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        model.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)},
-                      8)
+def test_ssm_prefill_needs_whole_chunks_and_unknown_families_raise():
+    """The SSD scan needs a prompt of whole chunks: the port's prefill
+    refuses another length, as the reference's asserts; nothing pads. A
+    family neither package knows raises at every entry point."""
+    jmodel, model = _models(**OTHER["ssm"])
+    jparams, params = _params(jmodel)
+    toks = np.arange(6, dtype=np.int32)[None]
+    with pytest.raises(ValueError, match="multiple of the SSD chunk"):
+        model.prefill(params, {"tokens": torch.from_numpy(toks)}, 16)
+    with pytest.raises(AssertionError, match="% chunk"):
+        jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, cache_len=16)
+    bad = build_model(ModelConfig(**{**TINY, "family": "rnn"},
+                                  dtype=torch.float32,
+                                  param_dtype=torch.float32))
+    with pytest.raises(ValueError, match="unknown family"):
+        bad.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        bad.forward({}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)})
+    with pytest.raises(ValueError, match="unknown family"):
+        bad.init_decode_state(2, 8, device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        bad.prefill({}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)},
+                    8)

@@ -567,23 +567,122 @@ def test_insert_slot_state_writes_only_its_slot(models):
     assert torch.equal(state.kv.k[:, 1], sub.kv.k[:, 0])
 
 
-def test_moe_paths_raise(models):
-    """The serving entry points refuse a family the port does not have yet
-    (ssm), naming its ROADMAP item; an unknown run_serve model raises."""
-    _, _, model, params = models
-    ssm = build_model(ModelConfig(**{**TINY, "family": "ssm",
-                                     "ssm_state": 16, "ssm_head_dim": 16},
-                                  dtype=torch.float32,
-                                  param_dtype=torch.float32))
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ContinuousServeEngine(ssm, params, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        insert_slot_state(ssm.cfg, None, None, 0)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ServeEngine(ssm, params, device="cpu").generate(
-            np.zeros((1, 2), np.int32), 2)
+# --------------------------------------------------------------------------
+# The ssm, hybrid, vlm and encoder families
+# --------------------------------------------------------------------------
+
+FAMILY_TINY = {
+    "ssm": dict(TINY, family="ssm", num_layers=3, ssm_state=16,
+                ssm_head_dim=16, ssm_chunk=4),
+    "hybrid": dict(TINY, family="hybrid", num_layers=4, ssm_state=16,
+                   ssm_head_dim=16, ssm_chunk=4, attn_every=2),
+    "vlm": dict(TINY, family="vlm", num_layers=4, cross_attn_every=2,
+                num_image_tokens=8, vision_dim=48),
+    "encoder": dict(TINY, family="encoder", frontend_dim=32, act_fn="gelu",
+                    causal=False),
+}
+# prompts of whole SSD chunks (4 tokens), as the scan needs; 3 slots, so
+# requests retire and others take their slots
+SSM_RAGGED = [(4, 6, 0), (8, 4, 0), (4, 8, 0), (12, 5, 1), (8, 7, 3),
+              (4, 6, 8)]
+
+
+def _family_models(fam, seed=0):
+    kw = FAMILY_TINY[fam]
+    jcfg = JaxModelConfig(**kw, dtype=jnp.float32, param_dtype=jnp.float32)
+    cfg = ModelConfig(**kw, dtype=torch.float32, param_dtype=torch.float32)
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(seed))
+    if fam == "vlm":       # non-zero gates: the image counts
+        cross = jparams["blocks"]["cross"]
+        cross["xattn"]["gate"] = jnp.full_like(cross["xattn"]["gate"], 0.5)
+        cross["mlp_gate"] = jnp.full_like(cross["mlp_gate"], -0.7)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    return jmodel, jparams, build_model(cfg), params
+
+
+@pytest.mark.parametrize("fam", ["ssm", "hybrid"])
+def test_continuous_ssm_families_match_per_request_and_reference(fam,
+                                                                 mesh4x2):
+    """The ssm and hybrid families under continuous batching: every
+    request's tokens equal its own B = 1 generate, and the reference
+    engine's on the same weights; each admission splices the prefill's
+    conv window and SSM state (and the hybrid's KV caches) into its
+    slot."""
+    jmodel, jparams, model, params = _family_models(fam)
+    reqs = _requests(np.random.default_rng(5), SSM_RAGGED)
+    want = _per_request(model, params, reqs, cache_len=32)
+    eng = ContinuousServeEngine(model, params, cache_len=32, batch_size=3,
+                                device="cpu")
+    res = eng.run(reqs)
+    _assert_outputs_equal(res.outputs, want)
+    jres = JaxContinuousServeEngine(
+        jmodel, mesh4x2, jparams, cache_len=32, batch_size=3).run(
+        _requests(np.random.default_rng(5), SSM_RAGGED, JaxRequest))
+    _assert_outputs_equal(res.outputs, jres.outputs)
+    assert res.decode_steps == jres.decode_steps
+    jeng = JaxServeEngine(jmodel, mesh4x2, jparams, cache_len=32)
+    prompts = np.stack([r.prompt[:4] for r in reqs[:4]]).astype(np.int32)
+    np.testing.assert_array_equal(
+        ServeEngine(model, params, cache_len=32, device="cpu").generate(
+            prompts, 5), jeng.generate(prompts, 5))
+
+
+def test_vlm_static_generate_matches_reference(mesh4x2):
+    """ServeEngine.generate with image embeddings: the vlm's tokens equal
+    the reference engine's; other image embeddings change them."""
+    jmodel, jparams, model, params = _family_models("vlm")
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(0, 256, (4, 8)).astype(np.int32)
+    image = rng.standard_normal((4, 8, 48)).astype(np.float32)
+    eng = ServeEngine(model, params, cache_len=32, device="cpu")
+    out = eng.generate(prompts, 6, image_embeds=image)
+    jeng = JaxServeEngine(jmodel, mesh4x2, jparams, cache_len=32)
+    np.testing.assert_array_equal(
+        out, jeng.generate(prompts, 6, image_embeds=image))
+    other = eng.generate(prompts, 6, image_embeds=-image)
+    assert not np.array_equal(out, other)
+
+
+def test_unserved_families_and_unknown_models_raise(mesh4x2):
+    """Continuous batching refuses the vlm and the encoder with the
+    reference's message, and insert_slot_state the vlm's caches; the
+    encoder has no decode, so its ServeEngine refuses; an unknown
+    run_serve model raises."""
+    for fam in ("vlm", "encoder"):
+        jmodel, jparams, model, params = _family_models(fam)
+        msg = f"continuous batching: family '{fam}'"
+        with pytest.raises(NotImplementedError, match=msg):
+            ContinuousServeEngine(model, params, device="cpu")
+        with pytest.raises(NotImplementedError, match=msg):
+            JaxContinuousServeEngine(jmodel, mesh4x2, jparams)
+    _, _, vlm, _ = _family_models("vlm")
+    with pytest.raises(NotImplementedError, match="vlm caches"):
+        insert_slot_state(vlm.cfg, None, None, 0)
+    with pytest.raises(ValueError, match="encoder-only"):
+        ServeEngine(model, params, device="cpu").generate(
+            np.zeros((1, 4), np.int32), 2)
     with pytest.raises(ValueError, match="unknown model"):
         run_serve.build(False, model="nope", device="cpu")
+
+
+def test_insert_slot_state_splices_ssm_states():
+    """insert_slot_state writes the B = 1 prefill's conv window, SSM state
+    and (hybrid) KV caches into one slot, in place, and nothing else."""
+    _, _, model, params = _family_models("hybrid")
+    state = model.init_decode_state(3, 16, device="cpu")
+    state = state._replace(pos=torch.tensor([5, 6, 7], dtype=torch.int32))
+    for t in (state.conv, state.ssm, state.kv.k):
+        t.normal_()
+    before = [t.clone() for t in (state.conv, state.ssm, state.kv.k)]
+    _, sub = model.prefill(params, {"tokens": torch.arange(
+        8, dtype=torch.int32)[None]}, 16)
+    out = insert_slot_state(model.cfg, state, sub, 1)
+    assert out.ssm is state.ssm and state.pos.tolist() == [5, 8, 7]
+    for t, b, src in zip((state.conv, state.ssm, state.kv.k), before,
+                         (sub.conv, sub.ssm, sub.kv.k)):
+        assert torch.equal(t[:, [0, 2]], b[:, [0, 2]])
+        assert torch.equal(t[:, 1], src[:, 0])
 
 
 # --------------------------------------------------------------------------
