@@ -243,7 +243,7 @@ Phases, in order; any failure exits non-zero:
      depth (48 layers, d = 1024, 32 SSM heads of 64, state 128, chunk
      256, vocab 50280), bf16, Trainer.run under its train_config (DSAR +
      4-bit QSGD, k = 4 of 512, ZeRO-1, 16 microbatches, remat on), R = 4
-     stacked, one 512-token row a rank a microbatch, 6 steps: finite
+     stacked, one 512-token row a rank a microbatch, 3 steps: finite
      losses, launches a step, step times, peak memory beside the state's
      size, the rank grads and the reduce half alone, each kernel against
      its plain version on one step's tensors (17a's rules); 18b: serving
@@ -271,13 +271,39 @@ Phases, in order; any failure exits non-zero:
      (losses within rtol 2e-4; the final params, moments and EF residuals
      within rtol 2e-4 and 2e-4 of each tensor's largest magnitude), and
      remat on against off through rank_grads on the card, bit-equal;
- 19. the kernels line (a kernel's "launches" are the main path's, or,
+ 19. long-sequence training, the chunked attention's recomputing
+     backward and the dry run: 19a: the chunked attention
+     (layers.flash_attention, the GQA repeat outside it) against the
+     plain path's autograd on the same q, k, v, forward and the three
+     gradients, at qwen3-4b's widths (32 heads of 128, kv 8), S = 4096,
+     causal, in bf16 and f32, at hubert-xlarge's (16 heads of 80)
+     non-causal at S = 2048 in f32, and with a 1024-key sliding window at
+     S = 4096 in bf16 (tolerances by dtype at LONG_ATTN_TOL; in bf16 the
+     chunked path's error against an f32 computation must also stay
+     within 1.5x the plain path's), each path's time (CUDA events) and
+     peak memory; 19b: qwen3-4b at full width, 2 layers of 36, bf16,
+     Trainer.run under its train_config (DSAR + 4-bit QSGD, k = 4 of 512,
+     ZeRO-1, 8 microbatches, remat on), R = 2 stacked, one 4096-token
+     row a rank a microbatch (65,536 tokens a step), 3 steps, as 18a
+     (finite losses, launches a step, step times, peaks, each kernel
+     against its plain version on one step's tensors), then two steps
+     with the chunked path forced off (the module's threshold raised),
+     its peak beside the chunked one (running out of memory recorded);
+     19c: launch.dryrun.run_cell of qwen3-4b train_4k at 2 layers and R
+     = 2 on the meta device: its state (without the in-flight buffers
+     Trainer.run does not hold) within 5 % of the bytes init_or_resume
+     allocated, and the measured step's share of the bound of its own
+     shape (dryrun.train_cost; the unfused eager ops' bound, whose memory
+     term counts every op's operands and results, and its compute term
+     alone) and its model-FLOP share of the bf16 peak (printed);
+ 20. the kernels line (a kernel's "launches" are the main path's, or,
      for one the main path does not run, those of the first later path
      that runs it, named in "launches_path"; "launches_moe_train" and
      "launches_moe_serve" those of phase 17's runs, "launches_ssm_train",
      "launches_hybrid_train", "launches_encoder_train" and
-     "launches_ssm_serve" those of phase 18's), the card line, and last
-     the result line {"ok": true, "device": {...}}.
+     "launches_ssm_serve" those of phase 18's, "launches_long_train"
+     phase 19b's), the card line, and last the result line {"ok": true,
+     "device": {...}}.
 
 It imports torch and the port (``src/repro_torch``), never JAX. A longer
 record of the run goes to chiprun_out/chip_smoke.json.
@@ -318,15 +344,6 @@ TOPK_B_SWEEP = tuple((2**26 // b, b, k) for b in (384, 640, 2048, 4096, 8192)
                      for k in sorted({1, 8, b // 64, b // 2, b}))
 TOPK_ADVERSARIAL_B = (128, 256, 384, 512, 640, 1024, 2048, 4096, 8192)
 
-# Published peaks (NVIDIA data sheets): memory bytes/s and f32 (non-tensor)
-# FLOP/s, by the card's name. An unknown card is refused rather than
-# measured against the wrong roofline.
-PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100": (3.35e12, 67e12),       # SXM, 80 GB
-}
-
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -338,10 +355,17 @@ def log(msg: str) -> None:
 
 
 def peaks_for(name: str) -> tuple[float, float]:
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    fail(f"no published peaks for {name!r}")
+    """The card's published memory bytes/s and f32 (non-tensor) FLOP/s,
+    from the port's one table of peaks (``repro_torch.utils.roofline``);
+    an unknown card is refused rather than measured against the wrong
+    roofline."""
+    from repro_torch.utils import roofline
+
+    try:
+        peaks = roofline.peaks_for(name)
+    except KeyError as exc:
+        fail(str(exc))
+    return peaks.hbm, peaks.f32
 
 
 def time_ms(torch, fn, reps: int = REPS) -> float:
@@ -1307,6 +1331,23 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 19
+    t_phase = time.perf_counter()
+    record["long"], long_paths = phase_long(torch, dev, wrappers)
+    new_paths.update(long_paths)
+    record["long"]["seconds"] = time.perf_counter() - t_phase
+    for row in kernels:
+        grouped = "qsgd_unpack_grouped" if row["name"] == "qsgd_unpack" \
+            else row["name"]
+        row["launches_long_train"] = long_paths["long_train"][grouped]
+        if row["name"] in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
+                           "qsgd_unpack") and not row["launches_long_train"]:
+            fail(f"19b: {row['name']} was not launched on the long-sequence "
+                 "training path")
+    log(f"[19] phase took {record['long']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 20
     for row in kernels:
         row["launches_new_paths"] = {
             path: counts[row["name"]] for path, counts in new_paths.items()}
@@ -4532,7 +4573,7 @@ VLM_ARCH = "llama-3.2-vision-11b"
 ENC_ARCH = "hubert-xlarge"
 FAM_R = 4                  # 18a, 18c, 18e: replicas stacked on the card
 FAM_SEQ = 512              # one 512-token (frame) row a rank a microbatch
-SSM_TRAIN_STEPS = 6        # 18a: full width and depth
+SSM_TRAIN_STEPS = 3        # 18a: full width and depth
 HYBRID_LAYERS = 12         # 18c: 54 -> 12 layers, 2 superblocks
 HYBRID_TRAIN_STEPS = 3
 HYBRID_PEAK_GB = 70.0      # 18c: above this peak, R = 2 (as 17a)
@@ -4575,10 +4616,11 @@ def _open_gates(params) -> None:
 
 def family_train(torch, dev, wrappers, tag: str, arch: str, cfg, steps: int,
                  replicas: int = FAM_R, seq: int | None = None):
-    """18a, 18c, 18e: Trainer.run of ``cfg`` under ``arch``'s SparCML
+    """18a, 18c, 18e, 19b: Trainer.run of ``cfg`` under ``arch``'s SparCML
     train_config, ``replicas`` stacked, one ``seq`` row a rank a
     microbatch; launches a step, step times, peak memory beside the
-    state's size; the last step's rank grads (CUDA events) and the reduce
+    state's size (its tensors, and the bytes ``init_or_resume``
+    allocated); the last step's rank grads (CUDA events) and the reduce
     half alone on its output; each kernel against its plain version on
     those tensors. Returns (record, launches of the run)."""
     from repro_torch import configs
@@ -4603,10 +4645,12 @@ def family_train(torch, dev, wrappers, tag: str, arch: str, cfg, steps: int,
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
+    before = torch.cuda.memory_allocated()
     trainer = Trainer(model, tcfg, data, dp_total=r, device=dev)
-    trainer.init()
+    trainer.init_or_resume()
     torch.cuda.synchronize()
     state_gb = _tensor_gb(trainer.state)
+    state_allocated = torch.cuda.memory_allocated() - before
     trainer.run(steps - 1)
     # the last step's rank grads are kept (the reduce half's input, for
     # the kernel checks) and timed with CUDA events around the call
@@ -4635,6 +4679,7 @@ def family_train(torch, dev, wrappers, tag: str, arch: str, cfg, steps: int,
                      "peak_reserved_gb":
                      torch.cuda.max_memory_reserved() / 1e9,
                      "state_gb": state_gb,
+                     "state_allocated_bytes": state_allocated,
                      "state_bytes_a_param": state_gb * 1e9 / n_params}
     plan = trainer.plan
     nsp = plan.num_sparse_buckets
@@ -5166,6 +5211,264 @@ def phase_families(torch, dev, wrappers, out_dir: Path, bw, f32_peak):
     rec["small"]["seconds"] = time.perf_counter() - t0
     log(f"[18f] took {rec['small']['seconds']:.1f} s")
     return rec, paths
+
+
+LONG_ARCH = "qwen3-4b"
+LONG_LAYERS = 2            # 19b: 36 -> 2 layers, every width as published
+LONG_R = 2                 # replicas stacked on the card
+LONG_SEQ = 4096            # train_4k's rows: one a rank a microbatch
+LONG_STEPS = 3
+LONG_STATE_RTOL = 0.05     # 19c: the dry run's state against the card's
+# 19a: (label, heads, kv heads, head dim, S, causal, window, dtypes)
+LONG_ATTN = (("qwen3-4b causal", 32, 8, 128, 4096, True, 0,
+              ("bfloat16", "float32")),
+             ("hubert-xlarge non-causal", 16, 16, 80, 2048, False, 0,
+              ("float32",)),
+             ("qwen3-4b window 1024", 32, 8, 128, 4096, True, 1024,
+              ("bfloat16",)))
+# the chunked path against the plain one, as a share of the plain path's
+# largest magnitude: f32 sums in another order (CPU: below 1e-6); bf16
+# rounds each chunk's P·V and the plain path's backward runs in bf16
+# (CPU at 4 heads: 3e-3 to 6e-3), and the chunked path's error against
+# an f32 computation on the same inputs must stay within 1.5x the plain
+# path's (+ 2e-3 of the magnitude)
+LONG_ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _attn_run(torch, fn, q0, k0, v0, do0, dtype):
+    """fn's output and the gradients of q, k, v for the cotangent do0,
+    all on inputs cast to ``dtype``."""
+    q, k, v = (t.to(dtype).requires_grad_(True) for t in (q0, k0, v0))
+    out = fn(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do0.to(dtype))
+    return [out.detach()] + list(grads)
+
+
+def _peak_over(torch, fn) -> tuple:
+    """(fn(), the bytes allocated at its peak above what was live before)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def long_attention(torch, dev, label, nh, nkv, hd, s, causal, window,
+                   dtype_name) -> dict:
+    """19a, one case: the chunked Function's forward and backward against
+    the plain path's autograd on the same q, k, v (the GQA repeat outside
+    the Function, as ``attention`` does), each path's time (CUDA events)
+    and peak memory above its inputs."""
+    from repro_torch.models import layers as L
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev).manual_seed(s + nh + window)
+    q0 = torch.randn((1, s, nh, hd), generator=gen, device=dev)
+    k0, v0 = (torch.randn((1, s, nkv, hd), generator=gen, device=dev)
+              for _ in range(2))
+    do0 = torch.randn((1, s, nh, hd), generator=gen, device=dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    i, j = pos[:, None], pos[None, :]
+    mask = (i >= j) if causal else torch.ones((s, s), dtype=torch.bool,
+                                              device=dev)
+    if window:
+        mask = mask & (i - j < window)
+    g = nh // nkv
+
+    def chunked(q, k, v):
+        return L.flash_attention(q, torch.repeat_interleave(k, g, 2),
+                                 torch.repeat_interleave(v, g, 2), pos,
+                                 causal, window, L._KEY_CHUNK)
+
+    def plain(q, k, v):
+        return L._sdpa(q, k, v, mask, hd).reshape(1, s, nh, hd)
+
+    got, peak_c = _peak_over(torch, lambda: _attn_run(
+        torch, chunked, q0, k0, v0, do0, dtype))
+    want, peak_p = _peak_over(torch, lambda: _attn_run(
+        torch, plain, q0, k0, v0, do0, dtype))
+    tol = LONG_ATTN_TOL[dtype_name]
+    names = ("out", "dq", "dk", "dv")
+    err = {}
+    for n, a, b in zip(names, got, want):
+        scale = float(b.float().abs().max())
+        err[n] = float((a.float() - b.float()).abs().max()) / scale
+        if not err[n] <= tol:
+            fail(f"19a {label} {dtype_name}: chunked {n} differs from the "
+                 f"plain path's by {err[n]:.3g} of its largest magnitude "
+                 f"(tolerance {tol})")
+    vs_f32 = {}
+    if dtype != torch.float32:
+        truth = _attn_run(torch, plain, q0, k0, v0, do0, torch.float32)
+        for n, a, b, t in zip(names, got, want, truth):
+            scale = float(t.abs().max())
+            ec = float((a.float() - t).abs().max()) / scale
+            ep = float((b.float() - t).abs().max()) / scale
+            vs_f32[n] = {"chunked": ec, "plain": ep}
+            if not ec <= 1.5 * ep + 2e-3:
+                fail(f"19a {label} {dtype_name}: chunked {n} is {ec:.3g} "
+                     f"from an f32 computation, the plain path {ep:.3g}")
+        del truth
+    del got, want
+    ms_c = time_ms(torch, lambda: _attn_run(torch, chunked, q0, k0, v0, do0,
+                                            dtype), reps=3)
+    ms_p = time_ms(torch, lambda: _attn_run(torch, plain, q0, k0, v0, do0,
+                                            dtype), reps=3)
+    rec = {"label": label, "dtype": dtype_name, "heads": nh,
+           "kv_heads": nkv, "head_dim": hd, "seq": s, "causal": causal,
+           "window": window, "max_err_of_max": err, "vs_f32": vs_f32,
+           "tolerance": tol, "chunked_ms": ms_c, "plain_ms": ms_p,
+           "chunked_peak_gb": peak_c / 1e9, "plain_peak_gb": peak_p / 1e9}
+    log(f"[19a] {label}, {dtype_name}, {nh} heads of {hd} (kv {nkv}), S = "
+        f"{s}: forward + backward chunked {ms_c:.2f} ms, peak "
+        f"{peak_c / 1e9:.2f} GB; plain {ms_p:.2f} ms, peak "
+        f"{peak_p / 1e9:.2f} GB; chunked - plain (share of the largest "
+        f"magnitude) {err} (tolerance {tol})"
+        + (f"; each against f32 {vs_f32}" if vs_f32 else ""))
+    return rec
+
+
+def long_plain_step(torch, dev, cfg, tcfg, data) -> dict:
+    """19b's step again with the chunked path forced off (the module's
+    threshold raised past any length): two steps from a fresh state, the
+    second's time and the peak. Running out of memory is recorded, not a
+    failure."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    threshold, L._CHUNKED_MIN = L._CHUNKED_MIN, 1 << 62
+    trainer = None
+    try:
+        trainer = Trainer(build_model(cfg), tcfg, data, dp_total=LONG_R,
+                          device=dev)
+        trainer.init_or_resume()
+        tlog = trainer.run(2)
+        rec = {"ran": True, "losses": list(tlog.losses),
+               "step_ms": tlog.step_times[-1] * 1e3}
+    except torch.cuda.OutOfMemoryError as exc:
+        rec = {"ran": False, "out_of_memory": str(exc).splitlines()[0]}
+    finally:
+        L._CHUNKED_MIN = threshold
+        del trainer
+    rec.update(peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_long(torch, dev, wrappers):
+    """Phase 19 (see the module docstring). Returns (record, {path:
+    launches})."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import build_model
+    from repro_torch.utils.roofline import H100
+
+    rec = {"attention": []}
+    t0 = time.perf_counter()
+    for label, nh, nkv, hd, s, causal, window, dtypes in LONG_ATTN:
+        for dt in dtypes:
+            rec["attention"].append(long_attention(
+                torch, dev, label, nh, nkv, hd, s, causal, window, dt))
+    log(f"[19a] took {time.perf_counter() - t0:.1f} s")
+
+    # 19c's prediction, made on the meta device before the card trains
+    t0 = time.perf_counter()
+    cell = dryrun.run_cell(LONG_ARCH, "train_4k", dp_total=LONG_R,
+                           layers=LONG_LAYERS)
+    if cell["status"] != "ok":
+        fail(f"19c: the dry run of {LONG_ARCH} train_4k: {cell}")
+    cfg = configs.get_config(LONG_ARCH, num_layers=LONG_LAYERS)
+    tcfg = configs.get_train_config(LONG_ARCH)
+    ours = dryrun.train_cost(build_model(cfg), tcfg, LONG_R,
+                             tcfg.microbatches, LONG_SEQ)
+    log(f"[19c] dry run ({time.perf_counter() - t0:.1f} s, meta device): "
+        f"{LONG_ARCH} train_4k at {LONG_LAYERS} layers, R = {LONG_R}: "
+        f"state {cell['state_memory']}; the cell ({cell['tokens']} tokens "
+        f"a step): bound {cell['roofline']['bound_s']:.3f} s "
+        f"({cell['roofline']['dominant']}), peak estimate "
+        f"{cell['peak_estimate'] / 1e9:.1f} GB, fits {cell['fits']}; this "
+        f"phase's step ({ours['tokens']} tokens): counted "
+        f"{ours['cost']['flops']:.4g} matmul FLOP, {ours['cost']['bytes']:.4g}"
+        f" B, model FLOP {ours['model_flops']:.4g}, bound "
+        f"{ours['roofline']['bound_s']:.4f} s ({ours['roofline']['dominant']}"
+        f"), peak estimate {ours['peak_estimate'] / 1e9:.1f} GB")
+
+    t0 = time.perf_counter()
+    expandable = _expandable_segments(torch, True)
+    try:
+        rec["train"], launches = family_train(
+            torch, dev, wrappers, "19b", LONG_ARCH, cfg, LONG_STEPS,
+            replicas=LONG_R, seq=LONG_SEQ)
+        rec["plain_step"] = long_plain_step(
+            torch, dev, cfg, tcfg, data_config_for(
+                cfg, LONG_R * tcfg.microbatches, LONG_SEQ))
+    finally:
+        if expandable:
+            _expandable_segments(torch, False)
+    rec["train"]["seconds"] = time.perf_counter() - t0
+    mem = rec["train"]["memory"]
+    plain = rec["plain_step"]
+    log(f"[19b] took {rec['train']['seconds']:.1f} s; peak "
+        f"{mem['peak_allocated_gb']:.2f} GB allocated, "
+        f"{mem['peak_reserved_gb']:.2f} reserved with the chunked attention;"
+        f" forced off: " + (f"step {plain['step_ms']:.1f} ms, " if
+                            plain["ran"] else "out of memory, ")
+        + f"peak {plain['peak_allocated_gb']:.2f} GB allocated, "
+        f"{plain['peak_reserved_gb']:.2f} reserved")
+
+    # 19c: the prediction against the card
+    sm = cell["state_memory"]
+    predicted = sm["total"] - sm["inflight"]   # Trainer.run holds none
+    measured = mem["state_allocated_bytes"]
+    step_s = rec["train"]["step_ms_median"] / 1e3
+    rec["dryrun"] = {
+        "cell": {k: cell[k] for k in ("state_memory", "roofline", "tokens",
+                                      "peak_estimate", "fits", "reduced")},
+        "step": {k: ours[k] for k in ("cost", "model_flops", "roofline",
+                                      "peak_estimate", "remat_dup")},
+        "state_predicted_bytes": predicted,
+        "state_allocated_bytes": measured,
+        "state_rel_err": abs(predicted - measured) / measured,
+        # the bound's memory term counts every unfused eager op's operands
+        # and results: the bound of this implementation, not of the
+        # function; the compute term (matmul FLOPs at the bf16 peak) is
+        # the function's
+        "step_share_of_eager_bound": ours["roofline"]["bound_s"] / step_s,
+        "step_share_of_compute_bound":
+            ours["roofline"]["t_compute_s"] / step_s,
+        "model_flop_share_of_bf16_peak":
+            ours["model_flops"] / (step_s * H100.bf16),
+        "counted_flop_share_of_bf16_peak":
+            ours["cost"]["flops"] / (step_s * H100.bf16)}
+    d = rec["dryrun"]
+    log(f"[19c] state predicted {predicted} B (without the {sm['inflight']} "
+        f"B of in-flight buffers), allocated by init_or_resume {measured} B:"
+        f" {d['state_rel_err']:.2%} apart (limit {LONG_STATE_RTOL:.0%}); "
+        f"the step ({step_s * 1e3:.1f} ms) reads "
+        f"{d['step_share_of_eager_bound']:.1%} of the unfused eager ops' "
+        f"bound ({ours['roofline']['bound_s'] * 1e3:.1f} ms, "
+        f"{ours['roofline']['dominant']}) and "
+        f"{d['step_share_of_compute_bound']:.1%} of its compute term "
+        f"({ours['roofline']['t_compute_s'] * 1e3:.1f} ms); model FLOPs at "
+        f"{d['model_flop_share_of_bf16_peak']:.1%} of the bf16 peak, counted"
+        f" matmul FLOPs at {d['counted_flop_share_of_bf16_peak']:.1%}; peak "
+        f"estimate {ours['peak_estimate'] / 1e9:.1f} GB against "
+        f"{mem['peak_allocated_gb']:.2f} GB allocated")
+    if not d["state_rel_err"] <= LONG_STATE_RTOL:
+        fail(f"19c: the dry run's state {predicted} B is "
+             f"{d['state_rel_err']:.2%} from the {measured} B the trainer "
+             "allocated")
+    return rec, {"long_train": launches}
 
 
 def _expandable_segments(torch, on: bool) -> bool:

@@ -202,13 +202,18 @@ class SyncPlan:
         bucket is charged by ``cost_model.bucket_wire_bytes``, the entry
         the executors' telemetry charges, at its worst-case nnz. The
         scattered mode charges each algorithm without its gather phase."""
+        total = sum(self.wire_bytes_by_bucket(p).values())
+        return total * ((p or self.dp_total) if aggregate else 1)
+
+    def wire_bytes_by_bucket(self, p: Optional[int] = None) -> dict:
+        """Bucket name -> its share of ``wire_bytes(p)``."""
         p = p or self.dp_total
         vb = self.cfg.qsgd_bits if self.cfg.qsgd_bits is not None else 32
-        total = sum(bucket_wire_bytes(b.algorithm, p, self.bucket_k(g, b),
-                                      b.n, value_bits=vb,
-                                      scattered=self.scattered)
-                    for g in self.groups for b in g.buckets)
-        return total * (p if aggregate else 1)
+        return {b.name: bucket_wire_bytes(b.algorithm, p,
+                                          self.bucket_k(g, b), b.n,
+                                          value_bits=vb,
+                                          scattered=self.scattered)
+                for g in self.groups for b in g.buckets}
 
     def param_allgather_bytes(self, p: Optional[int] = None, *,
                               aggregate: bool = False) -> float:

@@ -3,12 +3,15 @@ prefill, KV-cache decode with an optional sliding-window ring), the vlm's
 gated cross-attention, SwiGLU/GELU MLP.
 
 Parameters are plain dicts of tensors in the JAX package's layout
-(``repro.models.layers``): x @ W with W of shape (in, out). Training
-attention is the non-chunked path of the reference (plain matmuls and an
-f32 softmax). The prefill takes the reference's online-softmax chunked
-form (``_flash_fwd``, forward only) from sequence 2048; its recomputing
-backward, which the reference's training attention uses there, is not
-ported (ROADMAP Queue 1 item 5).
+(``repro.models.layers``): x @ W with W of shape (in, out). Attention
+switches where the reference's does: below sequence 2048 (or at a length
+that is not whole 1024-key chunks) it is the plain path (matmuls and an
+f32 softmax over the whole (S, T) scores); from there it is the
+reference's ``flash_attention``, an online softmax over 1024-key chunks
+whose backward recomputes each chunk's scores from the saved log-sum-exp,
+so no (S, T) tensor is built or saved in either direction. Training
+takes it as an ``autograd.Function`` (``_FlashAttention``); the prefill
+calls its forward alone.
 
 Decoding writes the KV cache IN PLACE: ``attention_decode`` writes each
 row's new key and value into the cache it is given and returns that same
@@ -130,11 +133,38 @@ def _sdpa(q, k, v, mask, hd: int):
     return out.reshape(b, s, nh * hd)
 
 
+def _repeat_kv(cfg: ModelConfig, k, v):
+    """GQA: each of k's and v's heads repeated num_heads / num_kv_heads
+    times (outside the chunked path's Function, as the reference's repeat
+    lies outside its custom VJP: the repeated heads' gradients sum back
+    through autograd)."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    if g == 1:
+        return k, v
+    return (torch.repeat_interleave(k, g, dim=2),
+            torch.repeat_interleave(v, g, dim=2))
+
+
+def _chunked(s: int) -> bool:
+    """Whether a sequence of ``s`` takes the chunked path (the
+    reference's switch)."""
+    return s >= _CHUNKED_MIN and s % _KEY_CHUNK == 0
+
+
 def attention(p, cfg: ModelConfig, x, positions, *, causal=True
               ) -> torch.Tensor:
-    """Full-sequence attention (training)."""
+    """Full-sequence attention (training, the encoder). positions: (S,);
+    the plain path also takes (B, S)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
+    if _chunked(s):
+        if positions.dim() != 1:
+            raise ValueError("the chunked attention takes one (S,) row of "
+                             f"positions, not {tuple(positions.shape)}")
+        kr, vr = _repeat_kv(cfg, k, v)
+        out = flash_attention(q, kr, vr, positions, causal,
+                              cfg.sliding_window, _KEY_CHUNK)
+        return out.reshape(b, s, -1) @ p["wo"]
     i = positions[..., :, None]  # query pos
     j = positions[..., None, :]  # key pos
     mask = (i >= j) if causal else torch.ones((s, s), dtype=torch.bool,
@@ -149,40 +179,131 @@ _CHUNKED_MIN = 2048   # the reference's threshold for its chunked attention
 _KEY_CHUNK = 1024
 
 
+def _chunk_scores(q, kc_, qpos, kp, causal: bool, window: int, scale):
+    """One key chunk's scaled f32 scores (B, nh, S, C), -1e30 where the
+    mask (causal, and the sliding window when set) hides a key. The
+    product is taken in f32 of upcast operands (exact products, f32 sums:
+    the reference's ``preferred_element_type=f32``), as every chunk
+    product here is."""
+    f32 = torch.float32
+    scores = torch.einsum("bsnh,bcnh->bnsc", q.to(f32), kc_.to(f32)) * scale
+    if causal or window:
+        mask = (qpos >= kp[None, :]) if causal else torch.ones(
+            (q.shape[1], kc_.shape[1]), dtype=torch.bool, device=q.device)
+        if window:
+            mask = mask & (qpos - kp[None, :] < window)
+        scores = torch.where(mask, scores, -1e30)
+    return scores
+
+
 def _flash_fwd(q, k, v, positions, causal: bool, window: int, kc: int):
     """Online-softmax attention over key chunks of ``kc`` (the reference's
     ``_flash_fwd``): only a (B, nh, S, kc) block of scores is live at a
     time. q: (B, S, nh, hd); k/v: (B, T, nh, hd) (GQA heads repeated by
-    the caller); positions: (T,). Returns (B, S, nh, hd)."""
+    the caller); positions: (T,). Returns the output (B, S, nh, hd) in
+    q's dtype and the f32 log-sum-exp of each query's scores (B, nh, S)."""
     b, s, nh, hd = q.shape
     t = k.shape[1]
     kpos = positions.reshape(t // kc, kc)
     qpos = positions[:, None]
     scale = 1.0 / math.sqrt(hd)
-    m = torch.full((b, nh, s, 1), -math.inf, dtype=torch.float32,
-                   device=q.device)
-    den = torch.zeros((b, nh, s, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, nh, s, hd), dtype=torch.float32, device=q.device)
+    f32 = torch.float32
+    m = torch.full((b, nh, s, 1), -math.inf, dtype=f32, device=q.device)
+    den = torch.zeros((b, nh, s, 1), dtype=f32, device=q.device)
+    acc = torch.zeros((b, nh, s, hd), dtype=f32, device=q.device)
+    q32 = q.to(f32)
     for c in range(t // kc):
         kc_, vc_ = k[:, c * kc:(c + 1) * kc], v[:, c * kc:(c + 1) * kc]
-        kp = kpos[c]
-        scores = torch.einsum("bsnh,bcnh->bnsc", q, kc_).to(
-            torch.float32) * scale
-        mask = (qpos >= kp[None, :]) if causal else torch.ones(
-            (s, kc), dtype=torch.bool, device=q.device)
-        if window:
-            mask = mask & (qpos - kp[None, :] < window)
-        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        scores = _chunk_scores(q32, kc_, qpos, kpos[c], causal, window,
+                               scale)
         m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
         corr = torch.exp(m - m_new)
         pr = torch.exp(scores - m_new)
         den = den * corr + pr.sum(-1, keepdim=True)
-        pv = torch.einsum("bnsc,bcnh->bnsh", pr.to(vc_.dtype), vc_).to(
-            torch.float32)
+        pv = torch.einsum("bnsc,bcnh->bnsh", pr.to(vc_.dtype).to(f32),
+                          vc_.to(f32))
         acc = acc * corr + pv
         m = m_new
-    out = (acc / torch.clamp_min(den, 1e-30)).to(q.dtype)
-    return out.transpose(1, 2)
+    den = torch.clamp_min(den, 1e-30)
+    out = (acc / den).to(q.dtype)
+    lse = (m + torch.log(den))[..., 0]
+    return out.transpose(1, 2), lse
+
+
+def _flash_bwd(q, k, v, positions, out, lse, dout, causal: bool,
+               window: int, kc: int):
+    """The reference's ``_flash_bwd``: each key chunk's scores recomputed
+    with the forward's mask, p = exp(s - lse), then dv = pᵀ·dO, dp =
+    dO·vᵀ, ds = p·(dp - D)·scale with D = rowsum(dO·O), dq += ds·k and dk
+    = dsᵀ·q; every product in f32 of upcast operands, ds rounded to k's
+    and q's dtype before its two products, so bf16 rounds where the
+    reference rounds. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    b, s, nh, hd = q.shape
+    t = k.shape[1]
+    kpos = positions.reshape(t // kc, kc)
+    qpos = positions[:, None]
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    q32, dout32 = q.to(f32), dout.to(f32)
+    d = torch.einsum("bsnh,bsnh->bns", dout32, out.to(f32))
+    dq = torch.zeros((b, s, nh, hd), dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for c in range(t // kc):
+        kc_, vc_ = k[:, c * kc:(c + 1) * kc], v[:, c * kc:(c + 1) * kc]
+        kc32 = kc_.to(f32)
+        scores = _chunk_scores(q32, kc32, qpos, kpos[c], causal, window,
+                               scale)
+        pr = torch.exp(scores - lse[..., None])               # (B,nh,S,C)
+        dvs.append(torch.einsum("bnsc,bsnh->bcnh", pr, dout32))
+        dp = torch.einsum("bsnh,bcnh->bnsc", dout32, vc_.to(f32))
+        ds = pr * (dp - d[..., None]) * scale
+        dq = dq + torch.einsum("bnsc,bcnh->bsnh",
+                               ds.to(kc_.dtype).to(f32), kc32)
+        dks.append(torch.einsum("bnsc,bsnh->bcnh", ds.to(q.dtype).to(f32),
+                                q32))
+        del scores, pr, dp, ds        # before the next chunk's are made
+    return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``flash_attention`` custom VJP: saves q, k, v,
+    positions, the output and the log-sum-exp (nothing of size S x T) and
+    recomputes the scores chunk by chunk in the backward. ``setup_context``
+    and the generated vmap rule let it run under ``torch.func.vmap`` and
+    ``grad`` (the training step's rank grads) and inside a remat block's
+    ``torch.func.vjp``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(q, k, v, positions, causal, window, kc):
+        return _flash_fwd(q, k, v, positions, causal, window, kc)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, positions, causal, window, kc = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, positions, out, lse)
+        ctx.cfg = (causal, window, kc)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        # no graph: under torch.func.grad the backward runs with
+        # create_graph, and a graph of this loop would hold every chunk's
+        # (B, nh, S, kc) intermediates alive until the loop ends
+        with torch.no_grad():
+            grads = _flash_bwd(*ctx.saved_tensors, dout, *ctx.cfg)
+        return grads + (None,) * 4
+
+
+def flash_attention(q, k, v, positions, causal: bool, window: int,
+                    kc: int) -> torch.Tensor:
+    """Online-softmax attention with a recomputing backward. q: (B, S, nh,
+    hd); k/v: (B, T, nh, hd), GQA heads repeated by the caller;
+    positions: (T,). Returns (B, S, nh, hd)."""
+    return _FlashAttention.apply(q, k, v, positions, causal, window, kc)[0]
 
 
 def attention_prefill(p, cfg: ModelConfig, x, positions, cache_len: int):
@@ -193,12 +314,10 @@ def attention_prefill(p, cfg: ModelConfig, x, positions, cache_len: int):
     w = min(cache_len, window) holding position i at slot i % w."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
-    if s >= _CHUNKED_MIN and s % _KEY_CHUNK == 0:
-        g = cfg.num_heads // cfg.num_kv_heads
-        kr = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
-        vr = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
-        out = _flash_fwd(q, kr, vr, positions, True, cfg.sliding_window,
-                         _KEY_CHUNK)
+    if _chunked(s):
+        kr, vr = _repeat_kv(cfg, k, v)
+        out, _ = _flash_fwd(q, kr, vr, positions, True, cfg.sliding_window,
+                            _KEY_CHUNK)
         out = out.reshape(b, s, -1) @ p["wo"]
     else:
         i = positions[..., :, None]

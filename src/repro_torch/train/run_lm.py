@@ -38,8 +38,10 @@ over torch.distributed each process holds its 1/p of them.
 ``--zero`` is the example's ZeRO-sharded state: the scattered output
 mode, where the gradient exchange stops at the owner shard, the update
 runs on the shard and the parameters come back by one allgather a
-bucket (its per-device state breakdown waits for ROADMAP Queue 1 item
-14). ``--chaos SEED`` is the example's recovery smoke: a seed-derived
+bucket; the run first prints the device's state by component
+(``launch.dryrun.state_memory_breakdown``: the four stacked ranks'
+moment chunks and EF residuals, or one rank's under torchrun). ``--chaos
+SEED`` is the example's recovery smoke: a seed-derived
 ``FaultPlan.chaos`` of recoverable faults (grad NaN/Inf, straggler, data
 stall, collective raise, a corrupted checkpoint and the restore that
 must fall back) against the pipelined runtime (implied) under the retry
@@ -74,6 +76,7 @@ from repro_torch.comm.collectives import (ProcessGroupCollectives,
 
 from repro_torch.core.compressor import SyncConfig
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch.dryrun import state_memory_breakdown
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizers import OptimizerConfig
@@ -228,8 +231,15 @@ def _run(args, device, coll, chaos, ckpt_dir):
     # a shorter checkpoint cadence under chaos: the corrupt-then-restore
     # pair needs steps > 2 * ckpt_every
     ckpt_every = 10 if chaos else CKPT_EVERY
-    trainer = Trainer(model, train_config(steps, zero=args.zero), data,
-                      dp_total=coll.p if coll is not None else DP,
+    tcfg = train_config(steps, zero=args.zero)
+    dp_total = coll.p if coll is not None else DP
+    if args.zero:
+        mem = state_memory_breakdown(
+            model, tcfg, dp_total,
+            ranks=coll.local_ranks if coll is not None else None)
+        say("zero: per-device state "
+            + ", ".join(f"{k}={v / 1e6:.1f}MB" for k, v in mem.items()))
+    trainer = Trainer(model, tcfg, data, dp_total=dp_total,
                       device=device, ckpt_dir=ckpt_dir,
                       ckpt_every=ckpt_every, lowering=args.lowering,
                       coll=coll, obs=obs)

@@ -1281,3 +1281,29 @@ def test_cuda_continuous_ssm_matches_generate(cuda_device):
     for r in reqs:
         assert res.outputs[r.rid].tolist() == one.generate(
             r.prompt[None], r.max_new_tokens)[0].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 1024)])
+def test_cuda_flash_attention_matches_cpu(cuda_device, causal, window):
+    """The chunked training attention at S = 2048 (two key chunks), f32:
+    the output and the q, k, v gradients on the card against the CPU,
+    rtol 1e-5 with a floor of 1e-5 of each tensor's largest magnitude
+    (each device sums a matmul in its own order)."""
+    from repro_torch.models import layers as L
+
+    g = torch.Generator().manual_seed(7)
+    q, k, v, dout = (torch.randn((1, 2048, 4, 16), generator=g)
+                     for _ in range(4))
+
+    def run(dev):
+        qq, kk, vv = (t.to(dev).requires_grad_(True) for t in (q, k, v))
+        pos = torch.arange(2048, dtype=torch.int32, device=dev)
+        out = L.flash_attention(qq, kk, vv, pos, causal, window, 1024)
+        grads = torch.autograd.grad(out, (qq, kk, vv), dout.to(dev))
+        return [t.detach().cpu() for t in (out,) + grads]
+
+    for a, b in zip(run(cuda_device), run("cpu")):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))

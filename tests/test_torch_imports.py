@@ -44,3 +44,6 @@ def test_the_walk_sees_the_port():
     # serving
     assert {"engine.py", "scheduler.py", "sparse_decode.py",
             "run_serve.py"} <= names
+    # the dry run, its report, the roofline, the op counter, quickstart
+    assert {"dryrun.py", "roofline_report.py", "roofline.py", "op_cost.py",
+            "quickstart.py"} <= names
