@@ -256,9 +256,11 @@ Phases, in order; any failure exits non-zero:
      32-128 new), traced, then again under CUDA sync debug mode (exactly
      one host synchronisation a decode step), each request against its
      B = 1 generate (phase 16's margin rule); 18c: zamba2-2.7b at full
-     width, 12 layers of 54 (2 superblocks: the shared block's gradient
-     sums two call sites), as 18a for 3 steps at R = 4 (R = 2 if R = 4
-     peaks above 70 GB or runs out of memory, the reason recorded), then
+     width, 6 layers of 54 (1 superblock, for the smoke's time; the
+     shared block's gradient over two call sites is 18f's smoke
+     config, card against CPU), as 18a for 3 steps at R = 4 (R =
+     2 if R = 4 peaks above 70 GB or runs out of memory, the reason
+     recorded), then
      18b's requests served continuously, each against its B = 1
      generate; 18d: llama-3.2-vision-11b at full width, 5 layers of 40 (4
      self-attention layers and one gated cross-attention layer, the gates
@@ -296,14 +298,41 @@ Phases, in order; any failure exits non-zero:
      shape (dryrun.train_cost; the unfused eager ops' bound, whose memory
      term counts every op's operands and results, and its compute term
      alone) and its model-FLOP share of the bf16 peak (printed);
- 20. the kernels line (a kernel's "launches" are the main path's, or,
+ 20. one rank a process, finished: fsdp (ZeRO-3), and checkpoints and
+     chaos over a process group, every kernel's launch count reset
+     before each run and read after: 20a: dbrx-132b's own train_config
+     (dense sync, fsdp, bf16 moments, 8 microbatches) at its published
+     widths (d = 6144, 16 experts of 10752, vocab 100352), 1 layer of 40,
+     one 4096-token row a microbatch (2048, then 1024, where the dry
+     run's peak estimate does not fit or the card runs out of memory,
+     then qwen3-4b at 2 layers under the dry run's dense override;
+     recorded under "reduced"), 3 steps over a one-process NCCL group,
+     bit-equal to the same 3 steps over StackedCollectives(1) (two
+     64-bit sums of each state tensor's words, one position-weighted,
+     taken on the card), the step time and the peak
+     memory allocated and reserved beside the fsdp-aware dry run's
+     estimate of the same cell (dryrun.train_cost); 20b: lm-100m, dense
+     sync, fsdp over StackedCollectives(4), 3 steps, within rtol 1e-5
+     and a floor of 1e-5 of each tensor's largest magnitude of the
+     replicated dense step (losses and gathered params), the time a
+     step; 20c: lm-100m's widths at 2 of its 12 layers, SparCML, over
+     the NCCL world of 1: a Trainer with ckpt_dir writes the arrays the
+     stacked run's checkpoint holds, and a fresh process-group Trainer
+     resumed from it runs on bit-equal to the stacked run; then run_lm
+     --lowering manual --pipeline --chaos 4 (30 steps, its checkpoints
+     every 10) in this process under torchrun's variables for a world of
+     1, which must end with exactly its planned faults, one
+     restart a planned collective raise, the corrupted save skipped
+     once, and the four kernels launched ("launches_fsdp_restore": the
+     two paths' counts);
+ 21. the kernels line (a kernel's "launches" are the main path's, or,
      for one the main path does not run, those of the first later path
      that runs it, named in "launches_path"; "launches_moe_train" and
      "launches_moe_serve" those of phase 17's runs, "launches_ssm_train",
      "launches_hybrid_train", "launches_encoder_train" and
      "launches_ssm_serve" those of phase 18's, "launches_long_train"
-     phase 19b's), the card line, and last the result line {"ok": true,
-     "device": {...}}.
+     phase 19b's, "launches_fsdp_restore" phase 20c's), the card line,
+     and last the result line {"ok": true, "device": {...}}.
 
 It imports torch and the port (``src/repro_torch``), never JAX. A longer
 record of the run goes to chiprun_out/chip_smoke.json.
@@ -314,6 +343,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -945,7 +975,7 @@ def main() -> None:
                                   run_lm.DP, tcfg3.microbatches)
     grads_ms = time_ms(torch, grads, reps=3)
     _, leaves_r = grads()
-    rand0 = ts.step_rand_fn(tcfg3.seed, 0, dev)
+    rand0 = ts.StepBits(tcfg3.seed, 0, dev, run_lm.DP)
     reduce = lambda: reduce_buckets_spmd(trainer.plan, leaves_r,
                                          st.residuals, p_data=run_lm.DP,
                                          rand_fn=rand0, telemetry=False)
@@ -1348,6 +1378,25 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 20
+    t_phase = time.perf_counter()
+    record["fsdp"], fsdp_paths = phase_fsdp(torch, dev, wrappers, out_dir)
+    new_paths.update(fsdp_paths)
+    record["fsdp"]["seconds"] = time.perf_counter() - t_phase
+    for row in kernels:
+        grouped = "qsgd_unpack_grouped" if row["name"] == "qsgd_unpack" \
+            else row["name"]
+        row["launches_fsdp_restore"] = {
+            path: counts[grouped] for path, counts in fsdp_paths.items()}
+        if row["name"] in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
+                           "qsgd_unpack") and not all(
+                               row["launches_fsdp_restore"].values()):
+            fail(f"20c: {row['name']} was not launched on the process-group "
+                 "checkpoint and chaos paths")
+    log(f"[20] phase took {record['fsdp']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 21
     for row in kernels:
         row["launches_new_paths"] = {
             path: counts[row["name"]] for path, counts in new_paths.items()}
@@ -1823,7 +1872,7 @@ def phase_manual(torch, dev, wrappers, spmd_main):
     st = trainer.state
     _, leaves = ts.rank_grads(trainer.model, st.params, ts.batch_to_device(
         synthetic_batch(data, 0), dev), run_lm.DP, trainer.tcfg.microbatches)
-    rand0 = ts.step_rand_fn(trainer.tcfg.seed, 0, dev)
+    rand0 = ts.StepBits(trainer.tcfg.seed, 0, dev, run_lm.DP)
     coll = StackedCollectives(run_lm.DP, dev)
     halves = {
         "stacked": lambda: reduce_buckets_spmd(
@@ -2072,7 +2121,7 @@ def phase_telemetry(torch, dev, wrappers, tiny, tiny_data, params0, bits_for):
     st = fresh()
     _, leaves = ts.rank_grads(model, st.params, ts.batch_to_device(
         batch(0), dev), run_lm.DP, tcfg.microbatches)
-    rand0 = ts.step_rand_fn(tcfg.seed, 0, dev)
+    rand0 = ts.StepBits(tcfg.seed, 0, dev, run_lm.DP)
     alone = [time_ms(torch, lambda tel=tel: reduce_buckets_spmd(
         plan, leaves, st.residuals, p_data=run_lm.DP, rand_fn=rand0,
         telemetry=tel), reps=3) for tel in (False, True, True, False)]
@@ -2884,7 +2933,7 @@ def phase_zero(torch, dev, wrappers, out_dir: Path, bw):
             synthetic_batch(data, 0), dev), run_lm.DP, s_.tcfg.microbatches)
         from repro_torch.comm.executor import reduce_buckets_spmd
 
-        rand0 = ts.step_rand_fn(s_.tcfg.seed, 0, dev)
+        rand0 = ts.StepBits(s_.tcfg.seed, 0, dev, run_lm.DP)
         rec["chunk_unpack"] = check_chunk_unpack(
             torch, lambda: reduce_buckets_spmd(
                 s_.plan, leaves, st.residuals, p_data=run_lm.DP,
@@ -4000,7 +4049,7 @@ def moe_train(torch, dev, wrappers, cfg=None, replicas=MOE_TRAIN_R,
     torch.cuda.synchronize()
     rec["memory"]["rank_grads_peak_allocated_gb"] = \
         torch.cuda.max_memory_allocated() / 1e9
-    rand0 = ts.step_rand_fn(tcfg.seed, st.step, dev)
+    rand0 = ts.StepBits(tcfg.seed, st.step, dev, r)
     reduce = lambda: reduce_buckets_spmd(plan, leaves_r, st.residuals,
                                          p_data=r, rand_fn=rand0,
                                          telemetry=False)
@@ -4574,7 +4623,7 @@ ENC_ARCH = "hubert-xlarge"
 FAM_R = 4                  # 18a, 18c, 18e: replicas stacked on the card
 FAM_SEQ = 512              # one 512-token (frame) row a rank a microbatch
 SSM_TRAIN_STEPS = 3        # 18a: full width and depth
-HYBRID_LAYERS = 12         # 18c: 54 -> 12 layers, 2 superblocks
+HYBRID_LAYERS = 6          # 18c: 54 -> 6 layers, 1 superblock
 HYBRID_TRAIN_STEPS = 3
 HYBRID_PEAK_GB = 70.0      # 18c: above this peak, R = 2 (as 17a)
 VLM_LAYERS = 5             # 18d: 40 -> 5 layers, 1 superblock
@@ -4714,7 +4763,7 @@ def family_train(torch, dev, wrappers, tag: str, arch: str, cfg, steps: int,
     # -- the reduce half alone on the last step's grads and the residuals
     #    it left (the params and moments freed first)
     leaves_r, residuals = kept.pop("leaves"), trainer.state.residuals
-    rand0 = ts.step_rand_fn(tcfg.seed, steps - 1, dev)
+    rand0 = ts.StepBits(tcfg.seed, steps - 1, dev, replicas)
     trainer.state = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -4973,9 +5022,9 @@ def ssm_serve(torch, dev, wrappers, out_dir: Path, bw, f32_peak):
 
 
 def hybrid_phase(torch, dev, wrappers):
-    """18c: zamba2-2.7b at full width, 12 layers: SparCML training (R = 4,
-    or R = 2 when R = 4's peak passes HYBRID_PEAK_GB or runs out of
-    memory), then 18b's requests served continuously."""
+    """18c: zamba2-2.7b at full width, HYBRID_LAYERS layers: SparCML
+    training (R = 4, or R = 2 when R = 4's peak passes HYBRID_PEAK_GB or
+    runs out of memory), then 18b's requests served continuously."""
     from repro_torch import configs
     from repro_torch.models.model import build_model
 
@@ -5469,6 +5518,437 @@ def phase_long(torch, dev, wrappers):
              f"{d['state_rel_err']:.2%} from the {measured} B the trainer "
              "allocated")
     return rec, {"long_train": launches}
+
+
+# ---------------------------------------------------------------- 20
+FSDP_ARCH = "dbrx-132b"
+FSDP_LAYERS = 1            # 20a: 40 -> 1 layers, every width as published
+FSDP_SEQ = (4096, 2048, 1024)  # 20a: a microbatch's one row, cut in turn
+FSDP_STEPS = 3
+FSDP_R = 4                 # 20b: lm-100m's ranks stacked
+PG_STEPS = (2, 4)          # 20c: the checkpoint at 2, resumed to 4
+CHAOS_SEED, CHAOS_STEPS = 4, 30   # 20c: restores after the first save
+
+def _fingerprint(state) -> list:
+    """Each tensor of a state (params, moments, residuals) as two 64-bit
+    sums of its 32-bit words (its bytes where their count is no multiple
+    of 4) on the card, the second weighted by a hash of each word's
+    position, a slice of 2^26 words at a time: two states of equal bytes
+    give equal lists, and one word apart changes the first sum. What 20a
+    compares, where a host copy of dbrx's 27 GB state took 9 s."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    step = 1 << 26
+    out = []
+    for f in ("params", "opt", "residuals"):
+        for t in tree_leaves(getattr(state, f)):
+            if t is None:
+                continue
+            raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+            if raw.numel() % 4 == 0:
+                raw = raw.view(torch.int32)
+            s1 = torch.zeros((), dtype=torch.int64, device=raw.device)
+            s2 = torch.zeros_like(s1)
+            for a in range(0, raw.numel(), step):
+                x = raw[a:a + step].to(torch.int64)
+                pos = torch.arange(a, a + x.numel(), dtype=torch.int64,
+                                   device=raw.device)
+                s1 += x.sum()
+                s2 += (x * ((pos * 2654435761) % 4294967291 + 1)).sum()
+            out.append((tuple(t.shape), str(t.dtype), int(s1), int(s2)))
+    return out
+
+
+def _nccl_world_of_one(torch, d: str):
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{d}/rendezvous",
+                            world_size=1, rank=0)
+
+
+def _fsdp_cells():
+    """20a's runs in the order tried: dbrx-132b's own train_config at
+    FSDP_LAYERS layers, a microbatch's row cut on running out of memory,
+    then qwen3-4b at 2 layers under the dry run's dense override."""
+    from repro_torch import configs
+    from repro_torch.configs._common import make_train_config
+
+    dbrx = (FSDP_ARCH, configs.get_config(FSDP_ARCH, num_layers=FSDP_LAYERS),
+            configs.get_train_config(FSDP_ARCH), "its own train_config")
+    for seq in FSDP_SEQ:
+        yield dbrx + (seq,)
+    yield ("qwen3-4b", configs.get_config("qwen3-4b", num_layers=2),
+           make_train_config(sync_mode="dense", fsdp=True),
+           "the dry run's dense override", FSDP_SEQ[0])
+
+
+def fsdp_full_width(torch, dev, coll_pg) -> dict:
+    """20a: dbrx-132b's own train_config (dense, fsdp, bf16 moments, 8
+    microbatches) at its published widths cut to FSDP_LAYERS layers, one
+    FSDP_SEQ-token row a microbatch, over the NCCL world of 1 and over
+    StackedCollectives(1): FSDP_STEPS steps each, bit-equal (by each
+    state's ``_fingerprint``); the step
+    time and peaks beside the dry run's estimate. A run out of memory
+    goes on to the next of ``_fsdp_cells``, as does a dbrx row length
+    whose dry-run peak estimate exceeds the card (but the last), each
+    recorded under "reduced"."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import build_model
+    from repro_torch.train.trainer import Trainer
+
+    reduced, runs, trainer, first = [], None, None, None
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[20a] device memory in use before: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+    for arch, cfg, tcfg, which, seq in _fsdp_cells():
+        model = build_model(cfg)
+        data = DataConfig(global_batch=tcfg.microbatches, seq_len=seq,
+                          vocab_size=cfg.vocab_size)
+        est = dryrun.train_cost(model, tcfg, 1, tcfg.microbatches, seq)
+        if not est["fits"] and arch == FSDP_ARCH and seq != FSDP_SEQ[-1]:
+            log(f"[20a] {arch} at {seq} tokens a row: the dry run's peak "
+                f"estimate {est['peak_estimate'] / 1e9:.1f} GB does not fit")
+            reduced.append(f"{arch} at {cfg.num_layers} layer(s) and {seq} "
+                           f"tokens a row: the dry run's peak estimate "
+                           f"{est['peak_estimate'] / 1e9:.1f} GB")
+            continue
+        runs = {}
+        try:
+            for name, coll in (("process_group", coll_pg),
+                               ("stacked", None)):
+                trainer = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                trainer = Trainer(model, tcfg, data, dp_total=1, device=dev,
+                                  lowering="manual", coll=coll)
+                trainer.init()
+                log_ = trainer.run(FSDP_STEPS)
+                torch.cuda.synchronize()
+                runs[name] = {
+                    "losses": list(log_.losses),
+                    "step_s": list(log_.step_times),
+                    "peak_allocated_gb": torch.cuda.max_memory_allocated()
+                    / 1e9,
+                    "peak_reserved_gb": torch.cuda.max_memory_reserved()
+                    / 1e9}
+                t0 = time.perf_counter()
+                runs[name]["fingerprint"] = _fingerprint(trainer.state)
+                runs[name]["fingerprint_s"] = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError as exc:
+            log(f"[20a] {arch} ({which}) at {cfg.num_layers} layer(s), "
+                f"{seq} tokens a row ran out of memory: {str(exc)[:200]}")
+            reduced.append(f"{arch} at {cfg.num_layers} layer(s) and {seq} "
+                           "tokens a row: out of memory")
+            runs = trainer = None
+            continue
+        finally:
+            trainer = None
+        break
+    if not runs:
+        fail("20a: no fsdp cell fits the card")
+    same = (runs["process_group"].pop("fingerprint")
+            == runs["stacked"].pop("fingerprint"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    pg = runs["process_group"]
+    rec = {"arch": arch, "train_config": which, "layers": cfg.num_layers,
+           "seq": seq, "rows": tcfg.microbatches, "reduced": reduced,
+           "bit_equal_to_stacked": same, "runs": runs,
+           "step_s_median": statistics.median(pg["step_s"][1:]),
+           "dryrun": {"peak_estimate_gb": est["peak_estimate"] / 1e9,
+                      "state_gb": est["state_memory"]["total"] / 1e9,
+                      "gathered_params_gb": est["gathered_params"] / 1e9,
+                      "bound_s": est["roofline"]["bound_s"]}}
+    log(f"[20a] {arch} ({which}) at {cfg.num_layers} layer(s), fsdp over an "
+        f"NCCL world of 1, {tcfg.microbatches} microbatches of one "
+        f"{seq}-token row, {FSDP_STEPS} steps: losses {pg['losses']}, step "
+        f"{rec['step_s_median'] * 1e3:.1f} ms (steps {pg['step_s']}), peak "
+        f"allocated {pg['peak_allocated_gb']:.2f} GB, reserved "
+        f"{pg['peak_reserved_gb']:.2f} GB; the dry run's estimate: peak "
+        f"{rec['dryrun']['peak_estimate_gb']:.2f} GB (state "
+        f"{rec['dryrun']['state_gb']:.2f} GB, gathered params "
+        f"{rec['dryrun']['gathered_params_gb']:.2f} GB), bound "
+        f"{rec['dryrun']['bound_s']:.4f} s; bit-equal to "
+        f"StackedCollectives(1) {same} (fingerprints "
+        f"{pg['fingerprint_s']:.2f} + "
+        f"{runs['stacked']['fingerprint_s']:.2f} s); reduced {reduced}")
+    if not same:
+        fail("20a: the fsdp step over NCCL differs from the stacked one")
+    if not all(math.isfinite(v) for v in pg["losses"]):
+        fail(f"20a: non-finite losses {pg['losses']}")
+    return rec
+
+
+def fsdp_stacked(torch, dev) -> dict:
+    """20b: lm-100m with dense sync and fsdp over StackedCollectives(4)
+    against the replicated dense step, FSDP_STEPS steps from one seed:
+    losses and gathered params within rtol 1e-5 and a floor of 1e-5 of
+    each tensor's largest magnitude."""
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.models.model import build_model
+    from repro_torch.train import run_lm
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg, data = run_lm.lm_config(fast=False)
+    model = build_model(cfg)
+    out = {}
+    for name, fsdp in (("replicated", False), ("fsdp", True)):
+        trainer = Trainer(model, run_lm.train_config(100, mode="dense",
+                                                     fsdp=fsdp), data,
+                          dp_total=FSDP_R, device=dev)
+        trainer.init()
+        log_ = trainer.run(FSDP_STEPS)
+        params = trainer.state.params
+        if fsdp:
+            params = ts.gather_params(params, trainer.fsdp_layout,
+                                      StackedCollectives(FSDP_R, dev))
+        out[name] = (list(log_.losses), [t.clone() for t in
+                                         tree_leaves(params)],
+                     list(log_.step_times))
+        del trainer, params
+        gc.collect()
+    (l0, p0, t0), (l1, p1, t1) = out["replicated"], out["fsdp"]
+    worst = 0.0
+    close = len(p0) == len(p1)
+    for a, b in zip(p1, p0):
+        floor = 1e-5 * float(b.abs().max())
+        ok = bool(torch.all((a - b).abs() <= 1e-5 * b.abs() + floor))
+        close = close and ok
+        worst = max(worst, float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30))
+    losses_close = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(l1, l0))
+    rec = {"losses": l1, "replicated_losses": l0,
+           "params_close": close, "losses_close": losses_close,
+           "max_rel_of_largest": worst,
+           "step_ms": statistics.median(t1[1:]) * 1e3,
+           "replicated_step_ms": statistics.median(t0[1:]) * 1e3}
+    log(f"[20b] lm-100m, dense sync, fsdp over StackedCollectives({FSDP_R}), "
+        f"{FSDP_STEPS} steps: losses {l1} (replicated {l0}), params within "
+        f"rtol 1e-5 + 1e-5 of the largest {close} (worst {worst:.3g} of "
+        f"the largest); step {rec['step_ms']:.1f} ms (replicated "
+        f"{rec['replicated_step_ms']:.1f} ms)")
+    if not (close and losses_close):
+        fail("20b: stacked fsdp differs from the replicated dense step")
+    return rec
+
+
+def pg_checkpoints(torch, dev, wrappers, coll_pg, d: Path) -> tuple:
+    """20c (in this process): lm-100m's widths at CKPT_LAYERS layers,
+    SparCML, over the NCCL world of 1: a checkpoint at step 2 holds the
+    stacked run's arrays; a fresh process-group Trainer resumed from it
+    and run to step 4 is bit-equal to the stacked run continued.
+    Returns (record, launches)."""
+    import numpy as np
+
+    from repro_torch.models.model import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import run_lm
+    from repro_torch.train.trainer import Trainer
+
+    cfg, data = run_lm.lm_config(fast=False)
+    model = build_model(dataclasses.replace(cfg, num_layers=CKPT_LAYERS))
+    tcfg = run_lm.train_config(100)
+    for w in wrappers.values():
+        w.launches = 0
+
+    def trainer(coll, where):
+        return Trainer(model, tcfg, data, dp_total=1, device=dev,
+                       lowering="manual", coll=coll, ckpt_dir=str(d / where))
+
+    pg = trainer(coll_pg, "pg")
+    pg.init()
+    pg.run(PG_STEPS[0])
+    del pg
+    stacked = trainer(None, "stacked")
+    stacked.init()
+    stacked.run(PG_STEPS[0])
+    stacked.ckpt_dir = None         # its one checkpoint is the one compared
+    arrays = {}
+    for where in ("pg", "stacked"):
+        step_dir = d / where / f"step_{PG_STEPS[0]:08d}"
+        with np.load(step_dir / "arrays.npz") as z:
+            arrays[where] = {k: z[k] for k in z.files}
+        arrays[where + "_meta"] = ckpt.load_meta(str(d / where),
+                                                 PG_STEPS[0])
+    same_arrays = (arrays["pg"].keys() == arrays["stacked"].keys() and all(
+        np.array_equal(arrays["pg"][k], arrays["stacked"][k])
+        for k in arrays["pg"]) and arrays["pg_meta"]["paths"]
+        == arrays["stacked_meta"]["paths"])
+    del arrays
+    t0 = time.perf_counter()
+    resumed = trainer(coll_pg, "pg")
+    at = resumed.init_or_resume()
+    restore_s = time.perf_counter() - t0
+    resumed.ckpt_dir = None
+    resumed.run(PG_STEPS[1])
+    stacked.run(PG_STEPS[1])
+    same = at == PG_STEPS[0] and _same(_clone_state(resumed.state),
+                                       _clone_state(stacked.state))
+    launches = {nm: w.launches for nm, w in wrappers.items()}
+    rec = {"checkpoint_arrays_equal": same_arrays, "resumed_at": at,
+           "resume_bit_equal": same, "restore_s": restore_s,
+           "launches": launches}
+    log(f"[20c] lm-100m at {CKPT_LAYERS} layers, SparCML, NCCL world of 1: "
+        f"the step-{PG_STEPS[0]} checkpoint's arrays equal the stacked "
+        f"run's {same_arrays}; a fresh Trainer resumed at step {at} "
+        f"({restore_s:.2f} s with the CRC checks) and run to "
+        f"{PG_STEPS[1]} bit-equal to the stacked run continued {same}; "
+        f"launches {launches}")
+    if not (same_arrays and same):
+        fail("20c: the process-group checkpoint differs from the stacked "
+             "run's, or its resume does")
+    del resumed, stacked
+    gc.collect()
+    return rec, launches
+
+
+def run_chaos(wrappers, d: Path) -> tuple:
+    """20c: run_lm --lowering manual --pipeline --chaos CHAOS_SEED over
+    CHAOS_STEPS steps, lm-100m at CKPT_LAYERS layers, in this process
+    under torchrun's variables for a world of 1 (run_lm joins its own
+    NCCL group and leaves it): it must end at its last step with its
+    planned faults injected, one restart a planned collective raise, the
+    corrupted save skipped once, and the four kernels launched. Its
+    Trainer is kept, and its saves and restores timed, by wrapping the
+    Trainer's methods for the run. Returns (record, launches)."""
+    import contextlib
+    import io
+    import socket
+
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.train import run_lm
+    from repro_torch.train.trainer import Trainer
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    was_env = {k: os.environ.get(k) for k in env}
+    full = run_lm.lm_config
+    inner = {n: getattr(Trainer, n)
+             for n in ("run_pipelined", "_save", "_restore")}
+    kept, times = {}, {"_save": [], "_restore": []}
+
+    def keep(self, *a, **k):
+        kept["trainer"] = self
+        return inner["run_pipelined"](self, *a, **k)
+
+    def timed(name):
+        def run(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return inner[name](self, *a, **k)
+            finally:
+                times[name].append(time.perf_counter() - t0)
+        return run
+
+    for w in wrappers.values():
+        w.launches = 0
+    os.environ.update(env)
+    run_lm.lm_config = lambda fast: (
+        dataclasses.replace(full(fast)[0], num_layers=CKPT_LAYERS),
+        full(fast)[1])
+    Trainer.run_pipelined = keep
+    Trainer._save, Trainer._restore = timed("_save"), timed("_restore")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            run_lm.main(["--lowering", "manual", "--pipeline", "--chaos",
+                         str(CHAOS_SEED), "--steps", str(CHAOS_STEPS),
+                         "--ckpt-dir", str(d / "chaos_ckpt")])
+    finally:
+        seconds = time.perf_counter() - t0
+        run_lm.lm_config = full
+        for n, f in inner.items():
+            setattr(Trainer, n, f)
+        for k, v in was_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = {nm: w.launches for nm, w in wrappers.items()}
+    t = kept.pop("trainer")
+    reg = t.obs.metrics
+    got = {"world": t.coll.p if t.coll is not None else None,
+           "injected": [[e["fault"], e["step"]]
+                        for e in reg.events_named("faults/injected")],
+           "restarts": [e["error"]
+                        for e in reg.events_named("driver/restart")],
+           "fallbacks": len(reg.events_named("recovery/ckpt_fallback")),
+           "step": int(t.state.step), "save_s": times["_save"],
+           "restore_s": times["_restore"], "launches": launches}
+    del t
+    gc.collect()
+    plan = FaultPlan.chaos(CHAOS_SEED, CHAOS_STEPS, ckpt_every=10)
+    planned = sorted({(s.kind, s.step) for s in plan.specs})
+    n_collective = len(plan.by_kind("collective"))
+    as_planned = (got["world"] == 1 and got["step"] == CHAOS_STEPS
+                  and sorted({tuple(e) for e in got["injected"]}) == planned
+                  and got["restarts"] == ["FaultInjectionError"]
+                  * n_collective and got["fallbacks"] == 1)
+    rec = {**got, "planned": planned, "as_planned": as_planned,
+           "seconds": seconds,
+           "stdout": [ln for ln in out.getvalue().splitlines()
+                      if ln.startswith(("done:", "chaos", "starting"))]}
+    log(f"[20c] run_lm --pipeline --chaos {CHAOS_SEED} under torchrun's "
+        f"variables (world {got['world']}, {CHAOS_STEPS} steps, "
+        f"{seconds:.1f} s): injected "
+        f"{got['injected']}, restarts {got['restarts']}, checkpoint "
+        f"fallbacks {got['fallbacks']}; as planned {as_planned}; launches "
+        f"{launches}; saves {[round(v, 2) for v in got['save_s']]} s, "
+        f"restores {[round(v, 2) for v in got['restore_s']]} s")
+    if not as_planned:
+        fail(f"20c: the chaos run did not recover as planned: {got}")
+    for nm in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
+               "qsgd_unpack_grouped"):
+        if not launches.get(nm):
+            fail(f"20c: {nm} was not launched on the chaos run")
+    return rec, launches
+
+
+def phase_fsdp(torch, dev, wrappers, out_dir: Path):
+    """Phase 20 (see the module docstring). Returns (record, {path:
+    launches})."""
+    import torch.distributed as dist
+
+    from repro_torch.comm.collectives import ProcessGroupCollectives
+
+    rec: dict = {}
+    paths: dict = {}
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        d = Path(tmp)
+        _nccl_world_of_one(torch, tmp)
+        try:
+            coll = ProcessGroupCollectives(device=dev)
+            expandable = _expandable_segments(torch, True)
+            try:
+                t0 = time.perf_counter()
+                rec["full_width"] = fsdp_full_width(torch, dev, coll)
+                log(f"[20a] took {time.perf_counter() - t0:.1f} s")
+            finally:
+                if expandable:
+                    _expandable_segments(torch, False)
+            t0 = time.perf_counter()
+            rec["stacked"] = fsdp_stacked(torch, dev)
+            log(f"[20b] took {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            rec["checkpoints"], paths["pg_checkpoints"] = pg_checkpoints(
+                torch, dev, wrappers, coll, d)
+            log(f"[20c] checkpoints took {time.perf_counter() - t0:.1f} s")
+        finally:
+            dist.destroy_process_group()
+        rec["chaos"], paths["pg_chaos"] = run_chaos(wrappers, d)
+    return rec, paths
 
 
 def _expandable_segments(torch, on: bool) -> bool:

@@ -34,17 +34,14 @@ def make_train_config(*, sync_mode: str, schedule_kind: str = "cosine",
                       peak_lr: float = 3e-4, opt_dtype=torch.float32,
                       microbatches: int = 1, fsdp: bool = False,
                       k: int = 4, qsgd_bits=4) -> TrainConfig:
-    """The reference's training config. ``fsdp`` (ZeRO-3 parameter
-    placement, dense sync only) is not ported and raises."""
-    if fsdp:
-        raise NotImplementedError(
-            "fsdp (ZeRO-3 parameter placement) is not ported yet (ROADMAP "
-            "Queue 1, item 10 — fsdp)")
+    """The reference's training config. ``fsdp`` is ZeRO-3 (params and
+    moments sharded over the data-parallel ranks; dense sync only)."""
     return TrainConfig(
         sync=default_sync(sync_mode, k=k, qsgd_bits=qsgd_bits),
         optimizer=OptimizerConfig(kind="adamw", state_dtype=opt_dtype),
         schedule=ScheduleConfig(kind=schedule_kind, peak_lr=peak_lr,
                                 warmup_steps=200, total_steps=20000),
         microbatches=microbatches,
+        fsdp=fsdp,
         zero1=(sync_mode == "sparcml"),
     )

@@ -4,8 +4,7 @@ The JAX package's ``repro.configs.dbrx_132b``.
 
 At full scale this model needs FSDP placement, and per-rank EF residuals
 do not compose with it, so its ``train_config`` asks for dense sync with
-``fsdp=True``; SparCML runs on its smoke config. The port has no fsdp yet,
-so ``train_config`` raises (ROADMAP Queue 1, item 10 — fsdp)."""
+``fsdp=True``; SparCML runs on its smoke config."""
 import torch
 
 from repro_torch.configs._common import make_train_config

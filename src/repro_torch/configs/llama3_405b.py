@@ -5,9 +5,7 @@ The JAX package's ``repro.configs.llama3_405b``.
 At 405B the per-rank error-feedback residual of TopK SGD is O(model size)
 per data rank, which does not compose with the ZeRO-3 placement this
 model needs, so its ``train_config`` asks for dense sync with
-``fsdp=True`` and bf16 optimizer state; SparCML runs on its smoke config.
-The port has no fsdp yet, so ``train_config`` raises (ROADMAP Queue 1,
-item 10 — fsdp)."""
+``fsdp=True`` and bf16 optimizer state; SparCML runs on its smoke config."""
 import torch
 
 from repro_torch.configs._common import make_train_config

@@ -53,11 +53,14 @@ def dequantize(packed: torch.Tensor, scale: torch.Tensor, cfg: QSGDConfig,
 
 
 def random_bits(n: int, generator: Optional[torch.Generator] = None,
-                device="cpu") -> torch.Tensor:
+                device="cpu", out: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """Uniform u32 noise for stochastic rounding (an explicit operand).
 
     Drawn as full-range int32 from ``generator`` (Philox on a CUDA device)
-    and reinterpreted as uint32."""
-    bits = torch.empty(n, dtype=torch.int32, device=device)
+    and reinterpreted as uint32; into ``out`` (n contiguous int32) when
+    given, with the bits a fresh tensor would get."""
+    bits = (torch.empty(n, dtype=torch.int32, device=device) if out is None
+            else out)
     bits.random_(-2**31, 2**31, generator=generator)
     return bits.view(torch.uint32)

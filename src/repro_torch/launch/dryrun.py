@@ -5,6 +5,8 @@ on one H100, from shapes alone (the JAX package's
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
         --shape train_4k --layers 2 --dp 2
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out build/dryrun]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
+        --shape train_4k --sync dense     # dense sync + fsdp, every arch
 
 Everything runs on the ``meta`` device, on the CPU: the model is built
 there (its init allocates nothing), the step's operations are counted by
@@ -14,12 +16,14 @@ sync's wire bytes come from the plan).
 
 The port has no mesh. A cell trains ``dp_total`` data-parallel ranks
 stacked on one card, as ``Trainer`` does: the card holds the params
-once, every rank's EF residuals and every rank's ZeRO-1 (or scattered)
-moment chunks, and runs every rank's microbatches. Each cell writes
-``<out>/<arch>__<shape>__stacked<dp>.json`` with
+once (under fsdp every rank's shards), every rank's EF residuals and
+every rank's ZeRO-1 (or scattered) moment chunks, and runs every rank's
+microbatches. Each cell writes
+``<out>/<arch>__<shape>__stacked<dp>[__<sync>].json`` with
   * ``state_memory``: the card's persistent state by component
-    (``state_memory_breakdown``; one rank a process holds its share:
-    ``ranks=1``);
+    (``state_memory_breakdown``), and ``state_memory_per_rank`` the share
+    one rank a process holds (``ranks=1``: under fsdp its 1/p of the
+    params and moments);
   * ``counted``: one rank's forward + backward of one microbatch (remat
     as the config says) counted by ``OpCost``; ``cost``: that times
     microbatches x ranks (train), or the forward of the whole batch
@@ -30,14 +34,16 @@ moment chunks, and runs every rank's microbatches. Each cell writes
     active parameters for MoE), the ``Roofline`` of one card with the
     H100's peaks (compute at the peak of the model's dtype),
     ``remat_dup`` (train), and a ``fits`` verdict: ``peak_estimate``
-    (the state, every rank's largest live bytes of one microbatch, and
-    the ranks' accumulated f32 grads when there are several
-    microbatches) against the card's 80 GB;
+    (the state, every rank's largest live bytes of one microbatch, the
+    ranks' accumulated f32 grads when there are several microbatches,
+    and under fsdp the params gathered whole for the forward) against
+    the card's 80 GB;
   * ``reduced``, when ``--layers`` cut the depth.
+``--sync dense`` trains every cell with dense sync and fsdp (the
+reference's override); ``--sync sparcml`` with the arch's own config.
 The reference's lower and compile times, and XLA's memory analysis,
 have no counterpart in eager PyTorch and are left out. Shapes that
-``applicable_shapes`` rejects are ``skipped`` with the reason, as are
-train cells of configs whose training the port has not ported (fsdp).
+``applicable_shapes`` rejects are ``skipped`` with the reason.
 """
 from __future__ import annotations
 
@@ -54,7 +60,9 @@ from torch.utils._pytree import tree_leaves
 from repro_torch import configs as cfgreg
 from repro_torch.core.compressor import wire_bytes_per_step
 from repro_torch.models.model import build_model, init_params
-from repro_torch.train.train_step import build_plan, init_opt
+from repro_torch.configs._common import make_train_config
+from repro_torch.train.train_step import (build_plan, fsdp_layout_of,
+                                          init_opt, shard_params)
 from repro_torch.utils import op_cost
 from repro_torch.utils.roofline import (H100, Roofline, compute_peak,
                                         model_flops_infer, model_flops_train)
@@ -96,14 +104,18 @@ def state_memory_breakdown(model, tcfg, dp_total: int,
     """The card's persistent training state in bytes, by component, for
     the ``ranks`` of ``dp_total`` that one device holds (all of them,
     stacked, by default; 1 for one rank a process): ``params`` (one
-    copy), ``opt_mu``/``opt_nu`` (full moments, or those ranks' ZeRO-1
-    or scattered chunks), ``ef_residual`` (those ranks' residuals),
+    copy, or under fsdp those ranks' shards), ``opt_mu``/``opt_nu`` (full
+    moments, those ranks' ZeRO-1 or scattered chunks, or their fsdp
+    shards), ``ef_residual`` (those ranks' residuals),
     ``inflight`` (the pipelined runtime's reduced buffers: one
     replicated buffer a bucket, or those ranks' scattered chunks) and
     ``total``. Built on the meta device."""
     ranks = dp_total if ranks is None else ranks
     plan = build_plan(model, tcfg, dp_total)
     params = init_params(model.cfg, device=META)
+    if tcfg.fsdp:
+        params = shard_params(params, fsdp_layout_of(model, dp_total),
+                              range(ranks))
     opt = init_opt(params, tcfg, plan, META, ranks)
     out = {"params": _nbytes(params),
            "opt_mu": _nbytes(opt["mu"]),
@@ -163,11 +175,17 @@ def train_cost(model, tcfg, dp_total: int, rows_per_rank: int,
         peak_flops=compute_peak(peaks, cfg.dtype), hbm_bw=peaks.hbm,
         link_bw=peaks.link)
     grads = dp_total * cfg.param_count() * 4 if micro > 1 else 0
-    peak = state["total"] + dp_total * counted.peak_bytes + grads
+    # fsdp's transient: the params gathered whole before the forward
+    gathered = _nbytes(params) if tcfg.fsdp else 0
+    peak = state["total"] + gathered + dp_total * counted.peak_bytes + grads
     return {
         "kind": "train", "sync_mode": tcfg.sync.mode, "dp_total": dp_total,
+        "fsdp": tcfg.fsdp,
         "microbatches": micro, "rows_per_microbatch": mb, "tokens": tokens,
         "state_memory": state,
+        "state_memory_per_rank": state_memory_breakdown(model, tcfg,
+                                                        dp_total, ranks=1),
+        "gathered_params": gathered,
         "counted": counted.as_dict(),
         "cost": {"flops": counted.flops * n,
                  "other_flops": counted.other_flops * n,
@@ -223,9 +241,12 @@ def _serve_cost(model, shape, peaks=H100) -> dict:
 
 
 def run_cell(arch: str, shape_name: str, dp_total: int = 2,
-             layers: int | None = None, out_dir: str | None = None) -> dict:
+             layers: int | None = None, out_dir: str | None = None,
+             sync_override: str | None = None) -> dict:
     """Count one cell (see the module docstring); writes its JSON to
-    ``out_dir`` when given and returns the record."""
+    ``out_dir`` when given and returns the record. ``sync_override``:
+    "dense" (dense sync and fsdp) or "sparcml" (the arch's own config),
+    as the reference's."""
     layout = f"stacked{dp_total}"
     rec = {"arch": arch, "shape": shape_name, "layout": layout,
            "status": "ok"}
@@ -243,7 +264,9 @@ def run_cell(arch: str, shape_name: str, dp_total: int = 2,
             if cfg.num_layers != full:
                 rec["reduced"] = f"depth {full} -> {cfg.num_layers} layers"
             if shape.kind == "train":
-                tcfg = cfgreg.get_train_config(arch)
+                tcfg = (make_train_config(sync_mode="dense", fsdp=True)
+                        if sync_override == "dense"
+                        else cfgreg.get_train_config(arch))
                 if shape.global_batch % dp_total:
                     raise ValueError(f"global batch {shape.global_batch} "
                                      f"does not split over {dp_total} ranks")
@@ -252,8 +275,6 @@ def run_cell(arch: str, shape_name: str, dp_total: int = 2,
                                       shape.seq_len))
             else:
                 rec.update(_serve_cost(model, shape))
-        except NotImplementedError as exc:   # fsdp: not ported yet
-            rec.update(status="skipped", reason=str(exc))
         except Exception as exc:             # noqa: BLE001 (one cell of many)
             rec.update(status="error", error=f"{type(exc).__name__}: {exc}",
                        trace=traceback.format_exc()[-2000:])
@@ -261,7 +282,9 @@ def run_cell(arch: str, shape_name: str, dp_total: int = 2,
             gc.collect()
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        path = os.path.join(out_dir, f"{arch}__{shape_name}__{layout}.json")
+        tag = f"__{sync_override}" if sync_override else ""
+        path = os.path.join(out_dir,
+                            f"{arch}__{shape_name}__{layout}{tag}.json")
         with open(path, "w") as f:
             json.dump(rec, f, indent=1, default=str)
     return rec
@@ -277,6 +300,9 @@ def main(argv=None) -> int:
                     help="cut every arch's depth to this many layers")
     ap.add_argument("--dp", type=int, default=2,
                     help="data-parallel ranks stacked on the card")
+    ap.add_argument("--sync", choices=("dense", "sparcml"), default=None,
+                    help="train cells: dense sync with fsdp, or the arch's "
+                         "own config (the reference's override)")
     args = ap.parse_args(argv)
     archs = ([cfgreg.EXTERNAL_NAMES[a] for a in cfgreg.ARCH_IDS]
              if (args.all or args.arch is None) else [args.arch])
@@ -285,7 +311,7 @@ def main(argv=None) -> int:
     results = []
     for a in archs:
         for s in shapes:
-            rec = run_cell(a, s, args.dp, args.layers, args.out)
+            rec = run_cell(a, s, args.dp, args.layers, args.out, args.sync)
             tag = f"{a}__{s}__{rec['layout']}"
             if rec["status"] == "ok":
                 r = rec["roofline"]

@@ -28,11 +28,24 @@ What differs from the reference, and why:
   the count of ids below each expert, a comparison and a sum.
 * ``_constrain`` (sharding constraints) is a no-op on one device and is
   not ported.
+* **The dense step's ranks share a microbatch's capacity.** The
+  reference's dense (and fsdp) step is one global function: a layer
+  routes the whole global microbatch, its ranks' rows in rank order, at
+  ``capacity(cfg, p * t)``. The port's dense step runs per rank; under
+  :func:`shared_capacity` a rank's layer gathers every rank's per-expert
+  counts (one ``all_gather`` of E integers), offsets its positions in
+  each expert's segment by the lower ranks' counts and keeps those below
+  the global capacity: the reference's keep set. A rank packs its kept
+  assignments into ``min(capacity(cfg, p * t), t)`` slots an expert (a
+  token routes to an expert at most once), so at p > 1 its expert
+  product is wider than the SparCML step's, whose ranks route alone in
+  both packages.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -90,10 +103,12 @@ def _route(p, x: torch.Tensor, k: int):
 
 
 def _dispatch(flat_e: torch.Tensor, w: torch.Tensor, t: int, k: int, e: int,
-              c: int) -> _Dispatch:
+              c: int, limit: Optional[torch.Tensor] = None) -> _Dispatch:
     """The slot maps of one dispatch. ``flat_e``: (T*k,) expert ids in
     token-major order, ``e`` marking an assignment routed nowhere (it
-    sorts after every real expert, so it shifts no segment start)."""
+    sorts after every real expert, so it shifts no segment start).
+    ``limit``: (E,) assignments kept an expert (at most ``c``, the slots
+    an expert), ``c`` for every expert if None."""
     dev = flat_e.device
     n = t * k
     order = torch.argsort(flat_e, stable=True)
@@ -101,9 +116,9 @@ def _dispatch(flat_e: torch.Tensor, w: torch.Tensor, t: int, k: int, e: int,
     experts = torch.arange(e, device=dev)
     # the reference's searchsorted(sorted_e, arange(e)): ids below each
     seg_start = (flat_e[None, :] < experts[:, None]).sum(-1)
-    pos_in_seg = (torch.arange(n, device=dev)
-                  - seg_start[torch.clamp_max(sorted_e, e - 1)])
-    keep = (pos_in_seg < c) & (sorted_e < e)
+    seg = torch.clamp_max(sorted_e, e - 1)
+    pos_in_seg = torch.arange(n, device=dev) - seg_start[seg]
+    keep = (pos_in_seg < (c if limit is None else limit[seg])) & (sorted_e < e)
     sentinel = e * c
     slot = torch.where(keep, sorted_e * c + pos_in_seg,
                        torch.full_like(pos_in_seg, sentinel))
@@ -149,14 +164,78 @@ def _combine(upd_pad: torch.Tensor, token_slots: torch.Tensor
     return y
 
 
+# The context whose ranks share a microbatch's capacity (see
+# shared_capacity); None: a layer routes its tokens alone.
+_SHARED: list = [None]
+
+
+@contextlib.contextmanager
+def shared_capacity(coll):
+    """Within the block, :func:`moe_apply` on a rank's tokens keeps what
+    the reference's global step keeps of the whole microbatch: the
+    ranks of ``coll`` (a ``CollectiveContext``) hold the microbatch's
+    rows in rank order, and every layer call exchanges their counts. No
+    exchange for ``coll`` None or of one rank. Every rank of the context
+    must enter it and call the same layers."""
+    prev = _SHARED[0]
+    _SHARED[0] = coll if coll is not None and coll.p > 1 else None
+    try:
+        yield
+    finally:
+        _SHARED[0] = prev
+
+
+def _lower_ranks(counts: torch.Tensor) -> torch.Tensor:
+    """(L, E) the held ranks' assignments an expert -> (L, E) those of
+    the ranks below each (the exclusive prefix over ranks)."""
+    coll = _SHARED[0]
+    every = coll.all_gather(counts[:, None], axis=0)[0]      # (p, E)
+    below = torch.cumsum(every, 0) - every
+    return below[coll.axis_rank().to(counts.device)]
+
+
+class _LowerRanks(torch.autograd.Function):
+    """``_lower_ranks`` for one rank's (E,) counts, and under ``vmap``
+    over the held ranks (the training step's ``rank_grads``) for all of
+    them at once: the rule sees the (L, E) counts whole, which a vmapped
+    function cannot. Integer results, no gradient."""
+
+    @staticmethod
+    def forward(counts):
+        return _lower_ranks(counts[None])[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None
+
+    @staticmethod
+    def vmap(info, in_dims, counts):
+        return _lower_ranks(counts.movedim(in_dims[0], 0)), 0
+
+
 def moe_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (T, d) flattened tokens -> (T, d), at capacity
-    ``capacity(cfg, T)`` (assignments past it dropped)."""
+    ``capacity(cfg, T)`` (assignments past it dropped); under
+    :func:`shared_capacity`, at the capacity of the p ranks' T tokens
+    each, after the lower ranks' assignments."""
     t, _ = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
-    c = capacity(cfg, t)
     w, eidx = _route(p, x, k)
-    dsp = _dispatch(eidx.reshape(-1), w, t, k, e, c)
+    flat_e = eidx.reshape(-1)
+    coll = _SHARED[0]
+    if coll is None:
+        c, limit = capacity(cfg, t), None
+    else:
+        cap = capacity(cfg, coll.p * t)
+        c = min(cap, t)
+        counts = (flat_e[None, :] == torch.arange(e, device=x.device)[:, None]
+                  ).sum(-1)
+        limit = torch.clamp(cap - _LowerRanks.apply(counts), 0, c)
+    dsp = _dispatch(flat_e, w, t, k, e, c, limit)
     y = _combine(_experts(p, x, dsp, e, c), dsp.token_slots)
     if cfg.moe_shared_ff:
         y = y + mlp(p["shared"], cfg, x)

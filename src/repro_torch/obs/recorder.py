@@ -55,13 +55,17 @@ class FlightRecorder:
     ``obs`` is the :class:`repro_torch.obs.Observability` handle whose tracer
     and registry get snapshotted into each dump; the recorder works
     (notes ring only) with the OFF handle too. Thread-safe: the driver's
-    retire closure and a signal handler may race a dump."""
+    retire closure and a signal handler may race a dump. ``deaths_only``
+    (a rank other than 0 of a process group, whose rank 0 records the
+    run) skips the dumps of recovered exceptions and the watchdog: only a
+    signal or a ``death:`` dump (the process's own end) writes."""
 
     def __init__(self, path: str = "blackbox.json", capacity: int = 256,
                  obs=None):
         from repro_torch.obs import resolve
 
         self.path = str(path)
+        self.deaths_only = False
         self.capacity = max(1, int(capacity))
         self.obs = resolve(obs)
         self.notes: deque = deque(maxlen=self.capacity)
@@ -127,6 +131,8 @@ class FlightRecorder:
             return self.path
 
     def _safe_dump(self, reason: str) -> Optional[str]:
+        if self.deaths_only and not reason.startswith(("signal:", "death:")):
+            return None
         try:
             return self.dump(reason)
         except Exception:

@@ -338,12 +338,15 @@ class FaultInjector:
                 time.sleep(max(spec.duration_s,
                                spec.factor * max(median_s, 0.0)))
 
-    def corrupt_checkpoint(self, directory: str, step: int) -> Optional[str]:
+    def corrupt_checkpoint(self, directory: str, step: int,
+                           write: bool = True) -> Optional[str]:
         """Post-save hook: when a ckpt_corrupt spec covers ``step``, flip
         bytes mid-file in the newest checkpoint's arrays.npz (the torn
         write a crashed/buggy writer leaves). Returns the corrupted path
-        or None."""
-        if self._take("ckpt_corrupt", step) is None:
+        or None. ``write=False`` counts the fault without touching the
+        file: every process of a process group calls the hook, the one
+        that wrote the checkpoint corrupts it."""
+        if self._take("ckpt_corrupt", step) is None or not write:
             return None
         from repro_torch.train import checkpoint as ckpt
 

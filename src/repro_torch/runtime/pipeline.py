@@ -270,7 +270,8 @@ class PipelinedStep:
             leaves = ts.inject_nonfinite_leaves(leaves, fault_vec)
         fin = ts.ranks_all_finite(leaves, coll) if self.guard else None
         if rand_fn is None:
-            rand_fn = ts.step_rand_fn(tcfg.seed, state.step, dev)
+            rand_fn = ts.StepBits(tcfg.seed, state.step, dev,
+                                      self.dp_total)
         lr = self._sched(state.step)
         if self.staleness == 0:
             # the synchronous step's ops, in its order

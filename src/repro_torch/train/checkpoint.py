@@ -17,9 +17,11 @@ other's checkpoints):  <dir>/step_<N>/
   crash mid-save never corrupts the latest checkpoint.
 * Integrity: meta.json records a CRC32 per stored array;
   ``verify_checkpoint`` recomputes them, ``restore(..., verify=True)``
-  raises :class:`CheckpointCorrupt` on a mismatch, and
-  ``latest_valid_step`` walks newest to oldest to the first checkpoint
-  that verifies: keep-N retention doubles as the fallback window.
+  checks each array as it reads it (one read of the file) and raises
+  :class:`CheckpointCorrupt` on a mismatch before it returns anything,
+  and ``latest_valid_step`` / ``restore_newest_valid`` walk newest to
+  oldest to the first checkpoint that verifies: keep-N retention doubles
+  as the fallback window.
 * Optimizer layouts (``OPT_LAYOUTS``, stamped as ``meta["opt_layout"]``):
   "full" (param-shaped moments), "zero1_leaf" (per-leaf canonical
   (dp, rows, cols/dp) chunks) and "zero_scattered" (per-bucket owned
@@ -32,6 +34,15 @@ other's checkpoints):  <dir>/step_<N>/
   replica count are re-partitioned (ZeRO chunks) or reset (EF residuals,
   a lossy accumulator) when a checkpoint written at another dp_total is
   restored.
+* One format for every form of a run. A run with one rank a process
+  (``coll``, a ``ProcessGroupCollectives``) writes what the stacked run
+  writes: rank 0 gathers every rank's EF residuals and ZeRO chunks,
+  writes, and then every process passes a barrier; a restore (its CRC
+  checks in every process) keeps only the process's own rank's slices.
+  fsdp's shards (``fsdp``, the ``models.specs.fsdp_layout`` tree) are
+  written whole, param-shaped, in the "full" layout the reference's
+  fsdp state has, and cut again at restore, for the ranks there (another
+  world size included).
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.train.state import TrainState
 
@@ -98,26 +110,109 @@ def _to_host(leaf, path: str) -> Optional[np.ndarray]:
     return leaf.detach().cpu().numpy()
 
 
+# A leaf's role in a checkpoint (see :func:`_roles`): the same on every
+# rank (None), a leading axis of the ranks (RANKS), or an FsdpLeaf.
+RANKS = "ranks"
+
+
+def one_rank_a_process(coll) -> bool:
+    """True when the context holds one rank of a process group."""
+    return coll is not None and coll.local_ranks < coll.p
+
+
+def _roles(state: TrainState, opt_layout: str, fsdp) -> list:
+    """Each leaf's role, in flatten order: EF residuals and ZeRO moment
+    chunks carry the ranks; fsdp's params and moments are shards of the
+    ``fsdp`` layout; the rest is the same on every rank."""
+    def like(tree, role):
+        if isinstance(tree, dict):
+            return {k: like(v, role) for k, v in tree.items()}
+        return role
+
+    def moments(tree):
+        if fsdp is not None:
+            return fsdp
+        return like(tree, RANKS if opt_layout in ("zero1_leaf",
+                                                  "zero_scattered") else None)
+
+    opt = state.opt
+    if isinstance(opt, dict):
+        opt = {k: like(v, None) if k == "count" else moments(v)
+               for k, v in opt.items()}
+    roles = TrainState(
+        params=fsdp if fsdp is not None else like(state.params, None),
+        opt=opt, residuals=like(state.residuals, RANKS), step=None,
+        inflight=like(state.inflight, None))
+    return _flatten_with_paths(roles)[1]
+
+
+def _every_rank(x: torch.Tensor, coll) -> torch.Tensor:
+    """A leaf with a leading axis of the held ranks -> every rank's,
+    (p, ...): one all_gather when a process holds one rank."""
+    if not one_rank_a_process(coll):
+        return x
+    return coll.all_gather(x[:, None], axis=0)[0]
+
+
+def _whole(x: torch.Tensor, lay, coll) -> torch.Tensor:
+    """An fsdp leaf from the held ranks' shards (whole where replicated)."""
+    if lay.dim is None:
+        return x
+    every = _every_rank(x, coll)                       # (p, *shard)
+    return lay.unpad(torch.cat(list(every.unbind(0)), dim=lay.dim))
+
+
+def barrier(coll) -> None:
+    """Every process of a run with one rank a process waits here (no-op
+    otherwise): after a save lands, before any process reads it."""
+    if one_rank_a_process(coll):
+        dist.barrier(group=coll.group)
+
+
 def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}")
 
 
 def save(directory: str, state: TrainState, *, dp_total: int,
          keep_last: int = 3, extra_meta: Optional[dict] = None,
-         opt_layout: Optional[str] = None) -> str:
+         opt_layout: Optional[str] = None, coll=None,
+         fsdp: Optional[dict] = None) -> Optional[str]:
     """Write ``state`` as checkpoint ``step_<state.step>`` and keep the
     newest ``keep_last``. ``extra_meta`` (JSON-serialisable) is merged
     into meta.json; ``opt_layout`` (one of ``OPT_LAYOUTS``) stamps the
-    optimizer-state layout. Device tensors are copied to the host here:
-    a caller with work still queued on another stream drains it first."""
+    optimizer-state layout. ``coll``: the run's context when a process
+    holds one rank (every process calls save; rank 0 writes and returns
+    the path, the others None); ``fsdp``: the layout of a state held as
+    fsdp shards. Device tensors are copied to the host here: a caller with
+    work still queued on another stream drains it first."""
     if opt_layout is not None and opt_layout not in OPT_LAYOUTS:
         raise ValueError(f"unknown opt_layout {opt_layout!r}")
-    step = int(state.step)
+    root = not one_rank_a_process(coll) or coll.rank == 0
+    paths, leaves = _flatten_with_paths(state)
+    roles = _roles(state, opt_layout or "full", fsdp)
+    host = []
+    for path, leaf, role in zip(paths, leaves, roles):
+        if leaf is not None and role == RANKS:
+            leaf = _every_rank(leaf, coll)
+        elif leaf is not None and role is not None:
+            leaf = _whole(leaf, role, coll)
+        host.append(_to_host(leaf, path) if root else None)
+    if not root:
+        barrier(coll)
+        return None
+    try:
+        return _write(directory, int(state.step), paths, host, dp_total,
+                      keep_last, extra_meta, opt_layout)
+    finally:
+        barrier(coll)
+
+
+def _write(directory: str, step: int, paths: list, host: list,
+           dp_total: int, keep_last: int, extra_meta: Optional[dict],
+           opt_layout: Optional[str]) -> str:
     final = _step_dir(directory, step)
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    paths, leaves = _flatten_with_paths(state)
-    host = [_to_host(leaf, p) for p, leaf in zip(paths, leaves)]
     arrays = {f"leaf_{i}": a for i, a in enumerate(host) if a is not None}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     meta = {
@@ -202,52 +297,122 @@ def latest_valid_step(directory: str) -> Optional[int]:
     return None
 
 
+def restore_newest_valid(directory: str, restore_step) -> tuple:
+    """(step, ``restore_step(step)``) for the newest step whose restore
+    verifies, walking newest to oldest past those whose ``restore_step``
+    (a restore with ``verify=True``) raises :class:`CheckpointCorrupt`;
+    raises it when none verifies."""
+    for step in reversed(_steps(directory)):
+        try:
+            load_meta(directory, step)
+            return step, restore_step(step)
+        except (CheckpointCorrupt, OSError, json.JSONDecodeError):
+            continue
+    raise CheckpointCorrupt(f"no checkpoint under {directory} passes CRC "
+                            "verification (retention window exhausted)")
+
+
+def _corrupt(directory: str, step: int) -> CheckpointCorrupt:
+    return CheckpointCorrupt(f"checkpoint step_{step:08d} under {directory} "
+                             "fails CRC verification")
+
+
 def restore(directory: str, like: TrainState, *, dp_total: int,
             step: Optional[int] = None, remesh: bool = False,
-            verify: bool = False) -> TrainState:
+            verify: bool = False, coll=None,
+            fsdp: Optional[dict] = None) -> TrainState:
     """Restore into the structure, dtypes and devices of ``like``.
 
-    verify=True recomputes the CRC32s before any value is consumed and
-    raises :class:`CheckpointCorrupt` on a mismatch. ``remesh=True``
+    verify=True recomputes each stored array's CRC32 as it is read (the
+    leaves the state does not hold too) and raises
+    :class:`CheckpointCorrupt` on a mismatch or an unreadable file; no
+    value is returned before every array verified. ``remesh=True``
     restores a checkpoint written at another dp_total: a leaf whose
     shape depends on the replica count is re-chunked (ZeRO chunks) or
-    reset to zeros (EF residuals), see :func:`_rechunk`."""
+    reset to zeros (EF residuals), see :func:`_rechunk`. ``coll`` (one
+    rank a process) keeps the process's own rank's slice of every leaf
+    that carries the ranks; ``fsdp`` cuts the whole params and moments
+    into the held ranks' shards of that layout."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
-    if verify and not verify_checkpoint(directory, step):
-        raise CheckpointCorrupt(
-            f"checkpoint step_{step:08d} under {directory} fails CRC "
-            "verification")
-    meta = load_meta(directory, step)
+    try:
+        meta = load_meta(directory, step)
+    except (OSError, json.JSONDecodeError) as exc:
+        if verify:
+            raise _corrupt(directory, step) from exc
+        raise
+    crcs = meta.get("crc32") if verify else None
     paths, like_leaves = _flatten_with_paths(like)
     if paths != meta["paths"]:
         raise ValueError("checkpoint/state structure mismatch: "
                          f"{len(meta['paths'])} stored paths, "
                          f"{len(paths)} in the state")
     none_set = set(meta["none_leaves"])
+    roles = _roles(like, meta.get("opt_layout", "full"), fsdp)
+    own = one_rank_a_process(coll)
     out = []
-    with np.load(os.path.join(_step_dir(directory, step),
-                              "arrays.npz")) as data:
-        for i, (path, ll) in enumerate(zip(paths, like_leaves)):
+
+    def read(data, key):
+        """One stored array, checked against its CRC32 under verify."""
+        try:
+            arr = data[key]
+        except Exception as exc:  # any unreadable array fails verification
+            if verify:
+                raise _corrupt(directory, step) from exc
+            raise
+        if crcs is not None and _crc32(arr) != int(crcs[key]):
+            raise _corrupt(directory, step)
+        return arr
+
+    try:
+        data = np.load(os.path.join(_step_dir(directory, step),
+                                    "arrays.npz"))
+    except Exception as exc:  # an unreadable file fails verification
+        if verify:
+            raise _corrupt(directory, step) from exc
+        raise
+    with data:
+        if crcs is not None and set(crcs) != set(data.files):
+            raise _corrupt(directory, step)
+        for i, (path, ll, role) in enumerate(zip(paths, like_leaves,
+                                                 roles)):
             if ll is None or i in none_set:
+                if verify and i not in none_set:
+                    read(data, f"leaf_{i}")      # stored: checked all the same
                 out.append(None)
                 continue
-            arr = data[f"leaf_{i}"]
+            arr = read(data, f"leaf_{i}")
             if path == ".step":
                 out.append(int(arr))
                 continue
-            if arr.shape != tuple(ll.shape):
+            if role is not None and role != RANKS:
+                cut = role.cut(torch.from_numpy(np.array(arr)).to(
+                    device=ll.device, dtype=ll.dtype),
+                    [coll.rank] if own else range(role.p))
+                if cut.shape != ll.shape or (
+                        role.dim is not None
+                        and arr.shape[role.dim] != role.size):
+                    raise ValueError(f"shape mismatch at {path}: ckpt "
+                                     f"{arr.shape} does not cut into "
+                                     f"{tuple(ll.shape)}")
+                out.append(cut)
+                continue
+            want = tuple(ll.shape)
+            if role == RANKS and own:
+                want = (dp_total,) + want[1:]
+            if arr.shape != want:
                 if remesh and meta["dp_total"] != dp_total:
-                    arr = _rechunk(arr, tuple(ll.shape), meta["dp_total"],
-                                   dp_total)
+                    arr = _rechunk(arr, want, meta["dp_total"], dp_total)
                 else:
                     raise ValueError(
                         f"shape mismatch at {path}: ckpt {arr.shape} vs "
-                        f"{tuple(ll.shape)} (written at dp_total "
+                        f"{want} (written at dp_total "
                         f"{meta['dp_total']}, restored at {dp_total}; "
                         "remesh=True for an elastic restart)")
+            if role == RANKS and own:
+                arr = arr[coll.rank:coll.rank + 1]
             out.append(torch.from_numpy(np.array(arr)).to(device=ll.device,
                                                           dtype=ll.dtype))
     return _unflatten(like, out)

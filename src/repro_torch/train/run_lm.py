@@ -10,7 +10,10 @@
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.train.run_lm \
         --steps 20 --lowering manual
     PYTHONPATH=src python -m repro_torch.train.run_lm --steps 40 --zero
-    PYTHONPATH=src python -m repro_torch.train.run_lm --steps 30 --chaos 0
+    PYTHONPATH=src python -m repro_torch.train.run_lm --steps 20 --fsdp
+    PYTHONPATH=src python -m repro_torch.train.run_lm --steps 30 --chaos 4
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.train.run_lm \
+        --steps 30 --chaos 4 --lowering manual
 
 The PyTorch counterpart of ``examples/train_lm_topk.py``: lm-100m (12
 layers, d=768, GQA 12/4 heads, SwiGLU 2048, vocab 32768, f32) at global
@@ -27,13 +30,23 @@ checkpoints every 25 steps and resumes from the newest checkpoint there
 (the example's default directory lies outside the checkout, so here
 there is none unless asked for). ``--lowering manual`` syncs through the
 per-rank executor (the wire protocols over the stacked ranks) instead of
-the stacked sum, in both loops. Under ``torchrun`` (``WORLD_SIZE`` > 1)
-every process holds one rank of a ``torch.distributed`` group (NCCL on
-the card, each process on ``cuda:LOCAL_RANK``; gloo with ``--device
-cpu``), the data-parallel width is the world size, and only
-``--lowering manual`` runs; such a run takes no checkpoints. The
-optimizer moments are ZeRO-1 chunks, as the example's (``zero1=True``):
-over torch.distributed each process holds its 1/p of them.
+the stacked sum, in both loops. Under ``torchrun`` (its ``RANK`` and
+``WORLD_SIZE`` variables, a world of 1 included) every process holds one
+rank of a ``torch.distributed`` group (NCCL on the card, each process on
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``), the data-parallel
+width is the world size, and only
+``--lowering manual`` runs; its checkpoints are the stacked run's (rank
+0 writes them), and ``--chaos`` runs there too: every process builds
+the same fault plan and rewinds to the same verified checkpoint, and
+with ``--blackbox PATH`` rank 0 writes PATH, any other rank PATH.rank<r>
+when it dies. The optimizer moments are ZeRO-1 chunks, as the example's
+(``zero1=True``): over torch.distributed each process holds its 1/p of
+them.
+
+``--fsdp`` trains with dense sync and ZeRO-3 (``TrainConfig.fsdp``): the
+params and moments live as each rank's shards, gathered whole for the
+forward, the grads reduce-scattered (synchronous loop only); it prints
+the state by component first, as ``--zero`` does.
 
 ``--zero`` is the example's ZeRO-sharded state: the scattered output
 mode, where the gradient exchange stops at the owner shard, the update
@@ -82,6 +95,7 @@ from repro_torch.models.model import build_model
 from repro_torch.optim.optimizers import OptimizerConfig
 from repro_torch.optim.schedule import ScheduleConfig
 from repro_torch.runtime.faults import FaultInjector, FaultPlan, RecoveryConfig
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.state import TrainConfig
 from repro_torch.train.trainer import Trainer
 from repro_torch.utils.calibrate import DegenerateFit
@@ -105,9 +119,12 @@ def lm_config(fast: bool) -> tuple[ModelConfig, DataConfig]:
 
 
 def train_config(steps: int, mode: str = "sparcml",
-                 zero: bool = False) -> TrainConfig:
+                 zero: bool = False, fsdp: bool = False) -> TrainConfig:
     """The example's config; ``zero`` its --zero (the scattered output
-    mode). ZeRO-1 is on, as the example's."""
+    mode), ``fsdp`` dense sync with ZeRO-3. ZeRO-1 is on, as the
+    example's."""
+    if fsdp:
+        mode = "dense"
     return TrainConfig(
         sync=SyncConfig(mode=mode, k_per_bucket=8, bucket_size=512,
                         algorithm="dsar_split_allgather", qsgd_bits=4,
@@ -117,6 +134,7 @@ def train_config(steps: int, mode: str = "sparcml",
         schedule=ScheduleConfig(kind="wsd", peak_lr=6e-4, warmup_steps=20,
                                 total_steps=steps),
         microbatches=2,
+        fsdp=fsdp,
         zero1=True,
     )
 
@@ -158,6 +176,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "no allgather) and the optimizer moments live on the "
                          "owned chunks; checkpoints interoperate with "
                          "replicated runs")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="dense sync with ZeRO-3: params and optimizer "
+                         "moments sharded over the ranks, gathered for the "
+                         "forward (synchronous loop)")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
                     help="chaos-injection smoke: run a seed-derived FaultPlan "
                          "of recoverable faults (grad NaN/Inf, straggler, "
@@ -169,12 +191,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def init_distributed(device: str):
-    """Under torchrun's variables (WORLD_SIZE > 1): join the process group
-    (NCCL on the card, gloo on the CPU) and return (this process's device,
-    its ``ProcessGroupCollectives``); otherwise (device, None)."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world <= 1:
+    """Under torchrun's variables (RANK and WORLD_SIZE; a world of 1
+    too): join the process group (NCCL on the card, gloo on the CPU) and
+    return (this process's device, its ``ProcessGroupCollectives``);
+    otherwise (device, None)."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         return device, None
+    world = int(os.environ["WORLD_SIZE"])
     rank = int(os.environ["RANK"])
     if device == "cuda":
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
@@ -200,15 +223,24 @@ def main(argv=None):
 def _train(args, device, coll):
     chaos = args.chaos is not None
     if chaos:
-        if coll is not None:
-            raise SystemExit("--chaos rewinds to checkpoints, which a run "
-                             "with one rank a process does not take")
         args.pipeline = True    # the guard and the hooks live in the driver
+    if args.fsdp and (args.pipeline or args.zero or args.adapt):
+        raise SystemExit("--fsdp trains with dense sync: the synchronous "
+                         "loop only (no --pipeline, --chaos, --zero or "
+                         "--adapt)")
+    root = coll is None or coll.rank == 0
     ckpt_dir, tmp_ckpt = args.ckpt_dir, None
     if chaos and not ckpt_dir:
-        tmp_ckpt = ckpt_dir = tempfile.mkdtemp(prefix="run_lm_chaos_")
+        # one directory for every process: rank 0 makes it and says where
+        made = [tempfile.mkdtemp(prefix="run_lm_chaos_") if root else None]
+        if coll is not None:
+            dist.broadcast_object_list(made, src=0)
+        ckpt_dir = made[0]
+        tmp_ckpt = ckpt_dir if root else None
     try:
-        return _run(args, device, coll, chaos, ckpt_dir)
+        log = _run(args, device, coll, chaos, ckpt_dir)
+        ckpt.barrier(coll)      # no process still reads the directory
+        return log
     finally:
         if tmp_ckpt is not None:
             shutil.rmtree(tmp_ckpt, ignore_errors=True)
@@ -216,14 +248,28 @@ def _train(args, device, coll):
 
 def _run(args, device, coll, chaos, ckpt_dir):
     say = print if coll is None or coll.rank == 0 else (lambda *a: None)
+    other_rank = coll is not None and coll.rank > 0
+    blackbox = args.blackbox or False
+    if blackbox and other_rank:
+        blackbox = f"{blackbox}.rank{coll.rank}"
     obs = obs_mod.configure(trace=bool(args.trace),
                             metrics=bool(args.metrics_out) or bool(args.trace)
                             or chaos,
                             audit=bool(args.metrics_out),
-                            recorder=args.blackbox or False,
-                            set_as_default=False)
+                            recorder=blackbox, set_as_default=False)
     if obs.recorder is not None:
+        # rank 0 records the run; another rank writes only when it dies
+        obs.recorder.deaths_only = other_rank
         obs.recorder.install_signal_handlers()
+    try:
+        return _run_recorded(args, device, coll, chaos, ckpt_dir, say, obs)
+    except BaseException as e:
+        if obs.recorder is not None:
+            obs.recorder._safe_dump(f"death:{type(e).__name__}")
+        raise
+
+
+def _run_recorded(args, device, coll, chaos, ckpt_dir, say, obs):
     cfg, data = lm_config(args.fast)
     steps = min(args.steps, 60) if args.fast else args.steps
     model = build_model(cfg)
@@ -231,13 +277,13 @@ def _run(args, device, coll, chaos, ckpt_dir):
     # a shorter checkpoint cadence under chaos: the corrupt-then-restore
     # pair needs steps > 2 * ckpt_every
     ckpt_every = 10 if chaos else CKPT_EVERY
-    tcfg = train_config(steps, zero=args.zero)
+    tcfg = train_config(steps, zero=args.zero, fsdp=args.fsdp)
     dp_total = coll.p if coll is not None else DP
-    if args.zero:
+    if args.zero or args.fsdp:
         mem = state_memory_breakdown(
             model, tcfg, dp_total,
             ranks=coll.local_ranks if coll is not None else None)
-        say("zero: per-device state "
+        say(f"{'fsdp' if args.fsdp else 'zero'}: per-device state "
             + ", ".join(f"{k}={v / 1e6:.1f}MB" for k, v in mem.items()))
     trainer = Trainer(model, tcfg, data, dp_total=dp_total,
                       device=device, ckpt_dir=ckpt_dir,

@@ -10,7 +10,9 @@ from repro_torch.optim.schedule import ScheduleConfig
 
 
 class TrainState(NamedTuple):
-    params: Any          # dict tree of tensors (JAX package layout)
+    params: Any          # dict tree of tensors (JAX package layout); under
+                         # fsdp each leaf the held ranks' shards
+                         # (models.specs.fsdp_layout)
     opt: Any             # {"mu", ["nu"], "count"}: param-shaped moments
                          # ("full"), per-leaf (ranks, rows, cols/dp)
                          # canonical chunks ("zero1_leaf"), or per-bucket
@@ -34,6 +36,17 @@ class TrainConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
     microbatches: int = 1            # gradient-accumulation steps
+    fsdp: bool = False               # ZeRO-3: params and moments sharded
+                                     # over the ranks (dense mode only)
     zero1: bool = True               # shard the optimizer moments over the
                                      # data-parallel ranks (sparcml mode)
     seed: int = 0
+
+    def __post_init__(self):
+        if self.fsdp and self.sync.mode == "sparcml":
+            raise ValueError(
+                "sparcml sync requires DP-replicated params (fsdp=False): "
+                "per-rank error-feedback residuals are O(model) per rank and "
+                "cannot compose with ZeRO-3 sharding — see DESIGN.md "
+                "§Arch-applicability and the paper's §8.4 ResNet50 discussion."
+            )

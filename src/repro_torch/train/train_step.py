@@ -16,9 +16,10 @@ of two lowerings:
   wire): a ``StackedCollectives`` of the R ranks on one device, or a
   ``ProcessGroupCollectives`` over ``torch.distributed`` with one rank a
   process. There each process takes its slice of the global batch, the
-  loss is the mean over ranks, the QSGD bits are its slice of the bits
-  the stacked ranks would draw, and the params start identical from the
-  seed, so the run gives the stacked run's bits.
+  loss is the mean over ranks, each rank draws its own QSGD bits (seeded
+  by its rank: its slice of what the stacked ranks draw, see
+  :class:`StepBits`), and the params start identical from the seed, so
+  the run gives the stacked run's bits.
 
 Then the synced gradients are clipped and the optimizer updates the
 single params copy, its moments in one of three layouts
@@ -41,7 +42,25 @@ single params copy, its moments in one of three layouts
   parameters; the stacked ranks rebuild the synced leaves, clip them as
   the replicated step does, and update in the reference's delta form.
 
-dense mode: gradients of the global batch, clipped, optimizer update.
+dense mode: with ``lowering="spmd"`` and no context, the gradients of
+the global batch, clipped, optimizer update (the reference's jit). Under
+the manual lowering each held rank takes its part of every microbatch
+(:func:`microbatch_rows`: the reference's global microbatch split in
+rank order; a MoE layer keeps the reference's tokens through
+``moe.shared_capacity``) and its accumulated f32 grads
+(``rank_grads``), the grads are summed over
+the ranks in rank order (the context's ``psum``: an all_to_all, an owner
+sum and an all_gather) and divided by p, then clipped and applied: over
+``StackedCollectives(p)`` on one device, or one rank a process over a
+``ProcessGroupCollectives``, bit-equal. ``TrainConfig.fsdp`` (ZeRO-3)
+always runs that per-rank form (the stacked ranks unless a context is
+given): params and moments live as each held rank's shards
+(``models.specs.fsdp_layout``), one ``all_gather`` a leaf rebuilds the
+params before the forward (:func:`gather_params`), the grads are
+reduce-scattered in rank order (``psum_scatter``) so each rank gets its
+shard of the sum, the global norm is the rank-order sum of the shards'
+squared norms (plus the whole leaves'), and AdamW updates each shard
+(:func:`fsdp_update`).
 
 The chaos harness's injection (``inject_nonfinite_leaves``) is a select on
 the raw grads before the reduce half: an all-zero fault vector gives the
@@ -69,12 +88,13 @@ from repro_torch.core.qsgd import random_bits
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bucket_topk.ops import check_bucket_size
 from repro_torch.models.model import Model, init_params
-from repro_torch.models.specs import param_specs
+from repro_torch.models.moe import shared_capacity
+from repro_torch.models.specs import FsdpLeaf, fsdp_layout, param_specs
 from repro_torch.optim.optimizers import (_bias_corrections,
                                           clip_by_global_norm, init_opt_state,
                                           opt_update)
 from repro_torch.optim.schedule import make_schedule
-from repro_torch.train.checkpoint import opt_layout_of
+from repro_torch.train.checkpoint import one_rank_a_process, opt_layout_of
 from repro_torch.train.state import TrainConfig, TrainState
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -164,19 +184,146 @@ def init_opt(params, tcfg: TrainConfig, plan: Optional[SyncPlan], device,
 
 def init_state(model: Model, tcfg: TrainConfig, plan: Optional[SyncPlan],
                device="cuda", params=None,
-               coll: Optional[CollectiveContext] = None) -> TrainState:
+               coll: Optional[CollectiveContext] = None,
+               dp_total: Optional[int] = None) -> TrainState:
     """Fresh state: params from a generator seeded with ``tcfg.seed`` (or
-    the given ``params``), zero optimizer moments in the config's layout
-    and zero EF residuals, for the ranks the process holds (all of them
-    unless ``coll`` says otherwise)."""
+    the given whole ``params``), zero optimizer moments in the config's
+    layout and zero EF residuals, for the ranks the process holds (all of
+    them unless ``coll`` says otherwise). Under fsdp the params become the
+    held ranks' shards over ``coll.p`` ranks (``dp_total`` without a
+    context) and the moments take the shards' shapes."""
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
         params = model.init(gen, dev)
+    if tcfg.fsdp:
+        p = coll.p if coll is not None else dp_total
+        if p is None:
+            raise ValueError("fsdp shards over the ranks: pass coll or "
+                             "dp_total")
+        params = shard_params(params, fsdp_layout_of(model, p),
+                              held_ranks(coll, p))
     ranks = coll.local_ranks if coll is not None else None
     res = plan.init_residuals(dev, ranks) if plan is not None else None
     return TrainState(params, init_opt(params, tcfg, plan, dev, ranks), res,
                       0)
+
+
+# --------------------------------------------------------------------------
+# fsdp (ZeRO-3): params and moments as each held rank's shards
+# --------------------------------------------------------------------------
+
+def fsdp_layout_of(model: Model, p: int) -> dict:
+    """The fsdp shard layout of the model's params over p ranks (from
+    shapes only)."""
+    return fsdp_layout(init_params(model.cfg, device="meta"), model.cfg, p)
+
+
+def held_ranks(coll: Optional[CollectiveContext], p: int) -> list:
+    """The ranks whose shards this process holds: all p (stacked), or its
+    own (one rank a process)."""
+    return [coll.rank] if one_rank_a_process(coll) else list(range(p))
+
+
+def shard_params(params: dict, layout: dict, ranks) -> dict:
+    """Whole params -> the ``ranks``' fsdp shards, (len(ranks), *shard) a
+    sharded leaf, whole where the layout replicates (each shard a copy:
+    the whole leaf can be freed)."""
+    return tree_map(lambda x, lay: lay.cut(x, ranks), params, layout)
+
+
+def gather_params(shards: dict, layout: dict,
+                  coll: CollectiveContext) -> dict:
+    """The whole params from the held ranks' fsdp shards: one
+    ``all_gather`` a sharded leaf, the padding cut off."""
+    def one(x, lay: FsdpLeaf):
+        if lay.dim is None:
+            return x
+        return lay.unpad(coll.all_gather(x, axis=lay.dim)[0])
+
+    return tree_map(one, shards, layout)
+
+
+def dense_sum(leaves: list, coll: CollectiveContext) -> list:
+    """The held ranks' grads (L, *leaf) -> their mean over the p ranks,
+    one whole f32 leaf each: the sum in rank order (``psum``) divided by
+    p. Leaf by leaf, each rank-stacked leaf freed once summed."""
+    scale = 1.0 / coll.p
+    out = []
+    for i in range(len(leaves)):
+        g, leaves[i] = leaves[i].to(torch.float32), None
+        out.append(coll.psum(g)[0] * scale)
+    return out
+
+
+# elements a slice of fsdp's update: its f32 temporaries stay a few of
+# these, not a few of the largest leaf (dbrx's expert leaf is 1.06 G)
+_UPDATE_SLICE = 1 << 26
+
+
+def fsdp_update(state: TrainState, leaves: list, lr, tcfg: TrainConfig,
+                layout: dict, coll: CollectiveContext):
+    """fsdp's half of the step: the held ranks' grads (L, *leaf, freed
+    leaf by leaf) reduce-scattered in rank order over the layout's dim
+    (``psum_scatter``) and divided by p, so each held rank gets its shard
+    of the mean grad (a whole leaf where the layout replicates:
+    ``psum``); the global norm from the shards' squared norms summed over
+    the ranks in rank order plus the whole leaves'; the clip; AdamW (or
+    SGD+momentum) on each shard with ``_moment_step``, a slice of
+    ``_UPDATE_SLICE`` elements at a time (elementwise ops: the bits of
+    one pass). Returns (new shards, new opt, grad norm)."""
+    ocfg = tcfg.optimizer
+    lays, paths = tree_flatten(layout)
+    held, scale = coll.local_ranks, 1.0 / coll.p
+    grads = []
+    for i, lay in enumerate(lays):
+        g, leaves[i] = leaves[i].to(torch.float32), None
+        if lay.dim is None:
+            grads.append(coll.psum(g)[0] * scale)
+        else:
+            grads.append(coll.psum_scatter(lay.pad(g, lead=1),
+                                           axis=lay.dim) * scale)
+        del g
+    # per held rank, its shards' sum of squares in leaf order (one rank's
+    # shards at a time: the same reduction whether 1 or p ranks are held)
+    zero = torch.zeros((), dtype=torch.float32, device=coll.device)
+    whole, sq = zero, [zero] * held
+    for g, lay in zip(grads, lays):
+        if lay.dim is None:
+            whole = whole + g.square().sum()
+            continue
+        for r in range(held):
+            sq[r] = sq[r] + g[r].square().sum()
+    gnorm = torch.sqrt(coll.psum(torch.stack(sq))[0] + whole)
+    factor = (torch.clamp(ocfg.grad_clip / (gnorm + 1e-9), max=1.0)
+              if ocfg.grad_clip else torch.ones_like(gnorm))
+    count = state.opt["count"] + 1
+    c1, c2 = _bias_corrections(count, ocfg)
+    leaves_p = tree_flatten(state.params)[0]
+    leaves_m = tree_flatten(state.opt["mu"])[0]
+    leaves_v = (tree_flatten(state.opt["nu"])[0] if "nu" in state.opt
+                else [None] * len(lays))
+    new_p, new_m, new_v = [], [], []
+    for i, (pl, m, v) in enumerate(zip(leaves_p, leaves_m, leaves_v)):
+        g, grads[i] = grads[i], None
+        out = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+               for t in (pl, m, v) if t is not None]
+        flat = [t.reshape(-1) for t in (pl, g, m, v) if t is not None]
+        for a in range(0, pl.numel(), _UPDATE_SLICE):
+            b = min(pl.numel(), a + _UPDATE_SLICE)
+            fp, fg, fm = (t[a:b] for t in flat[:3])
+            fv = flat[3][a:b] if v is not None else None
+            m2, v2, _, upd = _moment_step(ocfg, fp, fg * factor, fm, fv, c1,
+                                          c2, lr)
+            for o, x in zip(out, (upd, m2, v2)):
+                o.view(-1)[a:b] = x            # the dtype's rounding
+        new_p.append(out[0])
+        new_m.append(out[1])
+        new_v.append(out[2] if v is not None else None)
+        del g, flat
+    return (tree_unflatten(paths, new_p),
+            _new_opt(state.opt, tree_unflatten(paths, new_m),
+                     tree_unflatten(paths, new_v), count), gnorm)
 
 
 def _accumulated_grads(model: Model, params, batch, n_micro: int):
@@ -292,7 +439,7 @@ def _chunks(x: torch.Tensor, spec, bucket_size: int, p: int) -> torch.Tensor:
 def _held(chunks: torch.Tensor, coll: Optional[CollectiveContext]):
     """The chunks of the ranks this process holds: all of them (stacked),
     or its own (one rank a process)."""
-    if not _one_rank_a_process(coll):
+    if not one_rank_a_process(coll):
         return chunks
     return chunks[coll.rank:coll.rank + 1]
 
@@ -496,10 +643,6 @@ def optimizer_half(state: TrainState, reduced: dict, leaves, lr,
 # One rank a process: what differs from the stacked ranks
 # --------------------------------------------------------------------------
 
-def _one_rank_a_process(coll: Optional[CollectiveContext]) -> bool:
-    return coll is not None and coll.local_ranks < coll.p
-
-
 def manual_context(lowering: str, coll: Optional[CollectiveContext],
                    dp_total: int, device) -> Optional[CollectiveContext]:
     """The per-rank executor's context: ``coll``, or the dp_total ranks
@@ -520,7 +663,7 @@ def local_batch(batch, coll: Optional[CollectiveContext]) -> dict:
     """The rows of the global batch this process computes: all of them,
     or, one rank a process, rank r's contiguous slice (the one the
     stacked ranks give rank r)."""
-    if not _one_rank_a_process(coll):
+    if not one_rank_a_process(coll):
         return batch
     rows = len(next(iter(batch.values())))
     if rows % coll.p:
@@ -530,10 +673,33 @@ def local_batch(batch, coll: Optional[CollectiveContext]) -> dict:
     return {k: v[coll.rank * n:(coll.rank + 1) * n] for k, v in batch.items()}
 
 
+def microbatch_rows(batch, coll: CollectiveContext, n_micro: int) -> dict:
+    """The rows of the global batch the held ranks compute in the
+    per-rank dense step, rank by rank: rank r's rows of microbatch i are
+    the r-th of p equal parts of the reference's global microbatch i
+    (n_micro consecutive row ranges of the global batch), its
+    microbatches consecutive. So the ranks of one microbatch together
+    hold the reference's, in rank order, as a MoE layer's shared
+    capacity needs (``moe.shared_capacity``)."""
+    rows = len(next(iter(batch.values())))
+    p = coll.p
+    if rows % (p * n_micro):
+        raise ValueError(f"global batch {rows} does not split into {p} "
+                         f"ranks x {n_micro} microbatches")
+    lo = coll.rank if one_rank_a_process(coll) else 0
+    hi = lo + coll.local_ranks
+    out = {}
+    for k, v in batch.items():
+        g = v.reshape((n_micro, p, rows // (p * n_micro)) + v.shape[1:])
+        mine = g[:, lo:hi].swapaxes(0, 1)
+        out[k] = mine.reshape((-1,) + tuple(v.shape[1:]))
+    return out
+
+
 def global_loss(loss, coll: Optional[CollectiveContext]):
     """The mean loss over ranks: one rank a process gathers every rank's
     and takes the mean the stacked ranks take."""
-    if not _one_rank_a_process(coll):
+    if not one_rank_a_process(coll):
         return loss
     return coll.all_gather(loss.reshape(1, 1), axis=0).mean()
 
@@ -542,18 +708,21 @@ def ranks_all_finite(leaves, coll: Optional[CollectiveContext]):
     """The guard verdict over every rank's raw grads: the AND over ranks
     (the reference's pmin) when a process holds one."""
     fin = all_finite_leaves(leaves)
-    if not _one_rank_a_process(coll):
+    if not one_rank_a_process(coll):
         return fin
     return coll.all_gather(fin.reshape(1, 1), axis=0).amin()
 
 
 def rank_rand_fn(rand_fn: RandFn, coll: Optional[CollectiveContext]
                  ) -> RandFn:
-    """The per-rank executor asks for its held ranks' bits; one rank a
-    process draws every rank's, as the stacked ranks do, and keeps its
-    own slice: p times the RNG work of its own draw (ROADMAP, item 7)."""
-    if not _one_rank_a_process(coll):
+    """The per-rank executor asks for its held ranks' bits. One rank a
+    process draws only its own from a :class:`StepBits` (n words); from
+    any other ``rand_fn`` (a caller's bits for every rank, as the tests
+    pass the reference's) it takes its slice of the ranks' draw."""
+    if not one_rank_a_process(coll):
         return rand_fn
+    if isinstance(rand_fn, StepBits):
+        return rand_fn.rank_fn(coll.rank)
     p, r = coll.p, coll.rank
     return lambda bucket_idx, n: rand_fn(bucket_idx, n * p).reshape(p, n)[r]
 
@@ -604,19 +773,42 @@ def guard_select(fin, new_tree, old_tree):
     return tree_map(lambda a, b: torch.where(pred, a, b), new_tree, old_tree)
 
 
-def step_rand_fn(seed: int, step: int, device) -> RandFn:
-    """Default QSGD bits of one step: bucket ``bucket_idx``'s come from a
-    generator (Philox on CUDA) seeded from (seed, step, bucket_idx), so a
-    replayed step draws the same bits, and a bucket a replan demotes to
-    dense (which draws none) does not shift the bits of later buckets."""
-    base = (seed * 1_000_003 + step) * 1_000_033
+class StepBits:
+    """Default QSGD bits of one step over ``ranks`` data-parallel ranks
+    (a ``RandFn``): rank r's bits of bucket ``bucket_idx`` come from a
+    generator (Philox on CUDA) seeded from (seed, step, bucket_idx, r),
+    so a replayed step draws the same bits, a bucket a replan demotes to
+    dense (which draws none) does not shift the bits of later buckets,
+    and one rank a process draws only its own (:meth:`rank_fn`, the
+    reference's fold of the rank into the key). Called for n words, it
+    returns every rank's draw of n / ranks words in rank order, the
+    layout both executors read (the reference's ``_qsgd_rand_all`` of
+    its ``_qsgd_rand``)."""
 
-    def rand_fn(bucket_idx: int, n: int) -> torch.Tensor:
-        gen = torch.Generator(device=device)
-        gen.manual_seed((base + bucket_idx) % (2**63))
-        return random_bits(n, gen, device)
+    def __init__(self, seed: int, step: int, device, ranks: int):
+        self.base = (seed * 1_000_003 + int(step)) * 1_000_033
+        self.device = device
+        self.ranks = ranks
 
-    return rand_fn
+    def _draw(self, bucket_idx: int, rank: int, n: int, out=None):
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(((self.base + bucket_idx) * 1_000_037 + rank)
+                        % (2**63))
+        return random_bits(n, gen, self.device, out=out)
+
+    def rank_fn(self, rank: int) -> RandFn:
+        """Rank ``rank``'s own bits: n words for n asked."""
+        return lambda bucket_idx, n: self._draw(bucket_idx, rank, n)
+
+    def __call__(self, bucket_idx: int, n: int) -> torch.Tensor:
+        if n % self.ranks:
+            raise ValueError(f"{n} words do not split over {self.ranks} "
+                             "ranks")
+        m = n // self.ranks
+        out = torch.empty(n, dtype=torch.int32, device=self.device)
+        for r in range(self.ranks):
+            self._draw(bucket_idx, r, m, out=out[r * m:(r + 1) * m])
+        return out.view(torch.uint32)
 
 
 LOWERINGS = ("spmd", "manual")
@@ -629,10 +821,12 @@ def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
     (new_state, metrics)``; batch values (the global batch) may be numpy
     or tensors. ``rand_fn(bucket_idx, n)`` overrides the QSGD rounding bits
     (see ``comm/executor.py``; both lowerings lay them out alike, so the
-    same function drives either). ``lowering`` picks the sparcml executor;
-    ``coll`` is the manual lowering's context (``StackedCollectives`` of
-    the dp_total ranks if None; a ``ProcessGroupCollectives`` runs one
-    rank a process)."""
+    same function drives either). ``lowering`` picks the executor:
+    "spmd" (the stacked sum; in dense mode the global batch's grads) or
+    "manual" (per rank over a context; fsdp always); ``coll`` is the
+    manual lowering's context (``StackedCollectives`` of the dp_total
+    ranks if None; a ``ProcessGroupCollectives`` runs one rank a
+    process)."""
     if lowering not in LOWERINGS:
         raise ValueError(f"lowering must be one of {LOWERINGS}: {lowering!r}")
     dev = resolve_device(device)
@@ -641,12 +835,34 @@ def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
     plan = build_plan(model, tcfg, dp_total)
 
     if plan is None:
+        if tcfg.fsdp and coll is None:
+            lowering = "manual"    # the shards are per rank: no global form
+        coll = manual_context(lowering, coll, dp_total, dev)
+        layout = fsdp_layout_of(model, dp_total) if tcfg.fsdp else None
+
         def dense_step(state: TrainState, batch, rand_fn=None):
-            batch = batch_to_device(batch, dev)
-            loss, grads = _accumulated_grads(model, state.params, batch,
-                                             n_micro)
             lr = sched(state.step)
-            new_p, new_opt, gnorm = update(state, grads, lr, tcfg)
+            if coll is None:
+                batch = batch_to_device(batch, dev)
+                loss, grads = _accumulated_grads(model, state.params, batch,
+                                                 n_micro)
+                new_p, new_opt, gnorm = update(state, grads, lr, tcfg)
+            else:
+                batch = batch_to_device(
+                    microbatch_rows(batch, coll, n_micro), dev)
+                params = (gather_params(state.params, layout, coll)
+                          if layout is not None else state.params)
+                with shared_capacity(coll):
+                    loss, leaves = rank_grads(model, params, batch,
+                                              coll.local_ranks, n_micro)
+                del params
+                loss = global_loss(loss, coll)
+                if layout is not None:
+                    new_p, new_opt, gnorm = fsdp_update(state, leaves, lr,
+                                                        tcfg, layout, coll)
+                else:
+                    new_p, new_opt, gnorm = update(
+                        state, dense_sum(leaves, coll), lr, tcfg)
             return (TrainState(new_p, new_opt, None, state.step + 1),
                     {"loss": loss, "grad_norm": gnorm, "lr": lr})
 
@@ -661,7 +877,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
         loss, leaves = rank_grads(model, state.params, batch, held, n_micro)
         loss = global_loss(loss, coll)
         if rand_fn is None:
-            rand_fn = step_rand_fn(tcfg.seed, state.step, dev)
+            rand_fn = StepBits(tcfg.seed, state.step, dev, dp_total)
         reduced, new_res, _ = reduce_half(plan, leaves, state.residuals,
                                           coll, rand_fn)
         # the update reads the grads' shapes and dtypes only: free them

@@ -15,7 +15,10 @@ when a ``ckpt_dir`` is given, and resume from the newest checkpoint that
 passes CRC verification. Their checkpoints are interchangeable, and
 interchangeable with the JAX package's: the pipelined loop strips the
 in-flight buffers before saving and attaches zeros after every restore.
-Both run either lowering, over stacked ranks or one rank a process.
+Both run either lowering, over stacked ranks or one rank a process; a
+run with one rank a process checkpoints as the stacked run does (rank 0
+gathers and writes, each process restores its own rank's slices), and
+an fsdp (ZeRO-3) state is written whole and cut again at restore.
 
 ``obs`` (``repro_torch.obs``) backs the log with its metrics registry.
 ``run_pipelined`` builds the per-bucket telemetry into its step when
@@ -48,8 +51,9 @@ from repro_torch.obs import resolve as _resolve_obs
 from repro_torch.runtime.driver import DriverLog, record_step
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.state import TrainConfig, TrainState
+from repro_torch.train import train_step as ts
 from repro_torch.train.train_step import build_train_step, init_state
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 TrainerLog = DriverLog
 
@@ -60,10 +64,9 @@ class Trainer:
     ``lowering`` picks the sparcml executor of both loops: "spmd" (the
     stacked sum) or "manual" (the per-rank wire protocols). ``coll``, a
     ``ProcessGroupCollectives``, runs the manual lowering one rank a
-    process over ``torch.distributed`` (each process its own Trainer);
-    without it the ranks are stacked on one device. A process-group run
-    takes no checkpoints: each process holds one rank's residuals, and
-    the checkpoint format holds every rank's. ``obs``: a
+    process over ``torch.distributed`` (each process its own Trainer,
+    all of them given the same ``ckpt_dir``); without it the ranks are
+    stacked on one device. ``obs``: a
     ``repro_torch.obs.Observability`` handle (None = the session default,
     off unless configured)."""
 
@@ -72,10 +75,6 @@ class Trainer:
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  straggler_factor: float = 3.0, lowering: str = "spmd",
                  coll=None, obs=None):
-        if coll is not None and ckpt_dir:
-            raise NotImplementedError(
-                "checkpoints of a run with one rank a process: each process "
-                "holds one rank's residuals (ROADMAP Queue 1 item 7)")
         self.device = resolve_device(device)
         self.model = model
         self.tcfg = tcfg
@@ -92,6 +91,10 @@ class Trainer:
         self.step_fn, self.plan = build_train_step(model, tcfg, dp_total,
                                                    self.device, lowering,
                                                    coll)
+        self.fsdp_layout = (ts.fsdp_layout_of(model, dp_total) if tcfg.fsdp
+                            else None)
+        # the process that writes checkpoints: rank 0 of a process group
+        self._root = not ckpt.one_rank_a_process(coll) or coll.rank == 0
         self.state: Optional[TrainState] = None
         # the AdaptiveRuntime of the last run_pipelined(adapt=...) call
         self.last_adapt_runtime = None
@@ -106,7 +109,8 @@ class Trainer:
     def init(self, params=None) -> int:
         """Fresh state (from ``params`` when given), ignoring checkpoints."""
         self.state = init_state(self.model, self.tcfg, self.plan, self.device,
-                                params=params, coll=self.coll)
+                                params=params, coll=self.coll,
+                                dp_total=self.dp_total)
         return self.state.step
 
     def init_or_resume(self, params=None) -> int:
@@ -122,27 +126,54 @@ class Trainer:
         """The newest verified checkpoint in this config's optimizer
         layout: one written under the other ZeRO layout is restored into
         a template of its own layout and converted (the reference's
-        ``_restore_any_layout``)."""
-        from repro_torch.train import train_step as ts
+        ``_restore_any_layout``; one rank a process converts every rank's
+        chunks and keeps its own)."""
+        return self._restore_newest(self._restore_step)
 
-        step = self._verified_step()
+    def _restore_newest(self, restore_step) -> TrainState:
+        """``restore_step(step)`` (a restore with ``verify=True``: one read
+        of the checkpoint, its CRCs checked on the way) of the newest
+        checkpoint that verifies; falls back past corrupt newer ones (a
+        ``recovery/ckpt_fallback`` event), raises when none verifies."""
+        newest = ckpt.latest_step(self.ckpt_dir)
+        step, state = ckpt.restore_newest_valid(self.ckpt_dir, restore_step)
+        if step != newest:
+            self.obs.event("recovery/ckpt_fallback", step=step,
+                           corrupt_step=newest)
+            if self.obs.metrics_on:
+                self.obs.metrics.counter("recovery/ckpt_fallbacks").inc()
+        return state
+
+    def _restore_step(self, step: int) -> TrainState:
         mine = ckpt.opt_layout_of(self.tcfg)
         theirs = ckpt.load_meta(self.ckpt_dir, step).get("opt_layout", mine)
         like = self.state._replace(inflight=None)
+        kw = dict(dp_total=self.dp_total, step=step, fsdp=self.fsdp_layout,
+                  verify=True)
         if theirs == mine:
-            return ckpt.restore(self.ckpt_dir, like, dp_total=self.dp_total,
-                                step=step, verify=True)
+            return ckpt.restore(self.ckpt_dir, like, coll=self.coll, **kw)
         if {theirs, mine} != {"zero1_leaf", "zero_scattered"}:
             raise ValueError(
                 f"checkpoint opt layout {theirs!r} is not resumable under "
                 f"{mine!r} (only zero1_leaf <-> zero_scattered)")
-        other = ts.init_opt(like.params, self.tcfg, self.plan, self.device,
-                            layout=theirs)
-        restored = ckpt.restore(self.ckpt_dir, like._replace(opt=other),
-                                dp_total=self.dp_total, step=step,
-                                verify=True)
-        return ckpt.convert_opt_layout(restored, self.plan, source=theirs,
-                                       target=mine)
+        every = ckpt.one_rank_a_process(self.coll)
+        like = like._replace(opt=ts.init_opt(like.params, self.tcfg,
+                                             self.plan, self.device,
+                                             layout=theirs))
+        if every:
+            like = like._replace(residuals=self.plan.init_residuals(
+                self.device))
+        restored = ckpt.convert_opt_layout(
+            ckpt.restore(self.ckpt_dir, like, **kw), self.plan,
+            source=theirs, target=mine)
+        if not every:
+            return restored
+        r = self.coll.rank
+        own = lambda t: t[r:r + 1]  # noqa: E731
+        return restored._replace(
+            opt={k: v if k == "count" else tree_map(own, v)
+                 for k, v in restored.opt.items()},
+            residuals=tree_map(own, restored.residuals))
 
     def resume_elastic(self, dp_total: int) -> int:
         """An elastic restart onto ``dp_total`` replicas: the steps are
@@ -155,11 +186,14 @@ class Trainer:
         self.dp_total = dp_total
         self.step_fn, self.plan = build_train_step(
             self.model, self.tcfg, dp_total, self.device, self.lowering)
+        if self.tcfg.fsdp:
+            self.fsdp_layout = ts.fsdp_layout_of(self.model, dp_total)
         self.init()
         if self.ckpt_dir and ckpt.latest_step(self.ckpt_dir) is not None:
-            self.state = ckpt.restore(
-                self.ckpt_dir, self.state, dp_total=dp_total,
-                step=self._verified_step(), remesh=True, verify=True)
+            like = self.state
+            self.state = self._restore_newest(lambda step: ckpt.restore(
+                self.ckpt_dir, like, dp_total=dp_total, step=step,
+                remesh=True, verify=True, fsdp=self.fsdp_layout))
         return self.state.step
 
     def _verified_step(self) -> int:
@@ -179,10 +213,12 @@ class Trainer:
                 self.obs.metrics.counter("recovery/ckpt_fallbacks").inc()
         return step
 
-    def _save(self, state: TrainState) -> None:
+    def _save(self, state: TrainState, extra_meta=None) -> None:
+        """Every process calls it (see ``checkpoint.save``)."""
         ckpt.save(self.ckpt_dir, state._replace(inflight=None),
-                  dp_total=self.dp_total,
-                  opt_layout=ckpt.opt_layout_of(self.tcfg))
+                  dp_total=self.dp_total, extra_meta=extra_meta,
+                  opt_layout=ckpt.opt_layout_of(self.tcfg), coll=self.coll,
+                  fsdp=self.fsdp_layout)
 
     # -- synchronous loop --------------------------------------------------
     def run(self, num_steps: int, rand_fn_for_step=None,
@@ -262,7 +298,6 @@ class Trainer:
         from repro_torch.runtime import adapt as rt_adapt
         from repro_torch.runtime import driver as rt_driver
         from repro_torch.runtime import pipeline as rt_pipeline
-        from repro_torch.train import train_step as ts
 
         if self.state is None:
             self.init_or_resume()
@@ -327,13 +362,14 @@ class Trainer:
                          "plan_version": active.version,
                          "plan_algorithms": active.algorithms(),
                          "plan_pod_sparse": active.pod_sparse_flags()}
-            ckpt.save(self.ckpt_dir, s._replace(inflight=None),
-                      dp_total=self.dp_total, extra_meta=extra,
-                      opt_layout=ckpt.opt_layout_of(self.tcfg))
+            self._save(s, extra)
             if inject:
                 # a scheduled ckpt_corrupt flips bytes in the save that
-                # just landed; the CRC fallback of the restore survives it
-                injector.corrupt_checkpoint(self.ckpt_dir, int(s.step))
+                # just landed (rank 0 writes them, every process counts
+                # the fault); the CRC fallback of the restore survives it
+                injector.corrupt_checkpoint(self.ckpt_dir, int(s.step),
+                                            write=self._root)
+                ckpt.barrier(self.coll)
 
         def restore_fn():
             restored = self._restore()

@@ -29,7 +29,8 @@ MOE_ARCHS = ["moonshot-v1-16b-a3b", "dbrx-132b"]
 ARCHS = [jc.EXTERNAL_NAMES[a] for a in jc.ARCH_IDS]
 FAMILY_ARCHS = [a for a in ARCHS if a not in MOE_ARCHS]
 # train configs with SparCML sync (llama3-405b's and dbrx's ask for fsdp)
-SPARCML_ARCHS = [a for a in ARCHS if a not in ("llama3-405b", "dbrx-132b")]
+FSDP_ARCHS = ["llama3-405b", "dbrx-132b"]
+SPARCML_ARCHS = [a for a in ARCHS if a not in FSDP_ARCHS]
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -192,13 +193,6 @@ def test_moonshot_train_config_matches_reference():
                                microbatches=2).microbatches == 2
 
 
-def test_dbrx_train_config_raises_for_fsdp():
-    """dbrx's train_config asks for fsdp (ZeRO-3 placement), which the port
-    does not have: it raises, naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tc.get_train_config("dbrx-132b")
-
-
 def test_moe_entry_points_default_to_the_card(monkeypatch):
     """init_params, the decode state and the engines of a MoE model run on
     the card unless device="cpu" is given, and raise without one."""
@@ -231,12 +225,24 @@ def test_sparcml_train_configs_match_reference(arch):
     assert t.zero1 and t.sync.mode == "sparcml"
 
 
-def test_llama3_405b_train_config_raises_for_fsdp():
-    """llama3-405b's train_config asks for fsdp with dense sync and bf16
-    moments, as dbrx's does: it raises, naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tc.get_train_config("llama3-405b")
-    assert jc.get_train_config("llama3-405b", None).fsdp
+@pytest.mark.parametrize("arch", FSDP_ARCHS)
+def test_fsdp_train_configs_match_reference(arch):
+    """llama3-405b's and dbrx's train_config: dense sync with fsdp
+    (ZeRO-3) and bf16 moments, the reference's schedule, optimizer and
+    microbatches, and the same sync fields (but impl)."""
+    t, j = tc.get_train_config(arch), jc.get_train_config(arch, None)
+    sync, jsync = dataclasses.asdict(t.sync), dataclasses.asdict(j.sync)
+    assert sync.pop("impl") == "auto" and jsync.pop("impl") == "ref"
+    sync.pop("ef_dtype"), jsync.pop("ef_dtype")
+    assert sync == jsync and t.sync.mode == "dense"
+    assert dataclasses.asdict(t.schedule) == dataclasses.asdict(j.schedule)
+    opt, jopt = dataclasses.asdict(t.optimizer), dataclasses.asdict(
+        j.optimizer)
+    assert DTYPES[jopt.pop("state_dtype")] == opt.pop("state_dtype")
+    assert opt == jopt and t.optimizer.state_dtype == torch.bfloat16
+    assert (t.microbatches, t.fsdp, t.zero1) == (
+        j.microbatches, j.fsdp, j.zero1)
+    assert t.fsdp and not t.zero1
 
 
 def _smoke_batch(cfg, rng, b=2, s=16) -> dict:

@@ -1307,3 +1307,122 @@ def test_cuda_flash_attention_matches_cpu(cuda_device, causal, window):
     for a, b in zip(run(cuda_device), run("cpu")):
         torch.testing.assert_close(a, b, rtol=1e-5,
                                    atol=1e-5 * float(b.abs().max()))
+
+
+def _tiny_dense(layers=2):
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import build_model
+
+    return build_model(ModelConfig(
+        name="t", family="dense", num_layers=layers, d_model=64,
+        num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+        max_seq_len=64, dtype=torch.float32, param_dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_fsdp_matches_cpu_and_replicated(cuda_device):
+    """Dense sync with fsdp over StackedCollectives(2), 3 steps from the
+    same weights: on the card against the CPU, and against the card's
+    replicated dense step (losses within rtol 1e-5, the gathered params
+    within rtol 1e-5 and a floor of 1e-5 of each tensor's largest
+    magnitude)."""
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.core.compressor import SyncConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.state import TrainConfig
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.tree import tree_leaves
+
+    model = _tiny_dense()
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+
+    def run(dev, fsdp):
+        tcfg = TrainConfig(sync=SyncConfig(mode="dense"), microbatches=2,
+                           fsdp=fsdp)
+        tr = Trainer(model, tcfg, DataConfig(8, 16, 256), dp_total=2,
+                     device=dev)
+        tr.init(params=_to(params, dev))
+        losses = tr.run(3).losses
+        whole = tr.state.params
+        if fsdp:
+            whole = ts.gather_params(whole, tr.fsdp_layout,
+                                     StackedCollectives(2, dev))
+        return losses, [t.cpu().numpy() for t in tree_leaves(whole)]
+
+    card = run(cuda_device, True)
+    for want in (run("cpu", True), run(cuda_device, False)):
+        np.testing.assert_allclose(card[0], want[0], rtol=1e-5)
+        for a, b in zip(card[1], want[1]):
+            np.testing.assert_allclose(a, b, rtol=1e-5,
+                                       atol=1e-5 * float(np.abs(b).max()))
+
+
+@pytest.mark.cuda
+def test_cuda_process_group_checkpoint_round_trip(cuda_device, tmp_path):
+    """A one-process NCCL group, SparCML through the kernels: a
+    checkpoint at step 2 holds the stacked run's arrays, and a fresh
+    process-group Trainer resumed from it runs to step 4 bit-equal to
+    the stacked run continued."""
+    import torch.distributed as dist
+
+    from repro_torch.comm.collectives import ProcessGroupCollectives
+    from repro_torch.core.compressor import SyncConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.state import TrainConfig
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.tree import tree_leaves
+
+    tcfg = TrainConfig(sync=SyncConfig(
+        mode="sparcml", k_per_bucket=4, bucket_size=128,
+        algorithm="dsar_split_allgather", qsgd_bits=4, qsgd_bucket=128,
+        min_sparse_size=1024), microbatches=2)
+    model = _tiny_dense()
+
+    def trainer(coll, where):
+        return Trainer(model, tcfg, DataConfig(8, 16, 256), dp_total=1,
+                       device=cuda_device, lowering="manual", coll=coll,
+                       ckpt_dir=str(tmp_path / where))
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rv",
+                            world_size=1, rank=0)
+    try:
+        coll = ProcessGroupCollectives(device=cuda_device)
+        pg = trainer(coll, "pg")
+        pg.init()
+        pg.run(2)
+        resumed = trainer(coll, "pg")
+        assert resumed.init_or_resume() == 2
+        before = topk_ops.bucket_topk.launches
+        resumed.run(4)
+        assert topk_ops.bucket_topk.launches > before
+    finally:
+        dist.destroy_process_group()
+    stacked = trainer(None, "stacked")
+    stacked.init()
+    stacked.run(2)
+    step2 = "step_00000002/arrays.npz"
+    with np.load(tmp_path / "pg" / step2) as a, \
+            np.load(tmp_path / "stacked" / step2) as b:
+        assert a.files == b.files
+        for k in a.files:
+            assert np.array_equal(a[k], b[k]), k
+    stacked.run(4)
+    for f in ("params", "opt", "residuals"):
+        for a, b in zip(tree_leaves(getattr(resumed.state, f)),
+                        tree_leaves(getattr(stacked.state, f))):
+            assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+def test_cuda_own_rank_bits_are_slices_of_the_stacked_draw(cuda_device):
+    """Rank r's default QSGD bits, drawn alone (n words), are slice r of
+    the stacked draw on the card, which fills each rank's slice in
+    place."""
+    from repro_torch.train import train_step as ts
+
+    bits = ts.StepBits(0, 3, cuda_device, 4)
+    for b, n in ((0, 4096), (7, 1000)):
+        full = bits(b, 4 * n)
+        for r in range(4):
+            assert torch.equal(bits.rank_fn(r)(b, n), full[r * n:(r + 1) * n])

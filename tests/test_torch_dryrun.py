@@ -1,6 +1,7 @@
 """The one-card dry run, op counter and roofline against the JAX
 package's ``launch/dryrun.py``, ``utils/hlo_cost.py`` and
 ``utils/roofline.py``, on the CPU (the port on the meta device)."""
+import dataclasses
 import os
 
 import jax
@@ -54,6 +55,45 @@ def test_state_memory_breakdown_matches_reference_per_rank(jdryrun):
         assert stacked[k] == 4 * per_rank[k]
     for k in ("params", "inflight"):
         assert stacked[k] == per_rank[k]
+
+
+def test_fsdp_state_memory_breakdown_matches_reference_per_rank(jdryrun):
+    """fsdp (llama3-405b's train_config: dense sync, bf16 moments) at
+    p = 2: one rank a process holds half of each sharded leaf and every
+    replicated leaf whole, params and moments alike: the reference's
+    breakdown on a data 2 x model 1 mesh, component by component. The
+    stacked ranks hold both halves: the replicated layout's bytes."""
+    arch = "llama3-405b"
+    mesh = make_mesh((2, 1), ("data", "model"), devices=jax.devices()[:2])
+    ref = jdryrun.state_memory_breakdown(
+        jax_build_model(jconfigs.smoke_config(arch)),
+        jconfigs.get_train_config(arch, mesh), mesh)
+    model = build_model(configs.smoke_config(arch))
+    tcfg = configs.get_train_config(arch)
+    per_rank = dryrun.state_memory_breakdown(model, tcfg, 2, ranks=1)
+    assert per_rank == {k: int(v) for k, v in ref.items()}
+    stacked = dryrun.state_memory_breakdown(model, tcfg, 2)
+    whole = dryrun.state_memory_breakdown(
+        model, dataclasses.replace(tcfg, fsdp=False), 2)
+    assert stacked == whole
+    assert per_rank["params"] < stacked["params"] < 2 * per_rank["params"]
+
+
+@pytest.mark.parametrize("arch,sync", [("dbrx-132b", None),
+                                       ("qwen3-4b", "dense")])
+def test_run_cell_trains_fsdp(arch, sync, tmp_path):
+    """dbrx's own train cell (fsdp) and qwen3-4b's under the reference's
+    --sync dense override count at 1 layer: status ok, a rank's share of
+    the state, the gathered params in the peak."""
+    rec = dryrun.run_cell(arch, "train_4k", layers=1, out_dir=str(tmp_path),
+                          sync_override=sync)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["fsdp"] and rec["sync_mode"] == "dense"
+    sm, mine = rec["state_memory"], rec["state_memory_per_rank"]
+    assert rec["gathered_params"] == sm["params"] > mine["params"]
+    assert mine["opt_mu"] < sm["opt_mu"] and sm["ef_residual"] == 0
+    tag = f"__{sync}" if sync else ""
+    assert (tmp_path / f"{arch}__train_4k__stacked2{tag}.json").exists()
 
 
 def _counted_forward(arch, b, s):

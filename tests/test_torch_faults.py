@@ -267,6 +267,35 @@ def test_injector_one_shot_and_batch_wrap():
         ["nonfinite", "nonfinite", "stall"]
 
 
+def test_process_group_fault_hooks(tmp_path):
+    """One rank a process: a process that did not write the checkpoint
+    counts the scheduled corruption without touching the file, and a
+    recorder of a rank other than 0 (``deaths_only``) writes only when
+    its process dies (a signal or a ``death:`` dump)."""
+    from repro_torch.train import checkpoint as ckpt
+
+    step_dir = tmp_path / "step_00000004"
+    step_dir.mkdir()
+    (step_dir / "arrays.npz").write_bytes(bytes(range(256)) * 4)
+    plan = FaultPlan.single("ckpt_corrupt", 4)
+    other, writer = FaultInjector(plan), FaultInjector(plan)
+    assert other.corrupt_checkpoint(str(tmp_path), 4, write=False) is None
+    assert (step_dir / "arrays.npz").read_bytes() == bytes(range(256)) * 4
+    assert other.fired_total == 1
+    assert writer.corrupt_checkpoint(str(tmp_path), 4) is not None
+    assert (step_dir / "arrays.npz").read_bytes() != bytes(range(256)) * 4
+    ckpt.barrier(None)                   # stacked ranks: no process group
+
+    rec = FlightRecorder(str(tmp_path / "bb.json.rank1"))
+    rec.deaths_only = True
+    assert rec._safe_dump("exception:FaultInjectionError") is None
+    assert rec._safe_dump("watchdog") is None
+    assert not (tmp_path / "bb.json.rank1").exists()
+    assert rec._safe_dump("death:RetryBudgetExhausted") is not None
+    assert json.loads((tmp_path / "bb.json.rank1").read_text())[
+        "reason"] == "death:RetryBudgetExhausted"
+
+
 def test_refund_undispatched_nonfinite_refires_after_rewind():
     plan = FaultPlan(specs=(FaultSpec(kind="nonfinite", step=6),
                             FaultSpec(kind="nonfinite", step=2),

@@ -81,7 +81,7 @@ def child(tree: Path) -> dict:
     st = trainer.state
     _, leaves = ts.rank_grads(trainer.model, st.params, ts.batch_to_device(
         synthetic_batch(data, 0), dev), run_lm.DP, trainer.tcfg.microbatches)
-    rand0 = ts.step_rand_fn(trainer.tcfg.seed, 0, dev)
+    rand0 = ts.StepBits(trainer.tcfg.seed, 0, dev, run_lm.DP)
 
     def reduce(telemetry=False):
         return reduce_buckets_spmd(trainer.plan, leaves, st.residuals,
