@@ -147,14 +147,16 @@ Phases, in order; any failure exits non-zero:
      checkpoints' saves and restores were most of the phase's time)
      (guarded, injectable step at staleness 0, 6 steps,
      one checkpoint before the fault, two where a corrupted save needs an
-     older one): nonfinite with repeat = max_consecutive_nonfinite
-     (escalation, rewind), a collective raise, a corrupted save then a
-     collective raise (falls back to the older checkpoint), each ending
+     older one; each restore the newest checkpoint whose CRCs verify as
+     it is read, one read, as Trainer restores): nonfinite with repeat =
+     max_consecutive_nonfinite (escalation, rewind), a collective raise,
+     a corrupted save then a collective raise (falls back to the older
+     checkpoint), each ending
      bit-equal to the clean run; a straggler and a stall (wall time
      only); every run's events name exactly its planned faults, restarts
      and restores; the pipelined step with an idle injector and with none
-     in turns; SIGTERM in a child process, which must die by the signal
-     with its blackbox written;
+     in turns; SIGTERM in a child process (lm-100m's widths at 2 of its
+     12 layers), which must die by the signal with its blackbox written;
  16. serving lm-100m (12 layers, d = 768, random weights from seed 0)
      through the port's entry points, with every kernel's launch count
      reset before and read after (no TPU kernel lies on this path):
@@ -325,6 +327,30 @@ Phases, in order; any failure exits non-zero:
      restart a planned collective raise, the corrupted save skipped
      once, and the four kernels launched ("launches_fsdp_restore": the
      two paths' counts);
+ 22. run before the kernels line (21), which stays last: 22a, the main
+     path under algorithm="auto": lm-100m as phases 3-5 run it (12
+     layers, d = 768, f32, R = 4, k = 8 of 512, QSGD-4) with the
+     algorithm left at "auto", the Trainer fitting the network on the
+     stacked ranks (alpha, bandwidth and the buckets by algorithm
+     printed), 3 steps through the kernels with each kernel's launches
+     equal to the resolved plan's (a bucket_topk an EF bucket, a grouped
+     densify + sum for every 64, a grouped pack and unpack for every 48
+     quantized DSAR buckets) and the median step, bit-equal (losses,
+     params, EF residuals) to the same steps with the resolved algorithm
+     named; then make_sparse_allreduce("auto") at Fig. 3's shapes (N =
+     2^24, P = 8, k = 4 and 64) on a fit over its 8 stacked ranks: the
+     algorithm it picks, its time, the sum against the exact f64 sum as
+     phase 7 checks it; 22b, serving with fsdp: llama3-405b at its
+     published widths (d = 16384, 128 heads of 128, kv 8, d_ff 53248,
+     vocab 128256), 2 of its 126 layers, random bf16 weights from a
+     seed: a prefill of 8 prompts of 128 tokens and 16 greedy decode
+     steps at cache 2048 with the params replicated, as fsdp shards over
+     2 stacked ranks and over a one-process NCCL group (a world of 1
+     takes the stacked branches: the per-process row split runs only in
+     the CPU's gloo world of 2), logits and tokens bit-equal across the
+     three; each form's decode step (CUDA events, median of 16) and peak
+     above what it holds, beside the dry run's one gathered layer
+     ("launches_auto" and "launches_serve_fsdp" in the kernels line);
  21. the kernels line (a kernel's "launches" are the main path's, or,
      for one the main path does not run, those of the first later path
      that runs it, named in "launches_path"; "launches_moe_train" and
@@ -1393,6 +1419,27 @@ def main() -> None:
             fail(f"20c: {row['name']} was not launched on the process-group "
                  "checkpoint and chaos paths")
     log(f"[20] phase took {record['fsdp']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 22
+    t_phase = time.perf_counter()
+    record["auto_fsdp"], auto_paths = phase_auto_fsdp(torch, dev, wrappers,
+                                                      out_dir)
+    new_paths.update(auto_paths)
+    record["auto_fsdp"]["seconds"] = time.perf_counter() - t_phase
+    for row in kernels:
+        grouped = "qsgd_unpack_grouped" if row["name"] == "qsgd_unpack" \
+            else row["name"]
+        row["launches_auto"] = {path: auto_paths[path][grouped]
+                                for path in ("auto_main", "auto_fig3")}
+        row["launches_serve_fsdp"] = auto_paths["serve_fsdp"][grouped]
+        if row["name"] in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
+                           "qsgd_unpack") and not row["launches_auto"][
+                               "auto_main"]:
+            fail(f"22a: {row['name']} was not launched on the main path "
+                 "under 'auto'")
+    log(f"[22] phase took {record['auto_fsdp']['seconds']:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3064,6 +3111,7 @@ def _leaves_of_params(model):
 
 
 SIGTERM_SCRIPT = """
+import dataclasses
 import sys
 sys.path.insert(0, sys.argv[1])
 from repro_torch import obs as obs_mod
@@ -3078,7 +3126,7 @@ from repro_torch.train import train_step as ts
 from repro_torch.utils.tree import tree_leaves
 
 cfg, data = run_lm.lm_config(fast=False)
-model = build_model(cfg)
+model = build_model(dataclasses.replace(cfg, num_layers=int(sys.argv[3])))
 tcfg = run_lm.train_config(8)
 step, plan = build_pipelined_step(model, tcfg, run_lm.DP, "cuda",
                                   staleness=0, guard=True, inject=True,
@@ -3193,8 +3241,7 @@ def phase_faults(torch, dev, wrappers, out_dir: Path):
         inj = FaultInjector(FaultPlan(specs=tuple(specs))).bind(
             n_leaves=n_leaves)
         ckpt_fn = restore_fn = None
-        io = {"save_s": [], "verify_s": [], "restore_s": [],
-              "restored_steps": []}
+        io = {"save_s": [], "restore_s": [], "restored_steps": []}
         if ckpt_dir is not None:
             def ckpt_fn(s):
                 t0 = time.perf_counter()
@@ -3204,15 +3251,16 @@ def phase_faults(torch, dev, wrappers, out_dir: Path):
                 inj.corrupt_checkpoint(ckpt_dir, int(s.step))
 
             def restore_fn():
+                # the newest checkpoint whose CRCs verify, checked as it
+                # is read (one read), as Trainer restores
                 t0 = time.perf_counter()
-                at = ckpt.latest_valid_step(ckpt_dir)   # the CRC checks
-                verify_s = time.perf_counter() - t0
-                out = ckpt.restore(
-                    ckpt_dir, ts.init_state(shallow, tcfg, plan, dev),
-                    dp_total=run_lm.DP, step=at)
+                like = ts.init_state(shallow, tcfg, plan, dev)
+                at, out = ckpt.restore_newest_valid(
+                    ckpt_dir, lambda step: ckpt.restore(
+                        ckpt_dir, like, dp_total=run_lm.DP, step=step,
+                        verify=True))
                 torch.cuda.synchronize()
                 io["restore_s"].append(time.perf_counter() - t0)
-                io["verify_s"].append(verify_s)
                 io["restored_steps"].append(at)
                 return out
 
@@ -3292,8 +3340,8 @@ def phase_faults(torch, dev, wrappers, out_dir: Path):
                 f"{tail}; events {events} (as planned {named}); {wall:.1f} s "
                 f"(clean {clean_wall:.1f} s); saves "
                 f"{[round(v, 2) for v in io['save_s']]} s, restores "
-                f"{[round(v, 2) for v in io['restore_s']]} s (of which the "
-                f"CRC checks {[round(v, 2) for v in io['verify_s']]} s)")
+                f"{[round(v, 2) for v in io['restore_s']]} s (one verified "
+                f"read each)")
             if not (same and tail and named):
                 fail(f"fault case {name} did not recover as planned")
             del state
@@ -3334,12 +3382,13 @@ def phase_faults(torch, dev, wrappers, out_dir: Path):
     bb.unlink(missing_ok=True)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", SIGTERM_SCRIPT, str(SRC),
-                           str(bb)], capture_output=True, text=True,
-                          timeout=300)
+                           str(bb), str(CKPT_LAYERS)], capture_output=True,
+                          text=True, timeout=300)
     reason = json.loads(bb.read_text())["reason"] if bb.exists() else None
     rec["sigterm"] = {"returncode": proc.returncode, "blackbox_reason": reason,
                       "seconds": time.perf_counter() - t0}
-    log(f"[15] SIGTERM at step 2 of a child lm-100m run: exit code "
+    log(f"[15] SIGTERM at step 2 of a child run at lm-100m's widths and "
+        f"{CKPT_LAYERS} layers: exit code "
         f"{proc.returncode}, blackbox reason {reason!r}, "
         f"{rec['sigterm']['seconds']:.1f} s")
     if proc.returncode != -15 or reason != "signal:SIGTERM":
@@ -5948,6 +5997,299 @@ def phase_fsdp(torch, dev, wrappers, out_dir: Path):
         finally:
             dist.destroy_process_group()
         rec["chaos"], paths["pg_chaos"] = run_chaos(wrappers, d)
+    return rec, paths
+
+
+# ---------------------------------------------------------------- 22
+AUTO_STEPS = 3             # 22a: lm-100m under "auto", then named
+FSDP_SERVE_ARCH = "llama3-405b"
+FSDP_SERVE_LAYERS = 2      # 22b: 126 -> 2 layers, every width as published
+FSDP_SERVE_SLOTS = 8       # 128 -> 8 rows
+FSDP_SERVE_CACHE = 2048    # 32768 -> 2048 positions
+FSDP_SERVE_PROMPT = 128
+FSDP_SERVE_STEPS = 16
+FSDP_SERVE_P = 2           # stacked ranks holding the shards
+
+
+def _expected_launches(plan, steps: int) -> dict:
+    """What a stacked step's reduce half launches under ``plan``: one
+    bucket_topk an EF bucket, one grouped densify + sum for every 64 EF
+    buckets, one grouped pack and unpack for every 48 quantized DSAR
+    buckets."""
+    ef = [b for b in plan.buckets if b.has_residual]
+    q = [b for b in ef if b.algorithm == "dsar_split_allgather"
+         and plan.cfg.qsgd_bits is not None]
+    return {"bucket_topk": len(ef) * steps, "bucket_scatter": 0,
+            "bucket_scatter_sum": -(-len(ef) // 64) * steps,
+            "qsgd_pack": -(-len(q) // 48) * steps, "qsgd_unpack": 0,
+            "qsgd_unpack_grouped": -(-len(q) // 48) * steps}
+
+
+def auto_main_path(torch, dev, wrappers, n: int = 1 << 24) -> tuple:
+    """22a: lm-100m as phase 3 runs it with ``algorithm="auto"``: the
+    Trainer fits the network on the stacked ranks and selects each
+    bucket's algorithm; AUTO_STEPS steps through the kernels, launches
+    against the resolved plan, bit-equal to the same steps with the
+    resolved algorithm named. Then make_sparse_allreduce("auto") at Fig.
+    3's shapes on a fit over its 8 ranks, against the exact f64 sum."""
+    from collections import Counter
+
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.core import allreduce as ar
+    from repro_torch.core.topk import compress
+    from repro_torch.models.model import build_model
+    from repro_torch.train import run_lm
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.calibrate import calibrate
+    from repro_torch.utils.tree import tree_leaves
+
+    rec: dict = {}
+    cfg, data = run_lm.lm_config(fast=False)
+    tcfg = run_lm.train_config(AUTO_STEPS, algorithm="auto")
+    t0 = time.perf_counter()
+    trainer = Trainer(build_model(cfg), tcfg, data, dp_total=run_lm.DP,
+                      device=dev)
+    build_s = time.perf_counter() - t0
+    net = trainer._calibrated_net()
+    plan = trainer.plan
+    picked = dict(Counter(b.algorithm for b in plan.buckets))
+    log(f"[22a] lm-100m, algorithm 'auto': fitted on the {run_lm.DP} "
+        f"stacked ranks (the device's sum; no wire) alpha {net.alpha:.4e} "
+        f"s, {net.link_bytes_per_s / 1e9:.2f} GB/s; buckets by algorithm "
+        f"{picked} (EF buckets {sum(b.has_residual for b in plan.buckets)}"
+        f"); the Trainer with its fit and plan in {build_s:.2f} s")
+    trainer.init()
+    for w in wrappers.values():
+        w.launches = 0
+    tlog = trainer.run(AUTO_STEPS)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    expect = _expected_launches(plan, AUTO_STEPS)
+    step_ms = statistics.median(tlog.step_times) * 1e3
+    log(f"[22a] {AUTO_STEPS} steps: losses {tlog.losses}, median step "
+        f"{step_ms:.1f} ms; launches {launches} (the resolved plan's "
+        f"{expect})")
+    if launches != expect:
+        fail(f"22a: launches {launches}, the resolved plan gives {expect}")
+    if not all(math.isfinite(v) for v in tlog.losses):
+        fail(f"22a: non-finite losses {tlog.losses}")
+    # the same steps with the resolved algorithm named
+    ef_algos = {b.algorithm for b in plan.buckets if b.has_residual}
+    if len(ef_algos) != 1:
+        fail(f"22a: the EF buckets resolved to {ef_algos}: no one named "
+             "algorithm gives this plan")
+    named = Trainer(build_model(cfg), dataclasses.replace(
+        tcfg, sync=dataclasses.replace(tcfg.sync,
+                                       algorithm=ef_algos.pop())),
+        data, dp_total=run_lm.DP, device=dev)
+    if named.plan.algorithms() != plan.algorithms():
+        fail("22a: the named algorithm's plan is not the resolved one")
+    named.init()
+    nlog = named.run(AUTO_STEPS)
+    same = nlog.losses == tlog.losses and all(
+        torch.equal(a, b) for f in ("params", "residuals")
+        for a, b in zip(tree_leaves(getattr(trainer.state, f)),
+                        tree_leaves(getattr(named.state, f))))
+    log(f"[22a] against the resolved algorithm named: bit-equal {same}")
+    if not same:
+        fail("22a: 'auto' differs from its resolved algorithm named")
+    rec["lm100m"] = {"alpha_s": net.alpha,
+                     "link_bytes_per_s": net.link_bytes_per_s,
+                     "buckets_by_algorithm": picked,
+                     "losses": list(tlog.losses),
+                     "step_times_s": list(tlog.step_times),
+                     "median_step_ms": step_ms, "launches": launches,
+                     "bit_equal_named": same, "build_s": build_s}
+    del trainer, named
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- make_sparse_allreduce("auto") at Fig. 3's shapes
+    p, b = 8, 512
+    coll = StackedCollectives(p, dev)
+    t0 = time.perf_counter()
+    net8 = calibrate(coll)
+    fit_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    x = torch.randn((p, n), device=dev, generator=gen)
+    clamped = {"ssar_balanced_split": ar.ssar_balanced_split_inside,
+               "ssar_rearranged_rs": ar.ssar_rearranged_rs_inside}
+    fig3 = {"alpha_s": net8.alpha, "link_bytes_per_s": net8.link_bytes_per_s,
+            "fit_s": fit_s, "runs": []}
+    fig3_launches = {nm: 0 for nm in wrappers}
+    for k in (4, 64):
+        f = ar.make_sparse_allreduce(coll, n, k, b, net=net8)
+        for w in wrappers.values():
+            w.launches = 0
+        out = f(x)
+        torch.cuda.synchronize()
+        for nm, w in wrappers.items():
+            fig3_launches[nm] += w.launches
+        u_ref, _ = compress(x, k, b, impl="ref")
+        exact = u_ref.densify(impl="ref").double().sum(0)
+        got = out[0].double()
+        if f.algorithm in clamped:
+            u, _ = compress(x, k, b)
+            dense, fold = clamped[f.algorithm](u, coll=coll)
+            if not torch.equal(dense, out):
+                fail(f"22a fig3 k={k}: make_sparse_allreduce differs from "
+                     f"its *_inside function")
+            got = got + fold.double().sum(0)
+            del u, dense, fold
+        scale = float(exact.abs().max())
+        err = float(((got - exact).abs() - 1e-5 * exact.abs()).max()) / scale
+        ms = time_ms(torch, lambda: f(x))
+        row = {"k": k, "algorithm": f.algorithm, "ms": ms,
+               "max_err_over_1e-5_rel": err}
+        fig3["runs"].append(row)
+        log(f"[22a] fig3 N={n} P={p} k={k}, 'auto' on the card's fit "
+            f"(alpha {net8.alpha:.4e} s, {net8.link_bytes_per_s / 1e9:.2f} "
+            f"GB/s, {fit_s:.2f} s): {f.algorithm}, {ms:.3f} ms; max "
+            f"(|err| - 1e-5 |sum|) / max|sum| {err:.3e} (limit 1e-6)")
+        if err > 1e-6:
+            fail(f"22a fig3 k={k} {f.algorithm}: error {err:.3e}")
+        del out, u_ref, exact, got
+    rec["fig3"] = fig3
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, {"auto_main": launches, "auto_fig3": fig3_launches}
+
+
+def fsdp_serving(torch, dev, wrappers, out_dir: Path) -> tuple:
+    """22b: llama3-405b at its published widths, FSDP_SERVE_LAYERS layers,
+    random bf16 weights: a prefill of FSDP_SERVE_SLOTS prompts and
+    FSDP_SERVE_STEPS greedy decode steps with the params replicated, as
+    fsdp shards over FSDP_SERVE_P stacked ranks, and as a one-process
+    NCCL group's shards: logits and tokens bit-equal; each form's decode
+    step and peak, the gathered layer's transient beside the dry run's
+    estimate."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.comm.collectives import (ProcessGroupCollectives,
+                                              StackedCollectives)
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import build_model, init_params
+    from repro_torch.serve.engine import build_prefill, build_serve_step
+    from repro_torch.train import train_step as ts
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = configs.get_config(FSDP_SERVE_ARCH, num_layers=FSDP_SERVE_LAYERS)
+    model = build_model(cfg)
+    full = configs.get_config(FSDP_SERVE_ARCH).num_layers
+    reduced = [f"depth {full} -> {FSDP_SERVE_LAYERS}",
+               f"batch 128 -> {FSDP_SERVE_SLOTS} slots",
+               f"cache 32768 -> {FSDP_SERVE_CACHE}"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (FSDP_SERVE_SLOTS, FSDP_SERVE_PROMPT),
+                            device=dev, generator=gen, dtype=torch.int32)
+    layout = ts.fsdp_layout_of(model, FSDP_SERVE_P)
+    estimate = dryrun.gathered_unit_bytes(
+        init_params(cfg, device="meta"), layout, cfg)
+
+    def serve(held, fsdp, coll):
+        pre = build_prefill(model, FSDP_SERVE_CACHE, fsdp=fsdp, coll=coll)
+        step = build_serve_step(model, FSDP_SERVE_CACHE, fsdp=fsdp,
+                                coll=coll)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        logits, state = pre(held, {"tokens": prompts})
+        seen, toks = [logits], []
+        for _ in range(FSDP_SERVE_STEPS):
+            cur = torch.argmax(logits, -1, keepdim=True).to(torch.int32)
+            toks.append(cur)
+            logits, state = step(held, state, cur)
+            seen.append(logits)
+        torch.cuda.synchronize()
+        return (torch.stack(seen), torch.cat(toks, 1),
+                torch.cuda.max_memory_allocated() - base, base)
+
+    def timed(held, fsdp, coll):
+        """The decode step's median ms (CUDA events), its state as the
+        prefill left it, FSDP_SERVE_STEPS steps."""
+        pre = build_prefill(model, FSDP_SERVE_CACHE, fsdp=fsdp, coll=coll)
+        step = build_serve_step(model, FSDP_SERVE_CACHE, fsdp=fsdp,
+                                coll=coll)
+        logits, state = pre(held, {"tokens": prompts})
+        cur = torch.argmax(logits, -1, keepdim=True).to(torch.int32)
+        ms = []
+        for _ in range(FSDP_SERVE_STEPS):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            step(held, state, cur)
+            t1.record()
+            t1.synchronize()
+            ms.append(t0.elapsed_time(t1))
+        return statistics.median(ms)
+
+    rec: dict = {"reduced": reduced, "params": n_params,
+                 "gathered_estimate_bytes": estimate}
+    forms: dict = {}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    want = serve(params, False, None)
+    forms["replicated"] = (want, timed(params, False, None))
+    coll = StackedCollectives(FSDP_SERVE_P, dev)
+    held = ts.shard_params(params, layout, ts.held_ranks(coll, FSDP_SERVE_P))
+    forms[f"stacked{FSDP_SERVE_P}"] = (serve(held, True, coll),
+                                       timed(held, True, coll))
+    del held
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        _nccl_world_of_one(torch, tmp)
+        try:
+            pg = ProcessGroupCollectives(device=dev)
+            held = ts.shard_params(params, ts.fsdp_layout_of(model, 1),
+                                   ts.held_ranks(pg, 1))
+            forms["nccl1"] = (serve(held, True, pg), timed(held, True, pg))
+            del held
+        finally:
+            dist.destroy_process_group()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    for name, ((logits, toks, peak, base), ms) in forms.items():
+        same = (torch.equal(logits, want[0]) and torch.equal(toks, want[1]))
+        rec[name] = {"decode_step_ms": ms, "peak_above_held_bytes": peak,
+                     "held_bytes": base, "bit_equal_replicated": same}
+        log(f"[22b] {FSDP_SERVE_ARCH} at {FSDP_SERVE_LAYERS} layers, "
+            f"{cfg.dtype}, "
+            f"{n_params} params, {name}: decode step {ms:.2f} ms (median "
+            f"of {FSDP_SERVE_STEPS}, CUDA events), {base / 1e9:.2f} GB held "
+            f"before the prefill, peak {peak / 1e9:.2f} GB above it; logits "
+            f"and tokens bit-equal to replicated {same}")
+        if not same:
+            fail(f"22b: fsdp serving ({name}) differs from replicated")
+        del logits, toks
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[22b] the gathered layer's transient (the stacked form's peak "
+        f"above its held shards and caches) "
+        f"{rec[f'stacked{FSDP_SERVE_P}']['peak_above_held_bytes'] / 1e9:.2f}"
+        f" GB against the dry run's one gathered layer "
+        f"{estimate / 1e9:.2f} GB; reduced {reduced}; launches {launches}")
+    del params, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, {"serve_fsdp": launches}
+
+
+def phase_auto_fsdp(torch, dev, wrappers, out_dir: Path) -> tuple:
+    """Phase 22 (see the module docstring). Returns (record, {path:
+    launches})."""
+    rec: dict = {}
+    t0 = time.perf_counter()
+    rec["auto"], paths = auto_main_path(torch, dev, wrappers)
+    log(f"[22a] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["serve_fsdp"], more = fsdp_serving(torch, dev, wrappers, out_dir)
+    log(f"[22b] took {time.perf_counter() - t0:.1f} s")
+    paths.update(more)
     return rec, paths
 
 

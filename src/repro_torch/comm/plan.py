@@ -12,8 +12,10 @@ world size. It decides:
   phase always divides, x the QSGD bucket when quantizing);
 * which algorithm each bucket runs (the configured one, DSAR for rowed
   buckets, plain sum below ``min_sparse_size``). ``algorithm='auto'``
-  selects by the cost model, whose network parameters are not measured
-  for the port's interconnect yet, and raises.
+  selects each bucket's by the cost model on the network parameters
+  ``net`` passed to ``build_sync_plan`` (the reference resolves against
+  its TPU constants; the port has none, so "auto" without ``net``
+  raises).
 
 Error-feedback residual state is keyed by bucket: a bucket is the unit
 of compression, so it is the unit of feedback. So are the non-blocking
@@ -62,9 +64,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.comm.buckets import canonical_shape, model_axis
-from repro_torch.core.cost_model import (AUTO_NOT_CALIBRATED,
-                                         bucket_wire_bytes, stream_wire_bytes,
-                                         select_bucket_algorithm)
+from repro_torch.core.cost_model import (AUTO_NEEDS_NET, bucket_wire_bytes,
+                                         select_bucket_algorithm,
+                                         stream_wire_bytes)
 from repro_torch.core.sparse_stream import round_up_pow2
 from repro_torch.utils.tree import tree_flatten
 
@@ -380,16 +382,24 @@ def _bucket_capacity_cols(cfg, dp_total: int, rows: int) -> int:
     return max(q, budget_elems // rows // q * q)
 
 
-def _resolve_algorithm(cfg, dp_total: int, rows: int, cols: int) -> str:
+def _resolve_algorithm(cfg, dp_total: int, rows: int, cols: int,
+                       net=None) -> str:
     n = rows * cols
     if n < cfg.min_sparse_size:
         return "dense"
-    if cfg.algorithm == "auto":
-        raise NotImplementedError(AUTO_NOT_CALIBRATED)
-    algo = cfg.algorithm
-    if rows > 1 and algo not in BATCHED_ALGORITHMS:
-        algo = "dsar_split_allgather"   # batched pipeline: DSAR only
-    return algo
+    if cfg.algorithm != "auto":
+        algo = cfg.algorithm
+        if rows > 1 and algo not in BATCHED_ALGORITHMS:
+            algo = "dsar_split_allgather"   # batched pipeline: DSAR only
+        return algo
+    if net is None:
+        raise ValueError(AUTO_NEEDS_NET)
+    nnz = rows * (cols // cfg.bucket_size) * cfg.k_per_bucket
+    allow = SPARSE_ALGORITHMS + ("dense",) if rows == 1 else BATCHED_ALGORITHMS
+    return select_bucket_algorithm(
+        dp_total, nnz, n, net,
+        value_bits=(cfg.qsgd_bits if cfg.qsgd_bits is not None else 32),
+        allow=allow)
 
 
 def _chop(group_cols: int, cap: int, q: int) -> list[int]:
@@ -403,11 +413,15 @@ def _chop(group_cols: int, cap: int, q: int) -> list[int]:
     return out
 
 
-def build_sync_plan(param_shapes, param_specs, cfg, dp_total: int) -> SyncPlan:
+def build_sync_plan(param_shapes, param_specs, cfg, dp_total: int,
+                    net=None) -> SyncPlan:
     """The fused plan: every leaf rides a fusion bucket.
 
     param_shapes: a dict tree whose leaves have ``.shape`` (tensors, meta
-    tensors included); param_specs: the same tree of spec tuples."""
+    tensors included); param_specs: the same tree of spec tuples; ``net``:
+    the ``NetworkParams`` that ``cfg.algorithm == "auto"`` selects on (not
+    read otherwise). A bucket "auto" resolves to ``dense`` carries no EF
+    state, as in the reference."""
     leaves, _ = tree_flatten(param_shapes)
     specs, _ = tree_flatten(param_specs)
     q = _col_quantum(cfg, dp_total)
@@ -430,7 +444,7 @@ def build_sync_plan(param_shapes, param_specs, cfg, dp_total: int) -> SyncPlan:
         cap = _bucket_capacity_cols(cfg, dp_total, rows)
         buckets, start = [], 0
         for bi, bcols in enumerate(_chop(group_cols, cap, q)):
-            algo = _resolve_algorithm(cfg, dp_total, rows, bcols)
+            algo = _resolve_algorithm(cfg, dp_total, rows, bcols, net)
             buckets.append(BucketSpec(f"g{gid}b{bi}", start, bcols, rows, algo))
             start += bcols
         model_sharded = rows > 1 and any(
@@ -461,11 +475,11 @@ def leaf_sparse_ok(shape, spec, cfg, dp_total: int) -> bool:
     return (cols // cfg.bucket_size) % dp_total == 0
 
 
-def build_per_leaf_plan(param_shapes, param_specs, cfg, dp_total: int
-                        ) -> SyncPlan:
+def build_per_leaf_plan(param_shapes, param_specs, cfg, dp_total: int,
+                        net=None) -> SyncPlan:
     """One group and one bucket per qualifying leaf (legacy routing);
     leaves that fail :func:`leaf_sparse_ok` are not covered, and callers
-    sum them densely."""
+    sum them densely. ``net``: as :func:`build_sync_plan`'s."""
     leaves, _ = tree_flatten(param_shapes)
     specs, _ = tree_flatten(param_specs)
     groups = []
@@ -475,11 +489,7 @@ def build_per_leaf_plan(param_shapes, param_specs, cfg, dp_total: int
             continue
         rows, cols = canonical_shape(shape, spec, cfg.bucket_size)
         gid = len(groups)
-        algo = cfg.algorithm
-        if algo == "auto":
-            algo = _resolve_algorithm(cfg, dp_total, rows, cols)
-        elif rows > 1 and algo not in BATCHED_ALGORITHMS:
-            algo = "dsar_split_allgather"
+        algo = _resolve_algorithm(cfg, dp_total, rows, cols, net)
         bucket = BucketSpec(f"g{gid}b0", 0, cols, rows, algo)
         groups.append(GroupSpec(
             gid, rows, rows > 1 and model_axis(spec) is not None, cols,

@@ -46,9 +46,9 @@ import torch
 
 from repro_torch.comm.collectives import CollectiveContext, once_if_shared
 from repro_torch.core import sparse_stream as ss
-from repro_torch.core.cost_model import (AUTO_NOT_CALIBRATED,
-                                         balanced_shard_cap,
-                                         rearranged_round_caps)
+from repro_torch.core.cost_model import (AUTO_NEEDS_NET, balanced_shard_cap,
+                                         rearranged_round_caps,
+                                         select_algorithm)
 from repro_torch.core.qsgd import QSGDConfig, dequantize, quantize
 from repro_torch.core.sparse_stream import SENTINEL, SparseStream
 from repro_torch.core.topk import UniformStream
@@ -508,18 +508,20 @@ def sparse_allreduce_inside(
     u: UniformStream,
     *,
     coll: CollectiveContext,
-    algorithm: str,
+    algorithm: str = "auto",
     qsgd: QSGDConfig | None = None,
     rand: torch.Tensor | None = None,
     out_dtype=torch.float32,
     impl: str = "auto",
+    net=None,
 ) -> ReduceOut:
-    """Reduce a bucket-uniform stream over the axis with the named
-    algorithm. ``algorithm='auto'`` needs network parameters measured on
-    the port's interconnect and raises (ROADMAP Queue 1 item 9)."""
+    """Reduce a bucket-uniform stream over the axis. ``algorithm='auto'``
+    picks one from the alpha-beta cost model and the expected fill-in on
+    the ``NetworkParams`` ``net`` (required then: the port carries no
+    default), as the reference does at trace time."""
     n = u.n
     if algorithm == "auto":
-        raise NotImplementedError(AUTO_NOT_CALIBRATED)
+        algorithm = _select(coll.p, u.nnz, n, net, qsgd)
     if algorithm == "dense":
         return ReduceOut(dense=dense_allreduce_inside(u.densify(impl=impl),
                                                       coll=coll))
@@ -546,24 +548,38 @@ def sparse_allreduce_inside(
 # Standalone entry point (the Fig. 3 measurement, the classification loop)
 # --------------------------------------------------------------------------
 
+def _select(p: int, nnz: int, n: int, net, qsgd) -> str:
+    """"auto"'s algorithm for one rank's ``nnz`` of ``n`` over ``p``."""
+    if net is None:
+        raise ValueError(AUTO_NEEDS_NET)
+    return select_algorithm(p, nnz, n, net,
+                            value_bits=(qsgd.bits if qsgd else 32))
+
+
 def make_sparse_allreduce(
     coll: CollectiveContext,
     n: int,
     k_per_bucket: int,
     bucket_size: int = 512,
-    algorithm: str = "dsar_split_allgather",
+    algorithm: str = "auto",
     qsgd: QSGDConfig | None = None,
     impl: str = "auto",
+    net=None,
 ):
     """Returns f(x (L, n), rand (L, nbq*bq) u32 | None) -> (L, n): each held
     rank's vector TopK-compressed (k of every ``bucket_size``) and summed
     over the axis with ``algorithm``; every rank gets the sum.
-    ``algorithm='auto'`` raises (ROADMAP Queue 1 item 9), and so does, on
-    a card, a ``bucket_size`` that bucket_topk's kernel does not take."""
-    if algorithm == "auto":
-        raise NotImplementedError(AUTO_NOT_CALIBRATED)
+    ``algorithm='auto'`` is resolved here, on the ``NetworkParams`` ``net``
+    (required then), to the algorithm :func:`sparse_allreduce_inside`
+    would pick; ``f.algorithm`` is the one it runs. A ``bucket_size`` that
+    bucket_topk's kernel does not take raises on a card."""
     check_bucket_size(bucket_size, coll.device, impl)
     from repro_torch.core.topk import compress
+
+    if algorithm == "auto":
+        nb = -(-n // bucket_size)
+        algorithm = _select(coll.p, nb * k_per_bucket, nb * bucket_size, net,
+                            qsgd)
 
     def f(x: torch.Tensor, rand: torch.Tensor | None = None) -> torch.Tensor:
         if x.shape != (coll.local_ranks, n):
@@ -575,4 +591,5 @@ def make_sparse_allreduce(
                                       impl=impl)
         return out.to_dense(u.n)[..., :n]
 
+    f.algorithm = algorithm
     return f

@@ -117,7 +117,7 @@ def residual_specs(param_shapes, param_specs, cfg: SyncConfig, dp_total: int,
 # --------------------------------------------------------------------------
 
 def sync_grads_inside(grads, residuals, cfg: SyncConfig, param_specs, *,
-                      coll, pod_coll=None, rand_fn=None):
+                      coll, pod_coll=None, rand_fn=None, net=None):
     """Compress + allreduce a grad tree, per rank. Returns (synced grads,
     new residuals).
 
@@ -127,7 +127,11 @@ def sync_grads_inside(grads, residuals, cfg: SyncConfig, param_specs, *,
     are :func:`repro_torch.comm.executor.reduce_buckets`'s, the bucket
     index counting the covered leaves. The synced leaves come back in
     their own shape, the sum every rank holds alike; uncovered leaves are
-    summed densely, their residuals passed through."""
+    summed densely, their residuals passed through. ``net``: the
+    ``NetworkParams`` ``cfg.algorithm == "auto"`` selects on; a leaf with
+    a residual keeps its error feedback whatever its bucket resolves to
+    (a ``dense`` one sums its compressed stream densely), as in the
+    reference."""
     p_pod = pod_coll.p if pod_coll is not None else 1
     replicas = coll.p * p_pod
     scale = 1.0 / replicas if cfg.mean else 1.0
@@ -139,11 +143,13 @@ def sync_grads_inside(grads, residuals, cfg: SyncConfig, param_specs, *,
     shapes = tree_unflatten(paths, [torch.empty(g.shape[1:], device="meta")
                                     for g in leaves_g])
     plan = build_per_leaf_plan(shapes, tree_unflatten(paths, leaves_s), cfg,
-                               replicas)
+                               replicas, net)
     covered = {g.slots[0].leaf_id for g in plan.groups
                if leaves_r[g.slots[0].leaf_id] is not None}
     plan = dataclasses.replace(plan, groups=tuple(
-        g for g in plan.groups if g.slots[0].leaf_id in covered))
+        dataclasses.replace(g, buckets=tuple(
+            dataclasses.replace(b, ef=True) for b in g.buckets))
+        for g in plan.groups if g.slots[0].leaf_id in covered))
     bucket_of_leaf = {g.slots[0].leaf_id: g.buckets[0].name
                       for g in plan.groups}
     synced, new_res = execute_plan(

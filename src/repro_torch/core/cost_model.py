@@ -9,7 +9,10 @@ no network constants: every function takes ``net`` explicitly, and
 ``NetworkParams`` has no default latency or bandwidth, because the values
 belong to the interconnect the collectives run on: ``utils/calibrate.py``
 fits them on the context a run uses (the reference's defaults describe
-another machine).
+another machine). ``algorithm="auto"`` resolves through
+:func:`select_algorithm` on parameters the caller passes: the plan
+constructors and ``make_sparse_allreduce`` take ``net=``, and the Trainer
+and the entry points fit it on their context first.
 """
 from __future__ import annotations
 
@@ -20,15 +23,12 @@ from typing import Callable, Optional
 from .density import expected_nnz
 from .sparse_stream import INDEX_BYTES, delta_threshold
 
-
-# What 'auto' selection raises with until the port's interconnect is
-# measured (the plan and make_sparse_allreduce both refuse it).
-AUTO_NOT_CALIBRATED = (
-    "algorithm='auto' selects by core/cost_model.py, and is not ported at "
-    "plan build or in make_sparse_allreduce (ROADMAP Queue 1 item 9): the "
-    "port carries no default NetworkParams. Name the algorithm; "
-    "SyncPlan.replan(densities, net) re-selects on parameters fitted by "
-    "utils/calibrate.py")
+# What algorithm="auto" raises with when no network parameters are given.
+AUTO_NEEDS_NET = (
+    "algorithm='auto' selects by the cost model and needs network "
+    "parameters: pass net= (utils/calibrate.py fits them on a collectives "
+    "context), or let the entry point (Trainer, run_lm, run_classify) "
+    "calibrate")
 
 
 @dataclass(frozen=True)

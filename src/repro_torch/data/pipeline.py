@@ -7,6 +7,8 @@ frames for the audio encoder and image embeddings for the vlm."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterator
+
 import numpy as np
 
 
@@ -42,3 +44,12 @@ def synthetic_batch(cfg: DataConfig, step: int) -> dict:
             (b, cfg.num_image_tokens, cfg.vision_dim)).astype(np.float32)
     return batch
 
+
+def make_batch_iterator(cfg: DataConfig, start_step: int = 0
+                        ) -> Iterator[dict]:
+    """The batches of steps ``start_step``, ``start_step + 1``, ... (a
+    resume starts at its checkpoint's step)."""
+    step = start_step
+    while True:
+        yield synthetic_batch(cfg, step)
+        step += 1

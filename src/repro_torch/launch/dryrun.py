@@ -4,7 +4,7 @@ on one H100, from shapes alone (the JAX package's
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
         --shape train_4k --layers 2 --dp 2
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out build/dryrun]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out build/dryrun] [--skip-existing]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
         --shape train_4k --sync dense     # dense sync + fsdp, every arch
 
@@ -39,8 +39,15 @@ microbatches. Each cell writes
     and under fsdp the params gathered whole for the forward) against
     the card's 80 GB;
   * ``reduced``, when ``--layers`` cut the depth.
+A serve cell whose bf16 params do not fit replicated at the arch's
+published depth (:func:`fits_replicated`, the reference's
+``_fits_replicated`` for the card) is counted under fsdp, as the
+reference serves it (``fsdp: true``): a rank holds its shards and its
+rows' cache, gathers one layer at a time, and receives the gathered
+bytes as its collective term.
 ``--sync dense`` trains every cell with dense sync and fsdp (the
 reference's override); ``--sync sparcml`` with the arch's own config.
+``--skip-existing`` reuses a cell whose record is already in ``--out``.
 The reference's lower and compile times, and XLA's memory analysis,
 have no counterpart in eager PyTorch and are left out. Shapes that
 ``applicable_shapes`` rejects are ``skipped`` with the reason.
@@ -64,6 +71,7 @@ from repro_torch.configs._common import make_train_config
 from repro_torch.train.train_step import (build_plan, fsdp_layout_of,
                                           init_opt, shard_params)
 from repro_torch.utils import op_cost
+from repro_torch.utils.tree import tree_leaves as dict_leaves
 from repro_torch.utils.roofline import (H100, Roofline, compute_peak,
                                         model_flops_infer, model_flops_train)
 
@@ -201,43 +209,102 @@ def train_cost(model, tcfg, dp_total: int, rows_per_rank: int,
     }
 
 
-def _serve_cost(model, shape, peaks=H100) -> dict:
+def fits_replicated(cfg, peaks=H100) -> bool:
+    """Whether a serve cell holds the params whole on every card: the
+    reference's rule (bf16 params within half of a 16 GB TPU's memory
+    after TP = 16, ``_fits_replicated``) on one card, whose whole memory
+    they share with the cache and the step: bf16 params within half of
+    it. Otherwise the cell serves under fsdp."""
+    return cfg.param_count() * 2 <= peaks.memory / 2
+
+
+def gathered_unit_bytes(params: dict, layout: dict, cfg) -> int:
+    """The largest copy fsdp serving gathers at once: one layer of the
+    stacked blocks, the shared block, or the head (whole bytes of its
+    sharded leaves)."""
+    def sharded(tree, lays) -> int:
+        return sum(t.numel() * t.element_size() for t, lay in zip(
+            dict_leaves(tree), dict_leaves(lays)) if lay.dim is not None)
+
+    units = [sharded(params[k], layout[k]) for k in params if k != "blocks"]
+    blocks = params.get("blocks", {})
+    if cfg.family == "vlm":
+        nsb = cfg.num_layers // cfg.cross_attn_every
+        units += [sharded(blocks["selfs"], layout["blocks"]["selfs"])
+                  // (nsb * (cfg.cross_attn_every - 1)),
+                  sharded(blocks["cross"], layout["blocks"]["cross"]) // nsb]
+    elif blocks:
+        units.append(sharded(blocks, layout["blocks"]) // cfg.num_layers)
+    return max(units)
+
+
+def _serve_cost(model, shape, dp_total: int = 1, fsdp: bool = False,
+                peaks=H100) -> dict:
     """A prefill of the whole batch (the encoder: its forward) or one
-    decode step over full caches, counted on the meta device."""
+    decode step over full caches, counted on the meta device. ``fsdp``
+    (a cell whose params do not fit replicated at the arch's published
+    depth, :func:`fits_replicated`) counts it under fsdp over
+    ``dp_total`` ranks, one a card: a rank holds
+    its shards and the cache of its rows (B/p where p divides B), serves
+    those rows, gathers one layer at a time (the transient) and receives
+    (p-1)/p of every sharded leaf a step (the collective term)."""
     cfg = model.cfg
     params = init_params(cfg, device=META)
     b, s = shape.global_batch, shape.seq_len
-    state = {"params": _nbytes(params), "cache": 0}
+    rows, gathered, coll_bytes = b, 0, 0.0
+    held = params
+    if fsdp:
+        layout = fsdp_layout_of(model, dp_total)
+        held = shard_params(params, layout, [0])
+        rows = b // dp_total if b % dp_total == 0 else b
+        gathered = gathered_unit_bytes(params, layout, cfg)
+        coll_bytes = (dp_total - 1) / dp_total * sum(
+            t.numel() * t.element_size() for t, lay in zip(
+                dict_leaves(params), dict_leaves(layout))
+            if lay.dim is not None)
+    state = {"params": _nbytes(held), "cache": 0}
     with torch.no_grad():
         if shape.kind == "prefill":
-            batch = batch_shapes(cfg, b, s)
+            batch = batch_shapes(cfg, rows, s)
             del batch["labels"]
             if cfg.family == "encoder":
                 counted, _ = op_cost.count(model.forward, params, batch)
             else:
                 counted, _ = op_cost.count(model.prefill, params, batch, s)
-            tokens = b * s
+            tokens = rows * s
         else:
-            dstate = model.init_decode_state(b, s, prefix_len=s - 1,
+            dstate = model.init_decode_state(rows, s, prefix_len=s - 1,
                                              device=META)
             state["cache"] = _nbytes(dstate)
-            toks = torch.empty((b, 1), dtype=torch.int32, device=META)
+            toks = torch.empty((rows, 1), dtype=torch.int32, device=META)
             counted, _ = op_cost.count(model.decode_step, params, dstate,
                                        toks)
-            tokens = b
+            tokens = rows
     roof = Roofline(
         flops=counted.flops + counted.other_flops,
-        hbm_bytes=counted.bytes, coll_bytes_per_chip=0.0, chips=1,
+        hbm_bytes=counted.bytes, coll_bytes_per_chip=coll_bytes, chips=1,
         model_flops=model_flops_infer(cfg.active_param_count(), tokens),
         peak_flops=compute_peak(peaks, cfg.dtype), hbm_bw=peaks.hbm,
         link_bw=peaks.link)
     state["total"] = state["params"] + state["cache"]
-    peak = state["total"] + counted.peak_bytes
-    return {"kind": shape.kind, "tokens": tokens,
-            "state_memory": state,
-            "counted": counted.as_dict(), "cost": counted.as_dict(),
-            "model_flops": roof.model_flops, "roofline": roof.as_dict(),
-            "peak_estimate": peak, "fits": peak <= peaks.memory}
+    peak = state["total"] + gathered + counted.peak_bytes
+    out = {"kind": shape.kind, "tokens": tokens, "fsdp": fsdp,
+           "state_memory": state,
+           "counted": counted.as_dict(), "cost": counted.as_dict(),
+           "model_flops": roof.model_flops, "roofline": roof.as_dict(),
+           "peak_estimate": peak, "fits": peak <= peaks.memory}
+    if fsdp:
+        out.update(dp_total=dp_total, rows=rows, gathered_layer=gathered,
+                   gathered_bytes=coll_bytes)
+    return out
+
+
+def cell_path(out_dir: str, arch: str, shape_name: str, dp_total: int,
+              sync_override: str | None = None) -> str:
+    """Where :func:`run_cell` writes a cell's record."""
+    tag = f"__{sync_override}" if sync_override else ""
+    return os.path.join(out_dir, f"{arch}__{shape_name}__stacked{dp_total}"
+                                 f"{tag}.json")
 
 
 def run_cell(arch: str, shape_name: str, dp_total: int = 2,
@@ -260,7 +327,8 @@ def run_cell(arch: str, shape_name: str, dp_total: int = 2,
             model = build_model(cfg)
             rec.update(params=cfg.param_count(),
                        active_params=cfg.active_param_count())
-            full = _cfg_for(arch, shape_name, None).num_layers
+            full_cfg = _cfg_for(arch, shape_name, None)
+            full = full_cfg.num_layers
             if cfg.num_layers != full:
                 rec["reduced"] = f"depth {full} -> {cfg.num_layers} layers"
             if shape.kind == "train":
@@ -274,7 +342,8 @@ def run_cell(arch: str, shape_name: str, dp_total: int = 2,
                                       shape.global_batch // dp_total,
                                       shape.seq_len))
             else:
-                rec.update(_serve_cost(model, shape))
+                rec.update(_serve_cost(model, shape, dp_total,
+                                       not fits_replicated(full_cfg)))
         except Exception as exc:             # noqa: BLE001 (one cell of many)
             rec.update(status="error", error=f"{type(exc).__name__}: {exc}",
                        trace=traceback.format_exc()[-2000:])
@@ -282,9 +351,7 @@ def run_cell(arch: str, shape_name: str, dp_total: int = 2,
             gc.collect()
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        tag = f"__{sync_override}" if sync_override else ""
-        path = os.path.join(out_dir,
-                            f"{arch}__{shape_name}__{layout}{tag}.json")
+        path = cell_path(out_dir, arch, shape_name, dp_total, sync_override)
         with open(path, "w") as f:
             json.dump(rec, f, indent=1, default=str)
     return rec
@@ -303,6 +370,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sync", choices=("dense", "sparcml"), default=None,
                     help="train cells: dense sync with fsdp, or the arch's "
                          "own config (the reference's override)")
+    ap.add_argument("--skip-existing", action="store_true",
+                    help="reuse a cell whose record is already in --out")
     args = ap.parse_args(argv)
     archs = ([cfgreg.EXTERNAL_NAMES[a] for a in cfgreg.ARCH_IDS]
              if (args.all or args.arch is None) else [args.arch])
@@ -311,11 +380,18 @@ def main(argv=None) -> int:
     results = []
     for a in archs:
         for s in shapes:
+            path = cell_path(args.out, a, s, args.dp, args.sync)
+            if args.skip_existing and os.path.exists(path):
+                print(f"== {a}__{s}__stacked{args.dp}: cached, skipping")
+                with open(path) as f:
+                    results.append(json.load(f))
+                continue
             rec = run_cell(a, s, args.dp, args.layers, args.out, args.sync)
             tag = f"{a}__{s}__{rec['layout']}"
             if rec["status"] == "ok":
                 r = rec["roofline"]
-                extra = (f" dominant={r['dominant']} bound={r['bound_s']:.4g}s"
+                extra = (f"{' fsdp' if rec.get('fsdp') else ''}"
+                         f" dominant={r['dominant']} bound={r['bound_s']:.4g}s"
                          f" mfu_bound={r['mfu_bound']:.2%} state="
                          f"{rec['state_memory']['total']:.4g}B peak_estimate="
                          f"{rec['peak_estimate']:.4g}B fits={rec['fits']}")

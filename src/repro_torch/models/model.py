@@ -25,7 +25,9 @@ composes with the ``vmap(grad_and_value)`` of the training step, which
 ``torch.utils.checkpoint`` does not.
 
 Serving: ``prefill`` runs a prompt and returns the last position's logits
-and a :class:`DecodeState`; ``decode_step`` takes one token a row. The
+and a :class:`DecodeState`; ``decode_step`` takes one token a row. Both
+read the stacked layers through ``_layers``, so a params source that
+gathers each layer when it is read (fsdp serving) serves the same way. The
 state's caches are stacked as in the reference: KV (L, B, W, nkv, hd)
 ((nsb, ...) for hybrid, (nsb, every-1, B, ...) for vlm, whose static image
 K/V ``cross_kv`` is (nsb, B, T_img, nkv, hd)); the SSM conv window
@@ -135,6 +137,14 @@ def _unbind_layers(blocks: dict, n: int) -> list[dict]:
     per_leaf = {k: (_unbind_layers(v, n) if isinstance(v, dict)
                     else v.unbind(0)) for k, v in blocks.items()}
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
+def _layers(blocks, n: int) -> list:
+    """The n layers of stacked ``blocks`` for serving: unbound, or, from
+    a source that gathers each layer when it is read (fsdp serving's
+    ``train_step.FsdpParams``), that source's own layer views."""
+    layers = getattr(blocks, "layers", None)
+    return layers(n) if layers is not None else _unbind_layers(blocks, n)
 
 
 # ==========================================================================
@@ -371,15 +381,15 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int):
         return h + out
 
     if fam in ("dense", "moe"):
-        for lp in _unbind_layers(params["blocks"], cfg.num_layers):
+        for lp in _layers(params["blocks"], cfg.num_layers):
             x = attend(lp, x)
     elif fam == "ssm":
-        for lp in _unbind_layers(params["blocks"], cfg.num_layers):
+        for lp in _layers(params["blocks"], cfg.num_layers):
             x = mamba(lp, x)
     elif fam == "hybrid":
         every = cfg.attn_every
-        for sbp in _unbind_layers(params["blocks"], cfg.num_layers // every):
-            for lp in _unbind_layers(sbp, every):
+        for sbp in _layers(params["blocks"], cfg.num_layers // every):
+            for lp in _layers(sbp, every):
                 x = mamba(lp, x)
             x = attend(params["shared_block"], x)
     else:  # vlm
@@ -388,9 +398,9 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_len: int):
         kv_feats = _vision(params, cfg, batch)
         blocks = params["blocks"]
         img = []
-        for sbp, cp in zip(_unbind_layers(blocks["selfs"], nsb),
-                           _unbind_layers(blocks["cross"], nsb)):
-            for lp in _unbind_layers(sbp, every - 1):
+        for sbp, cp in zip(_layers(blocks["selfs"], nsb),
+                           _layers(blocks["cross"], nsb)):
+            for lp in _layers(sbp, every - 1):
                 x = attend(lp, x)
             img.append(KVCache(*L.cross_kv(cp["xattn"], cfg, kv_feats)))
             x = _cross_block(cp, cfg, x, *img[-1])
@@ -477,18 +487,18 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
         return h + out
 
     if fam in ("dense", "moe"):
-        layers = _unbind_layers(params["blocks"], cfg.num_layers)
+        layers = _layers(params["blocks"], cfg.num_layers)
         for lp, ck, cv in zip(layers, state.kv.k, state.kv.v):
             x = attend(lp, x, ck, cv)
     elif fam == "ssm":
-        for i, lp in enumerate(_unbind_layers(params["blocks"],
+        for i, lp in enumerate(_layers(params["blocks"],
                                               cfg.num_layers)):
             x = mamba(lp, x, i)
     elif fam == "hybrid":
         every = cfg.attn_every
         nsb = cfg.num_layers // every
-        for sb, sbp in enumerate(_unbind_layers(params["blocks"], nsb)):
-            for j, lp in enumerate(_unbind_layers(sbp, every)):
+        for sb, sbp in enumerate(_layers(params["blocks"], nsb)):
+            for j, lp in enumerate(_layers(sbp, every)):
                 x = mamba(lp, x, sb * every + j)
             x = attend(params["shared_block"], x, state.kv.k[sb],
                        state.kv.v[sb])
@@ -497,9 +507,9 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
         nsb = cfg.num_layers // every
         blocks = params["blocks"]
         for sb, (sbp, cp) in enumerate(zip(
-                _unbind_layers(blocks["selfs"], nsb),
-                _unbind_layers(blocks["cross"], nsb))):
-            for j, lp in enumerate(_unbind_layers(sbp, every - 1)):
+                _layers(blocks["selfs"], nsb),
+                _layers(blocks["cross"], nsb))):
+            for j, lp in enumerate(_layers(sbp, every - 1)):
                 x = attend(lp, x, state.kv.k[sb, j], state.kv.v[sb, j])
             x = _cross_block(cp, cfg, x, state.cross_kv.k[sb],
                              state.cross_kv.v[sb])

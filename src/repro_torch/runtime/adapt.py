@@ -415,7 +415,7 @@ class AdaptiveRuntime:
 
         kw = dict(staleness=self.staleness, guard=self.guard,
                   lowering=self.lowering, plan=plan, coll=self.coll,
-                  inject=self.inject)
+                  inject=self.inject, net=self.controller.net)
         if self.superstep > 1:
             fn, _ = rt_pipeline.build_superstep(
                 self.model, self.tcfg, self.dp_total, self.device,

@@ -147,7 +147,8 @@ class PipelinedStep:
                  device, staleness: int, guard: bool,
                  lowering: Optional[str] = None,
                  coll: Optional[CollectiveContext] = None,
-                 telemetry: bool = True, plan=None, inject: bool = False):
+                 telemetry: bool = True, plan=None, inject: bool = False,
+                 net=None):
         if tcfg.sync.mode != "sparcml":
             raise ValueError(
                 "the pipelined runtime overlaps the planned sparse sync and "
@@ -165,17 +166,11 @@ class PipelinedStep:
         self.telemetry = telemetry
         check_bucket_size(tcfg.sync.bucket_size, self.device, tcfg.sync.impl)
         self.coll = ts.manual_context(lowering, coll, dp_total, self.device)
-        built = ts.build_plan(model, tcfg, dp_total)
+        built = ts.build_plan(model, tcfg, dp_total, net)
         if plan is None:
             plan = built
-        elif (plan.residual_shapes() != built.residual_shapes()
-              or plan.inflight_shapes() != built.inflight_shapes()):
-            # full name -> shape maps: a plan of another configuration can
-            # reuse the g<i>b<j> names with other shapes
-            raise ValueError(
-                "the plan changes the residual or in-flight layout: a "
-                "replanned plan must come from SyncPlan.replan() of this "
-                "configuration's base plan")
+        else:
+            ts.check_replan(plan, built)
         self.plan = plan
         self._sched = make_schedule(tcfg.schedule)
         self._side = (torch.cuda.Stream(self.device)
@@ -346,7 +341,7 @@ def build_pipelined_step(model: Model, tcfg: TrainConfig, dp_total: int = 4,
                          guard: bool = False,
                          lowering: Optional[str] = None, plan=None,
                          telemetry: bool = True, inject: bool = False,
-                         coll: Optional[CollectiveContext] = None):
+                         coll: Optional[CollectiveContext] = None, net=None):
     """One pipelined step. Returns (step, plan); see :class:`PipelinedStep`.
     ``guard=True`` adds the all-finite check over the raw grads: a
     non-finite gradient makes the step a no-op on params, optimizer
@@ -355,11 +350,12 @@ def build_pipelined_step(model: Model, tcfg: TrainConfig, dp_total: int = 4,
     manual lowering's context (``StackedCollectives(dp_total)`` if None).
     ``plan``: a replanned ``SyncPlan`` (``SyncPlan.replan`` of this
     configuration's base plan) instead of the base plan; one that changes
-    the residual or in-flight layout is refused. ``inject=True`` takes
-    the chaos harness's fault vector from ``batch[FAULT_KEY]`` (see the
-    module)."""
+    the residual or in-flight layout is refused. ``net``: the
+    ``NetworkParams`` the base plan's ``algorithm="auto"`` selects on.
+    ``inject=True`` takes the chaos harness's fault vector from
+    ``batch[FAULT_KEY]`` (see the module)."""
     step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard,
-                         lowering, coll, telemetry, plan, inject)
+                         lowering, coll, telemetry, plan, inject, net)
     return step, step.plan
 
 
@@ -368,10 +364,10 @@ def build_superstep(model: Model, tcfg: TrainConfig, dp_total: int = 4,
                     guard: bool = False, lowering: Optional[str] = None,
                     plan=None, telemetry: bool = True,
                     inject: bool = False,
-                    coll: Optional[CollectiveContext] = None):
+                    coll: Optional[CollectiveContext] = None, net=None):
     """K-step superstep over the pipelined step. Returns (superstep,
-    plan); see :class:`Superstep`. ``plan`` and ``inject`` as in
+    plan); see :class:`Superstep`. ``plan``, ``net`` and ``inject`` as in
     :func:`build_pipelined_step`."""
     step = PipelinedStep(model, tcfg, dp_total, device, staleness, guard,
-                         lowering, coll, telemetry, plan, inject)
+                         lowering, coll, telemetry, plan, inject, net)
     return Superstep(step, steps), step.plan

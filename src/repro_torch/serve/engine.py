@@ -14,6 +14,18 @@ have no counterpart here. The decode state's caches are
 written in place (``models/model.decode_step``), where the reference
 donates them to its jitted step.
 
+``fsdp=True`` serves params held as fsdp shards over the ranks of
+``coll`` (the reference shards them over its data axes for the archs
+whose params do not fit replicated): the built functions take the held
+ranks' shards (``train_step.shard_params(params, fsdp_layout_of(model,
+coll.p), held_ranks(coll, coll.p))``) and gather one layer at a time
+from them as the model reads it (``train_step.FsdpParams``), the
+previous layer freed first. Over ``StackedCollectives(p)`` the step
+serves the whole batch; with one rank a process, the prefill takes the
+global batch and each process serves its own B/p rows (the reference's
+``P(dp, None)`` token spec) when p divides B, every row otherwise, and
+the decode step serves the rows of the state it is given.
+
 The static engine reads the device once a ``generate``: each step's
 greedy tokens stay on the device as the next step's input, and the
 tokens come to the host together at the end (the reference copies each
@@ -30,33 +42,68 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model, _attn_cache_width
 from repro_torch.obs import resolve as _resolve_obs
+from repro_torch.train import train_step as ts
 
 
-def build_serve_step(model: Model, cache_len: int = 4096):
+def _params_view(model: Model, fsdp: bool, coll):
+    """params -> what the model reads: the params themselves, or under
+    fsdp the held shards behind a layer-at-a-time gather."""
+    if not fsdp:
+        if coll is not None:
+            raise ValueError("coll holds fsdp's shards: pass fsdp=True")
+        return lambda params: params
+    if coll is None:
+        raise ValueError("fsdp serving needs coll, the context whose ranks "
+                         "hold the shards")
+    layout = ts.fsdp_layout_of(model, coll.p)
+    return lambda shards: ts.FsdpParams(shards, layout, coll)
+
+
+def serve_rows(coll, batch_size: int) -> slice:
+    """The rows of a global batch this process serves: its B/p when one
+    rank a process holds the shards and p divides B, else all of them."""
+    held = coll is not None and coll.local_ranks < coll.p
+    if not held or batch_size % coll.p:
+        return slice(None)
+    m = batch_size // coll.p
+    return slice(coll.rank * m, (coll.rank + 1) * m)
+
+
+def build_serve_step(model: Model, cache_len: int = 4096, fsdp: bool = False,
+                     coll=None):
     """decode_step(params, state, tokens, moe_serve=None) -> (logits,
     state') for states of cache length ``cache_len``; a state whose KV
     caches (..., B, W, nkv, hd) have another width raises (the ssm family
     has no KV cache). Without ``moe_serve`` a MoE model takes the
     training-style ``moe_apply`` at capacity(B), as the reference's
-    static engine does."""
+    static engine does. ``fsdp``: ``params`` are the held ranks' shards
+    over ``coll`` (see the module); tokens are the rows of ``state``."""
     w = _attn_cache_width(model.cfg, cache_len)
+    view = _params_view(model, fsdp, coll)
 
     def step(params, state, tokens, moe_serve=None):
         if state.kv is not None and state.kv.k.shape[-3] != w:
             raise ValueError(f"decode state of cache width "
                              f"{state.kv.k.shape[-3]}, the step was built "
                              f"for {w}")
-        return model.decode_step(params, state, tokens, moe_serve=moe_serve)
+        return model.decode_step(view(params), state, tokens,
+                                 moe_serve=moe_serve)
 
     return step
 
 
-def build_prefill(model: Model, cache_len: int):
+def build_prefill(model: Model, cache_len: int, fsdp: bool = False,
+                  coll=None):
     """prefill(params, batch) -> (last-token logits, DecodeState padded to
-    ``cache_len``)."""
+    ``cache_len``). ``fsdp``: ``params`` are the held ranks' shards over
+    ``coll``; with one rank a process the batch is the global one and the
+    results are this process's rows (:func:`serve_rows`)."""
+    view = _params_view(model, fsdp, coll)
 
     def pre(params, batch):
-        return model.prefill(params, batch, cache_len)
+        rows = serve_rows(coll, next(iter(batch.values())).shape[0])
+        batch = {k: v[rows] for k, v in batch.items()}
+        return model.prefill(view(params), batch, cache_len)
 
     return pre
 

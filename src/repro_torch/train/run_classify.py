@@ -4,6 +4,7 @@ dataset on 8 data-parallel ranks, exploiting NATURAL gradient sparsity.
 
     PYTHONPATH=src python -m repro_torch.train.run_classify
     PYTHONPATH=src python -m repro_torch.train.run_classify --device cpu
+    PYTHONPATH=src python -m repro_torch.train.run_classify --algorithm auto
 
 The PyTorch counterpart of ``examples/classify_sparse.py``: 2048 samples
 x 2^20 features, 64 nonzeros a sample, 8 ranks of 16 samples a step, 16
@@ -12,7 +13,10 @@ every 512; a rank's gradient has at most 1024 nonzeros, so almost nothing
 is dropped) and summed with ``make_sparse_allreduce`` over a
 ``StackedCollectives`` of the 8 ranks: ``dense`` against
 ``ssar_split_allgather``. It prints each one's train accuracy and time.
-Runs on the card unless ``--device cpu`` is given.
+``--algorithm`` runs one algorithm instead; ``auto`` is the one the cost
+model selects on network parameters fitted on the 8 stacked ranks (the
+device's sum; printed with the choice). Runs on the card unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -23,9 +27,11 @@ import numpy as np
 import torch
 
 from repro_torch.comm.collectives import StackedCollectives
+from repro_torch.comm.plan import SPARSE_ALGORITHMS
 from repro_torch.core.allreduce import make_sparse_allreduce
 from repro_torch.data.sparse_datasets import make_url_like_dataset
 from repro_torch.device import resolve_device
+from repro_torch.utils.calibrate import calibrate
 
 N_FEATURES = 1 << 20
 SAMPLES = 2048
@@ -75,12 +81,15 @@ def accuracy(w, data) -> float:
 
 def train(algorithm: str, data, n: int, device, steps: int = STEPS,
           ranks: int = RANKS, batch: int = BATCH, lr: float = LR,
-          k_per_bucket: int = K_PER_BUCKET, bucket_size: int = BUCKET):
+          k_per_bucket: int = K_PER_BUCKET, bucket_size: int = BUCKET,
+          net=None):
     """Weights (n,) after ``steps`` steps of the loop, and the seconds the
-    steps took (to the last one's end on the device)."""
+    steps took (to the last one's end on the device). ``net``: the
+    ``NetworkParams`` "auto" selects on."""
     f = make_sparse_allreduce(StackedCollectives(ranks, device), n,
                               k_per_bucket=k_per_bucket,
-                              bucket_size=bucket_size, algorithm=algorithm)
+                              bucket_size=bucket_size, algorithm=algorithm,
+                              net=net)
     w = torch.zeros(n, dtype=torch.float32, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -96,15 +105,27 @@ def train(algorithm: str, data, n: int, device, steps: int = STEPS,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--algorithm", default=None,
+                    choices=("auto", "dense") + SPARSE_ALGORITHMS,
+                    help="one algorithm instead of the example's "
+                         f"{ALGORITHMS}")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     data = load(dev)
     print(f"dataset: {SAMPLES} samples x {N_FEATURES} trigram features "
           f"(density {NNZ / N_FEATURES:.5%}) on {dev}: gradients are "
           "naturally sparse")
+    net = None
+    if args.algorithm == "auto":
+        coll = StackedCollectives(RANKS, dev)
+        net = calibrate(coll)
+        picked = make_sparse_allreduce(coll, N_FEATURES, K_PER_BUCKET, BUCKET,
+                                       net=net).algorithm
+        print(f"auto: alpha {net.alpha:.4g} s, {net.link_bytes_per_s:.4g} "
+              f"B/s (fitted on {RANKS} stacked ranks) selects {picked}")
     out = {}
-    for algo in ALGORITHMS:
-        w, dt = train(algo, data, N_FEATURES, dev)
+    for algo in (args.algorithm,) if args.algorithm else ALGORITHMS:
+        w, dt = train(algo, data, N_FEATURES, dev, net=net)
         out[algo] = (w, dt, accuracy(w, data))
         print(f"  {algo:22s}: {STEPS} steps in {dt:.2f}s, "
               f"train accuracy {out[algo][2]:.3f}")

@@ -12,6 +12,7 @@
     PYTHONPATH=src python -m repro_torch.train.run_lm --steps 40 --zero
     PYTHONPATH=src python -m repro_torch.train.run_lm --steps 20 --fsdp
     PYTHONPATH=src python -m repro_torch.train.run_lm --steps 30 --chaos 4
+    PYTHONPATH=src python -m repro_torch.train.run_lm --steps 20 --algorithm auto
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.train.run_lm \
         --steps 30 --chaos 4 --lowering manual
 
@@ -42,6 +43,13 @@ with ``--blackbox PATH`` rank 0 writes PATH, any other rank PATH.rank<r>
 when it dies. The optimizer moments are ZeRO-1 chunks, as the example's
 (``zero1=True``): over torch.distributed each process holds its 1/p of
 them.
+
+``--algorithm`` names the buckets' sparse allreduce (the example's
+DSAR split-allgather by default); ``auto`` selects each bucket's by the
+cost model on network parameters the Trainer fits first on the run's own
+context (the stacked ranks: the device's sum over the rank axis, which
+moves no byte between ranks; under torchrun the process group, every
+rank taking rank 0's fit), and prints them and each bucket's algorithm.
 
 ``--fsdp`` trains with dense sync and ZeRO-3 (``TrainConfig.fsdp``): the
 params and moments live as each rank's shards, gathered whole for the
@@ -86,6 +94,7 @@ import torch.distributed as dist
 from repro_torch import obs as obs_mod
 from repro_torch.comm.collectives import (ProcessGroupCollectives,
                                           StackedCollectives)
+from repro_torch.comm.plan import SPARSE_ALGORITHMS
 
 from repro_torch.core.compressor import SyncConfig
 from repro_torch.data.pipeline import DataConfig
@@ -119,15 +128,16 @@ def lm_config(fast: bool) -> tuple[ModelConfig, DataConfig]:
 
 
 def train_config(steps: int, mode: str = "sparcml",
-                 zero: bool = False, fsdp: bool = False) -> TrainConfig:
+                 zero: bool = False, fsdp: bool = False,
+                 algorithm: str = "dsar_split_allgather") -> TrainConfig:
     """The example's config; ``zero`` its --zero (the scattered output
-    mode), ``fsdp`` dense sync with ZeRO-3. ZeRO-1 is on, as the
-    example's."""
+    mode), ``fsdp`` dense sync with ZeRO-3, ``algorithm`` the buckets'
+    (``auto``: the cost model's). ZeRO-1 is on, as the example's."""
     if fsdp:
         mode = "dense"
     return TrainConfig(
         sync=SyncConfig(mode=mode, k_per_bucket=8, bucket_size=512,
-                        algorithm="dsar_split_allgather", qsgd_bits=4,
+                        algorithm=algorithm, qsgd_bits=4,
                         min_sparse_size=65536,
                         output_mode="scattered" if zero else "replicated"),
         optimizer=OptimizerConfig(kind="adamw"),
@@ -152,6 +162,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lowering", choices=("spmd", "manual"), default="spmd",
                     help="sparcml executor: the stacked sum or the per-rank "
                          "wire protocols")
+    ap.add_argument("--algorithm", choices=("auto",) + SPARSE_ALGORITHMS,
+                    default="dsar_split_allgather",
+                    help="the buckets' sparse allreduce; auto selects each "
+                         "bucket's by the cost model on network parameters "
+                         "fitted on the run's context")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="the card (default) or the CPU's plain versions")
     ap.add_argument("--adapt", action="store_true",
@@ -277,7 +292,8 @@ def _run_recorded(args, device, coll, chaos, ckpt_dir, say, obs):
     # a shorter checkpoint cadence under chaos: the corrupt-then-restore
     # pair needs steps > 2 * ckpt_every
     ckpt_every = 10 if chaos else CKPT_EVERY
-    tcfg = train_config(steps, zero=args.zero, fsdp=args.fsdp)
+    tcfg = train_config(steps, zero=args.zero, fsdp=args.fsdp,
+                        algorithm=args.algorithm)
     dp_total = coll.p if coll is not None else DP
     if args.zero or args.fsdp:
         mem = state_memory_breakdown(
@@ -290,6 +306,12 @@ def _run_recorded(args, device, coll, chaos, ckpt_dir, say, obs):
                       ckpt_every=ckpt_every, lowering=args.lowering,
                       coll=coll, obs=obs)
     if trainer.plan is not None:
+        if args.algorithm == "auto":
+            net = trainer._calibrated_net()
+            on = "the process group" if coll is not None else "stacked ranks"
+            say(f"auto: alpha {net.alpha:.4g} s, {net.link_bytes_per_s:.4g} "
+                f"B/s (fitted on {on}); bucket algorithms "
+                f"{trainer.plan.algorithms()}")
         say(trainer.plan.describe())
     start = trainer.init_or_resume()
     say(f"starting at step {start} (resume={'yes' if start else 'no'})")

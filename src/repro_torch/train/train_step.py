@@ -112,16 +112,36 @@ def check_layout(tcfg: TrainConfig) -> None:
                              "optimizer layout: it requires zero1=True")
 
 
-def build_plan(model: Model, tcfg: TrainConfig, dp_total: int
-               ) -> Optional[SyncPlan]:
+def resolves_auto(tcfg: TrainConfig) -> bool:
+    """Whether the config's plan selects its algorithms by the cost model
+    (sparcml with ``algorithm="auto"``): its plan needs network
+    parameters."""
+    return tcfg.sync.mode == "sparcml" and tcfg.sync.algorithm == "auto"
+
+
+def build_plan(model: Model, tcfg: TrainConfig, dp_total: int,
+               net=None) -> Optional[SyncPlan]:
     """The sync plan of a sparcml config (None in dense mode), built from
-    shapes only."""
+    shapes only; ``net``: the ``NetworkParams`` "auto" selects on."""
     check_layout(tcfg)
     if tcfg.sync.mode != "sparcml":
         return None
     pshapes = init_params(model.cfg, device="meta")
     return build_sync_plan(pshapes, param_specs(pshapes, model.cfg),
-                           tcfg.sync, dp_total)
+                           tcfg.sync, dp_total, net)
+
+
+def check_replan(plan: SyncPlan, base: SyncPlan) -> None:
+    """Raises unless ``plan`` keeps ``base``'s residual and in-flight
+    layout, as every ``base.replan()`` does."""
+    if (plan.residual_shapes() != base.residual_shapes()
+            or plan.inflight_shapes() != base.inflight_shapes()):
+        # full name -> shape maps: a plan of another configuration can
+        # reuse the g<i>b<j> names with other shapes
+        raise ValueError(
+            "the plan changes the residual or in-flight layout: a "
+            "replanned plan must come from SyncPlan.replan() of this "
+            "configuration's base plan")
 
 
 def _slots(plan: SyncPlan) -> list:
@@ -232,16 +252,90 @@ def shard_params(params: dict, layout: dict, ranks) -> dict:
     return tree_map(lambda x, lay: lay.cut(x, ranks), params, layout)
 
 
+def gather_leaf(x: torch.Tensor, lay: FsdpLeaf, coll: CollectiveContext,
+                lead: int = 0) -> torch.Tensor:
+    """One leaf whole from the held ranks' shards ``x`` (L, *shard): one
+    ``all_gather`` over its sharded dim, the padding cut off. ``lead``:
+    stack axes already indexed away (one layer of a stacked leaf). A
+    replicated leaf comes back as given."""
+    if lay.dim is None:
+        return x
+    lay = lay._replace(dim=lay.dim - lead)
+    return lay.unpad(coll.all_gather(x, axis=lay.dim)[0])
+
+
 def gather_params(shards: dict, layout: dict,
                   coll: CollectiveContext) -> dict:
     """The whole params from the held ranks' fsdp shards: one
     ``all_gather`` a sharded leaf, the padding cut off."""
-    def one(x, lay: FsdpLeaf):
-        if lay.dim is None:
-            return x
-        return lay.unpad(coll.all_gather(x, axis=lay.dim)[0])
+    return tree_map(lambda x, lay: gather_leaf(x, lay, coll), shards,
+                    layout)
 
-    return tree_map(one, shards, layout)
+
+def _subtree(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+class FsdpParams:
+    """fsdp serving's params: the held ranks' shards (``shard_params``),
+    read by the model's prefill and decode step as a params dict whose
+    sharded parts are gathered on access. ``params["blocks"]`` is a
+    :class:`_GatheredLayers` view: the model takes the stacked layers one
+    at a time from it (``models.model._layers``), and each layer is
+    gathered when the model first reads it. One gathered copy is held at
+    a time (a layer, the shared block, the head): the previous one is
+    dropped before the next is gathered, so a rank holds its shards plus
+    one gathered layer. Leaves the layout replicates (norms, the
+    embedding) are read as held, with no collective."""
+
+    def __init__(self, shards: dict, layout: dict, coll: CollectiveContext):
+        self._shards, self._layout, self._coll = shards, layout, coll
+        self._key, self._held = None, None
+
+    def __getitem__(self, key):
+        if key == "blocks":
+            return _GatheredLayers(self, ("blocks",), ())
+        return self.gathered((key,), ())
+
+    def gathered(self, path: tuple, index: tuple):
+        """The subtree at ``path``, layer ``index`` of its stacked leaves,
+        whole."""
+        lays = _subtree(self._layout, path)
+        sub = _subtree(self._shards, path)
+        pick = lambda x, lay: x[index] if lay.dim is None \
+            else x[(slice(None),) + index]  # noqa: E731
+        # a leaf (the head) or a subtree (a layer)
+        each = (lambda fn: tree_map(fn, sub, lays)) if isinstance(sub, dict) \
+            else (lambda fn: fn(sub, lays))  # noqa: E731
+        if all(lay.dim is None for lay in tree_flatten(lays)[0]):
+            return each(pick)
+        if self._key != (path, index):
+            self._key, self._held = None, None   # free it before the next
+            self._held = each(lambda x, lay: gather_leaf(
+                pick(x, lay), lay, self._coll, len(index)))
+            self._key = (path, index)
+        return self._held
+
+
+class _GatheredLayers:
+    """A stack of layers under ``path`` of an :class:`FsdpParams`, at the
+    stack index ``index`` so far: ``layers(n)`` gives its n layers (or
+    sub-stacks, for a two-axis stack), and indexing a layer reads its
+    gathered params."""
+
+    def __init__(self, src: FsdpParams, path: tuple, index: tuple):
+        self._src, self._path, self._index = src, path, index
+
+    def layers(self, n: int) -> list:
+        return [_GatheredLayers(self._src, self._path, self._index + (i,))
+                for i in range(n)]
+
+    def __getitem__(self, key):
+        if not self._index:          # a named stack (the vlm's "selfs")
+            return _GatheredLayers(self._src, self._path + (key,), ())
+        return self._src.gathered(self._path, self._index)[key]
 
 
 def dense_sum(leaves: list, coll: CollectiveContext) -> list:
@@ -816,7 +910,8 @@ LOWERINGS = ("spmd", "manual")
 
 def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
                      device="cuda", lowering: str = "spmd",
-                     coll: Optional[CollectiveContext] = None):
+                     coll: Optional[CollectiveContext] = None, net=None,
+                     plan: Optional[SyncPlan] = None):
     """Returns (step_fn, plan). ``step_fn(state, batch, rand_fn=None) ->
     (new_state, metrics)``; batch values (the global batch) may be numpy
     or tensors. ``rand_fn(bucket_idx, n)`` overrides the QSGD rounding bits
@@ -826,13 +921,19 @@ def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
     "manual" (per rank over a context; fsdp always); ``coll`` is the
     manual lowering's context (``StackedCollectives`` of the dp_total
     ranks if None; a ``ProcessGroupCollectives`` runs one rank a
-    process)."""
+    process). ``net``: the ``NetworkParams`` a sparcml config's
+    ``algorithm="auto"`` selects on; ``plan``: a replan of this config's
+    plan to run instead (a checkpoint's)."""
     if lowering not in LOWERINGS:
         raise ValueError(f"lowering must be one of {LOWERINGS}: {lowering!r}")
     dev = resolve_device(device)
     sched = make_schedule(tcfg.schedule)
     n_micro = tcfg.microbatches
-    plan = build_plan(model, tcfg, dp_total)
+    base = build_plan(model, tcfg, dp_total, net)
+    if plan is None:
+        plan = base
+    else:
+        check_replan(plan, base)
 
     if plan is None:
         if tcfg.fsdp and coll is None:

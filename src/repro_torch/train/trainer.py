@@ -30,6 +30,13 @@ package's included). The network parameters the controller costs plans
 with are fitted once a Trainer (``utils/calibrate.py``) on its own
 context.
 
+A sparcml config with ``algorithm="auto"`` (the default) selects each
+bucket's algorithm by the cost model before the step is built, on the
+``net`` the Trainer is given or on that fit (over a process group, rank
+0's fit on every rank, so every rank builds the same plan). Its
+checkpoints carry the parameters and the plan's algorithm map, and a
+resume rebuilds that plan from them, whatever a new fit would select.
+
 A resume converts the optimizer state when the checkpoint was written
 under the other ZeRO layout (zero1_leaf <-> zero_scattered, value for
 value), and ``resume_elastic`` restores onto another replica count.
@@ -45,6 +52,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.cost_model import NetworkParams
 from repro_torch.data.pipeline import DataConfig, synthetic_batch
 from repro_torch.device import resolve_device
 from repro_torch.obs import resolve as _resolve_obs
@@ -68,13 +76,15 @@ class Trainer:
     all of them given the same ``ckpt_dir``); without it the ranks are
     stacked on one device. ``obs``: a
     ``repro_torch.obs.Observability`` handle (None = the session default,
-    off unless configured)."""
+    off unless configured). ``net``: the ``NetworkParams`` that
+    ``algorithm="auto"`` and the adaptive loop cost plans on (None: fitted
+    once on the Trainer's context when needed)."""
 
     def __init__(self, model, tcfg: TrainConfig, data_cfg: DataConfig, *,
                  dp_total: int = 4, device="cuda",
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  straggler_factor: float = 3.0, lowering: str = "spmd",
-                 coll=None, obs=None):
+                 coll=None, obs=None, net=None):
         self.device = resolve_device(device)
         self.model = model
         self.tcfg = tcfg
@@ -88,9 +98,9 @@ class Trainer:
             registry=self.obs.metrics if self.obs.metrics_on else None)
         self.lowering = lowering
         self.coll = coll
-        self.step_fn, self.plan = build_train_step(model, tcfg, dp_total,
-                                                   self.device, lowering,
-                                                   coll)
+        self._net_given = net
+        self._net_cal = net         # NetworkParams: given, or fitted once
+        self._build_step()
         self.fsdp_layout = (ts.fsdp_layout_of(model, dp_total) if tcfg.fsdp
                             else None)
         # the process that writes checkpoints: rank 0 of a process group
@@ -103,7 +113,51 @@ class Trainer:
         self.last_plan = None
         # the HealthMonitor of the last run_pipelined with metrics on
         self.last_health = None
-        self._net_cal = None        # NetworkParams, fitted once (calibrate)
+
+    def _build_step(self) -> None:
+        """The step and its plan. Under "auto" the plan is selected on the
+        network parameters (a resume's: the newest checkpoint's, with its
+        algorithm map; else given or fitted)."""
+        self._plan_net, plan = None, None
+        if ts.resolves_auto(self.tcfg):
+            meta = self._resume_meta()
+            if meta.get("net"):
+                self._net_cal = NetworkParams(**meta["net"])
+            self._plan_net = self._calibrated_net()
+            if meta.get("plan_algorithms"):
+                plan = ts.build_plan(
+                    self.model, self.tcfg, self.dp_total,
+                    self._plan_net).replan(
+                        algorithms=meta["plan_algorithms"],
+                        pod_sparse=meta.get("plan_pod_sparse"))
+        self.step_fn, self.plan = build_train_step(
+            self.model, self.tcfg, self.dp_total, self.device, self.lowering,
+            self.coll, net=self._plan_net, plan=plan)
+
+    def _resume_meta(self) -> dict:
+        """The meta of the newest checkpoint under ``ckpt_dir`` whose
+        meta.json reads ({} when there is none)."""
+        if not self.ckpt_dir:
+            return {}
+        for step in reversed(ckpt._steps(self.ckpt_dir)):
+            try:
+                return ckpt.load_meta(self.ckpt_dir, step)
+            except (OSError, ValueError):
+                continue
+        return {}
+
+    def _plan_meta(self, plan) -> dict:
+        """What a checkpoint records of the plan it was written under."""
+        out = {"plan_signature": plan.signature(),
+               "plan_version": plan.version,
+               "plan_algorithms": plan.algorithms(),
+               "plan_pod_sparse": plan.pod_sparse_flags()}
+        if self._plan_net is not None:
+            net = self._plan_net
+            out["net"] = {"alpha": net.alpha,
+                          "link_bytes_per_s": net.link_bytes_per_s,
+                          "isize": net.isize}
+        return out
 
     # -- lifecycle ---------------------------------------------------------
     def init(self, params=None) -> int:
@@ -184,8 +238,15 @@ class Trainer:
             raise ValueError("resume_elastic re-stacks the ranks of one "
                              "process: not for a run with one rank a process")
         self.dp_total = dp_total
+        # the saved plan was for the old p: "auto" selects again, on the
+        # given parameters or on a fit over the new ranks
+        self._net_cal = self._net_given
+        self._plan_net = None
+        if ts.resolves_auto(self.tcfg):
+            self._plan_net = self._calibrated_net()
         self.step_fn, self.plan = build_train_step(
-            self.model, self.tcfg, dp_total, self.device, self.lowering)
+            self.model, self.tcfg, dp_total, self.device, self.lowering,
+            net=self._plan_net)
         if self.tcfg.fsdp:
             self.fsdp_layout = ts.fsdp_layout_of(self.model, dp_total)
         self.init()
@@ -214,7 +275,12 @@ class Trainer:
         return step
 
     def _save(self, state: TrainState, extra_meta=None) -> None:
-        """Every process calls it (see ``checkpoint.save``)."""
+        """Every process calls it (see ``checkpoint.save``). A plan from
+        "auto" is recorded whatever the loop (the active one when
+        ``extra_meta`` names it)."""
+        if self._plan_net is not None and not (extra_meta or {}).get(
+                "plan_algorithms"):
+            extra_meta = {**(extra_meta or {}), **self._plan_meta(self.plan)}
         ckpt.save(self.ckpt_dir, state._replace(inflight=None),
                   dp_total=self.dp_total, extra_meta=extra_meta,
                   opt_layout=ckpt.opt_layout_of(self.tcfg), coll=self.coll,
@@ -306,7 +372,7 @@ class Trainer:
             # the fault vector is indexed by grad leaf, the params' order
             injector.bind(n_leaves=len(tree_leaves(self.state.params)))
         kw = dict(staleness=staleness, guard=guard, lowering=self.lowering,
-                  coll=self.coll, inject=inject)
+                  coll=self.coll, inject=inject, net=self._plan_net)
         runtime = None
         if adapt:
             if staleness < 1:
@@ -320,13 +386,15 @@ class Trainer:
                     "(alpha, link_bytes_per_s) and the port carries no "
                     "default NetworkParams: calibrate, or build "
                     "AdaptiveRuntime(net=...) directly")
-            plan0 = ts.build_plan(self.model, self.tcfg, self.dp_total)
+            plan0 = ts.build_plan(self.model, self.tcfg, self.dp_total,
+                                  self._plan_net)
             if self.ckpt_dir and ckpt.latest_step(self.ckpt_dir) is not None:
                 meta = ckpt.load_meta(self.ckpt_dir, self._verified_step())
                 if meta.get("plan_algorithms"):
                     plan0 = plan0.replan(
                         algorithms=meta["plan_algorithms"],
                         pod_sparse=meta.get("plan_pod_sparse"))
+            kw.pop("net")       # the runtime builds on its controller's
             runtime = rt_adapt.AdaptiveRuntime(
                 self.model, self.tcfg, self.dp_total, self.device,
                 plan=plan0, net=self._calibrated_net(), cfg=acfg,
@@ -340,11 +408,12 @@ class Trainer:
             if superstep > 1:
                 fn, plan = rt_pipeline.build_superstep(
                     self.model, self.tcfg, self.dp_total, self.device,
-                    steps=superstep, telemetry=telemetry, **kw)
+                    steps=superstep, telemetry=telemetry, plan=self.plan,
+                    **kw)
             else:
                 fn, plan = rt_pipeline.build_pipelined_step(
                     self.model, self.tcfg, self.dp_total, self.device,
-                    telemetry=telemetry, **kw)
+                    telemetry=telemetry, plan=self.plan, **kw)
             if telemetry:
                 runtime = rt_adapt.TelemetryObserver(self.obs)
         ranks = self.coll.local_ranks if self.coll is not None else None
@@ -355,14 +424,9 @@ class Trainer:
             state = state._replace(inflight=None)
 
         def ckpt_fn(s):
-            extra = None
             active = getattr(runtime, "current_plan", None)
-            if active is not None:
-                extra = {"plan_signature": active.signature(),
-                         "plan_version": active.version,
-                         "plan_algorithms": active.algorithms(),
-                         "plan_pod_sparse": active.pod_sparse_flags()}
-            self._save(s, extra)
+            self._save(s, self._plan_meta(active) if active is not None
+                       else None)
             if inject:
                 # a scheduled ckpt_corrupt flips bytes in the save that
                 # just landed (rank 0 writes them, every process counts

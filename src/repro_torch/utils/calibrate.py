@@ -19,6 +19,11 @@ cards); over ``StackedCollectives`` on one device, the device's sum over
 the rank axis, which moves no byte between ranks. A replan driven by
 the latter tests the adaptive loop; it is not a network choice.
 
+Over a process group every rank times the ladder (the collectives need
+every rank) and every rank returns rank 0's fit (:func:`agreed`): ranks
+that each kept their own would, through timing noise, select different
+algorithms, and their collectives would then not match.
+
 Each point is the median of ``repeats`` timed calls after a warm-up (CUDA
 events on a card, the host clock on the CPU). The reference's ladder
 (``DEFAULT_SIZES``, 2^12 to 2^20 elements) sits in the launch-latency
@@ -120,12 +125,29 @@ def measure_allreduce_times(coll, sizes: Sequence[int] = DEFAULT_SIZES,
     return out
 
 
+def agreed(net: Optional[NetworkParams], coll,
+           isize: int = 4) -> NetworkParams:
+    """Rank 0's fit on every rank of the process group ``coll`` (one
+    all_gather of the two fitted floats and a flag, f64). ``net`` None is
+    a rank whose own fit was degenerate; every rank raises
+    :class:`DegenerateFit` when rank 0's was."""
+    row = ([net.alpha, net.link_bytes_per_s, 1.0] if net is not None
+           else [0.0, 0.0, 0.0])
+    mine = torch.tensor([[row]], dtype=torch.float64, device=coll.device)
+    alpha, bw, ok = coll.all_gather(mine, axis=0)[0, 0].tolist()
+    if not ok:
+        raise DegenerateFit("rank 0's calibration fit is degenerate")
+    return NetworkParams(alpha=alpha, link_bytes_per_s=bw, isize=isize)
+
+
 def calibrate(coll, sizes: Optional[Sequence[int]] = None,
               repeats: int = 5, isize: int = 4,
               auditor=None) -> NetworkParams:
     """One-shot calibration on the collectives context ``coll``: measure
     the ladder (``CARD_SIZES`` on a card, ``DEFAULT_SIZES`` elsewhere,
-    unless ``sizes`` is given) and fit.
+    unless ``sizes`` is given) and fit; over a process group, every rank
+    returns rank 0's fit (:func:`agreed`), and every rank raises when
+    rank 0's is degenerate.
 
     ``auditor`` (an ``obs.DriftAuditor``) receives the POST-FIT ladder
     residuals: each measured point joined against the fitted model's
@@ -134,8 +156,16 @@ def calibrate(coll, sizes: Optional[Sequence[int]] = None,
     if sizes is None:
         sizes = CARD_SIZES if coll.device.type == "cuda" else DEFAULT_SIZES
     meas = measure_allreduce_times(coll, sizes, repeats)
-    net = fit_network_params([b for b, _ in meas], [t for _, t in meas],
-                             p=coll.p, isize=isize)
+    try:
+        net, err = fit_network_params([b for b, _ in meas],
+                                      [t for _, t in meas], p=coll.p,
+                                      isize=isize), None
+    except DegenerateFit as exc:
+        net, err = None, exc
+    if coll.local_ranks < coll.p:       # one rank a process: rank 0's fit
+        net = agreed(net, coll, isize)
+    elif err is not None:
+        raise err
     if auditor is not None:
         for payload_bytes, t in meas:
             n_elems = payload_bytes // isize

@@ -28,6 +28,7 @@ from repro.compat import make_mesh, shard_map
 from repro.core import allreduce as jar
 from repro.core import topk as jax_topk
 from repro.core.compressor import SyncConfig as JaxSyncConfig
+from repro.core.cost_model import select_algorithm as jax_select
 from repro.core.qsgd import QSGDConfig as JaxQSGDConfig
 from repro.models.config import ModelConfig as JaxModelConfig
 from repro.models.model import build_model as jax_build_model
@@ -37,6 +38,7 @@ from repro_torch.comm.collectives import StackedCollectives
 from repro_torch.comm.plan import build_sync_plan
 from repro_torch.core import allreduce as ar
 from repro_torch.core.compressor import SyncConfig
+from repro_torch.core.cost_model import NetworkParams
 from repro_torch.core.qsgd import QSGDConfig
 from repro_torch.core.topk import compress
 from repro_torch.models.config import ModelConfig
@@ -49,6 +51,16 @@ ALGOS = ("ssar_recursive_double", "ssar_split_allgather",
          "dsar_split_allgather", "ssar_balanced_split", "ssar_rearranged_rs",
          "dense")
 TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _pattern(name, k):
@@ -92,11 +104,32 @@ def test_make_sparse_allreduce_matches_jax(mesh8, algo, pattern):
         assert (got[0] != 0).sum() == 8 * k
 
 
-def test_auto_and_bad_shapes_refused():
+def test_auto_and_bad_shapes_refused(mesh8):
+    """"auto" (the default; the name is kept from when it was refused)
+    picks the reference's algorithm on its DEFAULT_NET values, given as
+    net, at k = 4 and 64 of 512, and sums as the reference's auto call
+    does; without net it raises, as does a shape the context does not
+    hold."""
     coll = StackedCollectives(8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ar.make_sparse_allreduce(coll, N, 4, B, algorithm="auto")
-    f = ar.make_sparse_allreduce(coll, N, 4, B)
+    n = 1 << 15
+    xs = np.random.default_rng(3).standard_normal((8, n)).astype(np.float32)
+    picked = []
+    for k in (4, 64):
+        jf = jar.make_sparse_allreduce(mesh8, "data", n, k, B,
+                                       algorithm="auto")
+        want = np.asarray(jf(jnp.asarray(xs).reshape(-1), None))
+        f = ar.make_sparse_allreduce(coll, n, k, B,
+                                     net=NetworkParams(1e-6, 50e9))
+        assert f.algorithm == jax_select(8, n // B * k, n)
+        picked.append(f.algorithm)
+        got = f(torch.from_numpy(xs)).numpy()
+        for r in range(8):
+            np.testing.assert_allclose(got[r], want, **TOL)
+    assert picked[0] != picked[1]
+    with pytest.raises(ValueError, match="needs network parameters"):
+        ar.make_sparse_allreduce(coll, N, 4, B)
+    f = ar.make_sparse_allreduce(coll, N, 4, B,
+                                 algorithm="dsar_split_allgather")
     with pytest.raises(ValueError, match="ranks"):
         f(torch.zeros(4, N))
 

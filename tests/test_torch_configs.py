@@ -34,6 +34,16 @@ SPARCML_ARCHS = [a for a in ARCHS if a not in FSDP_ARCHS]
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fields(cfg) -> dict:
     out = dataclasses.asdict(cfg)
     for k, v in out.items():

@@ -315,7 +315,7 @@ def test_cuda_unsupported_bucket_size_raises_when_built(cuda_device):
         build_pipelined_step(model, tcfg, 4, cuda_device, lowering="manual")
     with pytest.raises(ValueError, match=limit):
         make_sparse_allreduce(StackedCollectives(4, cuda_device), 8000, 4,
-                              1000)
+                              1000, algorithm="dsar_split_allgather")
     assert topk_ops.bucket_topk.launches == before
     x = torch.randn(3, 1000, device=cuda_device)
     assert topk_ops.bucket_topk(x, 4, impl="ref")[1].shape == (3, 4)

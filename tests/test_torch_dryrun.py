@@ -21,6 +21,16 @@ from repro_torch.models.model import build_model, init_params
 from repro_torch.utils import op_cost, roofline
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jdryrun():
     """The reference's dryrun module: importing it sets XLA_FLAGS for

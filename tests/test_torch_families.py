@@ -59,6 +59,16 @@ SMOKE = {"dense": "qwen3-4b", "moe": "moonshot-v1-16b-a3b",
          "vlm": "llama-3.2-vision-11b", "encoder": "hubert-xlarge"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_close(actual, desired):
     desired = np.asarray(desired, np.float32)
     actual = actual.detach().float().numpy() if torch.is_tensor(actual) \

@@ -46,6 +46,16 @@ STEPS = 3
 SCHED = dict(kind="wsd", peak_lr=3e-3, warmup_steps=2, total_steps=10)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reference_rand_fn(step):
     """The reference's QSGD bits of ``step`` (same key as the run)."""
     skey = jax.random.fold_in(jax.random.PRNGKey(0), step)

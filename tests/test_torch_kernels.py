@@ -45,6 +45,16 @@ from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
 JAX_IMPLS = ("ref", "pallas")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _x_with_ties(seed, nb, b):
     """Gaussian rows plus rows full of magnitude ties and a zero row."""
     rng = np.random.default_rng(seed)

@@ -28,6 +28,16 @@ TINY = dict(name="t", family="ssm", num_layers=2, d_model=32, num_heads=1,
             ssm_head_dim=16, ssm_chunk=4, conv_width=4, max_seq_len=64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_close(actual, desired):
     desired = np.asarray(desired, np.float32)
     actual = actual.detach().float().numpy() if torch.is_tensor(actual) \

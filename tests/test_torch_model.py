@@ -28,6 +28,16 @@ TINY = dict(name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
             num_kv_heads=2, d_ff=128, vocab_size=256, max_seq_len=64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_close(actual, desired):
     desired = np.asarray(desired)
     np.testing.assert_allclose(actual, desired, rtol=1e-5,

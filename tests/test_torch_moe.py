@@ -41,6 +41,16 @@ MOE = dict(name="t", family="moe", num_layers=2, d_model=64, num_heads=4,
 SMOKES = ["moonshot-v1-16b-a3b", "dbrx-132b"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_close(actual, desired):
     desired = np.asarray(desired)
     actual = actual.detach().numpy() if torch.is_tensor(actual) else actual

@@ -68,6 +68,16 @@ NET = NetworkParams(alpha=DEFAULT_NET.alpha,
                     link_bytes_per_s=DEFAULT_NET.link_bytes_per_s)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     """(reference model, its params, port model, the same params)."""

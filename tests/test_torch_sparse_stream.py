@@ -21,6 +21,16 @@ from repro_torch.core.topk import UniformStream
 N = 4096
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _stream(rng, cap, nnz, n=N, lo=0, hi=None):
     """Sorted numpy stream of ``nnz`` distinct indices in [lo, hi),
     SENTINEL-padded to ``cap``; values exactly representable or not."""

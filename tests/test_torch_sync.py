@@ -31,6 +31,7 @@ from repro_torch.core import compressor
 from repro_torch.core import qsgd, topk
 from repro_torch.core.qsgd import QSGDConfig
 from repro_torch.core.compressor import SyncConfig
+from repro_torch.core.cost_model import NetworkParams
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params
 from repro_torch.models.specs import param_specs
@@ -56,6 +57,16 @@ DBRX_SMOKE = dict(name="dbrx", family="moe", num_layers=4, d_model=64,
 # --------------------------------------------------------------------------
 # compress2d
 # --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 
 @pytest.mark.parametrize("lead,cols,b,k", [((4, 3), 1024, 512, 8),
                                            ((2, 5), 512, 128, 4),
@@ -117,7 +128,7 @@ def _sync_kwargs(**kw):
     return base
 
 
-def _plans(model_kw, **sync_kw):
+def _plans(model_kw, net=None, **sync_kw):
     jcfg = JaxModelConfig(**model_kw, dtype=jnp.float32,
                           param_dtype=jnp.float32)
     jmodel = jax_build_model(jcfg)
@@ -129,7 +140,7 @@ def _plans(model_kw, **sync_kw):
                       param_dtype=torch.float32)
     shapes = init_params(cfg, device="meta")
     plan = build_sync_plan(shapes, param_specs(shapes, cfg),
-                           SyncConfig(**sync_kw), P_DATA)
+                           SyncConfig(**sync_kw), P_DATA, net)
     return jplan, plan, jshapes, shapes
 
 
@@ -183,9 +194,16 @@ def test_lm100m_plan_geometry():
 
 
 def test_auto_algorithm_is_not_ported():
-    with pytest.raises(NotImplementedError, match="cost_model"):
-        _plans(TINY, **_sync_kwargs(bucket_size=128, qsgd_bucket=128,
-                                     min_sparse_size=1024, algorithm="auto"))
+    """"auto" (ported since: the name is kept) resolves every bucket as
+    the reference does on its DEFAULT_NET, given those values as net;
+    without net it raises and says what to pass."""
+    kw = _sync_kwargs(bucket_size=128, qsgd_bucket=128, min_sparse_size=1024,
+                      algorithm="auto")
+    jplan, plan, _, _ = _plans(TINY, net=NetworkParams(1e-6, 50e9), **kw)
+    _assert_plans_equal(jplan, plan)
+    assert plan.num_sparse_buckets > 0
+    with pytest.raises(ValueError, match="needs network parameters"):
+        _plans(TINY, **kw)
 
 
 # --------------------------------------------------------------------------

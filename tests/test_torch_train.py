@@ -53,6 +53,16 @@ DATA = dict(global_batch=8, seq_len=16, vocab_size=256)
 SCHED = dict(kind="wsd", peak_lr=3e-3, warmup_steps=2, total_steps=10)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two threads: several pytest workers share the host, and torch's
+    default of every core each oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sync_kwargs(mode, qsgd_bits):
     return dict(mode=mode, k_per_bucket=4, bucket_size=128,
                 algorithm="dsar_split_allgather", qsgd_bits=qsgd_bits,
