@@ -111,7 +111,9 @@ Phases, in order; any failure exits non-zero:
      one state, bit-equal losses, exactly one host wait a retired unit
      (a counter on the driver's wait) and no synchronising call flagged
      (CUDA sync debug mode); the exported trace (span tree valid; dispatch
-     and retire spans; the derived device phases) and metrics JSONL (each
+     and retire spans; then two synchronous steps of the same Trainer,
+     each with one of the step's sparcml.* phase spans, and no derived
+     device-phase track) and metrics JSONL (each
      of the 26 EF buckets' four histograms with one sample a step) and
      the health summary; the calibration on the stacked ranks (alpha,
      bandwidth, the ladder and its residuals, its time); a forced swap
@@ -386,6 +388,9 @@ K_UNIT = 4           # superstep of the pipelined runs, as the example's
 PIPE_STEPS = 12      # pipelined steps after phase 3's synchronous ones
 RACE_STEPS = 8
 OBS_STEPS = 12       # phase 13: observability off / on, from one state
+# phase 13: the sparcml step's phase spans (train/train_step.py)
+SPARCML_SPANS = ("sparcml.step", "sparcml.rank_grads", "sparcml.reduce_half",
+                 "sparcml.reduce.buckets", "sparcml.optimizer_half")
 SWAP_AT = 8          # phase 13: the demotion after the unit ending here,
 SWAP_STEPS = 24      # installed at the next drain barrier (step 12)
 NATURAL_STEPS = 24   # phase 13: the adaptive loop, default AdaptConfig
@@ -2269,7 +2274,6 @@ def phase_obs_adapt(torch, dev, wrappers, out_dir: Path):
     its lm-100m runs)."""
     from repro_torch import obs as obs_mod
     from repro_torch.comm.collectives import StackedCollectives
-    from repro_torch.core.cost_model import plan_bucket_times
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.models.model import build_model
     from repro_torch.runtime import adapt as rt_adapt
@@ -2373,11 +2377,19 @@ def phase_obs_adapt(torch, dev, wrappers, out_dir: Path):
     if waits["n"] != units or syncs:
         fail(f"observability added host waits: {waits['n']} waits for "
              f"{units} units, flagged {syncs[:3]}")
+    # two synchronous steps of the same Trainer: its step's phase spans
+    # (their launches are no part of this phase's counted runs)
+    on.run(on.state.step + 2)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
     paths = ob.export(trace_path=str(out_dir / "phase13_trace.json"),
                       metrics_path=str(out_dir / "phase13_metrics.jsonl"))
     events = json.load(open(paths["trace"]))["traceEvents"]
     bad = obs_mod.validate_span_tree(events)
     names = {e["name"] for e in events if e["ph"] == "X"}
+    phases = {n: sum(e["ph"] == "X" and e["name"] == n for e in events)
+              for n in SPARCML_SPANS}
     derived = {e["name"] for e in events if e.get("tid") == "device-phases"}
     ef = [b.name for b in on.plan.buckets if b.has_residual]
     short = [f"bucket/{n}/{c}" for n in ef
@@ -2386,16 +2398,19 @@ def phase_obs_adapt(torch, dev, wrappers, out_dir: Path):
                             "values", [])) != OBS_STEPS]
     log(f"[13] trace {len(events)} events, span tree violations {len(bad)}, "
         f"host spans {sorted(n for n in names if n.startswith('driver/'))}, "
-        f"derived phases {len(derived)} names; {len(ef)} EF buckets x 4 "
+        f"sparcml spans of 2 synchronous steps {phases}, derived phases "
+        f"{len(derived)} names; {len(ef)} EF buckets x 4 "
         f"histograms, {len(short)} without {OBS_STEPS} samples")
     if bad or not {"driver/dispatch", "driver/retire"} <= names \
-            or not derived or len(ef) != 26 or short:
+            or set(phases.values()) != {2} or derived or len(ef) != 26 \
+            or short:
         fail(f"observability outputs: violations {bad[:2]}, spans {names}, "
-             f"derived {sorted(derived)}, histograms short {short[:4]}")
+             f"sparcml spans {phases}, derived {sorted(derived)}, "
+             f"histograms short {short[:4]}")
     log("[13] health: " + on.last_health.summary().strip())
     rec["obs"] = {"losses": losses_on, "bit_equal": same,
                   "host_waits": waits["n"], "units": units,
-                  "trace_events": len(events), "derived_names": len(derived),
+                  "trace_events": len(events), "sparcml_spans": phases,
                   "health": [dataclasses.asdict(e)
                              for e in on.last_health.history],
                   "paths": paths}
@@ -2418,15 +2433,12 @@ def phase_obs_adapt(torch, dev, wrappers, out_dir: Path):
         guard=True, obs=sob)
     rt.demote_after(SWAP_AT, ef)
     demoted = plan.replan(algorithms={b: "dense" for b in ef})
-    phase_attr = lambda dt: obs_mod.attribute_step_phases(  # noqa: E731
-        dt / K_UNIT, plan_bucket_times(rt.current_plan, None, net),
-        names=[b.name for b in rt.current_plan.buckets])
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
     _, slog = rt_driver.run_pipelined(
         rt.current_fn(), fresh(plan), start_step=0, num_steps=SWAP_STEPS,
-        batch_fn=batch, cfg=dcfg, obs=sob, phase_attr=phase_attr,
+        batch_fn=batch, cfg=dcfg, obs=sob,
         adapt=rt)
     torch.cuda.synchronize()
     count_launches()

@@ -78,6 +78,8 @@ streams of the ServePlan's capacity.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -97,6 +99,7 @@ from repro_torch.kernels.qsgd_pack.ops import qsgd_pack_grouped
 from repro_torch.kernels.qsgd_pack.ref import PackSegment
 from repro_torch.kernels.qsgd_unpack.ops import qsgd_unpack_grouped
 from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
+from repro_torch.obs.trace import _NULL_SPAN
 
 RandFn = Callable[[int, int], torch.Tensor]
 
@@ -131,6 +134,28 @@ def _buckets(plan: SyncPlan, leaves: Sequence[torch.Tensor], residuals: dict):
                     ef.acc, cfg.k_per_bucket, cfg.bucket_size, impl=cfg.impl)
                 yield bucket_idx, group, b, seg, ef
             bucket_idx += 1
+
+
+# the observability handle whose ``sparcml.reduce.buckets`` span wraps a
+# form's bucket loop; None (no span) outside :func:`loop_spans`
+_LOOP_OBS = contextvars.ContextVar("loop_obs", default=None)
+
+
+@contextlib.contextmanager
+def loop_spans(obs):
+    """Within it, both forms' bucket loops record ``obs``'s
+    ``sparcml.reduce.buckets`` span (the sparcml train step's reduce
+    half; no other caller's loop records one)."""
+    token = _LOOP_OBS.set(obs)
+    try:
+        yield
+    finally:
+        _LOOP_OBS.reset(token)
+
+
+def _loop_span():
+    obs = _LOOP_OBS.get()
+    return _NULL_SPAN if obs is None else obs.span("sparcml.reduce.buckets")
 
 
 def _store_residual(new_residuals: dict, residuals: dict, b, ef: _EF) -> None:
@@ -207,10 +232,9 @@ def reduce_buckets_spmd(
     scattered plan's (p_data, rows, cols/p_data) owner chunks}, new
     bucket-keyed residuals, telemetry {EF bucket name -> (4,) f32}; the
     last is empty when ``telemetry`` is off). The mass sums need no
-    collective here: the (R, ...) stacks hold every rank. A quantized
-    bucket's nnz is counted on its buffer after the mean (the grouped
-    unpack fuses it), which is the count of the sum but for products
-    below the smallest denormal.
+    collective here: the (R, ...) stacks hold every rank. A quantized bucket's nnz is counted on its buffer
+    after the mean (the grouped unpack fuses it), which is the count of
+    the sum but for products below the smallest denormal.
 
     The loop keeps each EF bucket's TopK stream; after it, ONE grouped
     bucket_scatter_sum launch writes every EF bucket's pod sums (each pod's
@@ -239,23 +263,25 @@ def reduce_buckets_spmd(
     telem: dict = {}
     mass: dict = {}
     kept: dict = {}        # EF bucket name -> (group, bucket, stream, rand)
-    for bucket_idx, group, b, seg, ef in _buckets(plan, leaves_r, residuals):
-        if ef is None:           # over each pod's ranks, then the pods
-            by_pod = seg.reshape((p_pod, p_data) + tuple(seg.shape[1:]))
-            reduced[b.name] = own(
-                ordered_sum(ordered_sum(by_pod, 1), 0) * scale, p_data)
-            continue
-        _store_residual(new_residuals, residuals, b, ef)
-        if telemetry:
-            mass[b.name] = _local_mass(ef)
-        rand = None
-        if qsgd is not None and b.algorithm == "dsar_split_allgather":
-            if rand_fn is None:
-                raise ValueError("QSGD needs stochastic-rounding bits: "
-                                 "pass rand_fn")
-            rand = rand_fn(bucket_idx, p_pod * group.rows * b.cols)
-        kept[b.name] = (group, b, ef.u, rand)
-        ef.acc = None
+    with _loop_span():
+        for bucket_idx, group, b, seg, ef in _buckets(plan, leaves_r,
+                                                      residuals):
+            if ef is None:           # over each pod's ranks, then the pods
+                by_pod = seg.reshape((p_pod, p_data) + tuple(seg.shape[1:]))
+                reduced[b.name] = own(
+                    ordered_sum(ordered_sum(by_pod, 1), 0) * scale, p_data)
+                continue
+            _store_residual(new_residuals, residuals, b, ef)
+            if telemetry:
+                mass[b.name] = _local_mass(ef)
+            rand = None
+            if qsgd is not None and b.algorithm == "dsar_split_allgather":
+                if rand_fn is None:
+                    raise ValueError("QSGD needs stochastic-rounding bits: "
+                                     "pass rand_fn")
+                rand = rand_fn(bucket_idx, p_pod * group.rows * b.cols)
+            kept[b.name] = (group, b, ef.u, rand)
+            ef.acc = None
     if not kept:
         return _plan_order(plan, reduced), new_residuals, {}
 
@@ -499,52 +525,54 @@ def reduce_buckets(
         """Over the data axis: every rank the sum, or its own columns."""
         return coll.psum_scatter(x, axis=1) if scattered else coll.psum(x)
 
-    for bucket_idx, group, b, seg, ef in _buckets(plan, leaves, residuals):
-        if ef is None:
-            out = dense_sum(seg)
-            if pod_coll is not None:
-                out = pod_coll.psum(out)
-            reduced[b.name] = once_if_shared(lambda o: o * scale, out)
-            continue
-        fold = None
-        if b.algorithm == "dense":
-            # a dense end-representation of the compressed stream (paper
-            # §5.3.3): the densified TopK summed over the axis, no QSGD
-            out = dense_sum(ef.u.densify(impl=cfg.impl))
-        elif b.algorithm == "dsar_split_allgather":         # Alg. 2 line 3
-            rand = None
-            if qsgd is not None:
-                if rand_fn is None:
-                    raise ValueError("QSGD needs stochastic-rounding bits: "
-                                     "pass rand_fn")
-                rand = rand_fn(bucket_idx,
-                               lead * group.rows * b.cols // p_data)
-            out = ar.dsar_split_allgather_batched_inside(
-                ef.u, coll=coll, qsgd=qsgd, rand=rand, impl=cfg.impl,
-                scatter=scattered)
-        else:
-            # SSAR keeps a sparse end-representation; flat rows only.
-            assert group.rows == 1, (b.name, b.algorithm)
-            flat = UniformStream(ef.u.lidx[:, 0], ef.u.val[:, 0],
-                                 cfg.bucket_size)
-            out, fold = _reduce_flat_sparse(flat, b.algorithm, coll=coll,
-                                            impl=cfg.impl, scatter=scattered)
-            out = out[:, None, :]
-        if fold is not None:
-            # Global-residual rule: mass clamped off the wire re-enters
-            # THIS rank's residual at pre-scale magnitude, so it is
-            # contributed exactly once on a later step (and the EF norm
-            # below covers it).
-            ef.residual = ef.residual + fold[:, None, :]
-        _store_residual(new_residuals, residuals, b, ef)
-        if telemetry:
-            m = coll.psum(_local_mass(ef, lead))
-            mass[b.name] = pod_coll.psum(m) if pod_coll is not None else m
-        ef.acc = ef.u = None
-        if isinstance(out, ar.PendingUnpack):
-            pending[b.name] = (group, b, out)
-        else:
-            finish(group, b, out)
+    with _loop_span():
+        for bucket_idx, group, b, seg, ef in _buckets(plan, leaves, residuals):
+            if ef is None:
+                out = dense_sum(seg)
+                if pod_coll is not None:
+                    out = pod_coll.psum(out)
+                reduced[b.name] = once_if_shared(lambda o: o * scale, out)
+                continue
+            fold = None
+            if b.algorithm == "dense":
+                # a dense end-representation of the compressed stream (paper
+                # §5.3.3): the densified TopK summed over the axis, no QSGD
+                out = dense_sum(ef.u.densify(impl=cfg.impl))
+            elif b.algorithm == "dsar_split_allgather":     # Alg. 2 line 3
+                rand = None
+                if qsgd is not None:
+                    if rand_fn is None:
+                        raise ValueError("QSGD needs stochastic-rounding "
+                                         "bits: pass rand_fn")
+                    rand = rand_fn(bucket_idx,
+                                   lead * group.rows * b.cols // p_data)
+                out = ar.dsar_split_allgather_batched_inside(
+                    ef.u, coll=coll, qsgd=qsgd, rand=rand, impl=cfg.impl,
+                    scatter=scattered)
+            else:
+                # SSAR keeps a sparse end-representation; flat rows only.
+                assert group.rows == 1, (b.name, b.algorithm)
+                flat = UniformStream(ef.u.lidx[:, 0], ef.u.val[:, 0],
+                                     cfg.bucket_size)
+                out, fold = _reduce_flat_sparse(
+                    flat, b.algorithm, coll=coll, impl=cfg.impl,
+                    scatter=scattered)
+                out = out[:, None, :]
+            if fold is not None:
+                # Global-residual rule: mass clamped off the wire re-enters
+                # THIS rank's residual at pre-scale magnitude, so it is
+                # contributed exactly once on a later step (and the EF norm
+                # below covers it).
+                ef.residual = ef.residual + fold[:, None, :]
+            _store_residual(new_residuals, residuals, b, ef)
+            if telemetry:
+                m = coll.psum(_local_mass(ef, lead))
+                mass[b.name] = pod_coll.psum(m) if pod_coll is not None else m
+            ef.acc = ef.u = None
+            if isinstance(out, ar.PendingUnpack):
+                pending[b.name] = (group, b, out)
+            else:
+                finish(group, b, out)
     if pending:
         bufs = qsgd_unpack_grouped([pu.segment for _, _, pu in
                                     pending.values()], qsgd.bits,

@@ -19,7 +19,9 @@ artifacts into a terminal summary.
 The module-level default is OFF (``obs.OFF``): every span is a shared
 no-op context manager, every event a single attribute check — the
 pipelined driver's retire stays the only sync point and the hot path is
-unchanged (tests/test_torch_obs.py pins both). ``resolve`` maps the ubiquitous
+unchanged (tests/test_torch_obs.py pins both). While a ``torch.profiler``
+session records, spans and instants enter the profiler's ranges of
+their names whether the tracer is on or off (``obs/trace.py``). ``resolve`` maps the ubiquitous
 ``obs=None`` parameter onto the current default so call sites stay
 one-liners.
 """
@@ -27,10 +29,8 @@ from __future__ import annotations
 
 from repro_torch.obs.audit import (
     DriftAuditor,
-    attribute_step_phases,
     audit_serve_plan,
     audit_sync_plan,
-    time_phases,
 )
 from repro_torch.obs.health import (
     HealthConfig,
@@ -168,7 +168,6 @@ __all__ = [
     "Observability",
     "OFF",
     "Tracer",
-    "attribute_step_phases",
     "audit_serve_plan",
     "audit_sync_plan",
     "configure",
@@ -177,6 +176,5 @@ __all__ = [
     "record_bucket_telemetry",
     "resolve",
     "set_default",
-    "time_phases",
     "validate_span_tree",
 ]

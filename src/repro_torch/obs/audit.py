@@ -14,10 +14,6 @@ JAX package's ``repro.obs.audit``).
                           exchange (``exchange_activation_spmd`` on a
                           stacked (p, T, d) tensor vs the stream/dense
                           cost entries)
-  attribute_step_phases   lays the overlap model's compute / exposed-
-                          comm split into ONE measured step interval:
-                          the derived device-phase spans the tracer draws
-  time_phases             times named thunks, each waited for
 
 Probes run the real collectives OUTSIDE the training loop (at run end),
 so the audit adds no host wait to the pipelined hot path. On a card they
@@ -33,12 +29,8 @@ an unknown one raises.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
-
-from repro_torch.core.cost_model import exposed_bucket_times
 
 
 class DriftAuditor:
@@ -247,93 +239,3 @@ def audit_serve_plan(plan, *, net, device="cuda", reps: int = 3,
     if registry is not None:
         auditor.emit(registry)
     return auditor
-
-
-# ---------------------------------------------------------------------------
-# Derived device-phase attribution.
-# ---------------------------------------------------------------------------
-
-def attribute_step_phases(dt_s: float, t_buckets, names=None,
-                          staleness: int = 1) -> list[dict]:
-    """Split one MEASURED step interval into compute + exposed per-bucket
-    comm phases consistent with the overlap model (DESIGN.md §6).
-
-    Solves ``t_c + sum(exposed_bucket_times(t_buckets, t_c)) == dt_s``
-    for the compute share ``t_c`` (the RHS is monotone in ``t_c``, so a
-    bisection converges); if the modeled full drain already exceeds the
-    measurement, the whole interval is attributed to comm, scaled to
-    fit. Returns phase dicts ``{name, cat, offset_s, dur_s, args}`` that
-    tile ``[0, dt_s]`` exactly — ready for ``Tracer.complete`` at
-    ``retire_end - dt_s``. These spans are DERIVED (model laid into a
-    measurement), which their ``cat`` says out loud; the honest
-    per-algorithm ground truth is the audit probes above."""
-    t_buckets = [float(t) for t in t_buckets]
-    names = list(names) if names is not None else [
-        f"bucket{i}" for i in range(len(t_buckets))]
-    dt_s = float(dt_s)
-    if dt_s <= 0.0:
-        return []
-
-    if staleness == 0:
-        total = sum(t_buckets)
-        t_c = max(0.0, dt_s - total)
-        exposed = list(t_buckets)
-    else:
-        lo, hi = 0.0, dt_s
-        for _ in range(50):
-            mid = 0.5 * (lo + hi)
-            if mid + sum(exposed_bucket_times(t_buckets, mid)) < dt_s:
-                lo = mid
-            else:
-                hi = mid
-        t_c = 0.5 * (lo + hi)
-        exposed = exposed_bucket_times(t_buckets, t_c)
-
-    # Normalize so the phases tile the measured interval exactly.
-    total = t_c + sum(exposed)
-    scale = dt_s / total if total > 0 else 0.0
-    phases = []
-    off = 0.0
-    if t_c > 0:
-        dur = t_c * scale
-        phases.append({"name": "compute", "cat": "device.derived",
-                       "offset_s": off, "dur_s": dur,
-                       "args": {"modeled_s": t_c}})
-        off += dur
-    for name, exp, full in zip(names, exposed, t_buckets):
-        if exp <= 0:
-            continue
-        dur = exp * scale
-        phases.append({"name": f"comm/{name}", "cat": "device.derived",
-                       "offset_s": off, "dur_s": dur,
-                       "args": {"exposed_s": exp, "bucket_s": full,
-                                "hidden_s": full - exp}})
-        off += dur
-    return phases
-
-
-def time_phases(phases: dict) -> dict[str, float]:
-    """Time a dict of named thunks (the compose-able executor halves,
-    e.g. ``{"reduce": ..., "apply": ...}``), each waited for: the direct
-    measurement path for tests and offline audits. NOT for the pipelined
-    hot loop (it waits for the device once a phase by construction)."""
-    out = {}
-    for name, fn in phases.items():
-        t0 = time.perf_counter()
-        res = fn()
-        devices = {t.device for t in _tensors(res)}
-        for d in devices:
-            _wait(d)
-        out[name] = time.perf_counter() - t0
-    return out
-
-
-def _tensors(x):
-    if torch.is_tensor(x):
-        yield x
-    elif isinstance(x, dict):
-        for v in x.values():
-            yield from _tensors(v)
-    elif isinstance(x, (list, tuple)):
-        for v in x:
-            yield from _tensors(v)

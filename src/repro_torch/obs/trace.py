@@ -1,26 +1,31 @@
 """Structured span tracer with Chrome-trace export (DESIGN.md §10).
 
-One process-wide clock (``perf_counter`` relative to tracer birth), one
-append-only event list, Chrome Trace Event JSON out — the file loads
-directly in ``chrome://tracing`` / Perfetto. Three event kinds:
+One clock, Unix time in microseconds (``time.time_ns``), one append-only
+event list, Chrome Trace Event JSON out — the file loads directly in
+``chrome://tracing`` / Perfetto. Two event kinds:
 
   span(name)       a host-side complete event ("ph": "X"), recorded by a
                    context manager; spans opened on the same thread nest
                    by construction (enter/exit is LIFO per thread), so
                    the exported tree is always well-formed
-  complete(...)    an explicitly-timed complete event — how DERIVED
-                   device-phase spans (compute vs exposed comm, per
-                   bucket) are laid into a measured retire interval by
-                   the runtime (see obs/audit.attribute_step_phases)
   instant(name)    a zero-duration marker ("ph": "i") — plan swaps,
-                   forced switches, checkpoint boundaries
+                   forced switches, checkpoint boundaries, allocator
+                   retries
+
+Two sinks: whenever a ``torch.profiler`` session is recording, a span
+also enters a ``torch.profiler.record_function`` range of its name, and
+an instant a zero-length one, enabled tracer or not. The profiler then
+stamps them itself, on the clock it lays the device's kernels on; the
+tracer's own Unix-time stamps line up with a profiler's Chrome export of
+the same process.
 
 The tracer NEVER touches the device: no synchronisation, no tensor
 reads. Everything it records is host wall time, so tracing adds no sync
 points — the pipelined driver's retire remains the only one (the
-invariant tests/test_torch_obs.py pins). A disabled tracer returns a shared
-null context manager from :func:`Tracer.span`; the hot-path cost of
-tracing-off is one attribute check.
+invariant tests/test_torch_obs.py pins). A disabled tracer with no
+profiler recording returns a shared null context manager from
+:func:`Tracer.span`; the hot-path cost of tracing-off is one attribute
+check and one check of the profiler's state.
 
 The JAX package's ``repro.obs.trace`` uses no JAX; the port keeps
 this copy of it so that it imports nothing of that package.
@@ -31,6 +36,11 @@ import json
 import os
 import threading
 import time
+
+import torch
+
+# whether a torch.profiler session records on this thread (a C call)
+_profiling = torch._C._autograd._profiler_enabled
 
 
 class _NullSpan:
@@ -49,9 +59,10 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """One open host span; records a complete ("X") event on exit."""
+    """One open host span; records a complete ("X") event on exit, inside
+    the profiler's range of the same name when a profiler records."""
 
-    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0")
+    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, args: dict):
         self._tracer = tracer
@@ -60,19 +71,24 @@ class _Span:
         self._args = args
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        self._range = None
+        if _profiling():
+            self._range = torch.profiler.record_function(self._name)
+            self._range.__enter__()
+        self._t0 = time.time_ns()
         return self
 
     def __exit__(self, *exc):
-        t1 = time.perf_counter()
+        t1 = time.time_ns()
         tr = self._tracer
         tr._append({
             "name": self._name, "cat": self._cat, "ph": "X",
-            "ts": (self._t0 - tr._born) * 1e6,
-            "dur": (t1 - self._t0) * 1e6,
+            "ts": self._t0 / 1e3, "dur": (t1 - self._t0) / 1e3,
             "pid": tr.pid, "tid": threading.get_ident(),
             **({"args": self._args} if self._args else {}),
         })
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
 
@@ -80,25 +96,22 @@ class Tracer:
     """Append-only Chrome-trace event recorder.
 
     ``enabled=False`` builds a permanently-off tracer (``NULL_TRACER`` is
-    the shared instance): every record call is a no-op and ``span``
-    returns the shared null context manager.
+    the shared instance): it records no event of its own, and ``span``
+    returns the shared null context manager unless a profiler records
+    (then the profiler's range alone).
     """
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self.events: list[dict] = []
         self.pid = os.getpid()
-        self._born = time.perf_counter()
         self._lock = threading.Lock()
 
     # -- clock -------------------------------------------------------------
-    def now_us(self) -> float:
-        """Current trace-relative timestamp (microseconds)."""
-        return (time.perf_counter() - self._born) * 1e6
-
-    def to_us(self, t_perf_counter: float) -> float:
-        """Map an absolute ``perf_counter`` reading onto the trace clock."""
-        return (t_perf_counter - self._born) * 1e6
+    @staticmethod
+    def now_us() -> float:
+        """Current timestamp: Unix time in microseconds."""
+        return time.time_ns() / 1e3
 
     # -- recording ---------------------------------------------------------
     def _append(self, ev: dict) -> None:
@@ -106,24 +119,20 @@ class Tracer:
             self.events.append(ev)
 
     def span(self, name: str, /, cat: str = "host", **args):
-        """Context manager recording one host span."""
-        if not self.enabled:
-            return _NULL_SPAN
-        return _Span(self, name, cat, args)
-
-    def complete(self, name: str, cat: str, /, ts_us: float, dur_us: float,
-                 tid: int | str = "derived", **args) -> None:
-        """Record an explicitly-timed complete event (derived spans)."""
-        if not self.enabled:
-            return
-        self._append({
-            "name": name, "cat": cat, "ph": "X",
-            "ts": float(ts_us), "dur": float(max(dur_us, 0.0)),
-            "pid": self.pid, "tid": tid,
-            **({"args": args} if args else {}),
-        })
+        """Context manager recording one host span (and the profiler's
+        range of ``name`` while a profiler records)."""
+        if self.enabled:
+            return _Span(self, name, cat, args)
+        if _profiling():
+            return torch.profiler.record_function(name)
+        return _NULL_SPAN
 
     def instant(self, name: str, /, cat: str = "host", **args) -> None:
+        """A zero-duration marker (and a zero-length profiler range of
+        ``name`` while a profiler records)."""
+        if _profiling():
+            with torch.profiler.record_function(name):
+                pass
         if not self.enabled:
             return
         self._append({

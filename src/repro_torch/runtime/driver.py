@@ -32,9 +32,7 @@ are identical).
 Observability (``repro_torch.obs``): ``run_pipelined`` takes an ``obs``
 handle. Host spans wrap dispatch, retire, drain and checkpoint; plan
 swaps, restarts and guard trips become structured events; the retire
-intervals feed the ``driver/retire_wall_s`` histogram; and, when tracing,
-a ``phase_attr`` callback lays the cost model's compute / exposed-comm
-split into each retire interval as derived device-phase spans. A unit's
+intervals feed the ``driver/retire_wall_s`` histogram. A unit's
 per-bucket telemetry rows join its losses in the one non-blocking host
 copy, so with observability on the retire is still the only host wait
 (``_wait``, which tests count). ``adapt`` (``runtime/adapt.py``) is fed
@@ -290,7 +288,6 @@ def run_pipelined(
     restore_fn: Optional[Callable[[], Any]] = None,
     adapt=None,
     obs=None,
-    phase_attr: Optional[Callable[[float], list]] = None,
     health=None,
     recovery=None,
     injector=None,
@@ -314,9 +311,6 @@ def run_pipelined(
     obs: a ``repro_torch.obs.Observability`` handle (None = the session
     default, OFF unless configured). Host spans and structured events
     only: the retire stays the only host wait either way.
-    phase_attr: ``dt_unit_s -> [phase dict]`` (``obs.attribute_step_
-    phases``); when tracing, each retire interval is tiled with the
-    derived compute / exposed-comm device spans.
     health: an ``obs.HealthMonitor``, evaluated at drain barriers and at
     the end; its verdicts land as ``health/*`` events, and critical ones
     go to ``adapt.advise``. The flight recorder (``obs.recorder``) notes
@@ -373,7 +367,6 @@ def run_pipelined(
         now = time.perf_counter()
         dt_unit = now - last_retire_t
         dt = dt_unit / k
-        prev_t = last_retire_t
         last_retire_t = now
         metrics = _host_metrics(vals.numpy(), names, guarded)
         losses = metrics["loss"]
@@ -409,15 +402,6 @@ def run_pipelined(
                      loss=float(losses[-1]))
             if len(log.straggler_events) > n_stragglers:
                 rec._safe_dump("watchdog")
-        if obs.trace_on and phase_attr is not None:
-            # the derived device phases laid into the measured interval
-            # [previous retire, this retire] on their own trace track
-            for ph in phase_attr(dt_unit):
-                obs.tracer.complete(
-                    ph["name"], ph["cat"],
-                    ts_us=obs.tracer.to_us(prev_t + ph["offset_s"]),
-                    dur_us=ph["dur_s"] * 1e6, tid="device-phases",
-                    **ph.get("args", {}))
         if adapt is not None:
             adapt.observe(s0, k, metrics)
 

@@ -74,7 +74,9 @@ the plan injected nothing.
 Observability, as the example has it: ``--adapt`` (with ``--pipeline``)
 re-selects bucket algorithms from measured densities on network
 parameters calibrated on the run's own context; ``--trace`` exports a
-Chrome-trace JSON (host spans and the derived device phases);
+Chrome-trace JSON (host spans; the synchronous loop's step records its
+phases as ``sparcml.*`` spans) on Unix time in microseconds, which lines
+up with a ``torch.profiler`` export of the same process;
 ``--metrics-out`` writes the metrics JSONL and runs a drift audit of the
 final plan; ``--blackbox`` attaches the flight recorder. At the end the
 run prints its plan swaps, the drift audit, the health summary, the
@@ -175,8 +177,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "collective algorithms at drain barriers (with "
                          "--pipeline)")
     ap.add_argument("--trace", type=str, default=None, metavar="PATH",
-                    help="export a Chrome-trace JSON of the run (host spans "
-                         "+ derived device compute/comm phases)")
+                    help="export a Chrome-trace JSON of the run (host "
+                         "spans; the synchronous step's sparcml.* phases)")
     ap.add_argument("--metrics-out", type=str, default=None, metavar="PATH",
                     help="write the metrics/event JSONL (per-bucket "
                          "nnz/wire histograms, plan swaps, step times) and "

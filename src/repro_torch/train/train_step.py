@@ -66,6 +66,16 @@ The chaos harness's injection (``inject_nonfinite_leaves``) is a select on
 the raw grads before the reduce half: an all-zero fault vector gives the
 uninjected bits.
 
+The sparcml step records its phases as spans of its ``obs`` handle
+(``repro_torch.obs``): ``sparcml.step`` around the whole step, and in it
+``sparcml.rank_grads``, ``sparcml.reduce_half`` (around the executor's
+bucket loop, ``sparcml.reduce.buckets``) and ``sparcml.optimizer_half``.
+They land in the tracer's events when it is on and in a recording
+``torch.profiler`` session's trace whether it is on or not. While they
+record, a phase that saw the CUDA allocator retry allocations (each retry
+a synchronise and a flush of its cache) closes with one
+``sparcml.alloc_retry`` marker a retry.
+
 The model's backward is PyTorch autograd over plain tensor code, as the
 JAX package leaves it to XLA.
 """
@@ -81,7 +91,8 @@ from repro_torch.comm.buckets import (from_canonical, pack_group,
 from repro_torch.comm.collectives import (CollectiveContext,
                                           StackedCollectives)
 from repro_torch.comm.executor import (RandFn, apply_buckets_spmd,
-                                       reduce_buckets, reduce_buckets_spmd,
+                                       loop_spans, reduce_buckets,
+                                       reduce_buckets_spmd,
                                        unchunk_buckets_spmd)
 from repro_torch.comm.plan import SyncPlan, build_sync_plan
 from repro_torch.core.qsgd import random_bits
@@ -90,6 +101,8 @@ from repro_torch.kernels.bucket_topk.ops import check_bucket_size
 from repro_torch.models.model import Model, init_params
 from repro_torch.models.moe import shared_capacity
 from repro_torch.models.specs import FsdpLeaf, fsdp_layout, param_specs
+from repro_torch.obs import resolve as resolve_obs
+from repro_torch.obs.trace import _NULL_SPAN
 from repro_torch.optim.optimizers import (_bias_corrections,
                                           clip_by_global_norm, init_opt_state,
                                           opt_update)
@@ -908,10 +921,47 @@ class StepBits:
 LOWERINGS = ("spmd", "manual")
 
 
+def _alloc_retries(dev: torch.device) -> Optional[int]:
+    """The CUDA caching allocator's count of retried allocations on
+    ``dev`` (a host read of its counters); None off the card."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.memory_stats_as_nested_dict(dev)["num_alloc_retries"]
+
+
+class _Phase:
+    """A recording phase span of the sparcml step: closes with one
+    ``sparcml.alloc_retry`` marker for each allocator retry inside it."""
+
+    __slots__ = ("_ob", "_span", "_name", "_dev", "_r0")
+
+    def __init__(self, ob, span, name: str, dev: torch.device):
+        self._ob, self._span, self._name, self._dev = ob, span, name, dev
+
+    def __enter__(self):
+        self._span.__enter__()
+        self._r0 = _alloc_retries(self._dev)
+        return self
+
+    def __exit__(self, *exc):
+        if self._r0 is not None:
+            for _ in range(_alloc_retries(self._dev) - self._r0):
+                self._ob.instant("sparcml.alloc_retry", cat="allocator",
+                                 phase=self._name)
+        return self._span.__exit__(*exc)
+
+
+def _phase(ob, name: str, dev: torch.device):
+    """``ob``'s span ``name``; while it records (the tracer on or a
+    profiler recording), it also watches the allocator's retries."""
+    span = ob.span(name)
+    return span if span is _NULL_SPAN else _Phase(ob, span, name, dev)
+
+
 def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
                      device="cuda", lowering: str = "spmd",
                      coll: Optional[CollectiveContext] = None, net=None,
-                     plan: Optional[SyncPlan] = None):
+                     plan: Optional[SyncPlan] = None, obs=None):
     """Returns (step_fn, plan). ``step_fn(state, batch, rand_fn=None) ->
     (new_state, metrics)``; batch values (the global batch) may be numpy
     or tensors. ``rand_fn(bucket_idx, n)`` overrides the QSGD rounding bits
@@ -923,7 +973,9 @@ def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
     ranks if None; a ``ProcessGroupCollectives`` runs one rank a
     process). ``net``: the ``NetworkParams`` a sparcml config's
     ``algorithm="auto"`` selects on; ``plan``: a replan of this config's
-    plan to run instead (a checkpoint's)."""
+    plan to run instead (a checkpoint's); ``obs``: the
+    ``repro_torch.obs`` handle the sparcml step records its phase spans
+    with (None: the session default, resolved at each call)."""
     if lowering not in LOWERINGS:
         raise ValueError(f"lowering must be one of {LOWERINGS}: {lowering!r}")
     dev = resolve_device(device)
@@ -974,19 +1026,25 @@ def build_train_step(model: Model, tcfg: TrainConfig, dp_total: int = 1,
     held = coll.local_ranks if coll is not None else dp_total
 
     def sparcml_step(state: TrainState, batch, rand_fn: Optional[RandFn] = None):
-        batch = batch_to_device(local_batch(batch, coll), dev)
-        loss, leaves = rank_grads(model, state.params, batch, held, n_micro)
-        loss = global_loss(loss, coll)
-        if rand_fn is None:
-            rand_fn = StepBits(tcfg.seed, state.step, dev, dp_total)
-        reduced, new_res, _ = reduce_half(plan, leaves, state.residuals,
-                                          coll, rand_fn)
-        # the update reads the grads' shapes and dtypes only: free them
-        leaves = [torch.empty(g.shape, dtype=g.dtype, device="meta")
-                  for g in leaves]
-        lr = sched(state.step)
-        new_p, new_opt, gnorm = optimizer_half(state, reduced, leaves, lr,
-                                               tcfg, plan, coll)
+        ob = resolve_obs(obs)
+        with ob.span("sparcml.step"):
+            batch = batch_to_device(local_batch(batch, coll), dev)
+            with _phase(ob, "sparcml.rank_grads", dev):
+                loss, leaves = rank_grads(model, state.params, batch, held,
+                                          n_micro)
+                loss = global_loss(loss, coll)
+            if rand_fn is None:
+                rand_fn = StepBits(tcfg.seed, state.step, dev, dp_total)
+            with _phase(ob, "sparcml.reduce_half", dev), loop_spans(ob):
+                reduced, new_res, _ = reduce_half(
+                    plan, leaves, state.residuals, coll, rand_fn)
+            # the update reads the grads' shapes and dtypes only: free them
+            leaves = [torch.empty(g.shape, dtype=g.dtype, device="meta")
+                      for g in leaves]
+            lr = sched(state.step)
+            with _phase(ob, "sparcml.optimizer_half", dev):
+                new_p, new_opt, gnorm = optimizer_half(
+                    state, reduced, leaves, lr, tcfg, plan, coll)
         return (TrainState(new_p, new_opt, new_res, state.step + 1),
                 {"loss": loss, "grad_norm": gnorm, "lr": lr})
 

@@ -20,8 +20,9 @@ run with one rank a process checkpoints as the stacked run does (rank 0
 gathers and writes, each process restores its own rank's slices), and
 an fsdp (ZeRO-3) state is written whole and cut again at restore.
 
-``obs`` (``repro_torch.obs``) backs the log with its metrics registry.
-``run_pipelined`` builds the per-bucket telemetry into its step when
+``obs`` (``repro_torch.obs``) backs the log with its metrics registry,
+and the synchronous loop's step records its ``sparcml.*`` phase spans
+with it (``train_step.build_train_step``). ``run_pipelined`` builds the per-bucket telemetry into its step when
 metrics are on, and records the rows (``TelemetryObserver``) or, with
 ``adapt``, feeds them to the adaptive controller (``AdaptiveRuntime``),
 whose accepted replans swap the step at drain barriers; checkpoints then
@@ -132,7 +133,7 @@ class Trainer:
                         pod_sparse=meta.get("plan_pod_sparse"))
         self.step_fn, self.plan = build_train_step(
             self.model, self.tcfg, self.dp_total, self.device, self.lowering,
-            self.coll, net=self._plan_net, plan=plan)
+            self.coll, net=self._plan_net, plan=plan, obs=self.obs)
 
     def _resume_meta(self) -> dict:
         """The meta of the newest checkpoint under ``ckpt_dir`` whose
@@ -246,7 +247,7 @@ class Trainer:
             self._plan_net = self._calibrated_net()
         self.step_fn, self.plan = build_train_step(
             self.model, self.tcfg, dp_total, self.device, self.lowering,
-            net=self._plan_net)
+            net=self._plan_net, obs=self.obs)
         if self.tcfg.fsdp:
             self.fsdp_layout = ts.fsdp_layout_of(self.model, dp_total)
         self.init()
@@ -349,11 +350,7 @@ class Trainer:
         the active plan's signature and algorithm map, so a restart
         resumes the adapted plan. Without ``adapt`` the step emits its
         telemetry rows only when the metrics registry is on, and they are
-        recorded. With tracing on and network parameters known (fitted
-        for ``adapt``, or set in ``_net_cal``), each retire interval is
-        tiled with the cost model's derived compute / exposed-comm phases
-        of the active plan; the port has no default network to lay them
-        on otherwise.
+        recorded.
 
         ``recovery`` (a ``runtime.faults.RecoveryConfig``) bounds the
         driver's restores with per-fault-class retry budgets and jittered
@@ -440,31 +437,6 @@ class Trainer:
             return (rt_pipeline.attach_inflight(restored, plan, ranks)
                     if staleness else restored)
 
-        phase_attr = None
-        if self.obs.trace_on and self._net_cal is not None:
-            # the cost model's compute / exposed-comm split of the ACTIVE
-            # plan laid into each retire interval (host arithmetic only),
-            # on the network already known (fitted for adapt, or set): a
-            # traced run calibrates nothing itself
-            from repro_torch.core.cost_model import plan_bucket_times
-            from repro_torch.obs import attribute_step_phases
-
-            attr_net = self._net_cal
-
-            def phase_attr(dt_unit: float) -> list:
-                active = getattr(runtime, "current_plan", None) or plan
-                tb = plan_bucket_times(active, None, attr_net)
-                names = [b.name for b in active.buckets]
-                k = max(1, superstep)
-                per = attribute_step_phases(dt_unit / k, tb, names=names,
-                                            staleness=staleness)
-                out = []
-                for i in range(k):
-                    base = i * dt_unit / k
-                    out.extend({**ph, "offset_s": base + ph["offset_s"]}
-                               for ph in per)
-                return out
-
         health = None
         if self.obs.metrics_on:
             from repro_torch.obs.health import HealthMonitor
@@ -483,8 +455,7 @@ class Trainer:
             ckpt_every=self.ckpt_every if self.ckpt_dir else None,
             ckpt_fn=ckpt_fn if self.ckpt_dir else None,
             restore_fn=restore_fn if self.ckpt_dir else None,
-            adapt=runtime, obs=self.obs, phase_attr=phase_attr,
-            health=health, recovery=recovery, injector=injector)
+            adapt=runtime, obs=self.obs, health=health, recovery=recovery, injector=injector)
         self.state = state
         self.last_plan = getattr(runtime, "current_plan", None) or plan
         if self.ckpt_dir:

@@ -637,7 +637,8 @@ def test_jax_adaptive_checkpoint_resumes_the_plan(model, tmp_path):
 def test_trainer_adapt_runs_swaps_and_records(model, tmp_path):
     """Trainer.run_pipelined(adapt=...) with observability on: telemetry
     histograms for every EF bucket, one sample a retired step, the
-    controller's decisions, health verdicts, and the derived phases."""
+    controller's decisions and health verdicts, and no derived
+    device-phase track in the trace."""
     _, tcfg = _tcfgs(4)
     ob = obs.configure(trace=True, metrics=True, audit=True,
                        set_as_default=False)
@@ -656,9 +657,8 @@ def test_trainer_adapt_runs_swaps_and_records(model, tmp_path):
                 == 12
     assert tr.last_health is not None and tr.last_health.history
     assert obs.validate_span_tree(ob.tracer.events) == []
-    derived = {e["name"] for e in ob.tracer.events
-               if e.get("tid") == "device-phases"}
-    assert "compute" in derived
+    assert not [e for e in ob.tracer.events
+                if e.get("tid") == "device-phases"]
     assert ob.metrics.histogram("driver/retire_wall_s").snapshot()[
         "count"] == 6
     assert tr.last_plan is tr.last_adapt_runtime.current_plan

@@ -665,12 +665,11 @@ def _small_lm(device):
 @pytest.mark.cuda
 def test_cuda_obs_on_off_bit_equal_one_wait_a_unit(cuda_device,
                                                     monkeypatch):
-    """Observability on (trace, metrics, telemetry rows, health, derived
-    phases) against off on the card: the same losses bit for bit, one
-    host wait a retired unit, a valid span tree, and every EF bucket's
-    four histograms with one sample a step."""
+    """Observability on (trace, metrics, telemetry rows, health) against
+    off on the card: the same losses bit for bit, one host wait a retired
+    unit, a valid span tree, and every EF bucket's four histograms with
+    one sample a step."""
     from repro_torch import obs
-    from repro_torch.core.cost_model import NetworkParams
     from repro_torch.runtime import driver as rt_driver
     from repro_torch.train.trainer import Trainer
 
@@ -686,7 +685,6 @@ def test_cuda_obs_on_off_bit_equal_one_wait_a_unit(cuda_device,
               if on else None)
         t = Trainer(model, tcfg, data, dp_total=4, device=cuda_device,
                     obs=ob)
-        t._net_cal = NetworkParams(alpha=1e-5, link_bytes_per_s=1e10)
         t.init()
         waits.clear()
         runs[on] = list(t.run_pipelined(8, superstep=2).losses)

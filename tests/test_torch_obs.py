@@ -4,15 +4,17 @@ package's ``repro.obs``, and the port's driver with observability on.
 The same inputs (numpy samples, span lists, registry contents, audit
 samples) go to both packages; their outputs are held equal exactly:
 histogram snapshots and percentiles, the JSONL lines (but for the
-timestamps), span-tree verdicts, health verdicts in rank order, the drift
-report, and the derived step phases (to 1e-12). The driver's tests count
-its host waits (one a retired unit, observability on or off) and check
-the trace and metrics of a run; none rests on a wall clock.
+timestamps), span-tree verdicts, health verdicts in rank order and the
+drift report. The driver's tests count its host waits (one a retired
+unit, observability on or off) and check the trace and metrics of a run;
+none rests on a wall clock. The sparcml step's own spans are
+tests/test_torch_spans.py's.
 """
 import dataclasses
 import itertools
 import json
 import signal
+import time
 
 import numpy as np
 import pytest
@@ -185,7 +187,6 @@ def test_tracer_records_nested_spans_and_exports(tmp_path):
             pass
     tr.instant("marker")
     tr.counter("occupancy", active=3)
-    tr.complete("derived", "device.derived", 0.0, 5.0, tid="d", x=1)
     assert trace.validate_span_tree(tr.events) == []
     assert [e["name"] for e in tr.events if e["ph"] == "X"][:3] == [
         "inner/a", "inner/b", "outer"]
@@ -275,7 +276,7 @@ def test_health_underfilled_windows_stay_silent():
 
 
 # --------------------------------------------------------------------------
-# the drift auditor and the derived phases
+# the drift auditor
 # --------------------------------------------------------------------------
 
 def _audit_samples(aud):
@@ -306,32 +307,6 @@ def test_drift_auditor_matches_jax():
         jreg.gauge("audit/net_scale_hint").value
     with pytest.raises(ValueError):
         audit.DriftAuditor(flag_ratio=1.0)
-
-
-@pytest.mark.parametrize("staleness", [0, 1])
-@pytest.mark.parametrize("dt,tb", [(0.010, [0.002, 0.001]),
-                                   (0.001, [0.002, 0.001]),
-                                   (0.3, [0.01, 0.05, 0.2, 0.001]),
-                                   (0.0, [0.001])])
-def test_attribute_step_phases_matches_jax(staleness, dt, tb):
-    """The phases tile [0, dt] (contiguous to 1e-12) and equal the
-    reference's, name by name, to 1e-12."""
-    names = [f"b{i}" for i in range(len(tb))]
-    got = audit.attribute_step_phases(dt, tb, names=names,
-                                      staleness=staleness)
-    want = jax_audit.attribute_step_phases(dt, tb, names=names,
-                                           staleness=staleness)
-    assert [p["name"] for p in got] == [p["name"] for p in want]
-    for a, b in zip(got, want):
-        assert a["cat"] == b["cat"] == "device.derived"
-        np.testing.assert_allclose([a["offset_s"], a["dur_s"]],
-                                   [b["offset_s"], b["dur_s"]],
-                                   rtol=1e-12, atol=1e-12)
-    off = 0.0
-    for ph in got:
-        assert abs(ph["offset_s"] - off) <= 1e-12
-        off += ph["dur_s"]
-    assert abs(off - dt) <= 1e-12 * max(1.0, dt)
 
 
 def _tiny():
@@ -413,12 +388,6 @@ def test_audit_kernel_refusal_at_launch_propagates():
         audit.audit_sync_plan(plan, StackedCollectives(P_DATA, device="cpu"),
                               net=NET, reps=1, registry=reg)
     assert not reg.events_named("audit/bucket_probe_failed")
-
-
-def test_time_phases_waits_for_each_phase():
-    out = audit.time_phases({"a": lambda: torch.ones(3) * 2,
-                             "b": lambda: {"x": [torch.zeros(2)]}})
-    assert set(out) == {"a", "b"} and all(v >= 0 for v in out.values())
 
 
 # --------------------------------------------------------------------------
@@ -513,8 +482,8 @@ def pipelined():
     return model, tcfg, fn, plan
 
 
-def _drive(pipelined, n=8, ob=None, phase_attr=None, adapt=None,
-           health_mon=None, ckpt_every=None):
+def _drive(pipelined, n=8, ob=None, adapt=None, health_mon=None,
+           ckpt_every=None):
     model, tcfg, fn, plan = pipelined
     state = rt_pipeline.attach_inflight(ts.init_state(model, tcfg, plan,
                                                       "cpu"), plan)
@@ -522,15 +491,16 @@ def _drive(pipelined, n=8, ob=None, phase_attr=None, adapt=None,
         fn, state, start_step=0, num_steps=n,
         batch_fn=lambda s: synthetic_batch(DataConfig(**DATA), s),
         cfg=rt_driver.DriverConfig(steps_per_unit=K_UNIT), obs=ob,
-        phase_attr=phase_attr, adapt=adapt, health=health_mon,
+        adapt=adapt, health=health_mon,
         ckpt_every=ckpt_every,
         ckpt_fn=(lambda s: None) if ckpt_every else None)
 
 
 def test_driver_obs_adds_no_host_waits(pipelined, monkeypatch):
     """The retire's wait is the only one: one a retired unit with
-    observability off and fully on (trace, metrics, derived phases,
-    telemetry recorded, health rules), and the losses are the same."""
+    observability off and fully on (trace, metrics, telemetry recorded,
+    health rules), and the losses are the same; the trace draws no
+    derived device-phase track."""
     real = rt_driver._wait
     count = {"n": 0}
 
@@ -548,23 +518,23 @@ def test_driver_obs_adds_no_host_waits(pipelined, monkeypatch):
     off, losses_off = run(obs.Observability())
     ob = obs.configure(trace=True, metrics=True, set_as_default=False)
     on, losses_on = run(
-        ob, phase_attr=lambda dt: audit.attribute_step_phases(
-            dt, [dt * 0.05, dt * 0.03], names=["b0", "b1"]),
-        adapt=TelemetryObserver(ob),
+        ob, adapt=TelemetryObserver(ob),
         health_mon=health.HealthMonitor(ob.metrics), ckpt_every=4)
     assert off == on == 4        # one retire per 2-step unit, 8 steps
     assert losses_off == losses_on
+    assert not [e for e in ob.tracer.events
+                if e.get("tid") == "device-phases"]
 
 
 def test_driver_trace_and_metrics(pipelined, tmp_path):
-    """The spans of dispatch, retire, drain and checkpoint nest; the
-    derived phases tile each retire interval; the log is registry-backed;
+    """The spans of dispatch, retire, drain and checkpoint nest, on Unix
+    time; the pipelined step records no sparcml.* phase span and no
+    derived device-phase track is drawn; the log is registry-backed;
     every EF bucket's four histograms hold one sample a retired step."""
     ob = obs.configure(trace=True, metrics=True, set_as_default=False)
-    phase_attr = lambda dt: audit.attribute_step_phases(  # noqa: E731
-        dt, [dt * 0.05, dt * 0.03], names=["b0", "b1"], staleness=0)
-    state, log = _drive(pipelined, ob=ob, phase_attr=phase_attr,
-                        adapt=TelemetryObserver(ob), ckpt_every=4)
+    t0 = time.time_ns() / 1e3
+    state, log = _drive(pipelined, ob=ob, adapt=TelemetryObserver(ob),
+                        ckpt_every=4)
     assert state.step == 8
     assert log.losses is ob.metrics.series("train/loss").data
     assert len(log.losses) == 8 == len(log.step_times)
@@ -574,10 +544,11 @@ def test_driver_trace_and_metrics(pipelined, tmp_path):
     names = {e["name"] for e in ob.tracer.events if e["ph"] == "X"}
     assert {"driver/dispatch", "driver/retire", "driver/drain",
             "driver/checkpoint"} <= names
-    derived = [e for e in ob.tracer.events
-               if e.get("tid") == "device-phases"]
-    assert {e["name"] for e in derived} == {"compute", "comm/b0", "comm/b1"}
-    assert len(derived) == 3 * 4
+    assert not {n for n in names if n.startswith("sparcml.")}
+    assert not [e for e in ob.tracer.events
+                if e.get("tid") == "device-phases"]
+    assert all(t0 <= e["ts"] <= time.time_ns() / 1e3
+               for e in ob.tracer.events)
     plan = pipelined[3]
     for b in plan.buckets:
         for col in ("nnz", "wire_bytes", "mass_coverage", "ef_norm"):
@@ -675,9 +646,10 @@ def test_run_lm_audit_skips_a_degenerate_fit(monkeypatch, capsys, tmp_path):
 @pytest.mark.parametrize("net_known", [False, True])
 def test_traced_trainer_derives_phases_on_a_known_network(monkeypatch,
                                                           net_known):
-    """A traced Trainer run with adapt off runs no calibration ladder: with
-    no network known it draws no derived phases (and no host timing can
-    fail it); with one set it tiles each retire with them."""
+    """A traced Trainer run with adapt off runs no calibration ladder, and
+    draws no derived device-phase track whether a network is known or
+    not; its synchronous loop's step records its sparcml.* phases, once a
+    step each, nested in the step."""
     from repro_torch.train.trainer import Trainer
     from repro_torch.utils import calibrate
 
@@ -693,12 +665,22 @@ def test_traced_trainer_derives_phases_on_a_known_network(monkeypatch,
     if net_known:
         tr._net_cal = NET
     log = tr.run_pipelined(4, superstep=2)
+    assert not [e for e in ob.tracer.events
+                if e["name"].startswith("sparcml.")
+                or e.get("tid") == "device-phases"]
+    log = tr.run(6)
     assert np.isfinite(log.losses).all()
     assert obs.validate_span_tree(ob.tracer.events) == []
-    derived = {e["name"] for e in ob.tracer.events
-               if e.get("tid") == "device-phases"}
-    assert ("compute" in derived) == net_known
-    assert bool(derived) == net_known
+    spans = [e for e in ob.tracer.events if e["name"].startswith("sparcml.")]
+    assert sorted(e["name"] for e in spans) == sorted(
+        ["sparcml.step", "sparcml.rank_grads", "sparcml.reduce_half",
+         "sparcml.reduce.buckets", "sparcml.optimizer_half"] * 2)
+    for step in (e for e in spans if e["name"] == "sparcml.step"):
+        inner = [e for e in spans if step["ts"] <= e["ts"]
+                 and e["ts"] + e["dur"] <= step["ts"] + step["dur"]]
+        assert len(inner) == 5
+    assert not [e for e in ob.tracer.events
+                if e.get("tid") == "device-phases"]
 
 
 def test_contexts_default_to_the_card():
