@@ -10,8 +10,14 @@ Phases, in order; any failure exits non-zero:
      buckets of lm-100m, R = 4 replicas): each kernel is held against its
      plain PyTorch version on the card, and timed with CUDA events beside
      the plain version, a PyTorch library call where one computes the
-     same function, and the memory-bandwidth bound; bucket_scatter_sum,
-     qsgd_pack and qsgd_unpack are timed as the main path calls them, one
+     same function, and the memory-bandwidth bound; bucket_topk twice:
+     the one-tensor entry the per-rank form calls a bucket, and the
+     grouped EF add + TopK as the stacked form calls it, one call a fusion
+     group of lm-100m's step table over its packed group buffer and the
+     buckets' residuals (each bucket bit-equal to bucket_topk_ref(residual
+     + slice); bound 12 bytes an element and 8 a kept entry, its launches
+     a step from the table); bucket_scatter_sum, qsgd_pack and qsgd_unpack
+     are timed as the main path calls them, one
      grouped launch over the 26 buckets (the fused densify + rank-order
      sum into one step buffer, the pack reading those sums where they
      lie, the unpack writing the reduced buffers; the first also with
@@ -37,9 +43,10 @@ Phases, in order; any failure exits non-zero:
      CUDA-graph replay) beside its bound and torch.topk(x.abs(), k);
   3. main paths, each with every kernel's launch count reset before and
      read after: Trainer.run of lm-100m with SparCML sync (DSAR + 4-bit
-     QSGD, k = 8 of 512, R = 4 stacked replicas) for 6 steps (26 launches
-     a step of bucket_topk, one each of bucket_scatter_sum, qsgd_pack and
-     qsgd_unpack); 3 more under the profiler (the device's idle
+     QSGD, k = 8 of 512, R = 4 stacked replicas) for 6 steps (4 launches
+     a step of bucket_topk, one grouped EF add + TopK a fusion group of
+     the 26 sparse buckets, and one each of bucket_scatter_sum, qsgd_pack
+     and qsgd_unpack); 3 more under the profiler (the device's idle
      share); then on the same trainer, as the example's --pipeline does,
      Trainer.run_pipelined for 12 more steps (staleness 1, supersteps of
      4, two units deep, the reduce half on a side CUDA stream), with its
@@ -203,13 +210,14 @@ Phases, in order; any failure exits non-zero:
      microbatches), one 512-token row a rank a microbatch (C = 64), R = 2
      stacked replicas (R = 4 does not fit the card), under expandable
      allocator segments (without them the pool fragments and the run
-     runs out of memory), 4 steps: finite losses, one
-     bucket_topk launch a sparse bucket a step and one grouped call each
+     runs out of memory), 4 steps: finite losses, one grouped EF add +
+     TopK call a fusion group a step and one grouped call each
      of the fused densify + sum, the pack and the unpack (a grouped call
-     launches one kernel for every 64, 48 and 48 of its hundreds of
+     launches one kernel for every 48, 64, 48 and 48 of its hundreds of
      buckets); 2 more steps
      timed with CUDA events, the rank grads and the reduce half alone;
-     on one step's tensors, every 64th bucket_topk input and the largest,
+     on one step's tensors, every 64th EF bucket's r + g (against the
+     one-tensor kernel and the grouped call's outputs) and the largest,
      and every segment of the three grouped launches, held against the
      plain versions (bit-equal; the pack's 'l2' codes at most one level on
      at most 1e-4 of them); the peak memory allocated and reserved against
@@ -335,9 +343,9 @@ Phases, in order; any failure exits non-zero:
      algorithm left at "auto", the Trainer fitting the network on the
      stacked ranks (alpha, bandwidth and the buckets by algorithm
      printed), 3 steps through the kernels with each kernel's launches
-     equal to the resolved plan's (a bucket_topk an EF bucket, a grouped
-     densify + sum for every 64, a grouped pack and unpack for every 48
-     quantized DSAR buckets) and the median step, bit-equal (losses,
+     equal to the resolved plan's (a bucket_topk for every 48 EF buckets
+     of a fusion group, a grouped densify + sum for every 64, a grouped
+     pack and unpack for every 48 quantized DSAR buckets) and the median step, bit-equal (losses,
      params, EF residuals) to the same steps with the resolved algorithm
      named; then make_sparse_allreduce("auto") at Fig. 3's shapes (N =
      2^24, P = 8, k = 4 and 64) on a fit over its 8 stacked ranks: the
@@ -355,7 +363,10 @@ Phases, in order; any failure exits non-zero:
      ("launches_auto" and "launches_serve_fsdp" in the kernels line);
  21. the kernels line (a kernel's "launches" are the main path's, or,
      for one the main path does not run, those of the first later path
-     that runs it, named in "launches_path"; "launches_moe_train" and
+     that runs it, named in "launches_path"; bucket_topk.launches counts
+     both of bucket_topk's entries, so the grouped row ("counter") takes
+     every path's count and the one-tensor row only phase 8's, the
+     per-rank form's; "launches_moe_train" and
      "launches_moe_serve" those of phase 17's runs, "launches_ssm_train",
      "launches_hybrid_train", "launches_encoder_train" and
      "launches_ssm_serve" those of phase 18's, "launches_long_train"
@@ -498,17 +509,123 @@ def card_line() -> str:
     return card
 
 
-def lm_sparse_buckets():
-    """lm-100m's sparse buckets and its sync config: the main path's
-    kernel shapes."""
+def lm_plan():
+    """lm-100m's sync plan and its sync config: the main path's kernel
+    shapes."""
     from repro_torch.models.model import build_model
     from repro_torch.train import run_lm
     from repro_torch.train.train_step import build_plan
 
     cfg, _ = run_lm.lm_config(fast=False)
     tcfg = run_lm.train_config(STEPS)
-    plan = build_plan(build_model(cfg), tcfg, run_lm.DP)
-    return [bk for bk in plan.buckets if bk.sparse], tcfg.sync
+    return build_plan(build_model(cfg), tcfg, run_lm.DP), tcfg.sync
+
+
+def stacked_rows(kernels) -> list:
+    """Phase 2's kernel rows but the one-tensor bucket_topk's: the rows
+    whose launch counts every path's counters give (bucket_topk.launches
+    counts both of its entries; the one-tensor row reads phase 8's)."""
+    return [row for row in kernels if row.get("form") != "per_rank"]
+
+
+def topk_grouped_row(torch, dev, plan, r) -> dict:
+    """Phase 2's row of the grouped EF add + TopK (``entry``'s keyword
+    arguments) as the stacked reduce half calls it at lm-100m: ``plan``'s
+    step table over R = ``r`` stacked ranks, one ``bucket_topk_ef_grouped``
+    call a fusion group with EF buckets, over the group's packed (R, rows,
+    cols) buffer (normal values, every 7th row of B quarter-rounded, so
+    with magnitude ties) and the buckets' f32 residuals (quarter-rounded
+    normals), the streams into the step's two flat buffers. Every bucket
+    is held bit for bit against bucket_topk_ref(residual + slice) on all
+    three outputs, and the counters against the table. Bound: 12 bytes an
+    element (the residual and the gradient read, the new residual
+    written) and 8 a kept entry; operations: an add and a compare an
+    element."""
+    from repro_torch.comm.executor import _step_table
+    from repro_torch.kernels.bucket_topk import ops as topk_ops
+    from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
+
+    tab = _step_table(plan, r, 1)
+    b, k = plan.cfg.bucket_size, plan.cfg.k_per_bucket
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    calls = []                           # (table, residuals, buffer, names)
+    for gs in tab.groups:
+        if gs.topk is None:
+            continue
+        t = gs.topk
+        buf = torch.randn(t.buf_shape, device=dev, generator=gen)
+        rows_b = buf.view(-1, b)
+        rows_b[::7] = torch.round(rows_b[::7] * 4) / 4
+        res = [torch.round(torch.randn(sh, device=dev, generator=gen) * 2) / 4
+               for sh in t.res_shapes]
+        calls.append((t, res, buf, gs.ef_names))
+    val = torch.empty(tab.stream_total, dtype=torch.float32, device=dev)
+    lidx = torch.empty(tab.stream_total, dtype=torch.int32, device=dev)
+
+    def run(impl, only=None):
+        return [topk_ops.bucket_topk_ef_grouped(t, res, buf, val, lidx,
+                                                impl=impl)
+                for t, res, buf, _ in (calls if only is None else [only])]
+
+    n_buckets = sum(c[0].n for c in calls)
+    before = (topk_ops.bucket_topk.launches,
+              topk_ops.bucket_topk.grouped_buckets)
+    new_res = run("cuda")
+    launched = topk_ops.bucket_topk.launches - before[0]
+    taken = topk_ops.bucket_topk.grouped_buckets - before[1]
+    if launched != tab.topk_launches or taken != n_buckets:
+        fail(f"grouped bucket_topk: {launched} launches and {taken} buckets "
+             f"counted, the step table has {tab.topk_launches} and "
+             f"{n_buckets}")
+    for (t, res, buf, _), outs in zip(calls, new_res):
+        for r0, (cs, cols), off, n, got in zip(res, t.spans, t.stream_off,
+                                               t.stream_sizes, outs):
+            v, li, rest = bucket_topk_ref((r0 + buf[:, :, cs:cs + cols])
+                                          .reshape(-1, b), k)
+            if not (torch.equal(val[off:off + n], v.reshape(-1))
+                    and torch.equal(lidx[off:off + n], li.reshape(-1))
+                    and torch.equal(got, rest.view(got.shape))):
+                fail("grouped bucket_topk differs from bucket_topk_ref("
+                     "residual + slice)")
+            del v, li, rest
+    del new_res
+    elems = sum(r0.numel() for c in calls for r0 in c[1])
+    big = max(calls, key=lambda c: max(c[0].stream_sizes))
+    big_name = big[3][big[0].stream_sizes.index(max(big[0].stream_sizes))]
+
+    def library():
+        for t, res, buf, _ in calls:
+            for r0, (cs, cols) in zip(res, t.spans):
+                torch.topk((r0 + buf[:, :, cs:cs + cols]).reshape(-1, b)
+                           .abs(), k, dim=1)
+
+    cuda = lambda: run("cuda")
+    ms_big = time_ms(torch, lambda: run("cuda", big))
+    plain_big = time_ms(torch, lambda: run("ref", big), reps=3)
+    row = {"checked": f"phase 2: bit-equal to bucket_topk_ref(residual + "
+                      f"slice) on all three outputs for the {n_buckets} EF "
+                      f"buckets of lm-100m's {len(calls)} fusion groups (R "
+                      f"{r}, strided slices of the packed group buffers), "
+                      "ties injected; launches and grouped_buckets counted "
+                      "against the step table",
+           "ms_step": time_ms(torch, cuda),
+           "plain_step": time_ms(torch, lambda: run("ref"), reps=3),
+           "lib_step": time_ms(torch, library),
+           "nbytes": 12 * elems + 8 * tab.stream_total,
+           "nops": 2 * elems, "err": 0.0,
+           "ms_big": ms_big, "plain_big": plain_big,
+           "device_ms": graph_ms(torch, cuda),
+           "host_ms": host_ms(torch, cuda),
+           "launches_per_step": tab.topk_launches,
+           "calls_per_step": len(calls), "buckets_per_step": n_buckets,
+           "largest_bucket": {"name": f"the call of the group holding "
+                                      f"{big_name}",
+                              "ms": ms_big, "plain_ms": plain_big},
+           "library": "torch.topk of |residual + slice| a bucket (the add "
+                      "and the selection, no new residual)",
+           "counter": "bucket_topk"}
+    del calls, val, lidx, big
+    return row
 
 
 def topk_inputs(torch, dev, sparse, r, b):
@@ -552,7 +669,8 @@ def main() -> None:
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.model import build_model
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.comm.executor import reduce_buckets_spmd
+    from repro_torch.comm.executor import (reduce_buckets_spmd,
+                                           topk_launches_spmd)
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.runtime.driver import DriverConfig, run_pipelined
     from repro_torch.runtime.pipeline import attach_inflight, build_superstep
@@ -587,7 +705,8 @@ def main() -> None:
     record["build"] = info
 
     # ---------------------------------------------------------------- 2
-    sparse, sync = lm_sparse_buckets()
+    plan, sync = lm_plan()
+    sparse = [bk for bk in plan.buckets if bk.sparse]
     r, b, k = run_lm.DP, sync.bucket_size, sync.k_per_bucket
     bq, bits = sync.qsgd_bucket, sync.qsgd_bits
     if len(sparse) != 26:
@@ -636,7 +755,8 @@ def main() -> None:
     entry("bucket_topk", "src/repro_torch/csrc/bucket_topk.cu",
           "src/repro/kernels/bucket_topk/kernel.py:47",
           "phase 2: bit-equal to bucket_topk_ref on the 26 bucket shapes, "
-          "ties injected",
+          "ties injected; the one-tensor entry (bucket_topk_f32) the "
+          "per-rank form launches a bucket",
           time_ms(torch, lambda: [topk_ops.bucket_topk(x, k, impl="cuda")
                                   for x in xs]),
           time_ms(torch, lambda: [topk_ops.bucket_topk(x, k, impl="ref")
@@ -651,10 +771,16 @@ def main() -> None:
           device_ms=graph_ms(torch, lambda: [
               topk_ops.bucket_topk(x, k, impl="cuda") for x in xs]),
           host_ms=host_ms(torch, lambda: [
-              topk_ops.bucket_topk(x, k, impl="cuda") for x in xs]))
+              topk_ops.bucket_topk(x, k, impl="cuda") for x in xs]),
+          form="per_rank")
     streams = [(o[1], o[0]) for o in outs]   # (lidx, val) of the path
     del outs
     gc.collect()
+    entry("bucket_topk_ef_grouped", "src/repro_torch/csrc/bucket_topk.cu",
+          "src/repro/kernels/bucket_topk/kernel.py:47",
+          **topk_grouped_row(torch, dev, plan, r))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- bucket_scatter (one source): bit-equal on the path's (distinct)
     #    indices, and with duplicates and sentinels
@@ -891,9 +1017,10 @@ def main() -> None:
                 "qsgd_pack": pack_ops.qsgd_pack,
                 "qsgd_unpack": unpack_ops.qsgd_unpack,
                 "qsgd_unpack_grouped": unpack_ops.qsgd_unpack_grouped}
-    # a step: a bucket_topk a sparse bucket, then one grouped launch each
-    # of the fused densify + sum, the pack and the unpack
-    expect = {"bucket_topk": len(sparse) * STEPS,
+    # a step: a grouped EF add + TopK a fusion group (4 at lm-100m's 26
+    # sparse buckets), then one grouped launch each of the fused densify +
+    # sum, the pack and the unpack
+    expect = {"bucket_topk": None,          # the trainer's plan's, below
               "bucket_scatter": 0,                  # the fused form instead
               "bucket_scatter_sum": STEPS,
               "qsgd_pack": STEPS,
@@ -905,6 +1032,8 @@ def main() -> None:
     trainer = Trainer(build_model(cfg), run_lm.train_config(STEPS), data,
                       dp_total=run_lm.DP, device=dev)
     trainer.init()
+    expect["bucket_topk"] = topk_launches_spmd(trainer.plan,
+                                               run_lm.DP) * STEPS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
@@ -924,8 +1053,11 @@ def main() -> None:
         if c != expect[n]:
             fail(f"{n} launched {c} times in {STEPS} steps, expected "
                  f"{expect[n]}")
-    for row in kernels:
-        row["launches"] = launches[row["name"]]
+    # bucket_topk.launches counts both of bucket_topk's entries: the main
+    # paths launch the grouped one, the per-rank paths the one-tensor one
+    # (its row takes phase 8's count)
+    for row in stacked_rows(kernels):
+        row["launches"] = launches[row.get("counter", row["name"])]
         row["launches_path"] = "main (phase 3)"
         if row["name"] == "qsgd_unpack":
             row["launches"] = launches["qsgd_unpack_grouped"]
@@ -983,8 +1115,9 @@ def main() -> None:
         if c != pipe_expect[n]:
             fail(f"{n} launched {c} times in {PIPE_STEPS} pipelined steps, "
                  f"expected {pipe_expect[n]}")
-    for row in kernels:
-        row["launches_pipelined"] = pipe_launches[row["name"]]
+    for row in stacked_rows(kernels):
+        row["launches_pipelined"] = pipe_launches[row.get("counter",
+                                                          row["name"])]
         if row["name"] == "qsgd_unpack":
             row["launches_pipelined"] = pipe_launches["qsgd_unpack_grouped"]
             row["single_bucket_launches_pipelined"] = \
@@ -1264,6 +1397,9 @@ def main() -> None:
     record["manual_lm100m"], new_paths["manual_lm100m"], manual = \
         phase_manual(torch, dev, wrappers, record["main_path"])
     for row in kernels:
+        if row.get("form") == "per_rank":
+            row["launches"] = record["manual_lm100m"]["launches"][row["name"]]
+            row["launches_path"] = "manual (phase 8)"
         if row["name"] == "qsgd_unpack":
             row["checked_by"] += (
                 "; phase 8: the grouped launch bit-equal to "
@@ -1286,6 +1422,8 @@ def main() -> None:
         torch, dev, wrappers, manual, record["pipelined"],
         record["manual_lm100m"]["median_step_ms"])
     for row in kernels:
+        if "counter" in row:            # a per-rank path: the one-tensor's
+            continue
         row["launches_pipelined_manual"] = new_paths[
             "manual_pipelined_lm100m"][row["name"]]
         if row["name"] == "qsgd_unpack":
@@ -1358,13 +1496,13 @@ def main() -> None:
                                          f32_peak)
     new_paths.update(moe_paths)
     record["moe"]["seconds"] = time.perf_counter() - t_phase
-    for row in kernels:
+    for row in stacked_rows(kernels):
         grouped = "qsgd_unpack_grouped" if row["name"] == "qsgd_unpack" \
-            else row["name"]
+            else row.get("counter", row["name"])
         row["launches_moe_train"] = moe_paths["moe_train"][grouped]
         row["launches_moe_serve"] = moe_paths["moe_serve"][grouped]
-        if row["name"] in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
-                           "qsgd_unpack") and not row["launches_moe_train"]:
+        if row["name"] in ("bucket_topk_ef_grouped", "bucket_scatter_sum",
+                           "qsgd_pack", "qsgd_unpack") and not row["launches_moe_train"]:
             fail(f"17a: {row['name']} was not launched on the MoE training "
                  "path")
     log(f"[17] phase took {record['moe']['seconds']:.1f} s")
@@ -1377,14 +1515,14 @@ def main() -> None:
                                                    out_dir, bw, f32_peak)
     new_paths.update(fam_paths)
     record["families"]["seconds"] = time.perf_counter() - t_phase
-    for row in kernels:
+    for row in stacked_rows(kernels):
         grouped = "qsgd_unpack_grouped" if row["name"] == "qsgd_unpack" \
-            else row["name"]
+            else row.get("counter", row["name"])
         for path in ("ssm_train", "hybrid_train", "encoder_train",
                      "ssm_serve"):
             row[f"launches_{path}"] = fam_paths[path][grouped]
-        if row["name"] in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
-                           "qsgd_unpack") and not row["launches_ssm_train"]:
+        if row["name"] in ("bucket_topk_ef_grouped", "bucket_scatter_sum",
+                           "qsgd_pack", "qsgd_unpack") and not row["launches_ssm_train"]:
             fail(f"18a: {row['name']} was not launched on the mamba2 "
                  "training path")
     log(f"[18] phase took {record['families']['seconds']:.1f} s")
@@ -1396,12 +1534,12 @@ def main() -> None:
     record["long"], long_paths = phase_long(torch, dev, wrappers)
     new_paths.update(long_paths)
     record["long"]["seconds"] = time.perf_counter() - t_phase
-    for row in kernels:
+    for row in stacked_rows(kernels):
         grouped = "qsgd_unpack_grouped" if row["name"] == "qsgd_unpack" \
-            else row["name"]
+            else row.get("counter", row["name"])
         row["launches_long_train"] = long_paths["long_train"][grouped]
-        if row["name"] in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
-                           "qsgd_unpack") and not row["launches_long_train"]:
+        if row["name"] in ("bucket_topk_ef_grouped", "bucket_scatter_sum",
+                           "qsgd_pack", "qsgd_unpack") and not row["launches_long_train"]:
             fail(f"19b: {row['name']} was not launched on the long-sequence "
                  "training path")
     log(f"[19] phase took {record['long']['seconds']:.1f} s")
@@ -1413,13 +1551,13 @@ def main() -> None:
     record["fsdp"], fsdp_paths = phase_fsdp(torch, dev, wrappers, out_dir)
     new_paths.update(fsdp_paths)
     record["fsdp"]["seconds"] = time.perf_counter() - t_phase
-    for row in kernels:
+    for row in stacked_rows(kernels):
         grouped = "qsgd_unpack_grouped" if row["name"] == "qsgd_unpack" \
-            else row["name"]
+            else row.get("counter", row["name"])
         row["launches_fsdp_restore"] = {
             path: counts[grouped] for path, counts in fsdp_paths.items()}
-        if row["name"] in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
-                           "qsgd_unpack") and not all(
+        if row["name"] in ("bucket_topk_ef_grouped", "bucket_scatter_sum",
+                           "qsgd_pack", "qsgd_unpack") and not all(
                                row["launches_fsdp_restore"].values()):
             fail(f"20c: {row['name']} was not launched on the process-group "
                  "checkpoint and chaos paths")
@@ -1433,14 +1571,14 @@ def main() -> None:
                                                       out_dir)
     new_paths.update(auto_paths)
     record["auto_fsdp"]["seconds"] = time.perf_counter() - t_phase
-    for row in kernels:
+    for row in stacked_rows(kernels):
         grouped = "qsgd_unpack_grouped" if row["name"] == "qsgd_unpack" \
-            else row["name"]
+            else row.get("counter", row["name"])
         row["launches_auto"] = {path: auto_paths[path][grouped]
                                 for path in ("auto_main", "auto_fig3")}
         row["launches_serve_fsdp"] = auto_paths["serve_fsdp"][grouped]
-        if row["name"] in ("bucket_topk", "bucket_scatter_sum", "qsgd_pack",
-                           "qsgd_unpack") and not row["launches_auto"][
+        if row["name"] in ("bucket_topk_ef_grouped", "bucket_scatter_sum",
+                           "qsgd_pack", "qsgd_unpack") and not row["launches_auto"][
                                "auto_main"]:
             fail(f"22a: {row['name']} was not launched on the main path "
                  "under 'auto'")
@@ -1449,9 +1587,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 21
-    for row in kernels:
+    for row in stacked_rows(kernels):
         row["launches_new_paths"] = {
-            path: counts[row["name"]] for path, counts in new_paths.items()}
+            path: counts[row.get("counter", row["name"])]
+            for path, counts in new_paths.items()}
         if row["name"] == "qsgd_unpack":
             row["grouped_launches_new_paths"] = {
                 path: counts["qsgd_unpack_grouped"]
@@ -1571,7 +1710,7 @@ def fig3_bounds(n, p, b, k, bits, bq, bw, f32_peak) -> dict:
 
 
 # the CUDA kernel each launch counter counts, by its name in a trace
-KERNEL_OF = {"bucket_topk": "bucket_topk_kernel",
+KERNEL_OF = {"bucket_topk": "bucket_topk",
              "bucket_scatter": "bucket_scatter_sum_kernel",
              "bucket_scatter_sum": "bucket_scatter_sum_kernel",
              "qsgd_pack": "qsgd_pack_grouped_kernel",
@@ -1871,6 +2010,8 @@ def phase_fig3(torch, dev, wrappers, kernels, bw, f32_peak, n=1 << 24, p=8,
     rec["kernels"] = {}
     for row in kernels:
         nm = row["name"]
+        if nm not in timed:             # the grouped EF add + TopK
+            continue
         t = {"ms": timer(torch, timed[nm]), **bounds[nm],
              "library_ms": (timer(torch, library[nm]) if nm in library
                             else None), "check": checked}
@@ -1886,7 +2027,8 @@ def phase_manual(torch, dev, wrappers, spmd_main):
     """Phase 8 (see the module docstring). Returns (record, launches, the
     trainer, which phase 10 continues)."""
     from repro_torch.comm.collectives import StackedCollectives
-    from repro_torch.comm.executor import reduce_buckets, reduce_buckets_spmd
+    from repro_torch.comm.executor import (reduce_buckets, reduce_buckets_spmd,
+                                           topk_launches_spmd)
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.models.model import build_model
     from repro_torch.train import run_lm
@@ -1942,8 +2084,10 @@ def phase_manual(torch, dev, wrappers, spmd_main):
     # one call's launches: the stacked half groups the fused densify + sum
     # and the pack, the per-rank half makes one of each a bucket
     one_call = {half: {nm: 0 for nm in wrappers} for half in halves}
-    for half, grouped in (("stacked", 1), ("per_rank", n_sparse)):
-        one_call[half].update(bucket_topk=n_sparse,
+    for half, grouped, topk in (
+            ("stacked", 1, topk_launches_spmd(trainer.plan, run_lm.DP)),
+            ("per_rank", n_sparse, n_sparse)):
+        one_call[half].update(bucket_topk=topk,
                               bucket_scatter_sum=grouped, qsgd_pack=grouped,
                               qsgd_unpack_grouped=1)
     breakdown = {nm: kernel_breakdown(torch, fn, ROOT / "chiprun_out",
@@ -2274,6 +2418,7 @@ def phase_obs_adapt(torch, dev, wrappers, out_dir: Path):
     its lm-100m runs)."""
     from repro_torch import obs as obs_mod
     from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.comm.executor import topk_launches_spmd
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.models.model import build_model
     from repro_torch.runtime import adapt as rt_adapt
@@ -2493,7 +2638,8 @@ def phase_obs_adapt(torch, dev, wrappers, out_dir: Path):
         fail("forced swap: no drain span in the trace")
     if (after["qsgd_pack"] or after["qsgd_unpack_grouped"]
             or after["bucket_scatter_sum"] != n_after
-            or after["bucket_topk"] != len(ef) * n_after
+            or after["bucket_topk"] != topk_launches_spmd(
+                demoted, run_lm.DP) * n_after
             or parts[0]["launches"]["qsgd_pack"] != swap_step):
         fail(f"forced swap launches: {parts}")
     rec["forced_swap"] = {"swaps": swaps, "bit_equal": same, "parts": parts,
@@ -2813,7 +2959,7 @@ def _params_close(a, b, rtol, atol) -> bool:
 
 def check_chunk_unpack(torch, reduce_half, bits, bw):
     """Phase 14: one call of the stacked scattered reduce half at lm-100m
-    with the segments it hands its grouped qsgd_unpack captured (the
+    with the segments of its plan-built unpack table captured (the
     chunk layout: p_pod = p_data = 1, the ranks' rows stacked); the CUDA
     launch held bit for bit against qsgd_unpack_grouped_ref on them and
     timed beside it and its bound (codes and scales read once, the f32
@@ -2822,18 +2968,18 @@ def check_chunk_unpack(torch, reduce_half, bits, bw):
     from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
 
     captured = []
-    grouped = executor.qsgd_unpack_grouped
+    grouped = executor.qsgd_unpack_table
 
-    def capture(segments, *args, **kw):
-        captured.append(list(segments))
-        return grouped(segments, *args, **kw)
+    def capture(table, packed, scale, *args, **kw):
+        captured.append(table.segments(packed, scale))
+        return grouped(table, packed, scale, *args, **kw)
 
-    executor.qsgd_unpack_grouped = capture
+    executor.qsgd_unpack_table = capture
     try:
         reduce_half()
         torch.cuda.synchronize()
     finally:
-        executor.qsgd_unpack_grouped = grouped
+        executor.qsgd_unpack_table = grouped
     if len(captured) != 1:
         fail(f"scattered reduce half made {len(captured)} grouped unpack "
              "calls, expected 1")
@@ -2869,6 +3015,7 @@ CKPT_LAYERS = 2     # phases 14, 15: checkpointed runs at 2 of 12 layers
 def phase_zero(torch, dev, wrappers, out_dir: Path, bw):
     """Phase 14 (see the module docstring). Returns (record, launches of
     the scattered runs)."""
+    from repro_torch.comm.executor import topk_launches_spmd
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.models.model import build_model
     from repro_torch.train import checkpoint as ckpt
@@ -2980,7 +3127,8 @@ def phase_zero(torch, dev, wrappers, out_dir: Path, bw):
         if not close:
             fail("scattered differs from replicated beyond the reference's "
                  "tolerances")
-        want = {"bucket_topk": s_.plan.num_sparse_buckets * STEPS,
+        want = {"bucket_topk": topk_launches_spmd(
+                    s_.plan, s_.plan.dp_total) * STEPS,
                 "bucket_scatter": 0,
                 "bucket_scatter_sum": STEPS, "qsgd_pack": STEPS,
                 "qsgd_unpack": 0, "qsgd_unpack_grouped": STEPS}
@@ -3893,14 +4041,15 @@ def check_step_kernels(torch, reduce_half, bits: int, mode: str,
                        sample: int = MOE_TOPK_SAMPLE, tag: str = "17a"
                        ) -> dict:
     """17a (18a, 18c, 18e: ``tag``): one call of the stacked reduce half with the tensors it hands
-    each kernel captured (every ``sample``-th bucket_topk input and the
-    largest one; every segment of the three grouped launches), and each
-    CUDA kernel held against its plain version on them: bucket_topk,
+    each kernel captured (of the grouped EF add + TopK calls, every
+    ``sample``-th bucket's r + g and its streams and new residual, and the
+    largest bucket's; every segment of the three grouped launches), and
+    each CUDA kernel held against its plain version on them: bucket_topk
+    (the one-tensor kernel on r + g, and the grouped kernel's outputs),
     bucket_scatter_sum and qsgd_unpack bit for bit, qsgd_pack bit for bit
     in 'max' mode and in the path's mode at most one level on at most
     1e-4 of the codes (phase 2's rules)."""
     from repro_torch.comm import executor
-    from repro_torch.core import topk as topk_mod
     from repro_torch.kernels.bucket_scatter import ops as scatter_ops
     from repro_torch.kernels.bucket_topk import ops as topk_ops
     from repro_torch.kernels.qsgd_pack import ops as pack_ops
@@ -3908,51 +4057,66 @@ def check_step_kernels(torch, reduce_half, bits: int, mode: str,
     from repro_torch.kernels.qsgd_unpack import ops as unpack_ops
 
     seen, tops, largest, grouped = [0], [], [None], {}
-    real = {"topk": topk_mod.bucket_topk,
-            "scatter": executor.bucket_scatter_sum_grouped,
-            "pack": executor.qsgd_pack_grouped,
-            "unpack": executor.qsgd_unpack_grouped}
+    real = {"topk": executor.bucket_topk_ef_grouped,
+            "scatter": executor.bucket_scatter_sum_table,
+            "pack": executor.qsgd_pack_table,
+            "unpack": executor.qsgd_unpack_table}
 
-    def topk(x, k, impl="auto"):
-        if seen[0] % sample == 0:
-            tops.append((x, k))
-        elif largest[0] is None or x.numel() > largest[0][0].numel():
-            largest[0] = (x, k)
-        seen[0] += 1
-        return real["topk"](x, k, impl=impl)
+    def topk(table, res_in, buf, val, lidx, impl="auto"):
+        out = real["topk"](table, res_in, buf, val, lidx, impl=impl)
+        b, k = table.b, table.k
+        for r, (cs, cols), o, n, new in zip(res_in, table.spans,
+                                            table.stream_off,
+                                            table.stream_sizes, out):
+            big = largest[0] is None or r.numel() > largest[0][0].numel()
+            if seen[0] % sample == 0 or big:
+                item = ((r + buf[:, :, cs:cs + cols]).reshape(-1, b), k,
+                        (val[o:o + n].view(-1, k), lidx[o:o + n].view(-1, k),
+                         new.reshape(-1, b)))
+                if seen[0] % sample == 0:
+                    tops.append(item)
+                else:
+                    largest[0] = item
+            seen[0] += 1
+        return out
 
-    def capture(name):
-        def fn(segments, *args, **kw):
-            grouped[name] = (list(segments), args)
-            return real[name](segments, *args, **kw)
+    def capture(name, segments):
+        def fn(table, *args, **kw):
+            grouped[name] = (segments(table, *args), ())
+            return real[name](table, *args, **kw)
         return fn
 
-    topk_mod.bucket_topk = topk
-    executor.bucket_scatter_sum_grouped = capture("scatter")
-    executor.qsgd_pack_grouped = capture("pack")
-    executor.qsgd_unpack_grouped = capture("unpack")
+    executor.bucket_topk_ef_grouped = topk
+    executor.bucket_scatter_sum_table = capture(
+        "scatter", lambda t, lidx, val, *_: t.segments(lidx, val))
+    executor.qsgd_pack_table = capture(
+        "pack", lambda t, x, rands, *_: t.segments(x, rands))
+    executor.qsgd_unpack_table = capture(
+        "unpack", lambda t, packed, scale, *_: t.segments(packed, scale))
     try:
         out = reduce_half()
         torch.cuda.synchronize()
     finally:
-        topk_mod.bucket_topk = real["topk"]
-        executor.bucket_scatter_sum_grouped = real["scatter"]
-        executor.qsgd_pack_grouped = real["pack"]
-        executor.qsgd_unpack_grouped = real["unpack"]
+        executor.bucket_topk_ef_grouped = real["topk"]
+        executor.bucket_scatter_sum_table = real["scatter"]
+        executor.qsgd_pack_table = real["pack"]
+        executor.qsgd_unpack_table = real["unpack"]
     del out
     if set(grouped) != {"scatter", "pack", "unpack"}:
         fail(f"{tag}: the reduce half made grouped calls {sorted(grouped)}")
     if largest[0] is not None and largest[0][0].numel() > max(
-            x.numel() for x, _ in tops):
+            x.numel() for x, _, _ in tops):
         tops.append(largest[0])
     largest[0] = None
     res = {"bucket_topk_calls": seen[0], "bucket_topk_checked": len(tops),
-           "bucket_topk_entries_checked": sum(x.numel() for x, _ in tops)}
-    for x, k in tops:
+           "bucket_topk_entries_checked": sum(x.numel() for x, _, _ in tops)}
+    for x, k, fused in tops:
         got = topk_ops.bucket_topk(x, k, impl="cuda")
         want = topk_ops.bucket_topk(x, k, impl="ref")
-        if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
-            fail(f"{tag}: bucket_topk differs from its plain version on a "
+        if not all(torch.equal(g_, w_) and torch.equal(f_, w_)
+                   for g_, f_, w_ in zip(got, fused, want)):
+            fail(f"{tag}: bucket_topk (one tensor or the grouped EF add + "
+                 f"TopK) differs from its plain version on a "
                  f"{tuple(x.shape)} input of the path")
         del got, want
     del tops
@@ -4007,7 +4171,8 @@ def moe_train(torch, dev, wrappers, cfg=None, replicas=MOE_TRAIN_R,
               seq=MOE_SEQ, steps=MOE_TRAIN_STEPS):
     """17a (see the module docstring): (record, launches of the run)."""
     from repro_torch import configs
-    from repro_torch.comm.executor import reduce_buckets_spmd
+    from repro_torch.comm.executor import (reduce_buckets_spmd,
+                                           topk_launches_spmd)
     from repro_torch.data.pipeline import DataConfig, synthetic_batch
     from repro_torch.models.model import build_model
     from repro_torch.models.moe import capacity
@@ -4050,8 +4215,10 @@ def moe_train(torch, dev, wrappers, cfg=None, replicas=MOE_TRAIN_R,
     nq = sum(bk.sparse and bk.algorithm == "dsar_split_allgather"
              for bk in plan.buckets) if tcfg.sync.qsgd_bits else 0
     # a grouped call launches one kernel for every kMaxSegs segments (64
-    # in csrc/bucket_scatter.cu, 48 in qsgd_pack.cu and qsgd_unpack.cu)
-    expect = {"bucket_topk": nsp * steps, "bucket_scatter": 0,
+    # in csrc/bucket_scatter.cu, 48 in qsgd_pack.cu, qsgd_unpack.cu and
+    # bucket_topk.cu, whose grouped EF add + TopK is one call a group)
+    expect = {"bucket_topk": topk_launches_spmd(plan, r) * steps,
+              "bucket_scatter": 0,
               "bucket_scatter_sum": -(-nsp // 64) * steps,
               "qsgd_pack": -(-nq // 48) * steps, "qsgd_unpack": 0,
               "qsgd_unpack_grouped": -(-nq // 48) * steps}
@@ -4075,9 +4242,10 @@ def moe_train(torch, dev, wrappers, cfg=None, replicas=MOE_TRAIN_R,
             fail(f"17a: {n} launched {c} times in {steps} steps, expected "
                  f"{expect[n]}")
     a_step = {n: c / steps for n, c in launches.items()}
-    log(f"[17a] launches a step: {a_step} (bucket_topk: the plan's {nsp} "
-        f"sparse EF buckets; a grouped call launches a kernel for every 64 "
-        f"/ 48 / 48 of its {nsp} / {nq} / {nq} segments)")
+    log(f"[17a] launches a step: {a_step} (the plan's {nsp} sparse EF "
+        f"buckets in {len(plan.groups)} fusion groups; a grouped call "
+        f"launches a kernel for every 48 EF buckets of a group (bucket_topk) "
+        f"and every 64 / 48 / 48 of its {nsp} / {nq} / {nq} segments)")
 
     # -- two more steps, each timed with CUDA events around the step, and
     #    the allocator's counters over them
@@ -4734,7 +4902,8 @@ def family_train(torch, dev, wrappers, tag: str, arch: str, cfg, steps: int,
     half alone on its output; each kernel against its plain version on
     those tensors. Returns (record, launches of the run)."""
     from repro_torch import configs
-    from repro_torch.comm.executor import reduce_buckets_spmd
+    from repro_torch.comm.executor import (reduce_buckets_spmd,
+                                           topk_launches_spmd)
     from repro_torch.models.model import build_model
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer
@@ -4795,7 +4964,8 @@ def family_train(torch, dev, wrappers, tag: str, arch: str, cfg, steps: int,
     nsp = plan.num_sparse_buckets
     nq = sum(bk.sparse and bk.algorithm == "dsar_split_allgather"
              for bk in plan.buckets) if tcfg.sync.qsgd_bits else 0
-    expect = {"bucket_topk": nsp * steps, "bucket_scatter": 0,
+    expect = {"bucket_topk": topk_launches_spmd(plan, r) * steps,
+              "bucket_scatter": 0,
               "bucket_scatter_sum": -(-nsp // 64) * steps,
               "qsgd_pack": -(-nq // 48) * steps, "qsgd_unpack": 0,
               "qsgd_unpack_grouped": -(-nq // 48) * steps}
@@ -6024,14 +6194,17 @@ FSDP_SERVE_P = 2           # stacked ranks holding the shards
 
 
 def _expected_launches(plan, steps: int) -> dict:
-    """What a stacked step's reduce half launches under ``plan``: one
-    bucket_topk an EF bucket, one grouped densify + sum for every 64 EF
-    buckets, one grouped pack and unpack for every 48 quantized DSAR
-    buckets."""
+    """What a stacked step's reduce half launches under ``plan``: a
+    grouped EF add + TopK for every 48 EF buckets of each fusion group,
+    one grouped densify + sum for every 64 EF buckets, one grouped pack and
+    unpack for every 48 quantized DSAR buckets."""
+    from repro_torch.comm.executor import topk_launches_spmd
+
     ef = [b for b in plan.buckets if b.has_residual]
     q = [b for b in ef if b.algorithm == "dsar_split_allgather"
          and plan.cfg.qsgd_bits is not None]
-    return {"bucket_topk": len(ef) * steps, "bucket_scatter": 0,
+    return {"bucket_topk": topk_launches_spmd(plan, plan.dp_total) * steps,
+            "bucket_scatter": 0,
             "bucket_scatter_sum": -(-len(ef) // 64) * steps,
             "qsgd_pack": -(-len(q) // 48) * steps, "qsgd_unpack": 0,
             "qsgd_unpack_grouped": -(-len(q) // 48) * steps}

@@ -1,8 +1,7 @@
 """Plan executor: one TopK-compress + reduction per fusion bucket.
 
-Two forms share one bucket loop (:func:`_buckets`): pack each group's
-leaves into one canonical (L, rows, cols) buffer (L the ranks the caller
-holds), then per fusion bucket
+Both forms pack each group's leaves into one canonical (L, rows, cols)
+buffer (L the ranks the caller holds), then per fusion bucket
 
     acc       =  residual + bucket slice      (error feedback, Alg. 2 line 1)
     stream, residual' = bucket_topk(acc)      (Alg. 2 line 2)
@@ -11,10 +10,11 @@ and each form runs only its own reduction (Alg. 2 line 3):
 
 * the per-rank form (:func:`reduce_buckets`, :func:`execute_plan`, the
   JAX package's manual lowering) is the code each rank runs, talking to
-  the others through a ``CollectiveContext``: each bucket runs its planned
-  algorithm of ``core/allreduce.py`` on the wire, with the clamp folds of
-  the capacity-bound ones, over stacked ranks on one device or over
-  ``torch.distributed``;
+  the others through a ``CollectiveContext``: its bucket loop
+  (:func:`_buckets`) compresses one bucket at a time, and each bucket runs
+  its planned algorithm of ``core/allreduce.py`` on the wire, with the
+  clamp folds of the capacity-bound ones, over stacked ranks on one device
+  or over ``torch.distributed``;
 * the stacked-replica form (:func:`reduce_buckets_spmd`,
   :func:`execute_plan_spmd`, the reference's auto-SPMD formulation) holds
   all R ranks on a leading axis of one device's tensors, where a sum over
@@ -24,6 +24,14 @@ and each form runs only its own reduction (Alg. 2 line 3):
                  (bucket_scatter_sum: one fused launch for every EF bucket
                  of a step, each pod's ranks summed in rank order)
 
+  It dispatches a fusion group at a time, not a bucket: per group one
+  pack and ONE grouped call (``bucket_topk_ef_grouped``) that adds the
+  residual to the bucket's slice of the packed buffer inside the TopK
+  kernel (the accumulator is never stored) for every EF bucket of the
+  group, writing their streams into two step buffers (val, lidx) and
+  their new residuals. Everything the plan fixes of the step (offsets,
+  sizes, shapes, the checks and the kernels' descriptor arrays) is a
+  :class:`_StepTable`, built once per plan; a step patches only pointers.
   SSAR algorithms reduce exactly, so in this form they fold into the same
   sum.
 
@@ -47,8 +55,10 @@ EF bucket, a row of 4 f32 on the device: [post-reduction nnz, the wire
 bytes ``cost_model.bucket_wire_bytes`` charges at that nnz, the mass
 coverage ||topk||^2 / ||g + r||^2, the EF residual's norm ||r'||]. The
 per-rank form sums the mass terms over the ranks with one extra psum a
-bucket, as the reference does. No telemetry op runs when it is off, and
-none reads the device from the host.
+bucket, as the reference does; the stacked form recomputes g + r for
+each bucket's row (the fused kernel does not store it): the same f32 add,
+so the same bits. No telemetry op runs when it is off, and none reads the
+device from the host.
 
 A scattered plan (``plan.scattered``, single pod) stops every bucket at
 the owner shard: each reduced value is the (ranks, rows, cols/p) chunk
@@ -67,7 +77,8 @@ width in both modes, so error feedback is the same.
 The QSGD rounding bits of bucket ``i`` come from ``rand_fn(i, n)``, which
 returns n uint32 words laid out (p_pod, p_data, rows * shard) as the
 reference's ``_qsgd_rand_all`` (the per-rank form: each held rank's own,
-see :func:`reduce_buckets`). The train step draws them from a seeded
+see :func:`reduce_buckets`). Both forms call it once for every quantized
+bucket, in plan order. The train step draws them from a seeded
 ``torch.Generator`` (Philox on a CUDA device); tests pass the reference's
 own bits instead. ``bucket_idx`` counts every bucket, dense ones too.
 
@@ -80,7 +91,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Callable, Optional, Sequence
+import weakref
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -93,12 +105,15 @@ from repro_torch.core import sparse_stream as ss
 from repro_torch.core.cost_model import (bucket_wire_bytes, parse_stream_cap,
                                          pod_wire_bytes)
 from repro_torch.core.topk import UniformStream, compress2d
-from repro_torch.kernels.bucket_scatter.ops import bucket_scatter_sum_grouped
-from repro_torch.kernels.bucket_scatter.ref import ScatterSumSegment
-from repro_torch.kernels.qsgd_pack.ops import qsgd_pack_grouped
-from repro_torch.kernels.qsgd_pack.ref import PackSegment
-from repro_torch.kernels.qsgd_unpack.ops import qsgd_unpack_grouped
-from repro_torch.kernels.qsgd_unpack.ref import UnpackSegment
+from repro_torch.kernels.bucket_scatter.kernel import ScatterSumTable
+from repro_torch.kernels.bucket_scatter.ops import bucket_scatter_sum_table
+from repro_torch.kernels.bucket_topk.kernel import EfTopkTable
+from repro_torch.kernels.bucket_topk.ops import bucket_topk_ef_grouped
+from repro_torch.kernels.qsgd_pack.kernel import PackTable
+from repro_torch.kernels.qsgd_pack.ops import qsgd_pack_table
+from repro_torch.kernels.qsgd_unpack.kernel import UnpackTable
+from repro_torch.kernels.qsgd_unpack.ops import (qsgd_unpack_grouped,
+                                                 qsgd_unpack_table)
 from repro_torch.obs.trace import _NULL_SPAN
 
 RandFn = Callable[[int, int], torch.Tensor]
@@ -168,6 +183,13 @@ def _plan_order(plan: SyncPlan, d: dict) -> dict:
 
 
 def _local_mass(ef: _EF, lead: Optional[int] = None) -> torch.Tensor:
+    """[sum topk^2, sum (g+r)^2, sum r'^2] in f32 of a bucket of the loop,
+    see :func:`_mass`."""
+    return _mass(ef.u.val, ef.acc, ef.residual, lead)
+
+
+def _mass(val: torch.Tensor, acc: torch.Tensor, residual: torch.Tensor,
+          lead: Optional[int] = None) -> torch.Tensor:
     """[sum topk^2, sum (g+r)^2, sum r'^2] in f32, the summands of the
     coverage and EF-norm telemetry: (3,) over every axis, or (lead, 3),
     each held rank's own. Summed by ``torch.sum``, whose CPU reduction is
@@ -176,7 +198,7 @@ def _local_mass(ef: _EF, lead: Optional[int] = None) -> torch.Tensor:
     def sq(x):
         x = x.to(torch.float32).square()
         return x.sum() if lead is None else x.reshape(lead, -1).sum(dim=1)
-    return torch.stack([sq(ef.u.val), sq(ef.acc), sq(ef.residual)], dim=-1)
+    return torch.stack([sq(val), sq(acc), sq(residual)], dim=-1)
 
 
 def _bucket_telemetry(out: torch.Tensor, plan: SyncPlan, group, b,
@@ -214,6 +236,142 @@ def _bucket_telemetry(out: torch.Tensor, plan: SyncPlan, group, b,
                        dim=-1)
 
 
+class _Quantized(NamedTuple):
+    """A DSAR + QSGD bucket's rounding bits: ``rand_fn(bucket_idx, n)``."""
+    bucket_idx: int
+    n: int
+
+
+class _GroupStep(NamedTuple):
+    """One fusion group of a step: its raw-dense buckets, its EF buckets'
+    names and grouped EF-add + TopK table (None without EF buckets), and
+    its quantized buckets' bits, all in plan order."""
+    group: object
+    dense: tuple
+    ef_names: tuple
+    topk: Optional[EfTopkTable]
+    quantized: tuple
+
+
+class _Reduced(NamedTuple):
+    """Where an EF bucket's reduced buffer lies in a flat step buffer."""
+    name: str
+    group: object
+    bucket: object
+    off: int
+    size: int
+    shape: tuple
+
+
+class _StepTable:
+    """What ``plan`` fixes of the stacked reduce half over p_pod x p_data
+    ranks, built once (:func:`_step_table`): per group the EF buckets'
+    grouped EF-add + TopK table and the quantized buckets' bits, the
+    step's stream buffers' size (EF buckets one after the other in plan
+    order, each (R, rows, cols/B, k)), and the tables of the grouped
+    densify + sum (every EF bucket), pack and unpack (the quantized ones),
+    each reading the one before it where it wrote. ``plain``: the EF
+    buckets summed without QSGD, their (p_pod, rows, cols) pod sums in the
+    flat sums; ``outputs``: the quantized ones' reduced buffers in the
+    flat unpack output."""
+
+    def __init__(self, plan: SyncPlan, p_data: int, p_pod: int):
+        cfg = plan.cfg
+        qsgd = cfg.qsgd()
+        bsz, k = cfg.bucket_size, cfg.k_per_bucket
+        replicas = p_data * p_pod
+        scale = 1.0 / replicas if cfg.mean else 1.0
+        self.groups, ef = [], []
+        bucket_idx = stream = 0
+        for group in plan.groups:
+            dense, names, spans, quantized = [], [], [], []
+            for b in group.buckets:
+                if not b.has_residual:
+                    dense.append(b)
+                else:
+                    names.append(b.name)
+                    spans.append((b.col_start, b.cols))
+                    q = qsgd is not None and b.algorithm == \
+                        "dsar_split_allgather"
+                    ef.append((group, b, q))
+                    if q:
+                        quantized.append(_Quantized(
+                            bucket_idx, p_pod * group.rows * b.cols))
+                bucket_idx += 1
+            topk = None
+            if spans:
+                topk = EfTopkTable(replicas, group.rows, group.cols, spans,
+                                   bsz, k, stream_start=stream)
+                stream = topk.stream_end
+            self.groups.append(_GroupStep(group, tuple(dense), tuple(names),
+                                          topk, tuple(quantized)))
+        self.stream_total = stream
+        self.quantized = [q for gs in self.groups for q in gs.quantized]
+        self.scatter = ScatterSumTable(
+            [(p_pod, p_data, g.rows * b.cols // bsz, k, bsz)
+             for g, b, _ in ef])
+        sums = list(zip(ef, self.scatter.out_off, self.scatter.out_sizes))
+        self.plain = [_Reduced(b.name, g, b, off, size, (p_pod, g.rows, b.cols))
+                      for (g, b, q), off, size in sums if not q]
+        quant = [(g, b, off) for (g, b, q), off, _ in sums if q]
+        self.pack = self.unpack = None
+        self.outputs = []
+        if quant:
+            self.pack = PackTable(
+                [(p_pod, p_data, g.rows, b.cols // p_data, qsgd.bucket_size)
+                 for g, b, _ in quant], qsgd.bits,
+                x_off=[off for _, _, off in quant])
+            if plan.scattered:
+                # the codes lie (rank, row, j): as p_data = 1 with p_data *
+                # rows rows, the unpack writes the (p_data, rows, shard)
+                # chunks
+                geoms = [(1, 1, p_data * g.rows, b.cols // p_data,
+                          qsgd.bucket_size, scale, False) for g, b, _ in quant]
+            else:
+                geoms = [(p_pod, p_data, g.rows, b.cols // p_data,
+                          qsgd.bucket_size, scale, False) for g, b, _ in quant]
+            self.unpack = UnpackTable(geoms, qsgd.bits,
+                                      packed_off=self.pack.packed_off,
+                                      scale_off=self.pack.scale_off)
+            self.outputs = [
+                _Reduced(b.name, g, b, off, size,
+                         (p_data, g.rows, b.cols // p_data) if plan.scattered
+                         else (g.rows, b.cols))
+                for (g, b, _), off, size in zip(quant, self.unpack.out_off,
+                                                self.unpack.out_sizes)]
+
+    @property
+    def topk_launches(self) -> int:
+        """The bucket_topk kernels a step launches on the card."""
+        return sum(gs.topk.launches for gs in self.groups if gs.topk)
+
+
+# (id(plan), p_data, p_pod) -> (a weak reference to the plan, its table):
+# a plan is immutable, so its table is built on its first step only
+_TABLES: dict = {}
+
+
+def _step_table(plan: SyncPlan, p_data: int, p_pod: int) -> _StepTable:
+    key = (id(plan), p_data, p_pod)
+    hit = _TABLES.get(key)
+    if hit is not None and hit[0]() is plan:
+        return hit[1]
+    table = _StepTable(plan, p_data, p_pod)
+
+    def forget(ref, key=key):
+        if _TABLES.get(key, (None,))[0] is ref:
+            del _TABLES[key]
+    _TABLES[key] = (weakref.ref(plan, forget), table)
+    return table
+
+
+def topk_launches_spmd(plan: SyncPlan, p_data: int, p_pod: int = 1) -> int:
+    """The bucket_topk kernels one step of :func:`reduce_buckets_spmd`
+    launches on the card under ``plan``: one for every
+    ``MAX_EF_SEGS`` EF buckets of each fusion group."""
+    return _step_table(plan, p_data, p_pod).topk_launches
+
+
 def reduce_buckets_spmd(
     plan: SyncPlan,
     leaves_r: Sequence[torch.Tensor],
@@ -232,19 +390,24 @@ def reduce_buckets_spmd(
     scattered plan's (p_data, rows, cols/p_data) owner chunks}, new
     bucket-keyed residuals, telemetry {EF bucket name -> (4,) f32}; the
     last is empty when ``telemetry`` is off). The mass sums need no
-    collective here: the (R, ...) stacks hold every rank. A quantized bucket's nnz is counted on its buffer
-    after the mean (the grouped unpack fuses it), which is the count of
-    the sum but for products below the smallest denormal.
+    collective here: the (R, ...) stacks hold every rank. A quantized
+    bucket's nnz is counted on its buffer after the mean (the grouped
+    unpack fuses it), which is the count of the sum but for products below
+    the smallest denormal.
 
-    The loop keeps each EF bucket's TopK stream; after it, ONE grouped
-    bucket_scatter_sum launch writes every EF bucket's pod sums (each pod's
-    p_data ranks densified and added in rank order) into one step buffer,
-    ONE grouped qsgd_pack reads the quantized buckets' sums where they lie,
-    and ONE grouped qsgd_unpack writes their reduced buffers. The pod sums
-    are added in pod order, and raw-dense buckets sum each pod's ranks and
-    then the pods the same way: every sum over ranks runs in the per-rank
-    form's order (its data-axis psum, then its pod psum), so the two forms
-    give the same bits."""
+    A fusion group at a time (the ``sparcml.reduce.buckets`` span): pack
+    it, ONE grouped EF-add + TopK call for all its EF buckets (their
+    streams into the step's two stream buffers), the bits of its quantized
+    buckets, and the packed buffer is freed before the next group's pack.
+    After the groups, ONE grouped bucket_scatter_sum launch writes every
+    EF bucket's pod sums (each pod's p_data ranks densified and added in
+    rank order) into one step buffer, ONE grouped qsgd_pack reads the
+    quantized buckets' sums where they lie, and ONE grouped qsgd_unpack
+    writes their reduced buffers. The pod sums are added in pod order,
+    and raw-dense buckets sum each pod's ranks and then the pods the same
+    way: every sum over ranks runs in the per-rank form's order (its
+    data-axis psum, then its pod psum), so the two forms give the same
+    bits."""
     cfg = plan.cfg
     replicas = p_data * p_pod
     if leaves_r and leaves_r[0].shape[0] != replicas:
@@ -254,6 +417,9 @@ def reduce_buckets_spmd(
     if scattered and p_pod > 1:
         raise ValueError("the scattered output mode is single-pod only "
                          "(p_pod == 1)")
+    tab = _step_table(plan, p_data, p_pod)
+    if tab.quantized and rand_fn is None:
+        raise ValueError("QSGD needs stochastic-rounding bits: pass rand_fn")
     scale = 1.0 / replicas if cfg.mean else 1.0
     qsgd = cfg.qsgd()
     own = _chunked if scattered else (lambda out, p: out)
@@ -262,73 +428,65 @@ def reduce_buckets_spmd(
     new_residuals: dict = {}
     telem: dict = {}
     mass: dict = {}
-    kept: dict = {}        # EF bucket name -> (group, bucket, stream, rand)
+    rands = []
     with _loop_span():
-        for bucket_idx, group, b, seg, ef in _buckets(plan, leaves_r,
-                                                      residuals):
-            if ef is None:           # over each pod's ranks, then the pods
+        val = lidx = None
+        if tab.stream_total:
+            dev = leaves_r[0].device
+            val = torch.empty(tab.stream_total, dtype=torch.float32,
+                              device=dev)
+            lidx = torch.empty(tab.stream_total, dtype=torch.int32,
+                               device=dev)
+        for gs in tab.groups:
+            buf = pack_group(gs.group, leaves_r, cfg.bucket_size,
+                             batch_dims=1).contiguous()
+            for b in gs.dense:       # over each pod's ranks, then the pods
+                seg = buf[:, :, b.col_start:b.col_start + b.cols]
                 by_pod = seg.reshape((p_pod, p_data) + tuple(seg.shape[1:]))
                 reduced[b.name] = own(
                     ordered_sum(ordered_sum(by_pod, 1), 0) * scale, p_data)
-                continue
-            _store_residual(new_residuals, residuals, b, ef)
-            if telemetry:
-                mass[b.name] = _local_mass(ef)
-            rand = None
-            if qsgd is not None and b.algorithm == "dsar_split_allgather":
-                if rand_fn is None:
-                    raise ValueError("QSGD needs stochastic-rounding bits: "
-                                     "pass rand_fn")
-                rand = rand_fn(bucket_idx, p_pod * group.rows * b.cols)
-            kept[b.name] = (group, b, ef.u, rand)
-            ef.acc = None
-    if not kept:
+            if gs.topk is not None:
+                old = [residuals[name] for name in gs.ef_names]
+                res = [r if r.dtype == torch.float32 else r.to(torch.float32)
+                       for r in old]
+                new = bucket_topk_ef_grouped(gs.topk, res, buf, val, lidx,
+                                             impl=cfg.impl)
+                for name, r_old, r in zip(gs.ef_names, old, new):
+                    new_residuals[name] = (r if r.dtype == r_old.dtype
+                                           else r.to(r_old.dtype))
+                if telemetry:               # Alg. 2 line 1 again, for the row
+                    for name, r0, r, (cs, cols), off, n in zip(
+                            gs.ef_names, res, new, gs.topk.spans,
+                            gs.topk.stream_off, gs.topk.stream_sizes):
+                        mass[name] = _mass(val[off:off + n],
+                                           r0 + buf[:, :, cs:cs + cols], r)
+            for q in gs.quantized:
+                rands.append(rand_fn(q.bucket_idx, q.n))
+            del buf
+    if not tab.stream_total:
         return _plan_order(plan, reduced), new_residuals, {}
 
-    def pods(u):                                   # (p_pod, p_data, nb, k)
-        k = u.lidx.shape[-1]
-        return (u.lidx.reshape(p_pod, p_data, -1, k),
-                u.val.reshape(p_pod, p_data, -1, k))
-
-    sums = bucket_scatter_sum_grouped(
-        [ScatterSumSegment(*pods(u), cfg.bucket_size)
-         for _, _, u, _ in kept.values()], impl=cfg.impl)
-    quantized: dict = {}                           # name -> (group, bucket)
-    pack_segs = []
-    for (group, b, _, rand), dsum in zip(kept.values(), sums):
-        dpod = dsum.view(p_pod, group.rows, b.cols)
-        if rand is None:
-            out = ordered_sum(dpod, 0)
-            reduced[b.name] = own(out * scale, p_data)
+    sums = bucket_scatter_sum_table(tab.scatter, lidx, val, impl=cfg.impl)
+    del val, lidx
+    for r in tab.plain:
+        out = ordered_sum(sums[r.off:r.off + r.size].view(r.shape), 0)
+        reduced[r.name] = own(out * scale, p_data)
+        if telemetry:
+            telem[r.name] = _bucket_telemetry(out, plan, r.group, r.bucket,
+                                              p_data, p_pod, mass[r.name])
+    if tab.pack is not None:
+        packed, sc = qsgd_pack_table(tab.pack, sums, rands, qsgd.scale_mode,
+                                     impl=cfg.impl)
+        del sums, rands                 # only the codes wait for the unpack
+        outs = qsgd_unpack_table(tab.unpack, packed, sc, impl=cfg.impl)
+        del packed, sc
+        for r in tab.outputs:
+            out = outs[r.off:r.off + r.size].view(r.shape)
+            reduced[r.name] = out
             if telemetry:
-                telem[b.name] = _bucket_telemetry(out, plan, group, b, p_data,
-                                                  p_pod, mass[b.name])
-        else:
-            quantized[b.name] = (group, b)
-            pack_segs.append(PackSegment(dpod, rand, p_pod, p_data, group.rows,
-                                         b.cols // p_data, qsgd.bucket_size))
-    del kept, sums, dsum, dpod          # only the codes wait for the unpack
-    if pack_segs:
-        codes = qsgd_pack_grouped(pack_segs, qsgd.bits, qsgd.scale_mode,
-                                  impl=cfg.impl)
-        if scattered:
-            # the codes lie (rank, row, j): as p_data = 1 with p_data * rows
-            # rows, the unpack writes the (p_data, rows, shard) chunks
-            useg = [UnpackSegment(packed, sc, 1, 1, ps.p_data * ps.rows,
-                                  ps.shard, ps.bq, scale)
-                    for ps, (packed, sc) in zip(pack_segs, codes)]
-        else:
-            useg = [UnpackSegment(packed, sc, *ps[2:7], scale)
-                    for ps, (packed, sc) in zip(pack_segs, codes)]
-        del pack_segs, codes
-        outs = qsgd_unpack_grouped(useg, qsgd.bits, impl=cfg.impl)
-        for (group, b), out in zip(quantized.values(), outs):
-            if scattered:
-                out = out.view(p_data, group.rows, b.cols // p_data)
-            reduced[b.name] = out
-            if telemetry:
-                telem[b.name] = _bucket_telemetry(out, plan, group, b, p_data,
-                                                  p_pod, mass[b.name])
+                telem[r.name] = _bucket_telemetry(out, plan, r.group,
+                                                  r.bucket, p_data, p_pod,
+                                                  mass[r.name])
     return (_plan_order(plan, reduced), new_residuals,
             _plan_order(plan, telem))
 

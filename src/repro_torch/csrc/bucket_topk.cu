@@ -14,8 +14,8 @@
 // j*32 + l (j < B/32), so every load and store of the warp is 128
 // contiguous bytes. The key of an element is the bit pattern of |x|: 31
 // bits that, with the sign bit clear, order like the magnitude (denormals
-// and infinities included). The kernel does no float arithmetic at all; it
-// moves and compares bit patterns.
+// and infinities included). The selection does no float arithmetic at all;
+// it moves and compares bit patterns.
 //
 // Selection is a radix select of the threshold T, the k-th largest key, in
 // at most four digit passes whatever k is (the Pallas kernel runs k argmax
@@ -44,19 +44,51 @@
 //
 // B takes every multiple of 128 up to 8192 (bucket_scatter's limit too).
 // Up to B = 1024 the warp above holds the row in registers, B/32 keys a
-// lane (bucket_topk_kernel<VPL>). Above 1024 a row no longer fits a
-// warp's registers, and bucket_topk_block_kernel gives it a block of 256
-// threads and holds it in shared memory (32 KB at 8192): the same digit
-// passes on one block-wide 256-bin histogram, whose suffix sum runs by
-// shuffles in each warp and across the 8 warps' totals, and the same tie
-// rule. The selection walks the row in chunks of 256 keys in index order;
-// inside a chunk a key's rank among the tied keys (and its place among
-// the selected ones) is its warp's ballot prefix plus the counts of the
-// lower warps of the chunk plus those of every earlier chunk. It is the
-// first, simple form of the large-B path: one row a block, one pass over
-// shared memory a digit.
+// lane (warp_select<VPL>). Above 1024 a row no longer fits a warp's
+// registers, and block_select gives it a block of 256 threads and holds it
+// in shared memory (32 KB at 8192): the same digit passes on one
+// block-wide 256-bin histogram, whose suffix sum runs by shuffles in each
+// warp and across the 8 warps' totals, and the same tie rule. The
+// selection walks the row in chunks of 256 keys in index order; inside a
+// chunk a key's rank among the tied keys (and its place among the selected
+// ones) is its warp's ballot prefix plus the counts of the lower warps of
+// the chunk plus those of every earlier chunk. It is the first, simple
+// form of the large-B path: one row a block, one pass over shared memory a
+// digit.
+//
+// Two entry points share the selection:
+// - bucket_topk_f32: the rows of one (nb, B) tensor x, one launch.
+// - bucket_topk_ef_grouped_f32: error feedback fused in, grouped over the
+//   EF buckets of one packed group buffer (the stacked executor, one call
+//   a fusion group). A descriptor a bucket (BucketTopkEfSeg) names its
+//   residual r (L, rows, cols), its gradient slice g inside the packed
+//   (L, rows, group cols) buffer (rank and row strides: a bucket's
+//   columns are contiguous only within a row), the new residual and the
+//   bucket's val/lidx in the step's stream buffers. Each B-wide row loads
+//   r and g and adds them in registers, r + g with one IEEE round to
+//   nearest (__fadd_rn, the add of the executor's `res + seg`, so the same
+//   bits); the sum is the row the selection takes, and is never stored.
+//   One launch covers up to kMaxEfSegs buckets of one B; their descriptors
+//   travel by value in a __grid_constant__ parameter, and a block finds its
+//   bucket by a binary search over the descriptors' first-block prefix (as
+//   csrc/qsgd_unpack.cu does). Bound: bytes, 12 an element (r and g read,
+//   r' written) against the unfused pair's 20 (the add's 12, then 8).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// One EF bucket of a grouped call as the host describes it (mirrored by
+// kernels/bucket_topk/kernel.py).
+struct BucketTopkEfSeg {
+  const float* res;        // (l, rows, cols) contiguous: the residual r
+  const float* grad;       // element (i, r, c) at grad[i*rank_stride +
+                           //   r*row_stride + c]: the gradient slice g
+  float* res_out;          // (l, rows, cols): r + g, the selected entries +0
+  float* val;              // (l, rows, cols/b, k)
+  int32_t* lidx;           // (l, rows, cols/b, k)
+  long long rank_stride;   // floats
+  long long row_stride;    // floats
+  int l, rows, cols, k, b;
+};
 
 namespace {
 
@@ -65,34 +97,25 @@ constexpr uint32_t kAbs = 0x7fffffffu;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kBins = 256;
 constexpr int kPasses = 4;
+constexpr int kBlockThreads = kWarpsPerBlock * 32;
+constexpr int kMaxWarpB = 1024;
+constexpr int kMaxB = 8192;
+constexpr int kMaxEfSegs = 48;   // keeps EfParams under the 4 KB limit
 
+// The selection of one row held by a warp: key[j] is the |x| bits of
+// element j*32 + lane and bit j of neg its sign. Writes val/lidx (k each)
+// and res (the row, the selected entries +0). hist: the warp's 256 bins.
 template <int VPL>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-bucket_topk_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ val,
-                   int32_t* __restrict__ lidx, uint32_t* __restrict__ res,
-                   long long nb, int k) {
-  constexpr int B = VPL * 32;
-  __shared__ __align__(16) uint32_t hist_block[kWarpsPerBlock][kBins];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (row >= nb) return;  // uniform over the warp
-
-  uint32_t* hist = hist_block[warp];
+__device__ __forceinline__ void warp_select(const uint32_t (&key)[VPL],
+                                            uint32_t neg, uint32_t* hist,
+                                            int lane, int k,
+                                            uint32_t* __restrict__ valr,
+                                            int32_t* __restrict__ lidxr,
+                                            uint32_t* __restrict__ resr) {
   uint4* my_bins = reinterpret_cast<uint4*>(hist) + 2 * lane;  // 8*lane..+7
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   my_bins[0] = zero;
   my_bins[1] = zero;
-
-  const uint32_t* xr = x + row * B;
-  uint32_t key[VPL];
-  uint32_t neg = 0u;  // bit j: element j*32 + lane has its sign bit set
-#pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const uint32_t bits = xr[j * 32 + lane];
-    key[j] = bits & kAbs;
-    neg |= (bits >> 31) << j;
-  }
   __syncwarp();
 
   uint32_t prefix = 0u;          // the digits found so far
@@ -155,9 +178,6 @@ bucket_topk_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ val,
 
   // keys above the bin are taken; inside it the `need` lowest indices
   const uint32_t top = prefix | ((1u << low) - 1u);
-  uint32_t* resr = res + row * B;
-  uint32_t* valr = val + row * k;
-  int32_t* lidxr = lidx + row * k;
   const unsigned below = (1u << lane) - 1u;
   uint32_t taken = 0u, tied = 0u;
 #pragma unroll
@@ -179,26 +199,18 @@ bucket_topk_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ val,
   }
 }
 
-constexpr int kBlockThreads = kWarpsPerBlock * 32;
-constexpr int kMaxWarpB = 1024;
-constexpr int kMaxB = 8192;
-
-__global__ void __launch_bounds__(kBlockThreads)
-bucket_topk_block_kernel(const uint32_t* __restrict__ x,
-                         uint32_t* __restrict__ val,
-                         int32_t* __restrict__ lidx,
-                         uint32_t* __restrict__ res, int b, int k) {
-  extern __shared__ __align__(16) uint32_t row_s[];  // the row's bits, B words
+// The selection of one row of b bits held in shared memory (row_s) by a
+// block of kBlockThreads; the same outputs as warp_select.
+__device__ __forceinline__ void block_select(const uint32_t* row_s, int b,
+                                             int k,
+                                             uint32_t* __restrict__ valr,
+                                             int32_t* __restrict__ lidxr,
+                                             uint32_t* __restrict__ resr) {
   __shared__ uint32_t hist[kBins];
   __shared__ uint32_t warp_count[kWarpsPerBlock];
   __shared__ uint32_t warp_count2[kWarpsPerBlock];
   __shared__ uint32_t found[3];  // the bin, keys above it, keys in it
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const long long row = blockIdx.x;
-
-  const uint4* xr4 = reinterpret_cast<const uint4*>(x + row * b);
-  uint4* row4 = reinterpret_cast<uint4*>(row_s);
-  for (int i = t; i < b / 4; i += kBlockThreads) row4[i] = xr4[i];
 
   uint32_t prefix = 0u;          // the digits found so far
   uint32_t need = (uint32_t)k;   // keys still to take inside the prefix's bin
@@ -241,9 +253,6 @@ bucket_topk_block_kernel(const uint32_t* __restrict__ x,
 
   // keys above the bin are taken; inside it the `need` lowest indices
   const uint32_t top = prefix | ((1u << low) - 1u);
-  uint32_t* resr = res + row * b;
-  uint32_t* valr = val + row * k;
-  int32_t* lidxr = lidx + row * k;
   const unsigned below = (1u << lane) - 1u;
   uint32_t tied = 0u, taken = 0u;  // in the chunks before this one
   for (int base = 0; base < b; base += kBlockThreads) {
@@ -284,6 +293,169 @@ bucket_topk_block_kernel(const uint32_t* __restrict__ x,
   }
 }
 
+template <int VPL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+bucket_topk_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ val,
+                   int32_t* __restrict__ lidx, uint32_t* __restrict__ res,
+                   long long nb, int k) {
+  constexpr int B = VPL * 32;
+  __shared__ __align__(16) uint32_t hist_block[kWarpsPerBlock][kBins];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  if (row >= nb) return;  // uniform over the warp
+
+  const uint32_t* xr = x + row * B;
+  uint32_t key[VPL];
+  uint32_t neg = 0u;  // bit j: element j*32 + lane has its sign bit set
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const uint32_t bits = xr[j * 32 + lane];
+    key[j] = bits & kAbs;
+    neg |= (bits >> 31) << j;
+  }
+  warp_select<VPL>(key, neg, hist_block[warp], lane, k, val + row * k,
+                   lidx + row * k, res + row * B);
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+bucket_topk_block_kernel(const uint32_t* __restrict__ x,
+                         uint32_t* __restrict__ val,
+                         int32_t* __restrict__ lidx,
+                         uint32_t* __restrict__ res, int b, int k) {
+  extern __shared__ __align__(16) uint32_t row_s[];  // the row's bits, B words
+  const long long row = blockIdx.x;
+  const uint4* xr4 = reinterpret_cast<const uint4*>(x + row * b);
+  uint4* row4 = reinterpret_cast<uint4*>(row_s);
+  for (int i = threadIdx.x; i < b / 4; i += kBlockThreads) row4[i] = xr4[i];
+  block_select(row_s, b, k, val + row * k, lidx + row * k, res + row * b);
+}
+
+// ------------------------------------------------------------ grouped EF
+
+struct EfSeg {                   // the kernel's view of one EF bucket
+  const float* res;
+  const float* grad;
+  uint32_t* res_out;
+  uint32_t* val;
+  int32_t* lidx;
+  long long rank_stride, row_stride;
+  int per_rank;                  // B-wide rows a rank: rows * m
+  int m;                         // B-wide rows a canonical row: cols / b
+  int nrows;                     // l * per_rank
+  int k;
+};
+
+struct EfParams {
+  int nseg;
+  int first_block[kMaxEfSegs + 1];
+  EfSeg seg[kMaxEfSegs];
+};
+static_assert(sizeof(EfParams) <= 4096, "kernel parameters over 4 KB");
+
+// the bucket of this block: the last s with first_block[s] <= blockIdx.x
+__device__ __forceinline__ int find_seg(const EfParams& p) {
+  int lo = 0, hi = p.nseg - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (p.first_block[mid] <= (int)blockIdx.x) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Offset in floats of bucket row q's gradient inside the group buffer:
+// q = (rank * rows + row) * m + c, the row order of the residual.
+__device__ __forceinline__ long long grad_offset(const EfSeg& g, int q,
+                                                 int b) {
+  const int rank = q / g.per_rank;
+  const int rem = q - rank * g.per_rank;
+  const int row = rem / g.m;
+  const int c = rem - row * g.m;
+  return rank * g.rank_stride + row * g.row_stride + (long long)c * b;
+}
+
+template <int VPL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+bucket_topk_ef_grouped_kernel(const __grid_constant__ EfParams p) {
+  constexpr int B = VPL * 32;
+  __shared__ __align__(16) uint32_t hist_block[kWarpsPerBlock][kBins];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int s = find_seg(p);
+  const EfSeg& g = p.seg[s];
+  const int q = ((int)blockIdx.x - p.first_block[s]) * kWarpsPerBlock + warp;
+  if (q >= g.nrows) return;  // uniform over the warp
+
+  const float* rr = g.res + (long long)q * B;
+  const float* gr = g.grad + grad_offset(g, q, B);
+  uint32_t key[VPL];
+  uint32_t neg = 0u;  // bit j: element j*32 + lane has its sign bit set
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const uint32_t bits =
+        __float_as_uint(__fadd_rn(rr[j * 32 + lane], gr[j * 32 + lane]));
+    key[j] = bits & kAbs;
+    neg |= (bits >> 31) << j;
+  }
+  warp_select<VPL>(key, neg, hist_block[warp], lane, g.k,
+                   g.val + (long long)q * g.k, g.lidx + (long long)q * g.k,
+                   g.res_out + (long long)q * B);
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+bucket_topk_ef_grouped_block_kernel(const __grid_constant__ EfParams p,
+                                    int b) {
+  extern __shared__ __align__(16) uint32_t row_s[];  // r + g's bits, B words
+  const int s = find_seg(p);
+  const EfSeg& g = p.seg[s];
+  const int q = (int)blockIdx.x - p.first_block[s];  // one row a block
+  const float4* r4 = reinterpret_cast<const float4*>(g.res + (long long)q * b);
+  const float4* g4 =
+      reinterpret_cast<const float4*>(g.grad + grad_offset(g, q, b));
+  uint4* row4 = reinterpret_cast<uint4*>(row_s);
+  for (int i = threadIdx.x; i < b / 4; i += kBlockThreads) {
+    const float4 a = r4[i], d = g4[i];
+    row4[i] = make_uint4(__float_as_uint(__fadd_rn(a.x, d.x)),
+                         __float_as_uint(__fadd_rn(a.y, d.y)),
+                         __float_as_uint(__fadd_rn(a.z, d.z)),
+                         __float_as_uint(__fadd_rn(a.w, d.w)));
+  }
+  block_select(row_s, b, g.k, g.val + (long long)q * g.k,
+               g.lidx + (long long)q * g.k, g.res_out + (long long)q * b);
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0u;
+}
+
+int launch_ef(EfParams& p, int n, long long blocks, int b,
+              cudaStream_t stream, int* launched) {
+  if (n == 0) return (int)cudaSuccess;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.nseg = n;
+  p.first_block[n] = (int)blocks;
+  const dim3 grid((unsigned)blocks);
+  if (b > kMaxWarpB) {
+    bucket_topk_ef_grouped_block_kernel<<<grid, kBlockThreads,
+                                          b * sizeof(uint32_t), stream>>>(p, b);
+  } else {
+    const dim3 block(kWarpsPerBlock * 32);
+#define TOPK_EF_WARP(VPL)                                                   \
+  case VPL:                                                                 \
+    bucket_topk_ef_grouped_kernel<VPL><<<grid, block, 0, stream>>>(p);      \
+    break;
+    switch (b / 32) {
+      TOPK_EF_WARP(4) TOPK_EF_WARP(8) TOPK_EF_WARP(12) TOPK_EF_WARP(16)
+      TOPK_EF_WARP(20) TOPK_EF_WARP(24) TOPK_EF_WARP(28) TOPK_EF_WARP(32)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef TOPK_EF_WARP
+  }
+  ++*launched;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (nb, b) -> val (nb, k), lidx (nb, k), res (nb, b). b is a multiple of
@@ -319,4 +491,65 @@ extern "C" int bucket_topk_f32(const float* x, float* val, int32_t* lidx,
   }
 #undef TOPK_WARP
   return (int)cudaGetLastError();
+}
+
+// The fused EF add + TopK of nseg buckets (see the top of the file), up to
+// kMaxEfSegs non-empty ones of one b to a launch; sets *launched to the
+// number of kernels launched. Every descriptor is checked before the first
+// launch. Returns a CUDA error code.
+extern "C" int bucket_topk_ef_grouped_f32(const BucketTopkEfSeg* segs,
+                                          int nseg, cudaStream_t stream,
+                                          int* launched) {
+  *launched = 0;
+  if (nseg < 0) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < nseg; ++i) {
+    const BucketTopkEfSeg& s = segs[i];
+    if (s.b < 128 || s.b % 128 || s.b > kMaxB || s.k < 1 || s.k > s.b ||
+        s.l < 0 || s.rows < 0 || s.cols < 0 || s.cols % s.b ||
+        s.rank_stride < 0 || s.row_stride < 0 ||
+        (long long)s.l * s.rows * (s.cols / s.b) > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    // the large-B path loads float4: every row of r and g on 16 bytes
+    if (s.b > kMaxWarpB && (s.rank_stride % 4 || s.row_stride % 4 ||
+                            !aligned16(s.res) || !aligned16(s.grad)))
+      return (int)cudaErrorInvalidValue;
+  }
+  EfParams p;
+  int n = 0, b = 0;
+  long long blocks = 0;
+  for (int i = 0; i < nseg; ++i) {
+    const BucketTopkEfSeg& s = segs[i];
+    const int m = s.cols / s.b;
+    const long long nrows = (long long)s.l * s.rows * m;
+    if (nrows == 0) continue;
+    if (n > 0 && s.b != b) {  // one b a launch
+      const int rc = launch_ef(p, n, blocks, b, stream, launched);
+      if (rc != (int)cudaSuccess) return rc;
+      n = 0;
+      blocks = 0;
+    }
+    b = s.b;
+    EfSeg& g = p.seg[n];
+    g.res = s.res;
+    g.grad = s.grad;
+    g.res_out = reinterpret_cast<uint32_t*>(s.res_out);
+    g.val = reinterpret_cast<uint32_t*>(s.val);
+    g.lidx = s.lidx;
+    g.rank_stride = s.rank_stride;
+    g.row_stride = s.row_stride;
+    g.per_rank = s.rows * m;
+    g.m = m;
+    g.nrows = (int)nrows;
+    g.k = s.k;
+    p.first_block[n] = (int)blocks;
+    blocks += b > kMaxWarpB ? nrows
+                            : (nrows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    if (++n == kMaxEfSegs) {
+      const int rc = launch_ef(p, n, blocks, b, stream, launched);
+      if (rc != (int)cudaSuccess) return rc;
+      n = 0;
+      blocks = 0;
+    }
+  }
+  return launch_ef(p, n, blocks, b, stream, launched);
 }

@@ -25,6 +25,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -40,6 +41,7 @@ _LL = ctypes.c_longlong
 # name -> argtypes (every entry point returns an int CUDA error code)
 ENTRY_POINTS = {
     "bucket_topk_f32": (_P, _P, _P, _P, _LL, _I, _I, _P),
+    "bucket_topk_ef_grouped_f32": (_P, _I, _P, _P),
     "bucket_scatter_sum_grouped_f32": (_P, _I, _P, _P),
     "qsgd_pack_grouped_f32": (_P, _I, _I, _I, _P, _P),
     "qsgd_unpack_grouped_f32": (_P, _I, _I, _P, _P),
@@ -120,6 +122,18 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+def offsets(sizes, start: int = 0) -> list:
+    """Where each of ``sizes`` starts, laid one after the other from
+    ``start``: a grouped call's offsets into its flat buffers."""
+    return np.cumsum([start] + list(sizes))[:-1].tolist()
+
+
+def byte_offsets(offsets_f32) -> np.ndarray:
+    """Offsets in 4-byte entries -> bytes, as a descriptor array's
+    pointer fields add them to a buffer's address."""
+    return np.array([4 * o for o in offsets_f32], dtype=np.uint64)
 
 
 def check(rc: int, name: str) -> None:

@@ -4,15 +4,16 @@ ref.py for the semantics).
 
 ``bucket_scatter.launches`` counts the single-source densify's kernel
 launches; ``bucket_scatter_sum.launches`` counts those of the fused
-densify + source-order sum, one segment or grouped."""
+densify + source-order sum, one segment, grouped or from a
+plan-built table (:func:`bucket_scatter_sum_table`)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bucket_scatter.kernel import (
-    bucket_scatter_cuda, bucket_scatter_sum_cuda,
-    bucket_scatter_sum_grouped_cuda)
+    ScatterSumTable, bucket_scatter_cuda, bucket_scatter_sum_cuda,
+    bucket_scatter_sum_grouped_cuda, bucket_scatter_sum_table_cuda)
 from repro_torch.kernels.bucket_scatter.ref import (bucket_scatter_ref,
                                                     bucket_scatter_sum_ref)
 
@@ -58,3 +59,19 @@ def bucket_scatter_sum_grouped(segments, impl: str = "auto") -> list:
     outs, launched = bucket_scatter_sum_grouped_cuda(segments)
     bucket_scatter_sum.launches += launched
     return outs
+
+
+def bucket_scatter_sum_table(table: ScatterSumTable, lidx: torch.Tensor,
+                             val: torch.Tensor, impl: str = "auto"):
+    """bucket_scatter_sum of every segment of ``table``, the streams read
+    at ``table.in_off`` of the flat ``lidx``/``val``: the flat
+    (``table.out_total``,) f32 sums, segment i's (g, nb, b) at
+    ``table.out_off[i]``. One library call on a CUDA tensor (counted in
+    ``bucket_scatter_sum.launches``)."""
+    if _build.resolve_impl(impl, val, "bucket_scatter_sum") == "ref":
+        parts = [bucket_scatter_sum_ref(*seg).reshape(-1)
+                 for seg in table.segments(lidx, val)]
+        return torch.cat(parts) if parts else val.new_empty(0)
+    out, launched = bucket_scatter_sum_table_cuda(table, lidx, val)
+    bucket_scatter_sum.launches += launched
+    return out

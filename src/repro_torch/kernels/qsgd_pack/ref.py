@@ -95,25 +95,34 @@ class PackSegment(NamedTuple):
     bq: int
 
 
-def check_pack_segment(seg: PackSegment, bits: int) -> int:
-    """Raise unless the segment's geometry and sizes agree; return its
+def check_pack_geometry(p_pod: int, p_data: int, rows: int, shard: int,
+                        bq: int, bits: int) -> int:
+    """Raise unless a segment's geometry is one the pack takes; return its
     number of QSGD rows."""
     if bits not in (2, 4, 8):
         raise ValueError(f"qsgd_pack: bits={bits}")
-    if min(seg.p_pod, seg.p_data, seg.bq) < 1 or min(seg.rows, seg.shard) < 0:
-        raise ValueError(f"qsgd_pack: bad geometry {tuple(seg[2:7])}")
-    if seg.bq % (32 // bits):
-        raise ValueError(f"qsgd_pack: Bq={seg.bq} is not a whole number of "
+    if min(p_pod, p_data, bq) < 1 or min(rows, shard) < 0:
+        raise ValueError(f"qsgd_pack: bad geometry "
+                         f"{(p_pod, p_data, rows, shard, bq)}")
+    if bq % (32 // bits):
+        raise ValueError(f"qsgd_pack: Bq={bq} is not a whole number of "
                          "words")
-    if seg.shard % seg.bq:
-        raise ValueError(f"qsgd_pack: shard={seg.shard} is not a multiple of "
-                         f"bq={seg.bq}, so a QSGD row would cross a rank's "
+    if shard % bq:
+        raise ValueError(f"qsgd_pack: shard={shard} is not a multiple of "
+                         f"bq={bq}, so a QSGD row would cross a rank's "
                          "shard")
-    n = seg.p_pod * seg.rows * seg.p_data * seg.shard
+    return p_pod * rows * p_data * shard // bq
+
+
+def check_pack_segment(seg: PackSegment, bits: int) -> int:
+    """Raise unless the segment's geometry and sizes agree; return its
+    number of QSGD rows."""
+    nq = check_pack_geometry(*seg[2:7], bits)
+    n = nq * seg.bq
     if seg.x.numel() != n or seg.rand.numel() != n:
         raise ValueError(f"qsgd_pack: x has {seg.x.numel()} and rand "
                          f"{seg.rand.numel()} entries, the geometry needs {n}")
-    return n // seg.bq
+    return nq
 
 
 def pack_rows(seg: PackSegment) -> torch.Tensor:

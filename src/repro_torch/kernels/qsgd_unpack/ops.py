@@ -4,8 +4,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.qsgd_unpack.kernel import (qsgd_unpack_cuda,
-                                                    qsgd_unpack_grouped_cuda)
+from repro_torch.kernels import _build
+from repro_torch.kernels.qsgd_unpack.kernel import (UnpackTable,
+                                                    qsgd_unpack_cuda,
+                                                    qsgd_unpack_grouped_cuda,
+                                                    qsgd_unpack_table_cuda)
 from repro_torch.kernels.qsgd_unpack.ref import (qsgd_unpack_grouped_ref,
                                                  qsgd_unpack_ref)
 
@@ -48,3 +51,19 @@ def qsgd_unpack_grouped(segments, bits: int = 4, impl: str = "auto") -> list:
 
 
 qsgd_unpack_grouped.launches = 0
+
+
+def qsgd_unpack_table(table: UnpackTable, packed: torch.Tensor,
+                      scale: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Every segment of ``table`` from the flat codes and scales (segment
+    i's at ``table.packed_off[i]`` and ``table.scale_off[i]``): the flat
+    (``table.out_total``,) f32 output, segment i's reduced (rows,
+    p_data*shard) buffer at ``table.out_off[i]``. One library call on a
+    CUDA tensor (counted in ``qsgd_unpack_grouped.launches``)."""
+    if _build.resolve_impl(impl, packed, "qsgd_unpack_grouped") == "ref":
+        parts = [o.reshape(-1) for o in qsgd_unpack_grouped_ref(
+            table.segments(packed, scale), table.bits)]
+        return torch.cat(parts) if parts else scale.new_empty(0)
+    out, launched = qsgd_unpack_table_cuda(table, packed, scale)
+    qsgd_unpack_grouped.launches += launched
+    return out

@@ -44,20 +44,28 @@ class UnpackSegment(NamedTuple):
     row_major: bool = False
 
 
-def check_segment(seg: UnpackSegment, bits: int) -> None:
-    """Raise unless the segment's geometry and shapes agree."""
+def check_unpack_geometry(p_pod: int, p_data: int, rows: int, shard: int,
+                          bq: int, bits: int) -> int:
+    """Raise unless a segment's geometry is one the unpack takes; return
+    its number of QSGD rows."""
     if bits not in (2, 4, 8):
         raise ValueError(f"qsgd_unpack: bits={bits}")
-    if min(seg.p_pod, seg.p_data, seg.bq) < 1 or min(seg.rows, seg.shard) < 0:
-        raise ValueError(f"qsgd_unpack: bad geometry {seg[2:7]}")
-    if seg.bq % (32 // bits):
-        raise ValueError(f"qsgd_unpack: bq={seg.bq} is not a whole number "
+    if min(p_pod, p_data, bq) < 1 or min(rows, shard) < 0:
+        raise ValueError(f"qsgd_unpack: bad geometry "
+                         f"{(p_pod, p_data, rows, shard, bq)}")
+    if bq % (32 // bits):
+        raise ValueError(f"qsgd_unpack: bq={bq} is not a whole number "
                          "of words")
-    if seg.shard % seg.bq:
-        raise ValueError(f"qsgd_unpack: shard={seg.shard} is not a multiple "
-                         f"of bq={seg.bq}, so a QSGD row would cross an "
+    if shard % bq:
+        raise ValueError(f"qsgd_unpack: shard={shard} is not a multiple "
+                         f"of bq={bq}, so a QSGD row would cross an "
                          "output row")
-    nq = seg.p_pod * seg.p_data * seg.rows * (seg.shard // seg.bq)
+    return p_pod * p_data * rows * (shard // bq)
+
+
+def check_segment(seg: UnpackSegment, bits: int) -> None:
+    """Raise unless the segment's geometry and shapes agree."""
+    nq = check_unpack_geometry(*seg[2:7], bits)
     want = (nq, seg.bq * bits // 32)
     if seg.packed.shape != want or seg.scale.shape != (nq, 1):
         raise ValueError(f"qsgd_unpack: packed {tuple(seg.packed.shape)} and "

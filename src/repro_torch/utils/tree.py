@@ -14,17 +14,20 @@ from typing import Any, Callable
 def tree_flatten(tree) -> tuple[list, list[tuple[str, ...]]]:
     """(leaves, paths) in sorted-key depth-first order."""
     leaves, paths = [], []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for key in sorted(node):
-                walk(node[key], path + (key,))
-        else:
-            leaves.append(node)
-            paths.append(path)
-
-    walk(tree, ())
+    _walk(tree, (), leaves, paths)
     return leaves, paths
+
+
+def _walk(node, path: tuple, leaves: list, paths: list) -> None:
+    # a module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle that would hold ``leaves`` (a step's
+    # gradients, say) until Python's collector runs
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _walk(node[key], path + (key,), leaves, paths)
+    else:
+        leaves.append(node)
+        paths.append(path)
 
 
 def tree_unflatten(paths: list[tuple[str, ...]], leaves: list) -> dict:

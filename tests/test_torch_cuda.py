@@ -579,11 +579,12 @@ def test_cuda_qsgd_pack_grouped_refuses_bad_segments(cuda_device):
 def test_cuda_stacked_reduce_half_one_launch_each(cuda_device, grid):
     """The stacked reduce half of a 2-layer model (DSAR + 4-bit QSGD,
     'max' scales) on the card makes exactly one launch each of
-    bucket_scatter_sum, qsgd_pack and qsgd_unpack (besides one bucket_topk
-    a sparse bucket, and no single-source densify), and its reduced
-    buffers and residuals equal the CPU path's bit for bit on the same
-    gradients and rounding bits."""
-    from repro_torch.comm.executor import reduce_buckets_spmd
+    bucket_scatter_sum, qsgd_pack and qsgd_unpack (besides one grouped
+    bucket_topk a fusion group, and no single-source densify), and its
+    reduced buffers and residuals equal the CPU path's bit for bit on the
+    same gradients and rounding bits."""
+    from repro_torch.comm.executor import (reduce_buckets_spmd,
+                                           topk_launches_spmd)
     from repro_torch.comm.plan import build_sync_plan
     from repro_torch.core.compressor import SyncConfig
     from repro_torch.core.qsgd import random_bits
@@ -604,6 +605,9 @@ def test_cuda_stacked_reduce_half_one_launch_each(cuda_device, grid):
         qsgd_scale="max", min_sparse_size=65536), 4)
     n_sparse = plan.num_sparse_buckets
     assert n_sparse > 1
+    n_groups = sum(any(b.has_residual for b in g.buckets)
+                   for g in plan.groups)
+    assert topk_launches_spmd(plan, p_data, p_pod) == n_groups <= n_sparse
     rng = np.random.default_rng(11)
     grads = [torch.from_numpy(rng.standard_normal((4,) + tuple(l.shape))
                               .astype(np.float32))
@@ -626,15 +630,183 @@ def test_cuda_stacked_reduce_half_one_launch_each(cuda_device, grid):
                 scatter_ops.bucket_scatter_sum, pack_ops.qsgd_pack,
                 unpack_ops.qsgd_unpack_grouped)
     before = [c.launches for c in counters]
+    grouped = topk_ops.bucket_topk.grouped_buckets
     got = reduce_buckets_spmd(plan, grads, res, p_data=p_data, p_pod=p_pod,
                               rand_fn=bits_on(cuda_device), telemetry=False)
     torch.cuda.synchronize()
     assert [c.launches - b for c, b in zip(counters, before)] == [
-        n_sparse, 0, 1, 1, 1]
+        n_groups, 0, 1, 1, 1]
+    assert topk_ops.bucket_topk.grouped_buckets - grouped == n_sparse
     for part in (0, 1):
         assert list(got[part]) == list(want[part])
         for nm in want[part]:
             assert torch.equal(got[part][nm].cpu(), want[part][nm]), nm
+
+
+def _ef_groups(rng, lead, b):
+    """Two packed group buffers of (lead, rows, cols) gradients with their
+    EF buckets' spans: rows 1 with buckets of 1, 2 and 3 rows of B (a gap
+    between them), and rows 3 with 49 buckets of B (one more than a launch
+    takes: strided slices, two launches). Gaussian rows, and rows of
+    ties, signed zeros, infinities and denormals (the adversarial rows)."""
+    from repro_torch.kernels.bucket_topk.cases import adversarial_rows
+
+    groups = []
+    for rows, spans in ((1, [(0, b), (2 * b, 2 * b), (4 * b, 3 * b)]),
+                        (3, [(i * b, b) for i in range(49)])):
+        cols = spans[-1][0] + spans[-1][1]
+        buf = torch.from_numpy(rng.standard_normal(
+            (lead, rows, cols)).astype(np.float32))
+        flat = buf.view(-1, b)
+        adv = torch.cat(list(adversarial_rows(2, b, seed=rows).values()))
+        flat[1:1 + len(adv)] = adv[:flat.shape[0] - 1]
+        groups.append((buf, spans))
+    return groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [128, 512, 1024, 8192])
+@pytest.mark.parametrize("k", [1, 4, 64])
+def test_cuda_bucket_topk_ef_grouped_matches_per_bucket(cuda_device, b, k):
+    """The grouped, fused EF add + TopK is bit for bit bucket_topk(res +
+    seg) bucket by bucket (the add on the card as the executor made it,
+    then the one-tensor kernel) and the plain version: val, lidx (in the
+    flat stream buffers at the table's offsets) and the new residuals, on
+    rows of one group buffer and strided slices of a rows-3 one, with
+    residuals that cancel whole rows to signed zeros; the launches rise by
+    the library's count and grouped_buckets by the buckets."""
+    from repro_torch.kernels.bucket_topk.kernel import (MAX_EF_SEGS,
+                                                        EfTopkTable)
+
+    rng = np.random.default_rng(b + k)
+    lead = 2
+    stream = 0
+    tables, calls = [], []
+    for buf, spans in _ef_groups(rng, lead, b):
+        t = EfTopkTable(lead, buf.shape[1], buf.shape[2], spans, b, k,
+                        stream_start=stream)
+        stream = t.stream_end
+        res = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in t.res_shapes]
+        res[0][0, 0, :b] = -buf[0, 0, :b]           # r + g = +0 a row
+        res[-1].zero_()
+        tables.append(t)
+        calls.append((buf, res))
+    val = torch.full((stream,), float("nan"), device=cuda_device)
+    lidx = torch.full((stream,), -1, dtype=torch.int32, device=cuda_device)
+    before = topk_ops.bucket_topk.launches
+    grouped = topk_ops.bucket_topk.grouped_buckets
+    outs = [topk_ops.bucket_topk_ef_grouped(
+        t, [r.to(cuda_device) for r in res], buf.to(cuda_device), val, lidx,
+        impl="cuda") for t, (buf, res) in zip(tables, calls)]
+    torch.cuda.synchronize()
+    assert topk_ops.bucket_topk.launches - before == sum(
+        -(-t.n // MAX_EF_SEGS) for t in tables) == 3
+    assert topk_ops.bucket_topk.grouped_buckets - grouped == 52
+
+    def same(a, c):
+        return torch.equal(a.cpu().view(torch.int32),
+                           c.cpu().view(torch.int32))
+
+    for t, (buf, res), out in zip(tables, calls, outs):
+        for i, (cs, cols) in enumerate(t.spans):
+            acc = res[i].to(cuda_device) + buf.to(cuda_device)[:, :,
+                                                               cs:cs + cols]
+            want = topk_ops.bucket_topk(acc.reshape(-1, b), k, impl="cuda")
+            plain = topk_ops.bucket_topk(acc.cpu().reshape(-1, b), k,
+                                         impl="ref")
+            o, n = t.stream_off[i], t.stream_sizes[i]
+            got = (val[o:o + n].view(-1, k), lidx[o:o + n].view(-1, k),
+                   out[i].reshape(-1, b))
+            for g, w, p in zip(got, want, plain):
+                assert same(g, w) and same(g, p), (b, k, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,mode", [((1, 4), "replicated"),
+                                       ((2, 2), "replicated"),
+                                       ((1, 4), "scattered")])
+def test_cuda_stacked_reduce_half_moe_equals_per_bucket_path(
+        cuda_device, grid, mode):
+    """On the MoE smoke model's plan at one layer (4 groups, rows 1 to
+    512; one bucket raw-dense, two EF buckets demoted to the densified
+    stream), two error-feedback steps of the stacked reduce half (a
+    grouped EF add + TopK a group, the plan-built tables) give, bit for
+    bit, the reduced buffers and residuals of the per-rank form, whose
+    bucket loop runs the EF add and one bucket_topk a bucket (the stacked
+    form's path before the grouped call), on the card; and those of the
+    CPU's stacked path ('max' scales: an 'l2' scale's sum of squares runs
+    in another order on the card)."""
+    from repro_torch.comm.collectives import StackedCollectives
+    from repro_torch.comm.executor import (reduce_buckets,
+                                           reduce_buckets_spmd,
+                                           topk_launches_spmd)
+    from repro_torch.comm.plan import build_sync_plan
+    from repro_torch.core.compressor import SyncConfig
+    from repro_torch.core.qsgd import random_bits
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.models.specs import param_specs
+    from repro_torch.utils.tree import tree_flatten
+
+    p_pod, p_data = grid
+    R = p_pod * p_data
+    cfg = ModelConfig(name="moonshot", family="moe", num_layers=1,
+                      d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
+                      d_ff=32, vocab_size=512, num_experts=8,
+                      experts_per_token=2, moe_d_ff=32, moe_shared_ff=64,
+                      max_seq_len=128, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    shapes = init_params(cfg, device="meta")
+    plan = build_sync_plan(shapes, param_specs(shapes, cfg), SyncConfig(
+        mode="sparcml", k_per_bucket=4, bucket_size=128,
+        algorithm="dsar_split_allgather", qsgd_bits=4, qsgd_bucket=128,
+        qsgd_scale="max", min_sparse_size=2048, fusion_bucket_bytes=1 << 14,
+        output_mode=mode), R).replan(
+        algorithms={"g0b1": "dense", "g1b1": "dense"})
+    assert [g.rows for g in plan.groups] == [1, 8, 64, 512]
+    leaves = tree_flatten(shapes)[0]
+    coll = StackedCollectives(p_data, outer=p_pod, device=cuda_device)
+    pod_coll = (StackedCollectives(p_pod, inner=p_data, device=cuda_device)
+                if p_pod > 1 else None)
+
+    def rand_fn(bucket_idx, n):
+        g = torch.Generator().manual_seed(bucket_idx)
+        return random_bits(n, g, "cpu").to(cuda_device)
+
+    def cpu_bits(bucket_idx, n):
+        return rand_fn(bucket_idx, n).cpu()
+
+    rng = np.random.default_rng(R)
+    res_s = res_r = plan.init_residuals(device=cuda_device)
+    res_c = plan.init_residuals()
+    for _ in range(2):
+        grads = [torch.from_numpy(rng.standard_normal(
+            (R,) + tuple(l.shape)).astype(np.float32)) for l in leaves]
+        card = [g.to(cuda_device) for g in grads]
+        before = topk_ops.bucket_topk.launches
+        red_s, res_s, _ = reduce_buckets_spmd(
+            plan, card, res_s, p_data=p_data, p_pod=p_pod, rand_fn=rand_fn,
+            telemetry=False)
+        assert topk_ops.bucket_topk.launches - before == \
+            topk_launches_spmd(plan, p_data, p_pod) == 4
+        red_c, res_c, _ = reduce_buckets_spmd(
+            plan, grads, res_c, p_data=p_data, p_pod=p_pod,
+            rand_fn=cpu_bits, telemetry=False)
+        red_r, res_r, _ = reduce_buckets(
+            plan, card, res_r, coll=coll, pod_coll=pod_coll,
+            rand_fn=rand_fn, telemetry=False)
+        torch.cuda.synchronize()
+        for nm, buf in red_s.items():
+            assert torch.equal(buf.cpu(), red_c[nm]), nm
+            if plan.scattered:
+                assert torch.equal(red_r[nm], buf), nm
+            else:
+                for r in range(R):
+                    assert torch.equal(red_r[nm][r], buf), (nm, r)
+        for nm in res_s:
+            assert torch.equal(res_s[nm], res_r[nm]), nm
+            assert torch.equal(res_s[nm].cpu(), res_c[nm]), nm
 
 
 def _small_lm(device):
@@ -1111,6 +1283,7 @@ def test_cuda_moe_sparcml_steps_match_cpu(cuda_device):
     final params, moments and EF residuals within rtol 2e-4 and 2e-4 of
     each tensor's largest magnitude."""
     from repro_torch import configs
+    from repro_torch.comm.executor import topk_launches_spmd
     from repro_torch.core.qsgd import random_bits
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.train.trainer import Trainer
@@ -1135,7 +1308,7 @@ def test_cuda_moe_sparcml_steps_match_cpu(cuda_device):
                                   bits_for(s, d)).losses
         if dev != "cpu":
             assert topk_ops.bucket_topk.launches - before == \
-                3 * tr.plan.num_sparse_buckets
+                3 * topk_launches_spmd(tr.plan, 4)
         st = tr.state
         states[str(dev)] = [t.detach().cpu().float().numpy() for t in (
             tree_leaves(st.params) + tree_leaves(st.opt["mu"])

@@ -48,6 +48,8 @@ MOONSHOT_SMOKE = dict(name="moonshot", family="moe", num_layers=4, d_model=64,
                       num_heads=4, num_kv_heads=4, head_dim=16, d_ff=32,
                       vocab_size=512, num_experts=8, experts_per_token=2,
                       moe_d_ff=32, moe_shared_ff=64, max_seq_len=128)
+# one MoE layer: groups of rows 1, 8, 64 and 512 (MoE-shaped leaves)
+MOONSHOT_1L = dict(MOONSHOT_SMOKE, num_layers=1)
 DBRX_SMOKE = dict(name="dbrx", family="moe", num_layers=4, d_model=64,
                   num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
                   vocab_size=512, num_experts=4, experts_per_token=2,
@@ -162,6 +164,52 @@ def _assert_plans_equal(jplan, plan):
               b.has_residual) for b in jg.buckets]
 
 
+# MOONSHOT_1L at bucket_size 128, fusion buckets of 4096 f32: 19 buckets
+# in 4 groups (rows 1, 8, 64, 512), g0b3 raw-dense; the MIXED replan
+# demotes two EF buckets to the densified stream (one flat, one of rows 8)
+# and runs one flat one as SSAR, so a plan mixes raw-dense, dense-EF,
+# non-QSGD and QSGD EF buckets
+MIXED_KW = _sync_kwargs(bucket_size=128, k_per_bucket=4, qsgd_bucket=128,
+                        min_sparse_size=2048, fusion_bucket_bytes=1 << 14)
+MIXED = {"g0b1": "dense", "g0b2": "ssar_split_allgather", "g1b1": "dense"}
+
+
+def _mixed_plans(algorithms=MIXED, **sync_kw):
+    """Both packages' MOONSHOT_1L plans, replanned to ``algorithms``."""
+    jplan, plan, jshapes, shapes = _plans(MOONSHOT_1L, **sync_kw)
+    return (jplan.replan(algorithms=algorithms),
+            plan.replan(algorithms=algorithms), jshapes, shapes)
+
+
+def _case_plans(name, sync_kw):
+    """The mixed MoE plans for a ``moe_mixed*`` case, else TINY's."""
+    if name.startswith("moe_mixed"):
+        return _mixed_plans(**sync_kw)
+    return _plans(TINY, **sync_kw)
+
+
+def test_tree_flatten_leaves_no_reference_cycle():
+    """A flattened tree's leaves are freed as soon as the last reference
+    to them goes, with the collector off: a step's gradients go through
+    tree_flatten, and a cycle would hold them (gigabytes on the card)
+    until Python's collector ran."""
+    import gc
+    import weakref
+
+    x = torch.zeros(3)
+    ref = weakref.ref(x)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        leaves, paths = tree_flatten({"b": {"c": x}, "a": 1})
+        assert paths == [("a",), ("b", "c")] and leaves[1] is x
+        del x, leaves, paths
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()
+
+
 @pytest.mark.parametrize("model_kw,sync_kw", [
     (TINY, _sync_kwargs(bucket_size=128, qsgd_bucket=128,
                         min_sparse_size=1024)),
@@ -219,11 +267,13 @@ def test_auto_algorithm_is_not_ported():
                                 qsgd_bucket=128, min_sparse_size=1024)),
     ("dsar_qsgd4_pods", _sync_kwargs(bucket_size=128, k_per_bucket=4,
                                      qsgd_bucket=128, min_sparse_size=1024)),
+    ("moe_mixed", MIXED_KW),
+    ("moe_mixed_pods", MIXED_KW),
 ])
 def test_execute_plan_spmd_matches_jax(name, sync_kw):
     # (p_pod, p_data): the pods case splits the same 4 replicas 2 x 2
     p_pod, p_data = (2, 2) if name.endswith("_pods") else (1, P_DATA)
-    jplan, plan, jshapes, shapes = _plans(TINY, **sync_kw)
+    jplan, plan, jshapes, shapes = _case_plans(name, sync_kw)
     leaves, _ = tree_flatten(shapes)
     rng = np.random.default_rng(len(name))
     key = jax.random.PRNGKey(3)
@@ -419,6 +469,10 @@ TELEMETRY_CASES = [
                                      qsgd_bits=None, min_sparse_size=1024,
                                      algorithm="ssar_split_allgather"),
      (1, P_DATA)),
+    ("moe_mixed", MIXED_KW, (1, P_DATA)),
+    ("moe_mixed_pods", MIXED_KW, (2, 2)),
+    ("moe_mixed_scattered", dict(MIXED_KW, output_mode="scattered"),
+     (1, P_DATA)),
 ]
 
 
@@ -428,7 +482,7 @@ def test_reduce_buckets_spmd_telemetry_matches_jax(name, sync_kw, grid):
     """Two error-feedback steps of the reduce half with telemetry on, the
     rows against the reference's; off, no rows and the same buffers."""
     p_pod, p_data = grid
-    jplan, plan, _, shapes = _plans(TINY, **sync_kw)
+    jplan, plan, _, shapes = _case_plans(name, sync_kw)
     leaves, _ = tree_flatten(shapes)
     rng = np.random.default_rng(len(name) + 40)
     key = jax.random.PRNGKey(5)
@@ -458,7 +512,7 @@ def test_reduce_buckets_spmd_telemetry_matches_jax(name, sync_kw, grid):
         reduced, new_res, tel = reduce_buckets_spmd(
             plan, grads, res, p_data=p_data, p_pod=p_pod, rand_fn=rand_fn)
         assert_telemetry_close(tel, jtel, sync_kw["qsgd_bits"] is not None)
-        assert set(tel) == {b.name for b in plan.buckets if b.sparse}
+        assert set(tel) == {b.name for b in plan.buckets if b.has_residual}
         off, off_res, none = reduce_buckets_spmd(
             plan, grads, res, p_data=p_data, p_pod=p_pod, rand_fn=rand_fn,
             telemetry=False)
@@ -476,26 +530,47 @@ def test_reduce_buckets_spmd_telemetry_matches_jax(name, sync_kw, grid):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("qsgd_bits", [None, 4])
-@pytest.mark.parametrize("grid", [(1, 4), (2, 2), (1, 8), (2, 4)],
-                         ids=["R4", "R4_pods", "R8", "R8_pods"])
+@pytest.mark.parametrize(
+    "grid", [(1, 4), (2, 2), (1, 8), (2, 4), (1, 4, "moe"), (2, 2, "moe"),
+             (1, 4, "moe_scattered")],
+    ids=["R4", "R4_pods", "R8", "R8_pods", "R4_moe", "R4_pods_moe",
+         "R4_moe_scattered"])
 def test_reduce_buckets_spmd_bit_equal_to_per_rank(grid, qsgd_bits):
     """Both executors' reduce halves over two error-feedback steps (DSAR,
     with and without 4-bit QSGD, raw-dense buckets too) on the same
     gradients and rounding bits: the same reduced buffers (every held
     rank's) and residuals, bit for bit. The stacked form's fused densify
     sums each pod's ranks in rank order and then the pods, as the
-    per-rank form's data-axis and pod collectives do."""
+    per-rank form's data-axis and pod collectives do. The moe cases run
+    MOONSHOT_1L's plan of 4 groups (rows 1 to 512) with two EF buckets
+    demoted to the densified stream, replicated or scattered: the grouped
+    EF-add + TopK a group and the plan-built tables against the per-rank
+    form's bucket loop."""
     from repro_torch.comm.collectives import StackedCollectives
     from repro_torch.comm.executor import reduce_buckets
 
-    p_pod, p_data = grid
+    p_pod, p_data, *variant = grid
     R = p_pod * p_data
-    kw = _sync_kwargs(bucket_size=128, k_per_bucket=4, qsgd_bits=qsgd_bits,
-                      qsgd_bucket=128, min_sparse_size=2048)
-    cfg = ModelConfig(**TINY, dtype=torch.float32, param_dtype=torch.float32)
-    shapes = init_params(cfg, device="meta")
-    plan = build_sync_plan(shapes, param_specs(shapes, cfg),
-                           SyncConfig(**kw), R)
+    if variant:
+        kw = dict(MIXED_KW, qsgd_bits=qsgd_bits)
+        if variant[0].endswith("scattered"):
+            kw["output_mode"] = "scattered"
+        cfg = ModelConfig(**MOONSHOT_1L, dtype=torch.float32,
+                          param_dtype=torch.float32)
+        shapes = init_params(cfg, device="meta")
+        plan = build_sync_plan(shapes, param_specs(shapes, cfg),
+                               SyncConfig(**kw), R).replan(
+            algorithms={"g0b1": "dense", "g1b1": "dense"})
+        assert len(plan.groups) == 4 and plan.groups[-1].rows > 1
+    else:
+        kw = _sync_kwargs(bucket_size=128, k_per_bucket=4,
+                          qsgd_bits=qsgd_bits, qsgd_bucket=128,
+                          min_sparse_size=2048)
+        cfg = ModelConfig(**TINY, dtype=torch.float32,
+                          param_dtype=torch.float32)
+        shapes = init_params(cfg, device="meta")
+        plan = build_sync_plan(shapes, param_specs(shapes, cfg),
+                               SyncConfig(**kw), R)
     assert plan.num_sparse_buckets and len(plan.buckets) > \
         plan.num_sparse_buckets
     leaves, _ = tree_flatten(shapes)
@@ -520,9 +595,98 @@ def test_reduce_buckets_spmd_bit_equal_to_per_rank(grid, qsgd_bits):
             rand_fn=rand_fn, telemetry=False)
         assert list(red_s) == list(red_r) == [b.name for b in plan.buckets]
         for nm, buf in red_s.items():
+            if plan.scattered:      # every rank's own chunk, stacked
+                assert torch.equal(red_r[nm], buf), nm
+                continue
             assert red_r[nm].shape == (R,) + tuple(buf.shape)
             for r in range(R):
                 assert torch.equal(red_r[nm][r], buf), (nm, r)
         assert list(res_s) == list(res_r)
         for nm in res_s:
             assert torch.equal(res_s[nm], res_r[nm]), nm
+
+
+@pytest.mark.parametrize("grid,mode", [((1, 4), "replicated"),
+                                       ((2, 2), "replicated"),
+                                       ((1, 4), "scattered")],
+                         ids=["R4", "R4_pods", "R4_scattered"])
+def test_step_table_matches_a_walk_of_the_plan(grid, mode):
+    """The stacked reduce half's plan-built table against a walk of the
+    plan bucket by bucket: each EF bucket's stream offset and size (one
+    after the other, (R, rows, cols/B, k)), its pod sums' offset and
+    shape, the quantized buckets' pack and unpack geometry and offsets,
+    the reduced buffers' shapes, and the rand_fn calls (one a quantized
+    bucket, in plan order, n = p_pod * rows * cols) that a step makes.
+    The table is built once per plan."""
+    from repro_torch.comm.executor import _step_table, topk_launches_spmd
+    from repro_torch.kernels.bucket_topk.kernel import MAX_EF_SEGS
+
+    p_pod, p_data = grid
+    R = p_pod * p_data
+    _, plan, _, shapes = _mixed_plans(**dict(MIXED_KW, output_mode=mode))
+    tab = _step_table(plan, p_data, p_pod)
+    assert _step_table(plan, p_data, p_pod) is tab
+    B, k = plan.cfg.bucket_size, plan.cfg.k_per_bucket
+    bq = plan.cfg.qsgd_bucket
+
+    streams, sums, calls, dense, quant = [], [], [], [], []
+    stream = summed = 0
+    for idx, (g, b) in enumerate((g, b) for g in plan.groups
+                                 for b in g.buckets):
+        if not b.has_residual:
+            dense.append(b.name)
+            continue
+        size = R * g.rows * (b.cols // B) * k
+        streams.append((b.name, g.gid, b.col_start, b.cols, stream, size))
+        stream += size
+        sums.append((summed, p_pod * g.rows * b.cols))
+        if b.algorithm == "dsar_split_allgather":
+            calls.append((idx, p_pod * g.rows * b.cols))
+            quant.append((g, b, summed))
+        summed += p_pod * g.rows * b.cols
+    assert len(dense) == 1 and len(quant) == len(streams) - 3
+
+    got = []
+    for gs in tab.groups:
+        assert [b.name for b in gs.dense] == [
+            b.name for b in gs.group.buckets if not b.has_residual]
+        if gs.topk is None:
+            continue
+        t = gs.topk
+        assert t.buf_shape == (R, gs.group.rows, gs.group.cols)
+        assert t.res_shapes == [(R, gs.group.rows, c) for _, c in t.spans]
+        got += [(nm, gs.group.gid, cs, c, o, n) for nm, (cs, c), o, n in
+                zip(gs.ef_names, t.spans, t.stream_off, t.stream_sizes)]
+    assert got == streams
+    assert tab.stream_total == stream
+    assert [(q.bucket_idx, q.n) for q in tab.quantized] == calls
+    assert tab.scatter.in_off == [s[4] for s in streams]
+    assert tab.scatter.in_sizes == [s[5] for s in streams]
+    assert list(zip(tab.scatter.out_off, tab.scatter.out_sizes)) == sums
+    assert tab.pack.x_off == [off for _, _, off in quant]
+    assert tab.pack.x_sizes == [p_pod * g.rows * b.cols for g, b, _ in quant]
+    assert tab.pack.geoms == [(p_pod, p_data, g.rows, b.cols // p_data, bq)
+                              for g, b, _ in quant]
+    assert tab.unpack.packed_off == tab.pack.packed_off
+    assert tab.unpack.scale_off == tab.pack.scale_off
+    assert [r.name for r in tab.outputs] == [b.name for _, b, _ in quant]
+    assert [r.shape for r in tab.outputs] == [
+        (p_data, g.rows, b.cols // p_data) if mode == "scattered"
+        else (g.rows, b.cols) for g, b, _ in quant]
+    assert [r.size for r in tab.outputs] == [g.rows * b.cols
+                                             for g, b, _ in quant]
+    assert topk_launches_spmd(plan, p_data, p_pod) == sum(
+        -(-len([s for s in streams if s[1] == g.gid]) // MAX_EF_SEGS)
+        for g in plan.groups if any(s[1] == g.gid for s in streams))
+
+    seen = []
+
+    def rand_fn(bucket_idx, n):
+        seen.append((bucket_idx, n))
+        return torch.zeros(n, dtype=torch.int32).view(torch.uint32)
+
+    leaves, _ = tree_flatten(shapes)
+    grads = [torch.randn((R,) + tuple(l.shape)) for l in leaves]
+    reduce_buckets_spmd(plan, grads, plan.init_residuals(), p_data=p_data,
+                        p_pod=p_pod, rand_fn=rand_fn, telemetry=False)
+    assert seen == calls
